@@ -1,0 +1,30 @@
+"""demcmc_tpu_torch — Differential Evolution MCMC in PyTorch and CUDA.
+
+The port of :mod:`demcmc_tpu` (JAX, TPU) to one NVIDIA H100, beside it in
+the same repository; the JAX package stays the reference the port is
+tested against.  This slice carries the main path: ``sample(model, de,
+n_iter)`` with the synchronous DE sweep and migration, each a hand-written
+CUDA kernel (``csrc/de_step.cu``, ``csrc/migration.cu``) with a plain
+PyTorch version beside it for CPU tensors.  Exports keep the JAX
+package's names.
+"""
+
+from . import diagnostics, models, ops, utils
+from .chains import Chains
+from .config import DE, MCMCThreads
+from .diagnostics import (ess, ess_bulk, ess_tail, rank_normalized_rhat,
+                          split_rhat)
+from .model import CudaDensity, DEModel, ParamSpec
+from .ops.proposals import fixed_gamma, random_gamma, variable_gamma
+from .sampler import (SamplerState, build_step, init_state, make_spec,
+                      run_scan, sample, state_from_numpy)
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "DE", "DEModel", "MCMCThreads", "Chains", "ParamSpec", "CudaDensity",
+    "SamplerState", "sample", "init_state", "make_spec", "build_step",
+    "run_scan", "state_from_numpy", "random_gamma", "fixed_gamma",
+    "variable_gamma", "split_rhat", "rank_normalized_rhat", "ess",
+    "ess_bulk", "ess_tail", "diagnostics", "models", "ops", "utils",
+]

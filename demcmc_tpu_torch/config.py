@@ -1,0 +1,127 @@
+"""DE sampler configuration (the port's copy of ``demcmc_tpu.config``).
+
+Same fields, names and defaults as the JAX package's frozen ``DE``
+(reference ``src/structs.jl:57-131``; unicode spelled out: α→alpha,
+β→beta, ϵ→epsilon, σ→sigma, κ→kappa, θsnooker→theta_snooker).  Settings
+whose machinery this slice of the port does not carry yet raise
+``NotImplementedError`` naming the later slice (ROADMAP.md, "B1"/"A"
+items) instead of running something else.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+from typing import Any
+
+import numpy as np
+
+_PROPOSALS = ("random_gamma", "fixed_gamma", "variable_gamma")
+
+
+def _later(what: str, where: str):
+    raise NotImplementedError(
+        f"{what} is not ported to demcmc_tpu_torch yet ({where}, "
+        "ROADMAP.md); use demcmc_tpu for it")
+
+
+@dataclass(frozen=True)
+class DE:
+    """Differential Evolution MCMC sampler configuration.
+
+    Keyword parity with the reference constructor: ``n_groups=4, Np,
+    burnin=1000, discard_burnin=True, alpha=.1, beta=.1, epsilon=.001,
+    sigma=.05, kappa=1.0, theta_snooker=0.0, bounds, n_initial=0`` plus
+    the strategy slots.  ``generate_proposal`` takes ``'random_gamma'``
+    (default), ``'fixed_gamma'``, ``'variable_gamma'`` or the functions of
+    the same names in :mod:`demcmc_tpu_torch.ops.proposals`.
+    """
+
+    Np: int = None
+    n_groups: int = 4
+    burnin: int = 1000
+    discard_burnin: bool = True
+    alpha: float = 0.1          # migration probability (α)
+    beta: float = 0.1           # mutation probability (β)
+    epsilon: float = 0.001      # crossover noise half-width (ϵ)
+    sigma: float = 0.05         # mutation noise sd (σ)
+    kappa: float = 1.0          # recombination keep-probability (κ)
+    theta_snooker: float = 0.0  # snooker probability (θsnooker)
+    bounds: Any = None
+    n_initial: int = 0
+    generate_proposal: Any = None
+    update_particle: Any = None
+    evaluate_fitness: Any = None
+    sample: Any = None
+    blocking_on: Any = None
+    blocks: Any = None
+    dtype: Any = np.float32
+    sweep: str = "auto"
+    """Within-group update order: ``'sync'`` updates the whole group from
+    iteration-start state in one pass; ``'sequential'`` replays the
+    reference's in-place sweep; ``'auto'`` picks 'sequential' when
+    ``Np <= 4`` (see ``demcmc_tpu.config.DE.sweep``)."""
+    sample_prior: Any = None
+
+    def __post_init__(self):
+        if self.Np is None:
+            raise ValueError("Np (particles per group) is required")
+        if self.n_groups == 1 and self.alpha > 0:
+            object.__setattr__(self, "alpha", 0.0)
+        gp = self.generate_proposal
+        if gp is None:
+            gp = "random_gamma"
+        elif callable(gp):
+            gp = getattr(gp, "__name__", gp)
+        if gp == "snooker" or self.theta_snooker > 0.0:
+            _later("the snooker proposal", "kernel B1(e)")
+        if gp not in _PROPOSALS:
+            raise NotImplementedError(
+                f"generate_proposal={self.generate_proposal!r}: custom "
+                "proposal slots are not ported (ROADMAP.md A2)")
+        object.__setattr__(self, "generate_proposal", gp)
+        if self.sweep not in ("auto", "sync", "sequential"):
+            raise ValueError(f"sweep must be 'auto', 'sync' or "
+                             f"'sequential'; got {self.sweep!r}")
+        if self.sequential_sweep:
+            _later("the sequential sweep (sweep='sequential', or "
+                   "sweep='auto' at Np <= 4)", "kernel B1(f)")
+        if self.Np < 3:
+            raise ValueError("the synchronous sweep needs Np >= 3 "
+                             "(two distinct non-self partners)")
+        if self.blocks is not None or self.blocking_on not in (None, False):
+            _later("block updates", "kernel B1(f)")
+        if self.sample not in (None, "sample", "current"):
+            _later(f"sample={self.sample!r} (DE-MCz resample)",
+                   "kernel B3")
+        if self.n_initial:
+            _later("n_initial history seeding", "ROADMAP.md A7")
+        if self.update_particle not in (None, "mh", "mh_update"):
+            _later(f"update_particle={self.update_particle!r} "
+                   "(optimization modes)", "kernel B1(g)")
+        if self.evaluate_fitness not in (None, "posterior",
+                                         "compute_posterior"):
+            _later(f"evaluate_fitness={self.evaluate_fitness!r}",
+                   "kernel B1(g)")
+        if np.dtype(self.dtype) != np.float32:
+            _later(f"dtype={np.dtype(self.dtype)}", "ROADMAP.md A5")
+
+    @property
+    def n_chains(self) -> int:
+        return self.n_groups * self.Np
+
+    @property
+    def sequential_sweep(self) -> bool:
+        """Resolved ``sweep`` knob."""
+        if self.sweep == "sequential":
+            return True
+        if self.sweep == "sync":
+            return False
+        return self.Np <= 4
+
+    def replace(self, **kw) -> "DE":
+        return replace(self, **kw)
+
+
+class MCMCThreads:
+    """API-compat marker (reference: AbstractMCMC's ``MCMCThreads()``),
+    accepted and ignored by :func:`demcmc_tpu_torch.sample`."""
