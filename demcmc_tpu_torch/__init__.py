@@ -2,11 +2,12 @@
 
 The port of :mod:`demcmc_tpu` (JAX, TPU) to one NVIDIA H100, beside it in
 the same repository; the JAX package stays the reference the port is
-tested against.  This slice carries the main path: ``sample(model, de,
-n_iter)`` with the synchronous DE sweep and migration, each a hand-written
-CUDA kernel (``csrc/de_step.cu``, ``csrc/migration.cu``) with a plain
-PyTorch version beside it for CPU tensors.  Exports keep the JAX
-package's names.
+tested against.  It carries ``sample(model, de, n_iter)`` with the
+synchronous or sequential DE sweep, the snooker proposal, migration and
+DE-MCz resampling from the history, through hand-written CUDA kernels
+(``csrc/de_step.cu``, ``csrc/de_step_resample.cu``, ``csrc/migration.cu``)
+with a plain PyTorch version beside each for CPU tensors.  Exports keep
+the JAX package's names.
 """
 
 from . import diagnostics, models, ops, utils

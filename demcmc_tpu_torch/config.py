@@ -3,9 +3,10 @@
 Same fields, names and defaults as the JAX package's frozen ``DE``
 (reference ``src/structs.jl:57-131``; unicode spelled out: α→alpha,
 β→beta, ϵ→epsilon, σ→sigma, κ→kappa, θsnooker→theta_snooker).  Settings
-whose machinery this slice of the port does not carry yet raise
-``NotImplementedError`` naming the later slice (ROADMAP.md, "B1"/"A"
-items) instead of running something else.
+whose machinery the port does not carry yet raise ``NotImplementedError``
+naming the later slice (ROADMAP.md, "B1"/"A" items) instead of running
+something else: block updates, resample with migration, the optimization
+modes and float64.
 """
 
 from __future__ import annotations
@@ -72,8 +73,6 @@ class DE:
             gp = "random_gamma"
         elif callable(gp):
             gp = getattr(gp, "__name__", gp)
-        if gp == "snooker" or self.theta_snooker > 0.0:
-            _later("the snooker proposal", "kernel B1(e)")
         if gp not in _PROPOSALS:
             raise NotImplementedError(
                 f"generate_proposal={self.generate_proposal!r}: custom "
@@ -82,19 +81,18 @@ class DE:
         if self.sweep not in ("auto", "sync", "sequential"):
             raise ValueError(f"sweep must be 'auto', 'sync' or "
                              f"'sequential'; got {self.sweep!r}")
-        if self.sequential_sweep:
-            _later("the sequential sweep (sweep='sequential', or "
-                   "sweep='auto' at Np <= 4)", "kernel B1(f)")
         if self.Np < 3:
-            raise ValueError("the synchronous sweep needs Np >= 3 "
-                             "(two distinct non-self partners)")
+            raise ValueError("Np must be >= 3 (two distinct non-self "
+                             "partners, three distinct snooker members)")
         if self.blocks is not None or self.blocking_on not in (None, False):
-            _later("block updates", "kernel B1(f)")
-        if self.sample not in (None, "sample", "current"):
-            _later(f"sample={self.sample!r} (DE-MCz resample)",
-                   "kernel B3")
-        if self.n_initial:
-            _later("n_initial history seeding", "ROADMAP.md A7")
+            _later("block updates", "kernel B1(f), constant blocks")
+        if self.sample not in (None, "sample", "current", "resample"):
+            raise NotImplementedError(
+                f"sample={self.sample!r}: custom partner slots are not "
+                "ported (ROADMAP.md A2)")
+        if self.uses_resample and self.n_groups > 1 and self.alpha > 0:
+            _later("sample='resample' with migration (alpha > 0 and "
+                   "n_groups > 1)", "kernel B3, resample with migration")
         if self.update_particle not in (None, "mh", "mh_update"):
             _later(f"update_particle={self.update_particle!r} "
                    "(optimization modes)", "kernel B1(g)")
@@ -108,6 +106,11 @@ class DE:
     @property
     def n_chains(self) -> int:
         return self.n_groups * self.Np
+
+    @property
+    def uses_resample(self) -> bool:
+        """DE-MCz: partners come from the history of past states."""
+        return self.sample == "resample"
 
     @property
     def sequential_sweep(self) -> bool:

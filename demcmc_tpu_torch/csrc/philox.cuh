@@ -15,7 +15,8 @@
 
 namespace demcmc {
 
-constexpr uint32_t kStepNs = 0;  // rng.STEP_NS
+constexpr uint32_t kStepNs = 0;      // rng.STEP_NS
+constexpr uint32_t kResampleNs = 3;  // rng.RESAMPLE_NS
 
 // The Philox4x32-10 block with counter (chain, blk, it, ns): the words of
 // rows 4 blk .. 4 blk + 3.
@@ -64,10 +65,11 @@ struct WordSource {
   const uint32_t* bits;  // [n_words, C] in bits-in mode, else nullptr
   int C;
   uint32_t k0, k1, it;
+  uint32_t ns = kStepNs;  // Philox namespace
 
   __device__ __forceinline__ uint32_t operator()(int row, int chain) const {
     if (bits != nullptr) return bits[(size_t)row * C + chain];
-    return philox_word(k0, k1, it, (uint32_t)row, (uint32_t)chain, kStepNs);
+    return philox_word(k0, k1, it, (uint32_t)row, (uint32_t)chain, ns);
   }
 };
 
@@ -87,7 +89,7 @@ struct ChainWords {
     const uint32_t b = (uint32_t)row >> 2;
     if (b != blk) {
       blk = b;
-      cur = philox_block(src.k0, src.k1, src.it, b, (uint32_t)chain, kStepNs);
+      cur = philox_block(src.k0, src.k1, src.it, b, (uint32_t)chain, src.ns);
     }
     return lane(cur, (uint32_t)row);
   }

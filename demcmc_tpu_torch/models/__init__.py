@@ -1,3 +1,3 @@
-from . import gaussian
+from . import gaussian, mvnormal
 
-__all__ = ["gaussian"]
+__all__ = ["gaussian", "mvnormal"]

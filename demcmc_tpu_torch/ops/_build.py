@@ -22,7 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("de_step", "migration")
+SOURCES = ("de_step", "de_step_resample", "migration")
 # no --use_fast_math: logf/expf/cosf stay full precision; -fmad=false keeps
 # each float operation rounded like the plain PyTorch versions
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -31,12 +31,20 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _F32P = ctypes.POINTER(ctypes.c_float)
-_I, _U = ctypes.c_int, ctypes.c_uint32
+_I, _U, _F = ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+# the csrc/densities each step kernel is instantiated on: K1 (de_step) for
+# the models that run it, K3 (resample_step) for the DE-MCz ones
+KERNEL_DENSITIES = {"de_step": ("gaussian",),
+                    "resample_step": ("gaussian", "mvnormal30")}
+_K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P]
+_K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _P]
 SIGNATURES = {
     "de_step": {
-        "de_step_gaussian": [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _P],
+        **{f"de_step_{d}": _K1 for d in KERNEL_DENSITIES["de_step"]},
         "philox_fill": [_P, _I, _I, _U, _U, _U, _U, _P],
     },
+    "de_step_resample": {f"resample_step_{d}": _K3
+                         for d in KERNEL_DENSITIES["resample_step"]},
     "migration": {
         "migrate_f32": [_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P],
     },
@@ -108,6 +116,19 @@ def library(name: str) -> ctypes.CDLL:
         lib.error_string.restype = ctypes.c_char_p
         _loaded[name] = lib
     return lib
+
+
+def entry(kernel: str, density) -> str:
+    """The C entry point of ``kernel`` (``de_step`` or ``resample_step``)
+    on a model's ``CudaDensity``; raises where none is built."""
+    if density is None:
+        raise ValueError("the model names no CUDA density "
+                         "(DEModel.cuda_density); run it with device='cpu'")
+    if density.name not in KERNEL_DENSITIES[kernel]:
+        raise ValueError(f"{kernel} is built for the densities "
+                         f"{KERNEL_DENSITIES[kernel]}, not {density.name!r}; "
+                         f"run this configuration with device='cpu'")
+    return f"{kernel}_{density.name}"
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str):

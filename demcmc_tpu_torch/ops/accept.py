@@ -33,6 +33,14 @@ def compute_posterior(model, spec, x):
     return torch.where(ok, lp, torch.full_like(lp, -math.inf))
 
 
-def mh_accept(w_prop, w, u):
-    """Log-space MH: accept when ``log max(u, tiny) <= w_prop - w``."""
-    return torch.log(torch.clamp_min(u, rng.TINY)) <= w_prop - w
+def mh_accept(w_prop, w, u, log_adj=None):
+    """Log-space MH in the TPU kernel's operation order
+    (``fused_step.py:2436-2441``): accept where ``log max(u, tiny) <= Δ``
+    with ``Δ = (w_prop − w) [+ log_adj]`` (``log_adj``: the snooker
+    correction).  Returns ``(accept, margin)``, ``margin = log max(u,
+    tiny) − Δ``, whose size comparisons use to spot near-ties."""
+    delta = w_prop - w
+    if log_adj is not None:
+        delta = delta + log_adj
+    log_u = torch.log(torch.clamp_min(u, rng.TINY))
+    return log_u <= delta, log_u - delta

@@ -1,26 +1,32 @@
 """One DE iteration: the wrapper of CUDA kernel K1 (``csrc/de_step.cu``)
-and its plain PyTorch version.
+and the plain PyTorch sweep it shares with K3 (:mod:`.resample_step`).
 
 K1 is the port of the TPU kernel ``demcmc_tpu/ops/fused_step.py::
-build_fused_step`` (standard layout, synchronous sweep, MH, random/fixed/
-variable γ, no snooker) for one iteration in the flat ``[C, d]`` layout;
-the name of this module is kept so the counterpart is easy to find.
-Migration is the separate kernel K2 (:mod:`.migration`), launched first.
+build_fused_step`` (standard layout, MH, random/fixed/variable γ, the
+snooker branch, synchronous or sequential sweep) for one iteration in the
+flat ``[C, d]`` layout; the name of this module is kept so the counterpart
+is easy to find.  Migration is the separate kernel K2 (:mod:`.migration`),
+launched first.
 
-Random words come in the TPU kernel's static row order
-(``fused_step.py:1802-1828``; :func:`draw_rows`): the 3 migration rows
-(when α > 0), then 2 partner rows, u_b/γ₁/γ₂ (random γ), d rows of ε,
-d rows of κ (κ < 1), the mutation gate, 2d Box–Muller rows, the accept
-row and the next-iteration gate row — 17 words per chain for the d = 2
-Gaussian.  Every draw is taken whether or not its branch applies, so the
-layout is static.  In normal runs word (row, chain) is Philox(seed,
-iteration, row, chain); in bits-in mode (tests) it is read from a
-``[n_words, C]`` uint32 tensor — the same tensor the JAX interpret-mode
-kernel can be fed.
+Random words come in the order of the TPU kernel's draw calls
+(``fused_step.py:1802-1828``, ``_sweep_tail`` :2248-2451; :func:`draw_rows`):
+the 3 migration rows (when α > 0); in the sequential sweep one β-gate row;
+then one block of rows per sub-sweep (one block in the synchronous sweep,
+Np in the sequential one) holding 2 partner rows, u_b/γ₁/γ₂ (random γ),
+the snooker rows (3 member indices, γ and the snooker gate), d rows of ε,
+d rows of κ (κ < 1), the β gate (synchronous sweep), 2d Box–Muller rows
+and the accept row; last the next-iteration gate row — 17 words per chain
+for the d = 2 Gaussian with default settings.  The resample variant (K3)
+has no partner or member-index rows: its partners come from the history.
+Every draw is taken whether or not its branch applies, so the layout is
+static.  In normal runs word (row, chain) is Philox(seed, iteration, row,
+chain); in bits-in mode (tests) it is read from a ``[n_words, C]`` uint32
+tensor — the same tensor the JAX interpret-mode kernel can be fed.
 """
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
@@ -37,7 +43,11 @@ from . import proposals as proposal_ops
 
 
 class Rows(NamedTuple):
-    """First row of each draw in an iteration's words (-1: not drawn)."""
+    """First row of each draw in an iteration's words (-1: not drawn).
+
+    Rows of a sub-sweep block are those of member 0; member m adds
+    ``m * stride``.  ``gate`` is absolute: inside the block in the
+    synchronous sweep, before the blocks in the sequential one."""
     mig: int
     partners: int
     gamma: int
@@ -48,11 +58,15 @@ class Rows(NamedTuple):
     accept: int
     fire: int
     n_words: int
+    triple: int = -1      # snooker member indices az, bz, cz
+    snooker: int = -1     # snooker γ, then the snooker gate
+    n_members: int = 1    # sub-sweeps per iteration (Np when sequential)
+    stride: int = 0       # rows per sub-sweep block
 
 
 def draw_rows(de, d: int) -> Rows:
-    """The per-iteration row layout of ``fused_step.py:1802-1828`` for the
-    synchronous, snooker-free, resample-free sweep."""
+    """The per-iteration row layout of ``fused_step.py:1802-1828`` in the
+    order ``_sweep_tail`` draws (module docstring)."""
     at = [0]
 
     def take(n, present=True):
@@ -62,18 +76,30 @@ def draw_rows(de, d: int) -> Rows:
         at[0] += n
         return r
 
+    resample = bool(de.uses_resample)
+    seq = bool(de.sequential_sweep)
+    snooker = float(de.theta_snooker) > 0.0
+    beta = float(de.beta) > 0.0
     alpha = float(de.alpha) if de.n_groups > 1 else 0.0
     mig = take(migration_ops.N_ROWS, alpha > 0.0)
-    partners = take(2)
+    seq_gate = take(1, beta and seq)
+    block = at[0]
+    partners = take(2, not resample)
     gamma = take(3, de.generate_proposal == "random_gamma")
+    triple = take(3, snooker and not resample)
+    sn = take(2, snooker)
     eps = take(d, float(de.epsilon) > 0.0)
     kappa = take(d, float(de.kappa) < 1.0)
-    gate = take(1, float(de.beta) > 0.0)
-    normal = take(2 * d, float(de.beta) > 0.0)
+    gate = take(1, beta and not seq)
+    normal = take(2 * d, beta)
     acc = take(1)
+    stride = at[0] - block
+    n_members = de.Np if seq else 1
+    at[0] = block + n_members * stride
     fire = take(1)
-    return Rows(mig, partners, gamma, eps, kappa, gate, normal, acc, fire,
-                at[0])
+    return Rows(mig, partners, gamma, eps, kappa,
+                seq_gate if seq else gate, normal, acc, fire, at[0],
+                triple, sn, n_members, stride)
 
 
 def _f32(x: float) -> float:
@@ -82,7 +108,7 @@ def _f32(x: float) -> float:
 
 @dataclass(frozen=True)
 class StepConfig:
-    """Everything K1 and its plain version need besides the state."""
+    """Everything K1, K3 and their plain version need besides the state."""
     G: int
     Np: int
     d: int
@@ -97,6 +123,8 @@ class StepConfig:
     hi: Tuple[float, ...]
     rows: Rows
     density: Optional[object]   # model.CudaDensity or None
+    theta_snooker: float = 0.0
+    resample: bool = False      # DE-MCz: partners from the history (K3)
     _iargs: dict = field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
@@ -110,15 +138,24 @@ class StepConfig:
             alpha=float(de.alpha) if de.n_groups > 1 else 0.0,
             lo=tuple(float(v) for v in spec.lo),
             hi=tuple(float(v) for v in spec.hi),
-            rows=draw_rows(de, d), density=model.cuda_density)
+            rows=draw_rows(de, d), density=model.cuda_density,
+            theta_snooker=float(de.theta_snooker),
+            resample=bool(de.uses_resample))
 
     @property
     def random_gamma(self) -> bool:
         return self.proposal == "random_gamma"
 
+    @property
+    def n_slots(self) -> int:
+        """History partner slots per sub-sweep (resample): the DE pair,
+        then the snooker triple."""
+        return 5 if self.theta_snooker > 0.0 else 2
+
     def iargs(self, it: int, seed: int):
-        """K1's integer arguments (``csrc/de_step.cu``) as a ctypes array,
-        built once per seed; a launch rewrites only the iteration."""
+        """K1's and K3's integer arguments (``csrc/step_body.cuh``) as a
+        ctypes array, built once per seed; a launch rewrites only the
+        iteration."""
         a = self._iargs.get(seed)
         if a is None:
             k0, k1 = rng.seed_key(seed)
@@ -132,7 +169,7 @@ class StepConfig:
 
     @functools.cached_property
     def fargs(self):
-        """K1's float arguments, the same for every launch."""
+        """K1's and K3's float arguments, the same for every launch."""
         return _build.f32_array(
             [0.0 if self.random_gamma
              else proposal_ops.gamma_scale(self.proposal, self.d),
@@ -140,63 +177,127 @@ class StepConfig:
              _f32(1.0 - self.kappa), _f32(self.beta), _f32(self.sigma),
              _f32(self.alpha), *self.lo, *self.hi, *self.density.params])
 
+    @functools.cached_property
+    def sweep_args(self):
+        """The sweep layout (``csrc/step_body.cuh``): sub-sweeps, rows per
+        sub-sweep block, the snooker member-index and snooker rows."""
+        r = self.rows
+        return _build.u32_array([r.n_members, r.stride, r.triple,
+                                 r.snooker])
 
-def de_step_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
-                  words, out=None):
-    """Plain version of K1, in place: ``theta [C, d]``, ``w [C]``,
-    ``fire [1]`` int32 (overwritten with the next gate), ``words
-    [n_words, C]`` uint32, ``out`` an optional ``(theta_row, w_row,
-    acc_row)`` trajectory slot.  Same operations, same order as K1.
+    @functools.cached_property
+    def theta_snooker_arg(self):
+        return ctypes.c_float(_f32(self.theta_snooker))
 
-    Returns each chain's accept margin ``log max(u, tiny) − Δ`` ``[C]``
-    (accepted where ≤ 0), which comparisons use to spot near-ties."""
-    G, Np, d, r = cfg.G, cfg.Np, cfg.d, cfg.rows
-    th = theta.view(G, Np, d)
-    wg = w.view(G, Np)
 
-    uniforms = rng.to_uni(words)
+def group_partners(cfg: StepConfig, words):
+    """K1's partner source: the DE pair, and the snooker triple, drawn
+    from the words of sub-sweep block ``off`` and read from the current
+    group ``th [G, Np, d]``."""
+    G, Np, r = cfg.G, cfg.Np, cfg.rows
 
     def row(i):
         return words[i].view(G, Np)
 
+    def partners(th, member, off):
+        a, b = proposal_ops.partner_indices(row(r.partners + off),
+                                            row(r.partners + off + 1), Np)
+        pm = proposal_ops.gather_members(th, a)
+        pn = proposal_ops.gather_members(th, b)
+        triple = None
+        if r.triple >= 0:
+            triple = tuple(proposal_ops.gather_members(th, i) for i in
+                           proposal_ops.snooker_indices(
+                               row(r.triple + off), row(r.triple + off + 1),
+                               row(r.triple + off + 2), Np))
+        return pm, pn, triple
+
+    return partners
+
+
+def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
+                words, partners, out=None):
+    """The plain sweep of K1 and K3, in place: ``theta [C, d]``, ``w [C]``,
+    ``fire [1]`` int32 (overwritten with the next gate), ``words
+    [n_words, C]`` uint32, ``partners(th, member, row_offset) -> (pm, pn,
+    triple or None)`` the partner source, ``out`` an optional
+    ``(theta_row, w_row, acc_row)`` trajectory slot.  Same operations,
+    same order as the kernels.
+
+    The sequential sweep runs Np sub-sweeps that each compute every
+    chain's proposal from the partly updated group and commit only group
+    slot ``member`` (``fused_step.py:2453-2475``); the β gate is drawn
+    once per sweep.  Returns each chain's accept margin (``accept.
+    mh_accept``, accepted where ≤ 0) from its own sub-sweep ``[C]``."""
+    G, Np, d, r = cfg.G, cfg.Np, cfg.d, cfg.rows
+    th = theta.view(G, Np, d)
+    wg = w.view(G, Np)
+    uniforms = rng.to_uni(words)
+
     def uni(i):
         return uniforms[i].view(G, Np)
 
-    a, b = proposal_ops.partner_indices(row(r.partners),
-                                        row(r.partners + 1), Np)
-    pm = proposal_ops.gather_members(th, a)
-    pn = proposal_ops.gather_members(th, b)
-    if cfg.random_gamma:
-        u_b = uni(r.gamma)
-        g1 = uni(r.gamma + 1) * 0.5 + 0.5
-        g2 = uni(r.gamma + 2) * 0.5 + 0.5
-        if it <= cfg.burnin:
-            base = proposal_ops.gather_members(
-                th, proposal_ops.select_base(wg, u_b))
-            bterm = g2[..., None] * (base - th)
+    snooker = cfg.theta_snooker > 0.0
+    gate = uni(r.gate)[:, 0] if r.gate >= 0 else None    # group leader's
+    slot = torch.arange(Np, device=theta.device)
+    acc_all = margin = None
+    for member in range(r.n_members):
+        o = member * r.stride
+        pm, pn, triple = partners(th, member, o)
+        if cfg.random_gamma:
+            u_b = uni(r.gamma + o)
+            g1 = uni(r.gamma + o + 1) * 0.5 + 0.5
+            g2 = uni(r.gamma + o + 2) * 0.5 + 0.5
+            if it <= cfg.burnin:
+                base = proposal_ops.gather_members(
+                    th, proposal_ops.select_base(wg, u_b))
+                bterm = g2[..., None] * (base - th)
+            else:
+                bterm = torch.zeros_like(th)
+            prop = proposal_ops.random_gamma(th, pm, pn, g1, bterm)
         else:
-            bterm = torch.zeros_like(th)
-        prop = proposal_ops.random_gamma(th, pm, pn, g1, bterm)
-    else:
-        prop = getattr(proposal_ops, cfg.proposal)(th, pm, pn)
-    if r.eps >= 0:
-        u = torch.stack([uni(r.eps + i) for i in range(d)], -1)
-        prop = prop + (u * _f32(2 * cfg.eps) - _f32(cfg.eps))
-    if r.kappa >= 0:
-        u = torch.stack([uni(r.kappa + i) for i in range(d)], -1)
-        prop = torch.where(u > _f32(1.0 - cfg.kappa), prop, th)
-    if r.gate >= 0:
-        gate = uni(r.gate)[:, 0]                       # group leader's word
-        u1 = torch.stack([uni(r.normal + i) for i in range(d)], -1)
-        u2 = torch.stack([uni(r.normal + d + i) for i in range(d)], -1)
-        nrm = mutation_ops.box_muller(u1, u2)
-        prop = mutation_ops.mutate(th, prop, gate, nrm, cfg.beta, cfg.sigma)
-    w_prop = accept_ops.compute_posterior(model, spec, prop)
-    u_acc = uni(r.accept)
-    acc = accept_ops.mh_accept(w_prop, wg, u_acc)
-    margin = torch.log(torch.clamp_min(u_acc, rng.TINY)) - (w_prop - wg)
-    new_t = torch.where(acc[..., None], prop, th).view(-1, d)
-    new_w = torch.where(acc, w_prop, wg).view(-1)
+            prop = getattr(proposal_ops, cfg.proposal)(th, pm, pn)
+        if snooker:
+            pz, pm2, pn2 = triple
+            g_sn = uni(r.snooker + o) + _f32(1.2)
+            sn_gate = uni(r.snooker + o + 1) <= _f32(cfg.theta_snooker)
+            p_sn, den0, degen = proposal_ops.snooker(th, pz, pm2, pn2, g_sn)
+            prop = torch.where(sn_gate[..., None], p_sn, prop)
+        if r.eps >= 0:
+            u = torch.stack([uni(r.eps + o + i) for i in range(d)], -1)
+            prop = prop + (u * _f32(2 * cfg.eps) - _f32(cfg.eps))
+        if r.kappa >= 0:
+            u = torch.stack([uni(r.kappa + o + i) for i in range(d)], -1)
+            prop = torch.where(u > _f32(1.0 - cfg.kappa), prop, th)
+        log_adj = None
+        if snooker:
+            prop = torch.where((sn_gate & degen)[..., None], th, prop)
+            adj = proposal_ops.snooker_log_adj(prop, pz, den0, degen, d)
+            log_adj = torch.where(sn_gate, adj, torch.zeros_like(adj))
+        if gate is not None:
+            u1 = torch.stack([uni(r.normal + o + i) for i in range(d)], -1)
+            u2 = torch.stack([uni(r.normal + o + d + i) for i in range(d)],
+                             -1)
+            nrm = mutation_ops.box_muller(u1, u2)
+            prop = mutation_ops.mutate(th, prop, gate, nrm, cfg.beta,
+                                       cfg.sigma)
+            if log_adj is not None:
+                mut = (gate <= _f32(cfg.beta))[:, None]
+                log_adj = torch.where(mut, torch.zeros_like(log_adj),
+                                      log_adj)
+        w_prop = accept_ops.compute_posterior(model, spec, prop)
+        u_acc = uni(r.accept + o)
+        acc, mg = accept_ops.mh_accept(w_prop, wg, u_acc, log_adj)
+        if r.n_members > 1:
+            mine = slot == member
+            acc = acc & mine
+            margin = mg if margin is None else torch.where(mine, mg, margin)
+        else:
+            margin = mg
+        th = torch.where(acc[..., None], prop, th)
+        wg = torch.where(acc, w_prop, wg)
+        acc_all = acc if acc_all is None else acc_all | acc
+    new_t, new_w = th.reshape(-1, d), wg.reshape(-1)
     uf = uniforms[r.fire, :1]
     nfire = ((uf <= _f32(cfg.alpha)) & (cfg.alpha > 0.0)).to(torch.int32)
     theta.copy_(new_t)
@@ -205,8 +306,16 @@ def de_step_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     if out is not None:
         out[0].copy_(new_t)
         out[1].copy_(new_w)
-        out[2].copy_(acc.view(-1))
+        out[2].copy_(acc_all.view(-1))
     return margin.view(-1)
+
+
+def de_step_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
+                  words, out=None):
+    """Plain version of K1, in place (:func:`sweep_plain` with partners
+    from the current group).  Returns each chain's accept margin."""
+    return sweep_plain(cfg, model, spec, theta, w, fire, it, words,
+                       group_partners(cfg, words), out)
 
 
 def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
@@ -221,6 +330,9 @@ def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     tensor checks, for a caller that made them once for a run
     (:func:`check_cuda`)."""
     C = cfg.G * cfg.Np
+    if cfg.resample:
+        raise ValueError("a resample configuration steps with "
+                         "resample_step (K3), not de_step")
     if theta.device.type == "cpu":
         words = (bits if bits is not None
                  else rng.words(seed, it, cfg.rows.n_words, C))
@@ -229,28 +341,29 @@ def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     if check:
         check_cuda(cfg, theta, w, fire, bits, out)
     lib = _build.library("de_step")
-    fn = getattr(lib, f"de_step_{cfg.density.name}")
+    name = _build.entry("de_step", cfg.density)
     o_t, o_w, o_a = (None, None, None) if out is None else (
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
-    rc = fn(theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
-            None if bits is None else bits.data_ptr(),
-            cfg.iargs(it, seed), cfg.fargs,
-            torch.cuda.current_stream(theta.device).cuda_stream)
+    rc = getattr(lib, name)(
+        theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
+        None if bits is None else bits.data_ptr(),
+        cfg.iargs(it, seed), cfg.fargs, cfg.sweep_args,
+        cfg.theta_snooker_arg,
+        torch.cuda.current_stream(theta.device).cuda_stream)
     de_step.launches += 1
-    _build.check(lib, rc, f"de_step_{cfg.density.name}")
+    _build.check(lib, rc, name)
 
 
 de_step.launches = 0
 
 
-def check_cuda(cfg, theta, w, fire, bits=None, out=None):
-    """Raise unless the tensors are what K1 takes on a CUDA device."""
+def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step"):
+    """Raise unless the tensors are what K1 (or K3) takes on a CUDA
+    device."""
     dev = theta.device
     if dev.type != "cuda":
-        raise ValueError(f"de_step runs on cpu or cuda, not {dev}")
-    if cfg.density is None:
-        raise ValueError("the model names no CUDA density "
-                         "(DEModel.cuda_density); run it with device='cpu'")
+        raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+    _build.entry(what, cfg.density)
     C, d = cfg.G * cfg.Np, cfg.d
     want = [("theta", theta, torch.float32, (C, d)),
             ("w", w, torch.float32, (C,)),

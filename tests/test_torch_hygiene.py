@@ -74,11 +74,11 @@ def test_kernel_wrappers_never_fall_back():
 
 
 @pytest.mark.parametrize("kw,what", [
-    ({"theta_snooker": 0.1}, "snooker"),
-    ({"Np": 4}, "sequential sweep"),
-    ({"sweep": "sequential"}, "sequential sweep"),
+    ({"generate_proposal": "snooker"}, "snooker"),
+    ({"sample": "resample", "n_initial": 10, "n_groups": 4}, "migration"),
+    ({"blocking_on": True}, "block"),
     ({"blocks": [[True, False]]}, "block"),
-    ({"sample": "resample", "n_initial": 10}, "resample"),
+    ({"sample": "custom"}, "partner slots"),
     ({"update_particle": "maximize"}, "optimization"),
     ({"update_particle": "minimize"}, "optimization"),
     ({"dtype": np.float64}, "float64"),
@@ -87,6 +87,39 @@ def test_unported_settings_raise(kw, what):
     kw = {"Np": 6, **kw}
     with pytest.raises(NotImplementedError, match=what):
         tdm.DE(bounds=tgauss.BOUNDS, **kw)
+
+
+def test_resample_wrapper_never_falls_back():
+    """K3's wrapper, like K1's, runs the plain version for CPU tensors only,
+    and K1's refuses a resample configuration."""
+    from demcmc_tpu_torch.models import mvnormal as tmvn
+    from demcmc_tpu_torch.ops import resample_step as tres
+    model, de = tmvn.make(d=2, data=np.zeros((5, 2), np.float32),
+                          n_initial=4)
+    cfg = tfused.StepConfig.make(model, de, tdm.make_spec(model, de))
+    theta = torch.zeros((3, 3), device="meta")
+    w = torch.zeros(3, device="meta")
+    fire = torch.zeros(1, dtype=torch.int32, device="meta")
+    hist = torch.zeros((8, 3, 3), device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tres.resample_step(cfg, model, None, theta, w, fire, hist, 5)
+    with pytest.raises(ValueError, match="resample_step"):
+        tfused.de_step(cfg, model, None, theta, w, fire, 5)
+    assert model.cuda_density is None          # only d = 30 is compiled
+    with pytest.raises(ValueError, match="CUDA density"):
+        tdm.sampler.Step(model, de, tdm.make_spec(model, de), "cuda")
+
+
+def test_new_settings_are_accepted():
+    """Snooker, the sequential sweep and DE-MCz resample construct (they
+    raised before the port carried them); resample keeps the JAX
+    package's Np >= 3 rule."""
+    de = tdm.DE(bounds=tgauss.BOUNDS, Np=4, theta_snooker=0.1,
+                sample="resample", n_initial=10, n_groups=1)
+    assert de.sequential_sweep and de.uses_resample
+    assert not tdm.DE(Np=6, sweep="sync").sequential_sweep
+    with pytest.raises(ValueError):
+        tdm.DE(Np=2, sample="resample", n_initial=10, n_groups=1)
 
 
 def test_model_without_cuda_density_is_cpu_only():
