@@ -54,7 +54,27 @@ Phases; any failure raises and the script exits non-zero:
 15. timing2  device ms per launch of K1 with snooker at 4,096 × 16 and
            sequential at 4,096 × 4, K2 fired and unfired at G = 4,096, K3
            at the MVN shape and at C = 512, beside the plain versions and
-           the bounds.
+           the bounds;
+16. K1-zoo  K1 against its plain version, bit for bit, on the LBA (256 ×
+           16, 100 trials), pseudo-marginal ABC binomial (512 × 8, n_sim =
+           10,000) and discrete binomial (256 × 12) densities: 8 bits-in
+           iterations crossing burn-in 4 with the gate set at the start,
+           then one on Philox words; every discrete N integral;
+17. main-lba  ``sample()`` on the 4,096-chain LBA cell (burn-in 1,000,
+           5,000 iterations; the cells, oracles and gates of phases 17-19
+           are in ``port_cells.py``): K1 and K2 launched once per
+           iteration, each posterior mean within 0.1 sd and sd within 10%
+           of a float64 importance-sampling oracle (ESS ≥ 10,000), max R̂
+           < 1.01;
+18. main-abc  the 4,096-chain ABC binomial cell (3,000 iterations): θ's
+           mean and sd within 0.01 of Beta(7, 5), max R̂ < 1.01;
+19. main-discrete  the 3,072-chain discrete binomial cell (11,000
+           iterations): every stored N integral, means and sds of N and p
+           against the exact oracle, max R̂ < 1.01;
+20. trace3  the three cells under ``torch.profiler``: every launch traced,
+           the device's idle share;
+21. timing3  device ms per launch of K1 on each new density beside its
+           plain version and its bound.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -68,6 +88,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+import port_cells as pc
 
 # comparison tolerance of K1 against its plain version, for θ and w:
 # |kernel − plain| <= ATOL + RTOL·|plain|, about 8 float32 ulp
@@ -212,11 +234,13 @@ def _check_close(pairs, clear, what, it):
     return worst
 
 
-def _compare_iteration(cfg, model, spec, state, it, words=None, seed=0):
+def _compare_iteration(cfg, model, spec, state, it, words=None, seed=0,
+                       exact=False):
     """One iteration (K2 then K1) by the kernels and by the plain versions
     from the same state; returns the plain result, the largest θ/w
     difference, the number of chains excluded as near-ties and the
-    number accepted."""
+    number accepted.  ``exact``: θ, w, the trajectory row and every accept
+    flag must be equal bit for bit (no near-tie excluded)."""
     from demcmc_tpu_torch import rng
     from demcmc_tpu_torch.ops import fused_step, migration as mig
     theta, w, fire = state
@@ -242,6 +266,25 @@ def _compare_iteration(cfg, model, spec, state, it, words=None, seed=0):
     margin = fused_step.de_step_plain(cfg, model, spec, *p, it, words,
                                       out=op)
     torch.cuda.synchronize()
+    if exact:
+        worst = 0.0
+        for a, b in ((k[0], p[0]), (k[1], p[1]), (ok[0], op[0]),
+                     (ok[1], op[1])):
+            fin = torch.isfinite(a) & torch.isfinite(b)
+            if bool(fin.any()):
+                worst = max(worst, float((a[fin] - b[fin]).abs().max()))
+        for a, b, what in ((k[0], p[0], "theta"), (k[1], p[1], "w"),
+                           (ok[0], op[0], "trajectory theta"),
+                           (ok[1], op[1], "trajectory w"),
+                           (ok[2], op[2], "accept flags")):
+            if not torch.equal(a.view(torch.uint8) if a.dtype == torch.bool
+                               else ints(a), b.view(torch.uint8)
+                               if b.dtype == torch.bool else ints(b)):
+                raise AssertionError(f"K1 {what} differ from the plain "
+                                     f"version at it={it}")
+        if int(k[2][0]) != int(p[2][0]):
+            raise AssertionError(f"K1 next migration gate differs at it={it}")
+        return p, worst, 0, int(op[2].sum())
     clear = margin.abs() > NEAR_TIE
     if not torch.equal(ok[2][clear], op[2][clear]):
         raise AssertionError(f"K1 accept flags differ at it={it}")
@@ -1000,9 +1043,10 @@ def _step_work(cfg, words, dens_ops):
 
     sn_gate = span(r.snooker + 1, 1) if r.snooker >= 0 else []
     ek = span(r.eps, d) + span(r.kappa, d)
-    rows = {0: span(r.partners, 2) + span(r.gamma, 3) + sn_gate + ek,
-            1: span(r.triple, 3) + span(r.snooker, 2) + ek,
-            2: span(r.normal, 2 * d)}
+    noise = span(r.noise, r.n_noise)        # every chain's noise panel
+    rows = {0: span(r.partners, 2) + span(r.gamma, 3) + sn_gate + ek + noise,
+            1: span(r.triple, 3) + span(r.snooker, 2) + ek + noise,
+            2: span(r.normal, 2 * d) + noise}
     slots = {0: [0, 1], 1: [2, 3, 4], 2: []} if cfg.resample else {}
     f32 = {0: DE_F32_OPS_PER_DIM * d + DE_F32_OPS,
            1: SN_F32_OPS_PER_DIM * d + SN_F32_OPS,
@@ -1196,6 +1240,303 @@ def phase_timing_slice2(dev, launches, errs):
     return rows
 
 
+# ------------------------------------------ third slice: LBA, the
+# pseudo-marginal ABC binomial and the discrete binomial on K1
+
+# float32 operations of the densities, for the bounds (_step_work): LBA per
+# trial and accumulator (two Φ/φ pairs of ~20, the pdf or cdf, clip, log)
+# and per trial (t, the guard, 1/ts, the sum), plus the prior; the ABC
+# binomial per simulation (the bit map, N compares and adds, the hit) and
+# per CDF entry; the discrete binomial per lgamma32 (~40) and the rest
+LBA_OPS_PER_ACC, LBA_OPS_PER_TRIAL, LBA_OPS = 58, 6, 40
+ABC_OPS_PER_SIM_AND_N, ABC_OPS_PER_SIM, ABC_OPS_PER_N = 2, 4, 12
+LGAMMA_OPS, DISC_OPS = 40, 20
+
+
+def _lba_case(burnin):
+    """(model, de) of the LBA cell: 100 trials simulated with numpy seed 0
+    at ν = (3, 2), A = 0.8, k = 0.2, τ = 0.3, G = 256 × Np = 16."""
+    from demcmc_tpu_torch.models import lba
+    c = pc.LBA_CELL
+    return lba.make(key=0, n_trials=100, Np=c["Np"], n_groups=c["n_groups"],
+                    burnin=burnin)
+
+
+def _abc_case(burnin):
+    from demcmc_tpu_torch.models import binomial
+    c = pc.ABC_CELL
+    return binomial.make(N=10, k=6, abc=True, fresh_noise=True,
+                         n_sim=pc.N_SIM, Np=c["Np"], n_groups=c["n_groups"],
+                         burnin=burnin)
+
+
+def _disc_case(burnin):
+    from demcmc_tpu_torch.models import discrete_binomial
+    c = pc.DISC_CELL
+    return discrete_binomial.make(key=0, n_obs=50, dtype=np.float32,
+                                  Np=c["Np"], n_groups=c["n_groups"],
+                                  burnin=burnin)
+
+
+ZOO = {"lba": (_lba_case, pc.LBA_CELL), "abc": (_abc_case, pc.ABC_CELL),
+       "discrete": (_disc_case, pc.DISC_CELL)}
+
+
+def phase_k1_zoo(dev):
+    """K1 against its plain version on the LBA (256 × 16, 100 trials), ABC
+    binomial (512 × 8, n_sim = 10,000) and discrete binomial (256 × 12)
+    densities: 8 bits-in iterations crossing burn-in 4 with the migration
+    gate set at the start, then one on Philox words; θ, w and the accept
+    flags equal bit for bit, and every discrete N integral.  Returns the
+    largest |kernel − plain| of θ and w measured (0 when bitwise)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.ops import fused_step
+    rng = np.random.default_rng(12)
+    worst = 0.0
+    for name, (case, _) in ZOO.items():
+        model, de = case(burnin=4)
+        spec = tdm.make_spec(model, de)
+        cfg = fused_step.StepConfig.make(model, de, spec)
+        s = tdm.init_state(model, de, spec, 11, device=dev)
+        state = [s.theta, s.weight, torch.ones(1, dtype=torch.int32,
+                                               device=dev)]
+        C_ = de.n_chains
+        err = 0.0
+        for it in range(1, 10):
+            words = (random_words(rng, cfg.rows.n_words, C_, dev)
+                     if it < 9 else None)
+            state, e, _, n_acc = _compare_iteration(
+                cfg, model, spec, state, it, words=words, seed=79,
+                exact=True)
+            err = max(err, e)
+            if cfg.int_dims:
+                th = state[0][:, list(cfg.int_dims)]
+                if not torch.equal(th, torch.round(th)):
+                    raise AssertionError(f"K1 {name}: an integer dimension "
+                                         f"is not integral at it={it}")
+            log("K1-" + name, f"{'bits-in' if it < 9 else 'Philox'} it={it}"
+                f" ({'burn-in' if it <= 4 else 'sampling'}): {n_acc} "
+                f"accepted, equal bit for bit")
+        log("K1-" + name, f"G={de.n_groups} Np={de.Np} d={cfg.d} words per "
+            f"chain {cfg.rows.n_words}: max |diff| {err:.3g} over 9 "
+            f"iterations")
+        worst = max(worst, err)
+    return worst
+
+
+def _zoo_sample(tag, name, key=0):
+    """``sample()`` on a third-slice cell: K1 and K2 launched once per
+    iteration of the cell.  Returns the model, the chains, the launches
+    and the wall time of a second, timed call."""
+    import demcmc_tpu_torch as tdm
+    case, cell = ZOO[name]
+    n_iter = cell["n_iter"]
+    model, de = case(burnin=cell["burnin"])
+    _reset_counts()
+    chains = tdm.sample(model, de, n_iter, key=key)
+    torch.cuda.synchronize()
+    launches = _counts()
+    log(tag, f"launches: {launches}")
+    if launches != {"de_step": n_iter, "migrate": n_iter,
+                    "resample_step": 0}:
+        raise AssertionError(f"{tag}: expected {n_iter} launches of K1 "
+                             f"and K2")
+    d = chains.data.shape[1]
+    if chains.data.shape != (n_iter - cell["burnin"], d, de.n_chains) or \
+            not np.isfinite(chains.data).all():
+        raise AssertionError(f"{tag}: bad draws {chains.data.shape}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tdm.sample(model, de, n_iter, key=key + 1)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    C_ = de.n_chains
+    log(tag, f"sample(): {n_iter} iterations in {dt:.4f} s = "
+        f"{dt / n_iter * 1e6:.2f} us/iteration, "
+        f"{C_ * n_iter / dt:.4g} chain-steps/s; acceptance "
+        f"{float(chains.acceptance.mean()):.4f}")
+    return model, chains, launches, {
+        f"{name}_us_per_iteration": dt / n_iter * 1e6,
+        f"{name}_chain_steps_per_s": C_ * n_iter / dt,
+        f"{name}_acceptance": float(chains.acceptance.mean())}
+
+
+def _rhat_gate(tag, chains):
+    rhat = float(np.max(chains.rhat()))
+    log(tag, f"max R-hat {rhat:.5f}")
+    if not rhat < pc.RHAT_MAX:
+        raise AssertionError(f"{tag}: max R-hat >= {pc.RHAT_MAX}")
+    return rhat
+
+
+def phase_main_lba(dev):
+    """``sample()`` on the LBA cell (port_cells.LBA_CELL): posterior means
+    within 0.1 oracle sd and sds within 10% of the importance-sampling
+    oracle (ESS ≥ 10,000), max R̂ < 1.01."""
+    model, chains, launches, m = _zoo_sample("main-lba", "lba")
+    t0 = time.perf_counter()
+    oracle = pc.lba_oracle(*model.data)
+    mean, sd, ess = oracle
+    log("main-lba", f"oracle: ESS {ess:.0f} of 200,000 draws in "
+        f"{time.perf_counter() - t0:.1f} s; mean {np.round(mean, 5)}, sd "
+        f"{np.round(sd, 5)}")
+    if ess < pc.LBA_MIN_ESS:
+        raise AssertionError(f"main-lba: the oracle's ESS is under "
+                             f"{pc.LBA_MIN_ESS}")
+    ok, (pm, ps, dm, ds) = pc.lba_gate(chains.data, oracle)
+    for i, name in enumerate(chains.names):
+        log("main-lba", f"{name}: mean {pm[i]:.5f} (oracle {mean[i]:.5f}, "
+            f"{dm[i]:.4f} oracle sd off), sd {ps[i]:.5f} (oracle "
+            f"{sd[i]:.5f}, {100 * ds[i]:.2f}% off)")
+    if not ok:
+        raise AssertionError("main-lba: posterior off the oracle")
+    rhat = _rhat_gate("main-lba", chains)
+    m.update({"lba_rhat_max": rhat, "lba_max_mean_dev_sd": float(dm.max()),
+              "lba_max_sd_dev": float(ds.max())})
+    return launches, m
+
+
+def phase_main_abc(dev):
+    """``sample()`` on the ABC binomial cell: posterior mean and sd of θ
+    within 0.01 of Beta(7, 5), max R̂ < 1.01."""
+    from demcmc_tpu_torch.models import binomial
+    _, chains, launches, m = _zoo_sample("main-abc", "abc")
+    truth = binomial.conjugate_posterior(10, 6)
+    mean, sd = chains.mean("theta"), chains.std("theta")
+    log("main-abc", f"theta: mean {mean:.5f} (Beta(7, 5) "
+        f"{truth['mean']:.5f}), sd {sd:.5f} ({truth['std']:.5f})")
+    if abs(mean - truth["mean"]) >= 0.01 or abs(sd - truth["std"]) >= 0.01:
+        raise AssertionError("main-abc: posterior off the conjugate")
+    rhat = _rhat_gate("main-abc", chains)
+    m.update({"abc_rhat_max": rhat, "abc_mean": mean, "abc_sd": sd})
+    return launches, m
+
+
+def phase_main_discrete(dev):
+    """``sample()`` on the discrete binomial cell (port_cells.DISC_CELL):
+    every stored N integral; posterior means of N and p within
+    DISC_MEAN_SD oracle sd of the exact oracle and their sds within
+    DISC_SD_REL; max R̂ < 1.01."""
+    model, chains, launches, m = _zoo_sample("main-discrete", "discrete")
+    N = chains.group("N")
+    if not np.array_equal(N, np.round(N)):
+        raise AssertionError("main-discrete: a stored N is not integral")
+    log("main-discrete", "every stored N integral")
+    truth = pc.discrete_oracle(model.data)
+    ok, rows = pc.discrete_gate(N, chains.group("p"), truth)
+    for name, (mean, sd, dm, ds) in rows.items():
+        log("main-discrete", f"{name}: mean {mean:.5f} (oracle "
+            f"{truth[name][0]:.5f}, {dm:.4f} oracle sd off), sd {sd:.5f} "
+            f"(oracle {truth[name][1]:.5f}, {100 * ds:.2f}% off)")
+    if not ok:
+        raise AssertionError("main-discrete: posterior off the oracle")
+    rhat = _rhat_gate("main-discrete", chains)
+    m.update({"discrete_rhat_max": rhat,
+              "discrete_max_mean_dev_sd": max(r[2] for r in rows.values()),
+              "discrete_max_sd_dev": max(r[3] for r in rows.values())})
+    return launches, m
+
+
+def phase_trace3(dev):
+    """The three cells (1,000 iterations each, burn-in 500) under
+    ``torch.profiler``: every launch in the device trace and the device's
+    idle share over each loop."""
+    out = {}
+    for name, (case, _) in ZOO.items():
+        model, de = case(burnin=500)
+        out.update({f"{name}_" + k: v for k, v in _trace_sample(
+            "trace-" + name, model, de, 1000,
+            {"de_step": K1_NAME, "migrate": K2_NAME}, "migrate", "de_step",
+            f"trace_{name}.json").items()})
+    return out
+
+
+def _zoo_dens_ops(name, cfg, model):
+    """float32 operations of one evaluation of the cell's density."""
+    dens = model.cuda_density
+    if name == "lba":
+        return int(dens.params[11]) * (2 * LBA_OPS_PER_ACC
+                                       + LBA_OPS_PER_TRIAL) + LBA_OPS
+    if name == "abc":
+        n_sim, N = cfg.rows.n_noise, int(dens.params[0])
+        return (n_sim * (ABC_OPS_PER_SIM_AND_N * N + ABC_OPS_PER_SIM)
+                + ABC_OPS_PER_N * N)
+    return (int(dens.params[4]) + 1) * LGAMMA_OPS + DISC_OPS
+
+
+def phase_timing3(dev, launches, err):
+    """Device ms per launch of K1 on each new density at its path's shape
+    (spin-queued; plain, kernel, kernel, plain), its bound (_step_work:
+    the proposal each chain's words pick, the noise panel's Philox blocks,
+    the density's operations and its data buffer read once) and its
+    launches over the path."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step
+    it = 2000
+    cases, seq = {}, []
+    for name, (case, cell) in ZOO.items():
+        model, de = case(burnin=cell["burnin"])
+        spec = tdm.make_spec(model, de)
+        cfg = fused_step.StepConfig.make(model, de, spec)
+        s = tdm.init_state(model, de, spec, 5, device=dev)
+        C_ = de.n_chains
+        out = (torch.empty((C_, cfg.d), device=dev),
+               torch.empty(C_, device=dev),
+               torch.empty(C_, dtype=torch.bool, device=dev))
+        st = (s.theta, s.weight, s.fire)
+
+        def k1(a=(cfg, model, spec, st, out)):
+            c, mm, sp, x, o = a
+            fused_step.de_step(c, mm, sp, *x, it, out=o)
+
+        def k1_plain(a=(cfg, model, spec, st, out)):
+            c, mm, sp, x, o = a
+            words = rng.words(0, it, c.rows.n_words, c.G * c.Np, device=dev)
+            fused_step.de_step_plain(c, mm, sp, *x, it, words, out=o)
+
+        n = 20 if name == "abc" else 200
+        cases[name] = (cfg, model)
+        seq += [(f"{name}_plain", k1_plain, 2), (name, k1, n), (name, k1, n),
+                (f"{name}_plain", k1_plain, 2)]
+    t = {}
+    for key, fn, n in seq:
+        t.setdefault(key, []).append(device_ms(fn, n))
+    ms = {k: float(np.mean([x for x, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing3", f"{k}: {ms[k]:.6f} ms per call on the device ("
+            + ", ".join(f"{x:.6f}{'' if q else ' host-gapped'}"
+                        for x, q, _ in v)
+            + "); host issues a call in "
+            + ", ".join(f"{h:.6f}" for _, _, h in v) + " ms")
+    rows = []
+    repl = {"lba": "demcmc_tpu/ops/fused_step.py:1539",
+            "abc": "demcmc_tpu/ops/fused_step.py:2422",
+            "discrete": "demcmc_tpu/ops/fused_step.py:2402"}
+    for name, (cfg, model) in cases.items():
+        C_ = cfg.G * cfg.Np
+        nbytes, nops = _step_work(
+            cfg, rng.words(0, it, cfg.rows.n_words, C_, device=dev),
+            _zoo_dens_ops(name, cfg, model))
+        data = model.cuda_density.data
+        nbytes += 0 if data is None else data.nbytes
+        tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+        rows.append({"name": f"de_step/{name}-{C_}", "route": "cuda",
+                     "source": "demcmc_tpu_torch/csrc/densities/"
+                               + {"lba": "lba.cuh", "abc": "binomial_abc.cuh",
+                                  "discrete": "discrete_binomial.cuh"}[name],
+                     "replaces": repl[name],
+                     "launches": launches[name]["de_step"],
+                     "max_abs_err": err, "ms": ms[name],
+                     "plain_ms": ms[name + "_plain"],
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": None})
+        log("timing3", f"de_step/{name}-{C_}: {nbytes} bytes, {nops} "
+            f"operations, bound {max(tb, to):.3g} ms")
+    return rows
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1230,6 +1571,14 @@ def main():
     paths["seq"] = phase_main_seq(dev)
     metrics.update(phase_trace_slice2(dev))
     rows += phase_timing_slice2(dev, paths, errs)
+    errs["k1_zoo"] = phase_k1_zoo(dev)
+    zoo = {}
+    for name, phase in (("lba", phase_main_lba), ("abc", phase_main_abc),
+                        ("discrete", phase_main_discrete)):
+        zoo[name], m = phase(dev)
+        metrics.update(m)
+    metrics.update(phase_trace3(dev))
+    rows += phase_timing3(dev, zoo, errs["k1_zoo"])
     log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s;"
         f" {json.dumps(metrics)}")
     print(json.dumps({"kernels": rows}))

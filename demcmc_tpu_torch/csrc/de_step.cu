@@ -25,11 +25,23 @@
 // words in registers instead of reading a pre-drawn buffer, and keeps every
 // group-level reduction in shared memory.  Fewer launches (K iterations per
 // launch, CUDA graphs) are later work.
+//
+// The densities other than the Gaussian (densities/*.cuh) run the whole
+// density in the chain's thread: LBA loops over its trials (two
+// accumulators, four Phi/phi pairs and two logs per trial), the ABC binomial
+// over its n_sim simulations (a Philox block per four of them), the discrete
+// binomial over its unique counts (an lgamma each).  There the kernel is
+// bound by that serial loop on one thread per chain (4,096 threads, about
+// one warp per SM quadrant), not by bytes; spreading trials or simulations
+// over a warp's lanes is later work.
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "densities/binomial_abc.cuh"
+#include "densities/discrete_binomial.cuh"
 #include "densities/gaussian.cuh"
+#include "densities/lba.cuh"
 #include "philox.cuh"
 #include "step_body.cuh"
 
@@ -47,32 +59,38 @@ template <class Density>
 int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
                    uint8_t* out_acc, int* fire, const uint32_t* bits,
                    const uint32_t* ia, const float* fa, const uint32_t* sa,
-                   float theta_sn, cudaStream_t stream) {
+                   float theta_sn, const float* dens_data,
+                   cudaStream_t stream) {
   constexpr int D = Density::D;
   const StepArgs<D> a = read_args<Density>(theta, w, out_theta, out_w, out_acc,
                                            fire, bits, ia, fa, sa, theta_sn);
-  const Density dens = Density::from(fa + 7 + 2 * D);
+  const Density dens = Density::from(fa + 7 + 2 * D, dens_data);
   return launch_sweep(a, dens, GroupPartners<D>{}, stream);
 }
 
 }  // namespace demcmc
 
 // One iteration of K1 on the model's density (argument arrays: see
-// step_body.cuh read_args).  Returns cudaGetLastError() after the launch.
+// step_body.cuh read_args; dens_data: the density's device buffer, or
+// nullptr).  Returns cudaGetLastError() after the launch.
 #define DE_STEP_ENTRY(NAME, DENSITY)                                          \
   extern "C" int de_step_##NAME(float* theta, float* w, float* out_theta,    \
                                 float* out_w, uint8_t* out_acc, int* fire,   \
                                 const uint32_t* bits, const uint32_t* iargs, \
                                 const float* fargs, const uint32_t* sargs,   \
-                                float theta_sn, void* stream) {              \
+                                float theta_sn, const float* dens_data,      \
+                                void* stream) {                              \
     return demcmc::launch_de_step<DENSITY>(theta, w, out_theta, out_w,       \
                                            out_acc, fire, bits, iargs,       \
                                            fargs, sargs, theta_sn,           \
-                                           (cudaStream_t)stream);            \
+                                           dens_data, (cudaStream_t)stream); \
   }
 
 // one entry per density of ops/_build.py KERNEL_DENSITIES["de_step"]
 DE_STEP_ENTRY(gaussian, demcmc::GaussianDensity)
+DE_STEP_ENTRY(lba, demcmc::LbaDensity)
+DE_STEP_ENTRY(binomial_abc, demcmc::BinomialAbcDensity)
+DE_STEP_ENTRY(discrete_binomial, demcmc::DiscreteBinomialDensity)
 
 // Philox words (seed, it, row, chain) for rows 0..n_rows-1, chains 0..n-1
 // into out [n_rows, n] -- used to hold the device generator against the

@@ -47,7 +47,7 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
   constexpr int D = Density::D;
   const StepArgs<D> a = read_args<Density>(theta, w, out_theta, out_w, out_acc,
                                            fire, bits, ia, fa, sa, theta_sn);
-  const Density dens = Density::from(fa + 7 + 2 * D);
+  const Density dens = Density::from(fa + 7 + 2 * D, nullptr);
   const int C = a.G * a.Np;
   if (a.it < 2 || a.it > H) return (int)cudaErrorInvalidValue;
   HistoryPartners<D> src;

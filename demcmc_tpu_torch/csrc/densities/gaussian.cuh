@@ -11,14 +11,18 @@
 
 #include <math.h>
 
+#include <cstdint>
+
 namespace demcmc {
 
 struct GaussianDensity {
   static constexpr int D = 2;
   static constexpr int kParams = 7;
+  static constexpr bool kNoise = false;
+  static constexpr uint32_t kIntMask = 0u;
   float n, xbar, ss, c0, log_2pi, log_pi, log2;
 
-  static GaussianDensity from(const float* p) {
+  static GaussianDensity from(const float* p, const float*) {
     return GaussianDensity{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
   }
 

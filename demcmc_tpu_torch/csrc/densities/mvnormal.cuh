@@ -12,16 +12,20 @@
 
 #include <math.h>
 
+#include <cstdint>
+
 namespace demcmc {
 
 template <int K>
 struct MvNormalDensity {
   static constexpr int D = K + 1;
   static constexpr int kParams = 7 + K;
+  static constexpr bool kNoise = false;
+  static constexpr uint32_t kIntMask = 0u;
   float n, nd, ss, c0, log_2pi, log_pi, log2;
   float xbar[K];
 
-  static MvNormalDensity from(const float* p) {
+  static MvNormalDensity from(const float* p, const float*) {
     MvNormalDensity m{p[0], p[1], p[2], p[3], p[4], p[5], p[6], {}};
     for (int i = 0; i < K; ++i) m.xbar[i] = p[7 + i];
     return m;

@@ -21,6 +21,12 @@
 // commits, writes its new theta to the stage, and __syncthreads() makes it
 // visible before sub-sweep m + 1 (reference crossover.jl:12-17).
 //
+// Densities (csrc/densities/*.cuh) are functors over the proposal; one
+// that draws noise (kNoise, the pseudo-marginal panel) also takes the
+// chain's words positioned at its panel.  The dimensions of a density's
+// compile-time kIntMask are snapped to integers before the bounds (as
+// run-time flags, branches cost K1 measurable time on an H100, PERF.md).
+//
 // Rounding: built with -fmad=false so every float operation rounds like the
 // plain PyTorch version (ops/fused_step.py::sweep_plain), which issues the
 // same operations in the same order; sums over the d dimensions run in
@@ -55,6 +61,9 @@ struct StepArgs {
   WordSource words;
   int G, Np, it, burnin, random_gamma;
   int n_members, stride;  // sub-sweeps, rows per sub-sweep block
+  uint32_t int_mask;      // integer dimensions (bit i: dimension i), held
+                          // against the density's kIntMask at launch
+  int r_noise;            // first row of a density's noise panel
   int r_part, r_triple, r_gamma, r_sn, r_eps, r_kappa, r_gate, r_norm, r_acc,
       r_fire;
   float fixed_g1, eps, eps2, kappa_keep, beta, sigma, alpha, theta_sn;
@@ -66,8 +75,9 @@ struct StepArgs {
 //   (0xffffffff where absent).
 // fargs: fixed_g1, eps, 2 eps, 1 - kappa, beta, sigma, alpha, lo[D], hi[D],
 //   then the density's constants.
-// sargs: sub-sweeps, rows per sub-sweep block, the snooker member-index row
-//   and the snooker gamma row (0xffffffff where absent).
+// sargs: sub-sweeps, rows per sub-sweep block, the snooker member-index row,
+//   the snooker gamma row, the integer-dimension bit mask and the noise
+//   panel's row (rows 0xffffffff where absent).
 template <class Density>
 StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
                                float* out_w, uint8_t* out_acc, int* fire,
@@ -100,6 +110,8 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
   a.stride = (int)sa[1];
   a.r_triple = (int)sa[2];
   a.r_sn = (int)sa[3];
+  a.int_mask = sa[4];
+  a.r_noise = (int)sa[5];
   a.fixed_g1 = fa[0];
   a.eps = fa[1];
   a.eps2 = fa[2];
@@ -419,12 +431,24 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
       }
       if (mut) adj = 0.0f;  // a mutation carries no snooker correction
 
+      // integer snap (fused_step.py:2402-2410) on the density's compile-time
+      // mask: rintf rounds half to even, as jnp.round and torch.round do
+      if constexpr (Density::kIntMask != 0u)
+        for (int i = 0; i < D; ++i)
+          if ((Density::kIntMask >> i) & 1u) prop[i] = rintf(prop[i]);
+
       bool inb = true;
       for (int i = 0; i < D; ++i) {
         if (isfinite(a.lo[i])) inb = inb && prop[i] >= a.lo[i];
         if (isfinite(a.hi[i])) inb = inb && prop[i] <= a.hi[i];
       }
-      const float lp = dens(prop);
+      // a density that draws noise streams its panel from the chain's words
+      // (rows r_noise.. of the sub-sweep block, before the accept row)
+      float lp;
+      if constexpr (Density::kNoise)
+        lp = dens(prop, Wc, a.r_noise + s.off);
+      else
+        lp = dens(prop);
       const float wp = (inb && !isnan(lp)) ? lp : -INFINITY;
       const float u = fmaxf(to_uni(Wc(a.r_acc + s.off)), FLT_MIN);
       float delta = wp - w;
@@ -464,6 +488,8 @@ int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
   constexpr int D = Density::D;
   if (a.Np < 3 || a.Np > 1024 || a.G < 1 || a.n_members < 1)
     return (int)cudaErrorInvalidValue;
+  // the model's integer dimensions must be the ones the density snaps
+  if (a.int_mask != Density::kIntMask) return (int)cudaErrorInvalidValue;
   const int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;
   const int threads = gpb * a.Np;
   const int blocks = (a.G + gpb - 1) / gpb;

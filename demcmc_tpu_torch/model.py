@@ -14,7 +14,7 @@ arguments, which the hand-written DE-step kernel is instantiated on.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
@@ -140,10 +140,25 @@ class ParamSpec:
 class CudaDensity:
     """A log-posterior written as a CUDA ``__device__`` functor in
     ``csrc/densities/<name>.cuh``; ``params`` are the float32 scalars the
-    functor takes (in its constructor order)."""
+    functor takes (in its constructor order), ``data`` an optional float32
+    array (trials, a table) the functor reads through a device pointer."""
 
     name: str
     params: Tuple[float, ...]
+    data: Optional[np.ndarray] = field(default=None, compare=False)
+    _on: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def data_on(self, device) -> Optional[torch.Tensor]:
+        """``data`` as a contiguous float32 tensor on ``device``, copied
+        once per device and kept here while kernels may read it."""
+        if self.data is None:
+            return None
+        key = str(torch.device(device))
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = torch.tensor(
+                np.ascontiguousarray(self.data, np.float32), device=device)
+        return t
 
 
 @dataclass
@@ -158,6 +173,12 @@ class DEModel:
     ``[k, n]`` from the init Philox namespace.  ``cuda_density`` names the
     kernel's density; without one the model runs the plain torch step
     only on the CPU.
+
+    A model with a ``noise_shape`` is stochastic (pseudo-marginal): it
+    re-simulates on every evaluation, ``loglike_batched(data, *params,
+    noise=u)`` taking a fresh float32 uniform panel ``u [*noise_shape,
+    *cs]`` (the JAX ``DEModel``'s ``noise_shape``), drawn by the step from
+    the words of the evaluation.
     """
 
     loglike_batched: Callable = None
@@ -166,6 +187,7 @@ class DEModel:
     names: Tuple = ()
     data: Any = None
     cuda_density: Optional[CudaDensity] = None
+    noise_shape: Optional[Tuple[int, ...]] = None
 
     def __post_init__(self):
         if self.loglike_batched is None or self.prior_loglike_batched is None:
@@ -174,12 +196,37 @@ class DEModel:
         if self.sample_prior is None:
             raise ValueError("sample_prior is required")
         self.names = tuple(self.names)
+        if self.noise_shape is not None:
+            self.noise_shape = tuple(int(n) for n in self.noise_shape)
+            if not self.noise_shape or min(self.noise_shape) < 1:
+                raise ValueError("noise_shape needs at least one uniform "
+                                 "per evaluation")
 
-    def log_posterior_cols(self, spec: ParamSpec, x2: torch.Tensor):
+    @property
+    def stochastic(self) -> bool:
+        """True for a pseudo-marginal model (one with a noise panel)."""
+        return self.noise_shape is not None
+
+    @property
+    def noise_words(self) -> int:
+        """Uniforms per chain and evaluation (0 unless stochastic)."""
+        return int(np.prod(self.noise_shape)) if self.stochastic else 0
+
+    def log_posterior_cols(self, spec: ParamSpec, x2: torch.Tensor,
+                           noise: torch.Tensor = None):
         """Batched log posterior of ``[d, *cs]`` columns: prior + loglike
-        in that order (``fused_step.py:1523-1527``)."""
+        in that order (``fused_step.py:1523-1541``); a stochastic model's
+        loglike gets the panel ``noise [n_noise, *cs]`` reshaped to
+        ``[*noise_shape, *cs]``."""
         cols = spec.unflatten_cols(x2)
-        ll = self.loglike_batched(self.data, *cols)
+        if self.stochastic:
+            if noise is None:
+                raise ValueError("a stochastic model's density needs its "
+                                 "noise panel")
+            noise = noise.reshape(self.noise_shape + tuple(x2.shape[1:]))
+            ll = self.loglike_batched(self.data, *cols, noise=noise)
+        else:
+            ll = self.loglike_batched(self.data, *cols)
         return self.prior_loglike_batched(*cols) + ll
 
     def init_population(self, spec: ParamSpec, key: int, n: int,

@@ -1,3 +1,3 @@
-from . import gaussian, mvnormal
+from . import binomial, discrete_binomial, gaussian, lba, mvnormal
 
-__all__ = ["gaussian", "mvnormal"]
+__all__ = ["binomial", "discrete_binomial", "gaussian", "lba", "mvnormal"]

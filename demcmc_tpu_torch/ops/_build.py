@@ -34,9 +34,10 @@ _F32P = ctypes.POINTER(ctypes.c_float)
 _I, _U, _F = ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 # the csrc/densities each step kernel is instantiated on: K1 (de_step) for
 # the models that run it, K3 (resample_step) for the DE-MCz ones
-KERNEL_DENSITIES = {"de_step": ("gaussian",),
+KERNEL_DENSITIES = {"de_step": ("gaussian", "lba", "binomial_abc",
+                                "discrete_binomial"),
                     "resample_step": ("gaussian", "mvnormal30")}
-_K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P]
+_K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P, _P]
 _K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _P]
 SIGNATURES = {
     "de_step": {

@@ -24,11 +24,13 @@ def in_bounds(spec, x):
     return ok
 
 
-def compute_posterior(model, spec, x):
+def compute_posterior(model, spec, x, noise=None):
     """Log posterior of ``x [..., d]``; out-of-bounds or NaN -> ``-inf``
-    (``compute_posterior!``, reference ``src/utilities.jl:92-99``)."""
+    (``compute_posterior!``, reference ``src/utilities.jl:92-99``).  A
+    stochastic model evaluates on the uniform panel ``noise [n_noise,
+    ...]`` (``fused_step.py:2422-2428``)."""
     cols = torch.movedim(x, -1, 0)
-    lp = model.log_posterior_cols(spec, cols)
+    lp = model.log_posterior_cols(spec, cols, noise)
     ok = in_bounds(spec, x) & ~torch.isnan(lp)
     return torch.where(ok, lp, torch.full_like(lp, -math.inf))
 

@@ -14,10 +14,12 @@ the 3 migration rows (when α > 0); in the sequential sweep one β-gate row;
 then one block of rows per sub-sweep (one block in the synchronous sweep,
 Np in the sequential one) holding 2 partner rows, u_b/γ₁/γ₂ (random γ),
 the snooker rows (3 member indices, γ and the snooker gate), d rows of ε,
-d rows of κ (κ < 1), the β gate (synchronous sweep), 2d Box–Muller rows
-and the accept row; last the next-iteration gate row — 17 words per chain
-for the d = 2 Gaussian with default settings.  The resample variant (K3)
-has no partner or member-index rows: its partners come from the history.
+d rows of κ (κ < 1), the β gate (synchronous sweep), 2d Box–Muller rows,
+a stochastic model's noise panel (n_sim rows, ``fused_step.py:1824``,
+:2422-2427) and the accept row; last the next-iteration gate row — 17
+words per chain for the d = 2 Gaussian with default settings.  The
+resample variant (K3) has no partner or member-index rows: its partners
+come from the history.
 Every draw is taken whether or not its branch applies, so the layout is
 static.  In normal runs word (row, chain) is Philox(seed, iteration, row,
 chain); in bits-in mode (tests) it is read from a ``[n_words, C]`` uint32
@@ -62,11 +64,14 @@ class Rows(NamedTuple):
     snooker: int = -1     # snooker γ, then the snooker gate
     n_members: int = 1    # sub-sweeps per iteration (Np when sequential)
     stride: int = 0       # rows per sub-sweep block
+    noise: int = -1       # a stochastic model's noise panel (n_noise rows)
+    n_noise: int = 0
 
 
-def draw_rows(de, d: int) -> Rows:
+def draw_rows(de, d: int, n_noise: int = 0) -> Rows:
     """The per-iteration row layout of ``fused_step.py:1802-1828`` in the
-    order ``_sweep_tail`` draws (module docstring)."""
+    order ``_sweep_tail`` draws (module docstring); ``n_noise`` uniforms
+    per evaluation for a stochastic model."""
     at = [0]
 
     def take(n, present=True):
@@ -92,6 +97,7 @@ def draw_rows(de, d: int) -> Rows:
     kappa = take(d, float(de.kappa) < 1.0)
     gate = take(1, beta and not seq)
     normal = take(2 * d, beta)
+    noise = take(n_noise, n_noise > 0)
     acc = take(1)
     stride = at[0] - block
     n_members = de.Np if seq else 1
@@ -99,7 +105,7 @@ def draw_rows(de, d: int) -> Rows:
     fire = take(1)
     return Rows(mig, partners, gamma, eps, kappa,
                 seq_gate if seq else gate, normal, acc, fire, at[0],
-                triple, sn, n_members, stride)
+                triple, sn, n_members, stride, noise, n_noise)
 
 
 def _f32(x: float) -> float:
@@ -125,11 +131,13 @@ class StepConfig:
     density: Optional[object]   # model.CudaDensity or None
     theta_snooker: float = 0.0
     resample: bool = False      # DE-MCz: partners from the history (K3)
+    int_dims: Tuple[int, ...] = ()   # integer dimensions, snapped
     _iargs: dict = field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
     def make(model, de, spec) -> "StepConfig":
         d = spec.dim
+        int_dims = tuple(int(i) for i in np.flatnonzero(spec.int_mask))
         return StepConfig(
             G=de.n_groups, Np=de.Np, d=d, burnin=int(de.burnin),
             proposal=de.generate_proposal,
@@ -138,9 +146,10 @@ class StepConfig:
             alpha=float(de.alpha) if de.n_groups > 1 else 0.0,
             lo=tuple(float(v) for v in spec.lo),
             hi=tuple(float(v) for v in spec.hi),
-            rows=draw_rows(de, d), density=model.cuda_density,
+            rows=draw_rows(de, d, model.noise_words),
+            density=model.cuda_density,
             theta_snooker=float(de.theta_snooker),
-            resample=bool(de.uses_resample))
+            resample=bool(de.uses_resample), int_dims=int_dims)
 
     @property
     def random_gamma(self) -> bool:
@@ -180,10 +189,20 @@ class StepConfig:
     @functools.cached_property
     def sweep_args(self):
         """The sweep layout (``csrc/step_body.cuh``): sub-sweeps, rows per
-        sub-sweep block, the snooker member-index and snooker rows."""
+        sub-sweep block, the snooker member-index and snooker rows, the
+        integer dimensions as a bit mask and the noise panel's row."""
         r = self.rows
+        if self.int_dims and self.int_dims[-1] >= 32:
+            raise ValueError("the kernels snap integer dimensions 0..31 "
+                             "only (a 32-bit mask)")
         return _build.u32_array([r.n_members, r.stride, r.triple,
-                                 r.snooker])
+                                 r.snooker, sum(1 << i for i in self.int_dims),
+                                 r.noise])
+
+    def density_data(self, device):
+        """The density's data buffer on ``device`` (or None), passed to the
+        kernels as a pointer."""
+        return self.density.data_on(device) if self.density else None
 
     @functools.cached_property
     def theta_snooker_arg(self):
@@ -238,6 +257,10 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
         return uniforms[i].view(G, Np)
 
     snooker = cfg.theta_snooker > 0.0
+    int_mask = None
+    if cfg.int_dims:
+        int_mask = torch.zeros(d, dtype=torch.bool, device=theta.device)
+        int_mask[list(cfg.int_dims)] = True
     gate = uni(r.gate)[:, 0] if r.gate >= 0 else None    # group leader's
     slot = torch.arange(Np, device=theta.device)
     acc_all = margin = None
@@ -285,7 +308,14 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
                 mut = (gate <= _f32(cfg.beta))[:, None]
                 log_adj = torch.where(mut, torch.zeros_like(log_adj),
                                       log_adj)
-        w_prop = accept_ops.compute_posterior(model, spec, prop)
+        if int_mask is not None:
+            # integer snap (fused_step.py:2402-2410), round half to even
+            prop = torch.where(int_mask, torch.round(prop), prop)
+        noise = None
+        if r.noise >= 0:
+            noise = uniforms[r.noise + o:r.noise + o + r.n_noise].view(
+                r.n_noise, G, Np)
+        w_prop = accept_ops.compute_posterior(model, spec, prop, noise)
         u_acc = uni(r.accept + o)
         acc, mg = accept_ops.mh_accept(w_prop, wg, u_acc, log_adj)
         if r.n_members > 1:
@@ -348,13 +378,17 @@ def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
         theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
         None if bits is None else bits.data_ptr(),
         cfg.iargs(it, seed), cfg.fargs, cfg.sweep_args,
-        cfg.theta_snooker_arg,
+        cfg.theta_snooker_arg, _ptr(cfg.density_data(theta.device)),
         torch.cuda.current_stream(theta.device).cuda_stream)
     de_step.launches += 1
     _build.check(lib, rc, name)
 
 
 de_step.launches = 0
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
 
 
 def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step"):

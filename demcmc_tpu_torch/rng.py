@@ -13,7 +13,8 @@ with counter ``(chain, row >> 2, iteration, namespace)`` and key
 as counter offsets: ``STEP_NS`` holds the per-iteration draw rows,
 ``INIT_NS`` the initial population, ``GATE_NS`` the first iteration's
 migration gate, ``RESAMPLE_NS`` the DE-MCz history index words (row =
-partner slot of the iteration).
+partner slot of the iteration), ``INIT_NOISE_NS`` the noise panel that
+scores a stochastic model's initial population.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ STEP_NS = 0     # per-iteration draw rows (migration + sweep + fire)
 INIT_NS = 1     # initial population draws (iteration slot = 0)
 GATE_NS = 2     # first migration gate of a run
 RESAMPLE_NS = 3  # DE-MCz history indices (row = partner slot)
+INIT_NOISE_NS = 4  # initial weights' noise panel (stochastic models)
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # Philox multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key bumps

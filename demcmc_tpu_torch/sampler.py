@@ -108,7 +108,11 @@ def init_state(model: DEModel, de: DE, spec: ParamSpec, key: int = 0,
         theta = history[0].clone()
     else:
         theta = model.init_population(spec, key, C, device=device)
-    weight = accept_ops.compute_posterior(model, spec, theta)
+    noise = None
+    if model.stochastic:          # the initial weights' own noise panel
+        noise = rng.to_uni(rng.words(key, 0, model.noise_words, C,
+                                     ns=rng.INIT_NOISE_NS, device=device))
+    weight = accept_ops.compute_posterior(model, spec, theta, noise)
     it0 = (de.n_initial + 1 if start_iteration is None
            else int(start_iteration))
     return SamplerState(theta=theta.contiguous(), weight=weight.contiguous(),
@@ -154,7 +158,9 @@ def state_from_numpy(theta, weight, iteration, fire, layout: str,
     resample layout's packing, ``[S, d, Cf]`` (:func:`_unpack_history`).
     ``fire`` is the JAX state's gate; None (a flat-layout state) means no
     migration before the first iteration.  ``key`` seeds the port's
-    Philox words (a JAX key does not carry over)."""
+    Philox words (a JAX key does not carry over).  Integer parameters
+    arrive as floats that are integers (the JAX state is float) and stay
+    so."""
     theta = np.asarray(theta, dtype=np.float32)
     if layout == "fused":
         d = theta.shape[0]

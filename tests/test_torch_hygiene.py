@@ -37,6 +37,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad
 
 
+@pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py"])
+def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
+    roots = set(_imported_roots(PKG.parent / name))
+    assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}
+
+
 def _no_card():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
