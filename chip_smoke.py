@@ -74,6 +74,26 @@ Phases; any failure raises and the script exits non-zero:
 20. trace3  the three cells under ``torch.profiler``: every launch traced,
            the device's idle share;
 21. timing3  device ms per launch of K1 on each new density beside its
+           plain version and its bound;
+22. k4     the KDE kernel K4 against its plain version at the abc_kde
+           cell's shape (3,072 chains × 50 points × 10,000 simulations)
+           and at (5, 37, 1,537): |K4 − plain| ≤ 2e-5·(1 + |plain|);
+23. main-kde  ``sample()`` on the 3,072-chain abc_kde cell through the
+           unfused step (the cells, oracles and gates of phases 23-25 are
+           in ``port_cells.py``): K4 launched once per iteration and once
+           for the initial weights, K1, K2 and K3 never; (μ, σ) within
+           0.01 of the float64 grid quadrature of the fixed-panel
+           posterior, max R̂ < 1.01;
+24. main-unfused-gauss  the 4,096-chain Gaussian with
+           ``allow_fused=False``: no kernel of the port launched,
+           posterior within 0.01 of the quadrature oracle, max R̂ < 1.01;
+25. main-lnr  the 3,072-chain LNR cell (per-cell density through
+           ``torch.func.vmap``): means and sds within 5% of a float64
+           importance-sampling oracle, max R̂ < 1.01;
+26. trace4  the abc_kde cell and the unfused Gaussian under
+           ``torch.profiler``: kernel launches per iteration, K4's count,
+           the device's idle share;
+27. timing4  K4's device ms per launch at the cell's shape beside its
            plain version and its bound.
 
 The last three lines of standard output are the kernels' JSON line, the
@@ -322,20 +342,17 @@ def phase_k1(dev):
 def phase_main(dev):
     import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch.models import gaussian
-    from demcmc_tpu_torch.ops import fused_step, migration as mig
+    from demcmc_tpu_torch.ops import fused_step
     data = np.random.default_rng(0).standard_normal(50).astype(np.float32)
     model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN)
     n_iter = N_ITER
 
-    fused_step.de_step.launches = 0
-    mig.migrate.launches = 0
+    _reset_counts()
     chains = tdm.sample(model, de, n_iter, key=0)
     torch.cuda.synchronize()
-    launches = {"de_step": fused_step.de_step.launches,
-                "migrate": mig.migrate.launches}
+    launches = _counts()
     log("main", f"launches on the main path: {launches}")
-    if launches != {"de_step": n_iter, "migrate": n_iter}:
-        raise AssertionError(f"expected {n_iter} launches of each kernel")
+    _counts(de_step=n_iter, migrate=n_iter)
 
     truth = gaussian.posterior_grid(data)
     for name in ("mu", "sigma"):
@@ -821,17 +838,25 @@ def phase_k3(dev):
 
 
 def _reset_counts():
-    from demcmc_tpu_torch.ops import fused_step, migration, resample_step
+    """Every kernel's launch count to 0."""
+    from demcmc_tpu_torch.ops import fused_step, kde, migration, resample_step
     fused_step.de_step.launches = 0
     migration.migrate.launches = 0
     resample_step.resample_step.launches = 0
+    kde.kde_logpdf.launches = 0
 
 
-def _counts():
-    from demcmc_tpu_torch.ops import fused_step, migration, resample_step
-    return {"de_step": fused_step.de_step.launches,
-            "migrate": migration.migrate.launches,
-            "resample_step": resample_step.resample_step.launches}
+def _counts(**want):
+    """Every kernel's launch count; with ``want``, raise unless the counts
+    are ``want`` (kernels not named there: 0)."""
+    from demcmc_tpu_torch.ops import fused_step, kde, migration, resample_step
+    got = {"de_step": fused_step.de_step.launches,
+           "migrate": migration.migrate.launches,
+           "resample_step": resample_step.resample_step.launches,
+           "kde_logpdf": kde.kde_logpdf.launches}
+    if want and got != {k: want.get(k, 0) for k in got}:
+        raise AssertionError(f"launches {got}, expected {want}")
+    return got
 
 
 def _posterior_gate(tag, chains, data, n_draws, C_, tol=0.01):
@@ -872,7 +897,7 @@ def phase_main_65k(dev):
     launches = _counts()
     log("main-65k", f"launches: {launches}")
     if launches != {"de_step": n_iter, "migrate": n_iter,
-                    "resample_step": 0}:
+                    "resample_step": 0, "kde_logpdf": 0}:
         raise AssertionError(f"expected {n_iter} launches of K1 and K2")
     rhat, acc = _posterior_gate("main-65k", chains, data,
                                 (n_iter - 1000) // thin, G65 * N65)
@@ -907,7 +932,8 @@ def phase_main_mvn(dev):
     dt = time.perf_counter() - t0
     launches = _counts()
     log("main-mvn", f"launches: {launches}")
-    if launches != {"de_step": 0, "migrate": 0, "resample_step": MVN_ITER}:
+    if launches != {"de_step": 0, "migrate": 0, "resample_step": MVN_ITER,
+                    "kde_logpdf": 0}:
         raise AssertionError(f"expected {MVN_ITER} launches of K3")
     mu = chains.group("mu")                        # [Ns, 30, 3]
     if mu.shape != (MVN_ITER - MVN_BURNIN, 30, 3) or not np.isfinite(
@@ -954,7 +980,8 @@ def phase_main_wide(dev):
     dt = time.perf_counter() - t0
     launches = _counts()
     log("main-wide", f"launches: {launches}")
-    if launches != {"de_step": 0, "migrate": 0, "resample_step": n_iter}:
+    if launches != {"de_step": 0, "migrate": 0, "resample_step": n_iter,
+                    "kde_logpdf": 0}:
         raise AssertionError(f"expected {n_iter} launches of K3")
     _posterior_gate("main-wide", chains, data, n_iter - 1000, 512)
     log("main-wide", f"sample(): {dt / n_iter * 1e6:.2f} us/iteration")
@@ -983,7 +1010,7 @@ def phase_main_seq(dev):
     launches = _counts()
     log("main-seq", f"launches: {launches}")
     if launches != {"de_step": n_iter, "migrate": n_iter,
-                    "resample_step": 0}:
+                    "resample_step": 0, "kde_logpdf": 0}:
         raise AssertionError(f"expected {n_iter} launches of K1 and K2")
     _posterior_gate("main-seq", chains, data, (n_iter - 1000) // thin,
                     G65 * NSEQ)
@@ -1338,7 +1365,7 @@ def _zoo_sample(tag, name, key=0):
     launches = _counts()
     log(tag, f"launches: {launches}")
     if launches != {"de_step": n_iter, "migrate": n_iter,
-                    "resample_step": 0}:
+                    "resample_step": 0, "kde_logpdf": 0}:
         raise AssertionError(f"{tag}: expected {n_iter} launches of K1 "
                              f"and K2")
     d = chains.data.shape[1]
@@ -1536,6 +1563,295 @@ def phase_timing3(dev, launches, err):
             f"operations, bound {max(tb, to):.3g} ms")
     return rows
 
+# ------------------------------------------- fourth slice: the unfused step
+# and the KDE kernel K4
+
+KDE_OPS_PER_TERM = 7      # K4, per (chain, point, simulation): subtract,
+                          # divide, |u|, compare, square, subtract, add
+K4_NAME = "kde_kernel"    # K4 in the device trace
+
+
+def _kde_case(burnin):
+    """(model, de) of the abc_kde cell: the model's widths at G = 512
+    (port_cells.KDE_CELL), data and panel from port_cells.kde_inputs."""
+    from demcmc_tpu_torch.models import abc_kde
+    data, noise = pc.kde_inputs()
+    c = pc.KDE_CELL
+    return abc_kde.make(data=data, noise=noise, Np=c["Np"],
+                        n_groups=c["n_groups"], burnin=burnin)
+
+
+def _kde_args(C_, E, S, dev, seed):
+    """K4's inputs as the cell's density makes them: μ + σ·panel for
+    (μ, σ) near the posterior, Silverman's bandwidth per chain."""
+    from demcmc_tpu_torch.utils import kde as kde_utils
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal(E).astype(np.float32), device=dev)
+    mu = torch.tensor(rng.normal(0.14, 0.13, C_).astype(np.float32),
+                      device=dev)
+    sg = torch.tensor(rng.uniform(0.7, 1.3, C_).astype(np.float32),
+                      device=dev)
+    panel = torch.tensor(rng.standard_normal(S).astype(np.float32),
+                         device=dev)
+    sims = mu[:, None] + sg[:, None] * panel
+    return x, sims, kde_utils.silverman_bandwidth(sims)
+
+
+def phase_k4(dev):
+    """K4 against its plain version on the card, at the cell's shape
+    (3,072 chains × 50 points × 10,000 simulations) and at an unaligned
+    one (5 × 37 × 1,537): |K4 − plain| ≤ 2e-5·(1 + |plain|) (the plain
+    version takes the mean, then divides by h, and sums in torch's order).
+    Returns the largest |K4 − plain|."""
+    from demcmc_tpu_torch.ops import kde
+    C_ = pc.KDE_CELL["n_groups"] * pc.KDE_CELL["Np"]
+    worst = 0.0
+    for shape in ((C_, pc.KDE_N_OBS, pc.KDE_N_SIM), (5, 37, 1537)):
+        x, sims, h = _kde_args(*shape, dev, seed=shape[2])
+        out = kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR)
+        torch.cuda.synchronize()
+        ref = kde.kde_logpdf_plain(x, sims, h, pc.KDE_FLOOR)
+        diff = (out - ref).abs()
+        err, rel = float(diff.max()), float((diff / (1 + ref.abs())).max())
+        log("k4", f"(C, E, S) = {shape}: max |K4 - plain| {err:.3g}, max "
+            f"|K4 - plain| / (1 + |plain|) {rel:.3g}; output "
+            f"{float(out.min()):.4f} .. {float(out.max()):.4f}")
+        if not rel <= 2e-5 or not torch.isfinite(out).all():
+            raise AssertionError(f"K4 disagrees with its plain version at "
+                                 f"{shape}")
+        worst = max(worst, err)
+    return worst
+
+
+def _unfused_sample(tag, model, de, n_iter, want, key=0):
+    """``sample()`` of a cell through the unfused step (the first call,
+    kernels already built): the launch counts must be ``want`` (0 for a
+    kernel not named).
+    Returns the chains, the counts and the wall time."""
+    import demcmc_tpu_torch as tdm
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chains = tdm.sample(model, de, n_iter, key=key, allow_fused=False)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = _counts()
+    log(tag, f"launches: {launches}")
+    _counts(**want)
+    d = chains.data.shape[1]
+    if chains.data.shape != (n_iter - de.burnin, d, de.n_chains) or \
+            not np.isfinite(chains.data).all():
+        raise AssertionError(f"{tag}: bad draws {chains.data.shape}")
+    C_ = de.n_chains
+    log(tag, f"sample(): {n_iter} iterations in {dt:.4f} s = "
+        f"{dt / n_iter * 1e6:.2f} us/iteration, {C_ * n_iter / dt:.4g} "
+        f"chain-steps/s; acceptance {float(chains.acceptance.mean()):.4f}")
+    return chains, launches, dt
+
+
+def phase_main_kde(dev):
+    """``sample()`` on the 3,072-chain abc_kde cell through the unfused
+    step: K4 launched once per iteration and once for the initial
+    weights, K1, K2 and K3 never; (μ, σ) within KDE_TOL of the float64
+    grid quadrature of the fixed-panel posterior, max R̂ < 1.01."""
+    c = pc.KDE_CELL
+    model, de = _kde_case(c["burnin"])
+    n_iter = c["n_iter"]
+    chains, launches, dt = _unfused_sample(
+        "main-kde", model, de, n_iter,
+        {"kde_logpdf": n_iter + 1})
+    t0 = time.perf_counter()
+    oracle = pc.kde_oracle(*pc.kde_inputs())
+    log("main-kde", f"oracle (grid quadrature, "
+        f"{time.perf_counter() - t0:.1f} s): {oracle}")
+    ok, rows = pc.kde_gate(chains["mu"], chains["sigma"], oracle)
+    for name, (mean, sd) in rows.items():
+        log("main-kde", f"{name}: mean {mean:.5f} (oracle "
+            f"{oracle[name][0]:.5f}), sd {sd:.5f} (oracle "
+            f"{oracle[name][1]:.5f})")
+    if not ok:
+        raise AssertionError("main-kde: posterior off the oracle")
+    rhat = _rhat_gate("main-kde", chains)
+    C_ = de.n_chains
+    return launches, {"kde_rhat_max": rhat,
+                      "kde_us_per_iteration": dt / n_iter * 1e6,
+                      "kde_chain_steps_per_s": C_ * n_iter / dt,
+                      "kde_acceptance": float(chains.acceptance.mean())}
+
+
+def phase_main_unfused_gauss(dev):
+    """The 4,096-chain Gaussian of phase 5 with ``allow_fused=False``:
+    no kernel of the port launched, posterior within 0.01 of the
+    quadrature oracle, max R̂ < 1.01."""
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.GAUSS_UNFUSED_CELL
+    data = _gauss_data()
+    model, de = gaussian.make(data=data, Np=c["Np"], n_groups=c["n_groups"],
+                              burnin=c["burnin"])
+    n_iter = c["n_iter"]
+    chains, launches, dt = _unfused_sample(
+        "main-unfused-gauss", model, de, n_iter, {})
+    rhat, acc = _posterior_gate("main-unfused-gauss", chains, data,
+                                n_iter - c["burnin"], de.n_chains)
+    C_ = de.n_chains
+    return launches, {"unfused_gauss_rhat_max": rhat,
+                      "unfused_gauss_us_per_iteration": dt / n_iter * 1e6,
+                      "unfused_gauss_chain_steps_per_s": C_ * n_iter / dt,
+                      "unfused_gauss_acceptance": acc}
+
+
+def phase_main_lnr(dev):
+    """``sample()`` on the 3,072-chain LNR cell (per-cell density through
+    ``torch.func.vmap``): no kernel of the port launched; each posterior
+    mean and sd within 5% of the float64 importance-sampling oracle (ESS
+    ≥ 10,000), max R̂ < 1.01."""
+    from demcmc_tpu_torch.models import lnr
+    c = pc.LNR_CELL
+    model, de = lnr.make(Np=c["Np"], n_groups=c["n_groups"],
+                         burnin=c["burnin"])
+    n_iter = c["n_iter"]
+    chains, launches, dt = _unfused_sample(
+        "main-lnr", model, de, n_iter, {})
+    t0 = time.perf_counter()
+    oracle = pc.lnr_oracle(*model.data)
+    mean, sd, ess = oracle
+    log("main-lnr", f"oracle: ESS {ess:.0f} of 200,000 draws in "
+        f"{time.perf_counter() - t0:.1f} s")
+    if ess < pc.LNR_MIN_ESS:
+        raise AssertionError("main-lnr: the oracle's ESS is under "
+                             f"{pc.LNR_MIN_ESS}")
+    ok, (pm, ps, dm, ds) = pc.lnr_gate(chains.data, oracle)
+    for i, name in enumerate(chains.names):
+        log("main-lnr", f"{name}: mean {pm[i]:.5f} (oracle {mean[i]:.5f}, "
+            f"{100 * dm[i]:.2f}% off), sd {ps[i]:.5f} (oracle {sd[i]:.5f}, "
+            f"{100 * ds[i]:.2f}% off)")
+    if not ok:
+        raise AssertionError("main-lnr: posterior off the oracle")
+    rhat = _rhat_gate("main-lnr", chains)
+    C_ = de.n_chains
+    return launches, {"lnr_rhat_max": rhat,
+                      "lnr_us_per_iteration": dt / n_iter * 1e6,
+                      "lnr_chain_steps_per_s": C_ * n_iter / dt,
+                      "lnr_max_mean_dev": float(dm.max()),
+                      "lnr_max_sd_dev": float(ds.max())}
+
+
+def _trace_unfused(tag, model, de, n_iter, fname, k4):
+    """``sample(..., allow_fused=False)`` under ``torch.profiler``: kernel
+    launches per iteration (every kernel in the device trace from the
+    first to the last, over ``n_iter``), K4's count where ``k4`` (once per
+    iteration and once for the initial weights), the kernels that take
+    the most device time, and the device's busy time and idle share over
+    that span."""
+    import demcmc_tpu_torch as tdm
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        tdm.sample(model, de, n_iter, key=2, allow_fused=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    OUT.mkdir(exist_ok=True)
+    path = OUT / fname
+    prof.export_chrome_trace(str(path))
+    ev = [e for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X" and e.get("cat") in
+          ("kernel", "gpu_memcpy", "gpu_memset")]
+    path.unlink()       # hundreds of launches per iteration: too large to keep
+    kern = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)),
+             e["name"]) for e in ev if e["cat"] == "kernel"]
+    if not kern:
+        raise AssertionError(f"{tag}: no kernel in the device trace")
+    n_k4 = sum(K4_NAME in name for _, _, name in kern)
+    if n_k4 != (n_iter + 1 if k4 else 0):
+        raise AssertionError(f"{tag}: {n_k4} K4 launches in the trace")
+    lo = min(a for a, _, _ in kern)
+    hi = max(b for _, b, _ in kern)
+    spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in ev]
+    busy = _busy(spans, lo, hi)
+    out = {"traced_us_per_iteration": wall / n_iter * 1e6,
+           "launches_per_iteration": len(kern) / n_iter,
+           "loop_us_per_iteration": (hi - lo) / n_iter,
+           "loop_busy_us_per_iteration": busy / n_iter,
+           "loop_idle_share": 1.0 - busy / (hi - lo)}
+    by_name = {}
+    for a, b, name in kern:
+        by_name[name] = by_name.get(name, 0.0) + (b - a) / n_iter
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    log(tag, "device us per iteration by kernel: " + "; ".join(
+        f"{v:.1f} {k[:70]}" for k, v in top))
+    log(tag, f"sample() traced: {out['traced_us_per_iteration']:.2f} "
+        f"us/iteration on the host clock; {len(kern)} kernel launches, "
+        f"{out['launches_per_iteration']:.2f} per iteration ({n_k4} of "
+        f"K4); first to last kernel {out['loop_us_per_iteration']:.2f} "
+        f"us/iteration on the device clock, busy "
+        f"{out['loop_busy_us_per_iteration']:.3f}, idle share "
+        f"{out['loop_idle_share']:.4f}")
+    return out
+
+
+def phase_trace4(dev):
+    """The abc_kde cell and the unfused Gaussian (200 iterations each,
+    burn-in 100, so a run's trace stays a few MB) under
+    ``torch.profiler``."""
+    from demcmc_tpu_torch.models import gaussian
+    model, de = _kde_case(100)
+    out = {"kde_" + k: v for k, v in _trace_unfused(
+        "trace-kde", model, de, 200, "trace_kde.json", True).items()}
+    c = pc.GAUSS_UNFUSED_CELL
+    model, de = gaussian.make(data=_gauss_data(), Np=c["Np"],
+                              n_groups=c["n_groups"], burnin=100)
+    out.update({"unfused_gauss_" + k: v for k, v in _trace_unfused(
+        "trace-unfused-gauss", model, de, 200, "trace_unfused_gauss.json",
+        False).items()})
+    return out
+
+
+def phase_timing4(dev, launches, err):
+    """K4's device ms per launch at the cell's shape (spin-queued; plain,
+    kernel, kernel, plain), beside its bound and its launches in the
+    cell: bytes, the simulations, points and bandwidths read once and the
+    output written once; operations, KDE_OPS_PER_TERM per (chain, point,
+    simulation), every one of which this kernel evaluates."""
+    from demcmc_tpu_torch.ops import kde
+    C_ = pc.KDE_CELL["n_groups"] * pc.KDE_CELL["Np"]
+    E, S = pc.KDE_N_OBS, pc.KDE_N_SIM
+    x, sims, h = _kde_args(C_, E, S, dev, seed=S)
+
+    def k4():
+        kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR)
+
+    def k4_plain():
+        kde.kde_logpdf_plain(x, sims, h, pc.KDE_FLOOR)
+
+    t = {}
+    for name, fn, n in (("plain", k4_plain, 2), ("k4", k4, 20),
+                        ("k4", k4, 20), ("plain", k4_plain, 2)):
+        t.setdefault(name, []).append(device_ms(fn, n))
+    ms = {k: float(np.mean([x_ for x_, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing4", f"{k}: {ms[k]:.6f} ms per call on the device ("
+            + ", ".join(f"{x_:.6f}{'' if q else ' host-gapped'}"
+                        for x_, q, _ in v)
+            + "); host issues a call in "
+            + ", ".join(f"{h_:.6f}" for _, _, h_ in v) + " ms")
+    nbytes = 4 * (C_ * S + E + C_ + C_ * E)
+    nops = KDE_OPS_PER_TERM * C_ * E * S
+    tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+    log("timing4", f"kde_logpdf: {nbytes} bytes, {nops} operations, bound "
+        f"{max(tb, to):.4g} ms ({'bytes' if tb >= to else 'operations'}); "
+        f"K4 at {max(tb, to) / ms['k4']:.3f} of its bound")
+    return [{"name": f"kde_logpdf/abc_kde-{C_}", "route": "cuda",
+             "source": "demcmc_tpu_torch/csrc/kde.cu",
+             "replaces": "demcmc_tpu/ops/pallas_kde.py:35",
+             "launches": launches["kde_logpdf"], "max_abs_err": err,
+             "ms": ms["k4"], "plain_ms": ms["plain"],
+             "bound_ms": max(tb, to),
+             "bound_by": "bytes" if tb >= to else "operations",
+             "library_ms": None}]
+
 
 def gpu_line():
     out = subprocess.run(
@@ -1554,33 +1870,49 @@ def main():
     log("env", f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, {torch.cuda.get_device_name(0)}")
     t_start = time.perf_counter()
-    phase_build()
-    phase_philox(dev)
-    errs = {"k2": phase_k2(dev), "k1": phase_k1(dev)}
-    launches, metrics = phase_main(dev)
-    metrics.update(phase_trace(dev))
-    rows = phase_timing(dev, launches, errs)
-    errs["k1_variants"] = phase_k1_variants(dev)
-    errs["k3"] = phase_k3(dev)
+    took = {}
+
+    def run(phase, *args):
+        t0 = time.perf_counter()
+        out = phase(*args)
+        took[phase.__name__[len("phase_"):]] = round(
+            time.perf_counter() - t0, 1)
+        return out
+
+    run(phase_build)
+    run(phase_philox, dev)
+    errs = {"k2": run(phase_k2, dev), "k1": run(phase_k1, dev)}
+    launches, metrics = run(phase_main, dev)
+    metrics.update(run(phase_trace, dev))
+    rows = run(phase_timing, dev, launches, errs)
+    errs["k1_variants"] = run(phase_k1_variants, dev)
+    errs["k3"] = run(phase_k3, dev)
     paths = {}
-    paths["65k"], m = phase_main_65k(dev)
+    paths["65k"], m = run(phase_main_65k, dev)
     metrics.update(m)
-    paths["mvn"], m = phase_main_mvn(dev)
+    paths["mvn"], m = run(phase_main_mvn, dev)
     metrics.update(m)
-    paths["wide"] = phase_main_wide(dev)
-    paths["seq"] = phase_main_seq(dev)
-    metrics.update(phase_trace_slice2(dev))
-    rows += phase_timing_slice2(dev, paths, errs)
-    errs["k1_zoo"] = phase_k1_zoo(dev)
+    paths["wide"] = run(phase_main_wide, dev)
+    paths["seq"] = run(phase_main_seq, dev)
+    metrics.update(run(phase_trace_slice2, dev))
+    rows += run(phase_timing_slice2, dev, paths, errs)
+    errs["k1_zoo"] = run(phase_k1_zoo, dev)
     zoo = {}
     for name, phase in (("lba", phase_main_lba), ("abc", phase_main_abc),
                         ("discrete", phase_main_discrete)):
-        zoo[name], m = phase(dev)
+        zoo[name], m = run(phase, dev)
         metrics.update(m)
-    metrics.update(phase_trace3(dev))
-    rows += phase_timing3(dev, zoo, errs["k1_zoo"])
-    log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s;"
-        f" {json.dumps(metrics)}")
+    metrics.update(run(phase_trace3, dev))
+    rows += run(phase_timing3, dev, zoo, errs["k1_zoo"])
+    errs["k4"] = run(phase_k4, dev)
+    kde_launches, m = run(phase_main_kde, dev)
+    metrics.update(m)
+    for phase in (phase_main_unfused_gauss, phase_main_lnr):
+        metrics.update(run(phase, dev)[1])
+    metrics.update(run(phase_trace4, dev))
+    rows += run(phase_timing4, dev, kde_launches, errs["k4"])
+    log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s "
+        f"(seconds per phase: {json.dumps(took)}); {json.dumps(metrics)}")
     print(json.dumps({"kernels": rows}))
     print(gpu_line())
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,11 @@ tested against.  It carries ``sample(model, de, n_iter)`` with the
 synchronous or sequential DE sweep, the snooker proposal, migration and
 DE-MCz resampling from the history, through hand-written CUDA kernels
 (``csrc/de_step.cu``, ``csrc/de_step_resample.cu``, ``csrc/migration.cu``)
-with a plain PyTorch version beside each for CPU tensors.  Exports keep
-the JAX package's names.
+for models that name a CUDA density, and through the unfused step (the
+JAX XLA step's twin, plain torch around the model's own torch density)
+for every other model, whose density may launch a kernel of its own
+(``csrc/kde.cu``).  Each kernel has a plain PyTorch version beside it for
+CPU tensors.  Exports keep the JAX package's names.
 """
 
 from . import diagnostics, models, ops, utils
@@ -17,14 +20,15 @@ from .diagnostics import (ess, ess_bulk, ess_tail, rank_normalized_rhat,
                           split_rhat)
 from .model import CudaDensity, DEModel, ParamSpec
 from .ops.proposals import fixed_gamma, random_gamma, variable_gamma
-from .sampler import (SamplerState, build_step, init_state, make_spec,
-                      run_scan, sample, state_from_numpy)
+from .sampler import (SamplerState, UnfusedStep, build_step, init_state,
+                      make_spec, run_scan, sample, state_from_numpy)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DE", "DEModel", "MCMCThreads", "Chains", "ParamSpec", "CudaDensity",
-    "SamplerState", "sample", "init_state", "make_spec", "build_step",
+    "SamplerState", "UnfusedStep", "sample", "init_state", "make_spec",
+    "build_step",
     "run_scan", "state_from_numpy", "random_gamma", "fixed_gamma",
     "variable_gamma", "split_rhat", "rank_normalized_rhat", "ess",
     "ess_bulk", "ess_tail", "diagnostics", "models", "ops", "utils",

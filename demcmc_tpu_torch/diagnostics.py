@@ -101,14 +101,16 @@ def rankdata_average(a) -> np.ndarray:
     """Average (fractional) ranks, 1-based — ``scipy.stats.rankdata``'s
     ``method="average"`` algorithm."""
     a = np.asarray(a).reshape(-1)
-    sorter = np.argsort(a, kind="mergesort")
-    inv = np.empty(sorter.size, dtype=np.intp)
-    inv[sorter] = np.arange(sorter.size, dtype=np.intp)
+    # ties are averaged, so the order among them (an unstable sort's) does
+    # not matter; ranks are formed in sorted order and scattered once
+    sorter = np.argsort(a)
     arr = a[sorter]
     obs = np.r_[True, arr[1:] != arr[:-1]]
-    dense = obs.cumsum()[inv]
+    dense = obs.cumsum()
     count = np.r_[np.nonzero(obs)[0], len(obs)]
-    return 0.5 * (count[dense] + count[dense - 1] + 1)
+    out = np.empty(a.size)
+    out[sorter] = 0.5 * (count[dense] + count[dense - 1] + 1)
+    return out
 
 
 def _split(x: np.ndarray) -> np.ndarray:

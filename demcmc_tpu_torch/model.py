@@ -6,10 +6,11 @@ The whole population lives in one flat float32 tensor ``[C, d]``; a
 user's parameter list, with per-dimension bounds (out-of-bounds is a hard
 reject, weight ``-inf``) and integer leaves rounded on unflatten.
 
-A :class:`DEModel` carries chains-last batched densities written in torch
-(the plain path, and the CPU oracle of the kernels) and, optionally, the
-name of a CUDA density header under ``csrc/densities/`` with its scalar
-arguments, which the hand-written DE-step kernel is instantiated on.
+A :class:`DEModel` carries its densities written in torch, per cell or
+chains-last batched (the unfused step, the plain versions of the kernels
+and their CPU oracle) and, optionally, the name of a CUDA density header
+under ``csrc/densities/`` with its scalar arguments, which the
+hand-written DE-step kernels are instantiated on.
 """
 
 from __future__ import annotations
@@ -161,18 +162,43 @@ class CudaDensity:
         return t
 
 
+class DeviceArrays:
+    """A model's numpy arrays as tensors, copied once per device and kept
+    here while densities read them (a density reads ``on(x.device)``, so
+    the data goes to the card once, not at every evaluation)."""
+
+    def __init__(self, *arrays):
+        self.arrays = tuple(np.ascontiguousarray(a) for a in arrays)
+        self._on = {}
+
+    def on(self, device) -> tuple:
+        key = str(torch.device(device))
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = tuple(torch.tensor(a, device=device)
+                                      for a in self.arrays)
+        return t
+
+
 @dataclass
 class DEModel:
     """User model bundle (the reference's ``DEModel``).
 
-    ``loglike_batched(data, *params)`` and ``prior_loglike_batched(*params)``
-    are chains-last torch densities: a scalar parameter arrives as a
-    ``[*cs]`` tensor.  ``sample_prior(uniform, n)`` returns ``n`` prior
-    draws as a parameter list of ``[n, *shape]`` tensors, taking its
-    randomness only from ``uniform(k)`` — ``k`` fresh float32 uniform rows
-    ``[k, n]`` from the init Philox namespace.  ``cuda_density`` names the
-    kernel's density; without one the model runs the plain torch step
-    only on the CPU.
+    A density comes in one of two forms.  The per-cell form is the JAX
+    ``DEModel``'s (``demcmc_tpu/model.py:192-330``): ``loglike(data,
+    *params)`` and ``prior_loglike(*params)`` of one parameter vector,
+    written in torch with no ``.item()`` and no branch on a value, since
+    the step batches them over the chains with ``torch.func.vmap``.  The
+    batched form, ``loglike_batched(data, *params)`` and
+    ``prior_loglike_batched(*params)``, is chains-last: a scalar parameter
+    arrives as a ``[*cs]`` tensor.  Each density needs one of its two
+    forms; where both are given the batched one runs.
+    ``sample_prior(uniform, n)`` returns ``n`` prior draws as a parameter
+    list of ``[n, *shape]`` tensors, taking its randomness only from
+    ``uniform(k)`` — ``k`` fresh float32 uniform rows ``[k, n]`` from the
+    init Philox namespace.  ``cuda_density`` names the DE-step kernels'
+    density; a model without one runs the unfused step
+    (:func:`demcmc_tpu_torch.build_step`), on the card as on the CPU.
 
     A model with a ``noise_shape`` is stochastic (pseudo-marginal): it
     re-simulates on every evaluation, ``loglike_batched(data, *params,
@@ -188,11 +214,15 @@ class DEModel:
     data: Any = None
     cuda_density: Optional[CudaDensity] = None
     noise_shape: Optional[Tuple[int, ...]] = None
+    loglike: Callable = None
+    prior_loglike: Callable = None
 
     def __post_init__(self):
-        if self.loglike_batched is None or self.prior_loglike_batched is None:
-            raise ValueError("loglike_batched and prior_loglike_batched "
-                             "are required")
+        if self.loglike_batched is None and self.loglike is None:
+            raise ValueError("loglike or loglike_batched is required")
+        if self.prior_loglike_batched is None and self.prior_loglike is None:
+            raise ValueError("prior_loglike or prior_loglike_batched is "
+                             "required")
         if self.sample_prior is None:
             raise ValueError("sample_prior is required")
         self.names = tuple(self.names)
@@ -201,6 +231,9 @@ class DEModel:
             if not self.noise_shape or min(self.noise_shape) < 1:
                 raise ValueError("noise_shape needs at least one uniform "
                                  "per evaluation")
+            if self.loglike_batched is None:
+                raise ValueError("a stochastic model needs loglike_batched "
+                                 "(it takes the noise panel)")
 
     @property
     def stochastic(self) -> bool:
@@ -212,22 +245,46 @@ class DEModel:
         """Uniforms per chain and evaluation (0 unless stochastic)."""
         return int(np.prod(self.noise_shape)) if self.stochastic else 0
 
+    def log_prior_flat(self, spec: ParamSpec, x: torch.Tensor):
+        """Per-cell log prior of one flat ``[d]`` vector."""
+        return self.prior_loglike(*spec.unflatten(x))
+
+    def log_like_flat(self, spec: ParamSpec, x: torch.Tensor):
+        """Per-cell log likelihood of one flat ``[d]`` vector."""
+        return self.loglike(self.data, *spec.unflatten(x))
+
+    @staticmethod
+    def _vmapped(fn, spec: ParamSpec, x2: torch.Tensor):
+        """A per-cell density ``fn(spec, x [d])`` over ``[d, *cs]``
+        columns, through ``torch.func.vmap``; returns ``[*cs]``."""
+        cs = tuple(x2.shape[1:])
+        x = x2.reshape(x2.shape[0], -1).T
+        out = torch.func.vmap(lambda v: fn(spec, v))(x)
+        return out.reshape(cs)
+
     def log_posterior_cols(self, spec: ParamSpec, x2: torch.Tensor,
                            noise: torch.Tensor = None):
         """Batched log posterior of ``[d, *cs]`` columns: prior + loglike
-        in that order (``fused_step.py:1523-1541``); a stochastic model's
-        loglike gets the panel ``noise [n_noise, *cs]`` reshaped to
-        ``[*noise_shape, *cs]``."""
+        in that order (``fused_step.py:1523-1541``), each in its batched
+        form where the model gives one and else per cell; a stochastic
+        model's loglike gets the panel ``noise [n_noise, *cs]`` reshaped
+        to ``[*noise_shape, *cs]``."""
         cols = spec.unflatten_cols(x2)
+        if self.prior_loglike_batched is not None:
+            prior = self.prior_loglike_batched(*cols)
+        else:
+            prior = self._vmapped(self.log_prior_flat, spec, x2)
         if self.stochastic:
             if noise is None:
                 raise ValueError("a stochastic model's density needs its "
                                  "noise panel")
             noise = noise.reshape(self.noise_shape + tuple(x2.shape[1:]))
             ll = self.loglike_batched(self.data, *cols, noise=noise)
-        else:
+        elif self.loglike_batched is not None:
             ll = self.loglike_batched(self.data, *cols)
-        return self.prior_loglike_batched(*cols) + ll
+        else:
+            ll = self._vmapped(self.log_like_flat, spec, x2)
+        return prior + ll
 
     def init_population(self, spec: ParamSpec, key: int, n: int,
                         device=None) -> torch.Tensor:

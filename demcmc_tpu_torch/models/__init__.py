@@ -1,3 +1,5 @@
-from . import binomial, discrete_binomial, gaussian, lba, mvnormal
+from . import (abc_kde, binomial, discrete_binomial, gaussian, lba, lnr,
+               mvnormal)
 
-__all__ = ["binomial", "discrete_binomial", "gaussian", "lba", "mvnormal"]
+__all__ = ["abc_kde", "binomial", "discrete_binomial", "gaussian", "lba",
+           "lnr", "mvnormal"]

@@ -9,9 +9,10 @@ Beta(k + 1, N − k + 1) (Andrieu and Roberts 2009).
 
 The batched density is the JAX model's inverse-CDF form
 (``demcmc_tpu/models/binomial.py:50-86``): one uniform per simulation from
-the step's noise panel, the count Σ_j 1{u > CDF_j}.  The exact-likelihood
-variant has no batched density in the JAX package (it runs the unfused
-step only) and is not ported.
+the step's noise panel, the count Σ_j 1{u > CDF_j}.  The exact variant
+(``abc=False``, ``binomial.py:29``) has a per-cell likelihood and no CUDA
+density, so it runs the unfused step; the fixed-noise ABC variant is
+ROADMAP A6-rest.
 """
 
 from __future__ import annotations
@@ -99,20 +100,36 @@ def density(N: int, k: int, n_sim: int) -> CudaDensity:
                        data=np.asarray(comb_f32(N), np.float32))
 
 
+def loglike(data, theta):
+    """Exact per-cell log likelihood ``log Binomial(k; N, θ)``
+    (``jax.scipy.stats.binom.logpmf``): the log binomial coefficient,
+    folded in float64 and rounded once, then ``xlogy(k, θ) +
+    xlog1py(N − k, −θ)``."""
+    N, k = int(data["N"]), int(data["k"])
+    comb = dists.f32(math.lgamma(N + 1.0) - math.lgamma(k + 1.0)
+                     - math.lgamma(N - k + 1.0))
+    return comb + (torch.special.xlogy(float(k), theta)
+                   + torch.special.xlog1py(float(N - k), -theta))
+
+
 def make_model(N: int, k: int, abc: bool = False, fresh_noise: bool = False,
                n_sim: int = 10_000) -> DEModel:
-    """The pseudo-marginal ABC model (``abc=True, fresh_noise=True``):
-    a fresh panel of ``n_sim`` uniforms per evaluation."""
-    if not (abc and fresh_noise):
+    """The exact model (``abc=False``) or the pseudo-marginal ABC model
+    (``abc=True, fresh_noise=True``: a fresh panel of ``n_sim`` uniforms
+    per evaluation)."""
+    data = {"N": int(N), "k": int(k)}
+    if not abc:
+        return DEModel(loglike=loglike,
+                       prior_loglike_batched=prior_loglike_batched,
+                       sample_prior=sample_prior, names=NAMES, data=data)
+    if not fresh_noise:
         raise NotImplementedError(
-            "only the pseudo-marginal ABC binomial (abc=True, "
-            "fresh_noise=True) is ported: the exact and the fixed-noise "
-            "likelihoods run the JAX package's unfused step, which "
-            "demcmc_tpu_torch does not have yet (ROADMAP.md A6)")
+            "the fixed-noise ABC binomial (abc=True, fresh_noise=False) is "
+            "not ported: it needs the unfused step's per-cell random keys "
+            "(ROADMAP.md A6-rest)")
     return DEModel(loglike_batched=loglike_abc_batched,
                    prior_loglike_batched=prior_loglike_batched,
-                   sample_prior=sample_prior, names=NAMES,
-                   data={"N": int(N), "k": int(k)},
+                   sample_prior=sample_prior, names=NAMES, data=data,
                    cuda_density=density(int(N), int(k), int(n_sim)),
                    noise_shape=(int(n_sim),))
 

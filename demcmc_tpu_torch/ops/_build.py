@@ -22,7 +22,7 @@ from pathlib import Path
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("de_step", "de_step_resample", "migration")
+SOURCES = ("de_step", "de_step_resample", "migration", "kde")
 # no --use_fast_math: logf/expf/cosf stay full precision; -fmad=false keeps
 # each float operation rounded like the plain PyTorch versions
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -48,6 +48,9 @@ SIGNATURES = {
                          for d in KERNEL_DENSITIES["resample_step"]},
     "migration": {
         "migrate_f32": [_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P],
+    },
+    "kde": {
+        "kde_logpdf_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],
     },
 }
 
@@ -121,14 +124,14 @@ def library(name: str) -> ctypes.CDLL:
 
 def entry(kernel: str, density) -> str:
     """The C entry point of ``kernel`` (``de_step`` or ``resample_step``)
-    on a model's ``CudaDensity``; raises where none is built."""
+    on a model's ``CudaDensity``; raises where none is built (such a model
+    steps through the unfused step, ``sampler.build_step``)."""
     if density is None:
-        raise ValueError("the model names no CUDA density "
-                         "(DEModel.cuda_density); run it with device='cpu'")
+        raise ValueError(f"{kernel} needs a CUDA density and the model "
+                         f"names none (DEModel.cuda_density)")
     if density.name not in KERNEL_DENSITIES[kernel]:
         raise ValueError(f"{kernel} is built for the densities "
-                         f"{KERNEL_DENSITIES[kernel]}, not {density.name!r}; "
-                         f"run this configuration with device='cpu'")
+                         f"{KERNEL_DENSITIES[kernel]}, not {density.name!r}")
     return f"{kernel}_{density.name}"
 
 

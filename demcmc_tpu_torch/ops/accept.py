@@ -46,3 +46,33 @@ def mh_accept(w_prop, w, u, log_adj=None):
         delta = delta + log_adj
     log_u = torch.log(torch.clamp_min(u, rng.TINY))
     return log_u <= delta, log_u - delta
+
+
+# ------------------------------------------ the unfused step's pieces
+
+
+def make_fitness(model, spec):
+    """Batched fitness ``[G, Np, d] -> [G, Np]`` of the unfused step
+    (``demcmc_tpu/ops/accept.py:57``): :func:`compute_posterior` over the
+    population, the model's per-cell densities batched by ``vmap``
+    (``DE`` refuses the optimization modes' ``evaluate_fun``, ROADMAP
+    A5)."""
+
+    def fitness(x):
+        return compute_posterior(model, spec, x)
+    return fitness
+
+
+def mh_update(draws, w_cur, w_prop, log_adj):
+    """Metropolis–Hastings accept mask in log space (``demcmc_tpu/ops/
+    accept.py:91``): accept iff ``log max(u, tiny) <= (w′ − w) + log_adj``
+    with ``u`` the pool's next ``w``-shaped uniform; a NaN difference
+    rejects."""
+    u = torch.clamp_min(draws.uniform(tuple(w_cur.shape)), rng.TINY)
+    return torch.log(u) <= (w_prop - w_cur) + log_adj
+
+
+def apply_accept(theta, weight, prop, w_prop, acc):
+    """Masked population update: where accepted, take the proposal."""
+    return (torch.where(acc[..., None], prop, theta),
+            torch.where(acc, w_prop, weight))

@@ -277,14 +277,16 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
                 bterm = g2[..., None] * (base - th)
             else:
                 bterm = torch.zeros_like(th)
-            prop = proposal_ops.random_gamma(th, pm, pn, g1, bterm)
+            prop = proposal_ops.kernel_random_gamma(th, pm, pn, g1, bterm)
         else:
-            prop = getattr(proposal_ops, cfg.proposal)(th, pm, pn)
+            prop = getattr(proposal_ops, "kernel_" + cfg.proposal)(th, pm,
+                                                                   pn)
         if snooker:
             pz, pm2, pn2 = triple
             g_sn = uni(r.snooker + o) + _f32(1.2)
             sn_gate = uni(r.snooker + o + 1) <= _f32(cfg.theta_snooker)
-            p_sn, den0, degen = proposal_ops.snooker(th, pz, pm2, pn2, g_sn)
+            p_sn, den0, degen = proposal_ops.kernel_snooker(
+                th, pz, pm2, pn2, g_sn)
             prop = torch.where(sn_gate[..., None], p_sn, prop)
         if r.eps >= 0:
             u = torch.stack([uni(r.eps + o + i) for i in range(d)], -1)
@@ -295,15 +297,16 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
         log_adj = None
         if snooker:
             prop = torch.where((sn_gate & degen)[..., None], th, prop)
-            adj = proposal_ops.snooker_log_adj(prop, pz, den0, degen, d)
+            adj = proposal_ops.kernel_snooker_log_adj(prop, pz, den0,
+                                                      degen, d)
             log_adj = torch.where(sn_gate, adj, torch.zeros_like(adj))
         if gate is not None:
             u1 = torch.stack([uni(r.normal + o + i) for i in range(d)], -1)
             u2 = torch.stack([uni(r.normal + o + d + i) for i in range(d)],
                              -1)
             nrm = mutation_ops.box_muller(u1, u2)
-            prop = mutation_ops.mutate(th, prop, gate, nrm, cfg.beta,
-                                       cfg.sigma)
+            prop = mutation_ops.kernel_mutate(th, prop, gate, nrm,
+                                              cfg.beta, cfg.sigma)
             if log_adj is not None:
                 mut = (gate <= _f32(cfg.beta))[:, None]
                 log_adj = torch.where(mut, torch.zeros_like(log_adj),

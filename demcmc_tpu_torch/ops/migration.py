@@ -1,5 +1,6 @@
 """Migration between groups: the wrapper of CUDA kernel K2
-(``csrc/migration.cu``) and its plain PyTorch version.
+(``csrc/migration.cu``), its plain PyTorch version, and the unfused step's
+exchange (:func:`maybe_migrate`), which shares the exchange's arithmetic.
 
 Reference exchange ``src/migration.jl:11-91`` as the TPU kernel computes
 it (``demcmc_tpu/ops/fused_step.py::_mig_apply_sorted``): groups rank by
@@ -14,6 +15,7 @@ additive victim broadcast).  The exchange runs only when the device-side
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from .. import rng
@@ -22,26 +24,51 @@ from . import _build
 N_ROWS = 3        # rows 0-2 of an iteration's words: ranks, N, gumbels
 
 
+def _rank_and_perm(u):
+    """The groups ranked by their keys ``u [G]``, ties by group index:
+    ``(rank, perm)`` with ``perm[rank[g]] == g`` (``demcmc_tpu/ops/
+    migration.py:45``)."""
+    perm = torch.sort(u, stable=True).indices
+    rank = torch.empty_like(perm)
+    rank[perm] = torch.arange(perm.shape[0], device=u.device)
+    return rank, perm
+
+
+def _select_victims(theta, w, gum):
+    """Each group's victim ``argmax(gum − w)``, first index on ties
+    (``demcmc_tpu/ops/migration.py:73``), with its θ ``[G, d]`` and w
+    ``[G]`` as exact copies (after ``+ 0.0``); returns ``(θ, w, slot)``."""
+    gi = torch.arange(theta.shape[0], device=theta.device)
+    vid = torch.argmax(gum - w, dim=1)
+    return theta[gi, vid] + 0.0, w[gi, vid] + 0.0, vid
+
+
+def _exchange_values(theta, w, u_key, n_active, gum):
+    """The exchange reduced to its outputs (``demcmc_tpu/ops/migration.py:
+    _migrate_values``): the θ ``[G, d]`` and w ``[G]`` each group's victim
+    slot receives — rank r < N takes the victim of rank (r − 1) mod N,
+    every other group its own — and the victim slots ``[G]``."""
+    rank, perm = _rank_and_perm(u_key)
+    vt, vw, vid = _select_victims(theta, w, gum)
+    n = n_active      # kept a host int where it is one: no copy, no sync
+    src = perm[torch.where(rank < n, torch.remainder(rank - 1, n), rank)]
+    return vt[src], vw[src], vid
+
+
+def _apply(theta, w, routed_t, routed_w, vid):
+    gi = torch.arange(theta.shape[0], device=theta.device)
+    new_theta, new_w = theta.clone(), w.clone()
+    new_theta[gi, vid] = routed_t
+    new_w[gi, vid] = routed_w
+    return new_theta, new_w
+
+
 def exchange(theta, w, u_key, n_active, gum):
     """One exchange on group-shaped values: ``theta [G, Np, d]``,
     ``w [G, Np]``, ``u_key [G]`` rank keys, ``n_active`` (0-d int tensor
     or int) and ``gum [G, Np]``; returns new ``(theta, w)``."""
-    G, Np, d = theta.shape
-    dev = theta.device
-    gi = torch.arange(G, device=dev)
-    vid = torch.argmax(gum - w, dim=1)                 # first max on ties
-    vt = theta[gi, vid] + 0.0                          # [G, d]
-    vw = w[gi, vid] + 0.0                              # [G]
-    order = torch.sort(u_key, stable=True).indices     # ties by index
-    n = torch.as_tensor(n_active, device=dev)
-    src_pos = torch.where(gi < n, torch.remainder(gi - 1, n), gi)
-    src = torch.empty_like(order)
-    src[order] = order[src_pos]                        # dest -> source group
-    new_theta = theta.clone()
-    new_w = w.clone()
-    new_theta[gi, vid] = vt[src]
-    new_w[gi, vid] = vw[src]
-    return new_theta, new_w
+    return _apply(theta, w, *_exchange_values(theta, w, u_key, n_active,
+                                              gum))
 
 
 def draws(words, G: int, Np: int):
@@ -115,3 +142,36 @@ def check_cuda(theta, w, fire, G: int, Np: int, bits=None):
                              or not bits.is_contiguous()):
         raise ValueError("bits: need a contiguous uint32 [n_words, C] "
                          "tensor on the same device")
+
+
+# ------------------------------------------ the unfused step's migration
+
+
+def _migrate_values(draws, theta, weight, n_groups: int):
+    """The exchange's draws from the unfused step's pool in the JAX XLA
+    step's order (``demcmc_tpu/ops/migration.py:120``): N ~ U{2..G} from
+    the scalar side channel, the groups' rank keys ``[G]``, the Gumbels
+    ``[G, Np]``; returns what :func:`_exchange_values` returns."""
+    G, Np = theta.shape[:2]
+    n_active = draws.randint((), 2, n_groups + 1)
+    u = draws.uniform((G,))
+    return _exchange_values(theta, weight, u, n_active,
+                            draws.gumbel((G, Np)))
+
+
+def maybe_migrate(draws, theta, weight, alpha: float, n_groups: int):
+    """Migration with probability α per iteration (``demcmc_tpu/ops/
+    migration.py:177``, with its ``migrate`` :156; reference ``rand() <=
+    de.α``, ``main.jl:85``) on ``theta [G, Np, d]``, ``weight [G, Np]``;
+    returns new ``(theta, weight)``.  The gate is a scalar draw, known on
+    the host, so a closed gate skips the exchange, with its draws'
+    columns, and syncs nothing."""
+    if alpha <= 0.0 or n_groups < 2:
+        return theta, weight
+    G, Np = theta.shape[:2]
+    if draws.uniform(()) <= float(np.float32(alpha)):
+        return _apply(theta, weight, *_migrate_values(draws, theta, weight,
+                                                      n_groups))
+    for shape in ((), (G,), (G, Np)):
+        draws.skip(shape)
+    return theta, weight

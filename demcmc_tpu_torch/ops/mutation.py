@@ -2,7 +2,9 @@
 ``demcmc_tpu.ops.mutation``; reference ``src/mutation.jl:13-25``).
 
 The TPU kernel draws one gate per group from the group leader's word and
-the normals by Box–Muller (``fused_step.py:2386-2400``); so does this.
+the normals by Box–Muller (``fused_step.py:2386-2400``); so does
+:func:`kernel_mutate`, the plain versions' form.  :func:`mutate` is the
+unfused step's, with the normals from its pool.
 """
 
 from __future__ import annotations
@@ -23,8 +25,16 @@ def box_muller(u1, u2):
     return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2)
 
 
-def mutate(theta, prop, gate, nrm, beta: float, sigma: float):
+def kernel_mutate(theta, prop, gate, nrm, beta: float, sigma: float):
     """Where a group's gate ``<= beta`` its chains propose
     ``theta + sigma · nrm`` instead of ``prop``.  ``gate`` is ``[G]``."""
     mut = (gate <= float(np.float32(beta)))[:, None, None]
     return torch.where(mut, theta + float(np.float32(sigma)) * nrm, prop)
+
+
+def mutate(draws, theta, sigma: float):
+    """θ′ = θ + N(0, σ) per scalar over the population ``[G, Np, d]``,
+    the normals from the unfused step's pool (``demcmc_tpu/ops/
+    mutation.py:16``)."""
+    return theta + float(np.float32(sigma)) * draws.normal(
+        tuple(theta.shape))

@@ -1,22 +1,30 @@
-"""Batched DE proposal pieces in plain torch (port of the parts of
-``demcmc_tpu.ops.proposals`` the fused step needs: DE partners, the γ₂
-base select, the snooker proposal and its correction, and the DE-MCz
-history indices).
+"""Batched DE proposal pieces in plain torch (port of
+``demcmc_tpu.ops.proposals``).
 
 Tensors are group-shaped: ``[G, Np]`` per chain, ``[G, Np, d]`` for
-parameters.  Each function reproduces the TPU kernel's draw-to-value
-rules (``demcmc_tpu/ops/fused_step.py``), so the plain step can be fed the
-same random words as the JAX kernel and as the CUDA kernel.
+parameters.  Two families live here:
+
+* the kernels' forms (``partner_indices`` .. ``kernel_snooker_log_adj``,
+  ``resample_flat_indices``): values from word rows by the TPU kernel's
+  draw-to-value rules (``demcmc_tpu/ops/fused_step.py``), the plain
+  versions of K1 and K3 and so their oracle;
+* the unfused step's strategies (``ProposalContext`` .. ``snooker_log_adj``,
+  the JAX names): draws from an :class:`~demcmc_tpu_torch.rng.Pool` in
+  the JAX XLA step's call order, so the port's unfused step can be fed
+  the JAX pool's words.
 """
 
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Any
 
 import numpy as np
 import torch
 
 from .. import rng
+from ..utils.dists import f32
 
 GAMMA_FIXED = 2.38
 
@@ -68,18 +76,18 @@ def select_base(weight, u_b):
     return torch.clamp_max(cnt, Np - 1)
 
 
-def random_gamma(theta, pm, pn, g1, bterm):
+def kernel_random_gamma(theta, pm, pn, g1, bterm):
     """DE proposal with γ₁ ~ U(0.5, 1) and the burn-in base term
     (reference ``crossover.jl:158-168``)."""
     return theta + g1[..., None] * (pm - pn) + bterm
 
 
-def fixed_gamma(theta, pm, pn):
+def kernel_fixed_gamma(theta, pm, pn):
     """DE proposal with γ = 2.38."""
     return theta + gamma_scale("fixed_gamma", theta.shape[-1]) * (pm - pn)
 
 
-def variable_gamma(theta, pm, pn):
+def kernel_variable_gamma(theta, pm, pn):
     """DE proposal with γ = 2.38 / sqrt(2 d)."""
     return theta + gamma_scale("variable_gamma", theta.shape[-1]) * (pm - pn)
 
@@ -126,7 +134,7 @@ def project(p1, p2, den):
     return (dot(p1, p2) / den)[..., None] * p2
 
 
-def snooker(theta, pz, pm, pn, gamma):
+def kernel_snooker(theta, pz, pm, pn, gamma):
     """Snooker proposal along θ − z (``fused_step.py:2342-2351``; reference
     ``snooker_update!``, ``crossover.jl:239-257``): project ``pm`` and
     ``pn`` onto ``θ − z`` and step ``γ (r₁ − r₂)``.  A degenerate draw
@@ -143,7 +151,7 @@ def snooker(theta, pz, pm, pn, gamma):
     return theta + gamma[..., None] * (r1 - r2), den0, degen
 
 
-def snooker_log_adj(prop, pz, den0, degen, d: int):
+def kernel_snooker_log_adj(prop, pz, den0, degen, d: int):
     """Snooker MH correction on the final proposal (reference
     ``adjust_loglike``, ``crossover.jl:268-273``) in the kernel's form
     ``0.5 (d − 1) (log‖θ′ − z‖² − log‖θ − z‖²)`` (``fused_step.py:
@@ -193,3 +201,180 @@ def resample_flat_indices(words, count: int, C: int):
     w = words.to(torch.int64)
     return torch.stack(distinct_flat_draws(
         lambda k: w[k] % ((span - k) & _U32), w.shape[0]))
+
+
+# ------------------------------------------ the unfused step's strategies
+
+
+@dataclass
+class ProposalContext:
+    """What a proposal strategy of the unfused step reads (``demcmc_tpu/
+    ops/proposals.py:39``): the configuration, the group-shaped population
+    ``theta [G, Np, d]`` and ``weight [G, Np]``, the 1-based iteration
+    and the :class:`~demcmc_tpu_torch.rng.Pool` of the iteration."""
+
+    de: Any
+    theta: torch.Tensor
+    weight: torch.Tensor
+    iteration: int
+    draws: Any
+
+    @property
+    def dim(self) -> int:
+        return self.theta.shape[-1]
+
+    def partners(self, n: int, exclude_self: bool, replace: bool = False):
+        """``n`` partner populations ``[n, G, Np, d]`` from the current
+        group (the ``sample`` slot's ``sample_current``; DE-MCz resample
+        in the unfused step is ROADMAP A12-rest)."""
+        return sample_current(self, n, exclude_self, replace)
+
+
+def _distinct_indices(draws, G: int, Np: int, n: int, exclude_self: bool,
+                      replace: bool = False):
+    """``[n, G, Np]`` member indices from the group, distinct by the shift
+    trick unless ``replace``, skipping the target itself when
+    ``exclude_self`` (``demcmc_tpu/ops/proposals.py:121``)."""
+    m = Np - 1 if exclude_self else Np
+    shape = (G, Np)
+    if replace:
+        idx = torch.stack([draws.randint(shape, 0, m) for _ in range(n)])
+    else:
+        if m < n:
+            raise ValueError(f"need {n} distinct partners from {m} "
+                             f"candidates (Np={Np}, "
+                             f"exclude_self={exclude_self})")
+        idx = torch.stack(distinct_flat_draws(
+            lambda k: draws.randint(shape, 0, m - k), n))
+    if exclude_self:
+        self_idx = torch.arange(Np, device=idx.device)
+        idx = idx + (idx >= self_idx).to(idx.dtype)
+    return idx
+
+
+def _gather_partners(theta, idx):
+    """``theta [G, Np, d]``, ``idx [n, G, Np]`` -> ``[n, G, Np, d]``."""
+    n = idx.shape[0]
+    d = theta.shape[-1]
+    src = theta[None].expand((n,) + tuple(theta.shape))
+    return torch.gather(src, 2, idx[..., None].expand(-1, -1, -1, d))
+
+
+def sample_current(ctx: ProposalContext, n: int, exclude_self: bool,
+                   replace: bool = False):
+    """Partners from the current group (``demcmc_tpu/ops/proposals.py:
+    200``; reference ``sample``, ``crossover.jl:138-140``)."""
+    G, Np = ctx.theta.shape[:2]
+    return _gather_partners(ctx.theta, _distinct_indices(
+        ctx.draws, G, Np, n, exclude_self, replace))
+
+
+def select_base_idx(draws, weight, Np: int):
+    """Base member per chain ∝ softmax(weight) over its group by inverse
+    CDF (``demcmc_tpu/ops/proposals.py:300``): the count of CDF entries
+    below ``max(u, tiny) · total``, clamped to ``Np − 1``; ``-inf``
+    weights get no mass."""
+    G = weight.shape[0]
+    m = torch.amax(weight, dim=1, keepdim=True)
+    e = torch.exp(weight - torch.where(torch.isfinite(m), m,
+                                       torch.zeros_like(m)))
+    q = torch.cumsum(e, dim=1)
+    u = torch.clamp_min(draws.uniform((G, Np)), rng.TINY) * q[:, -1:]
+    idx = (q[:, None, :] < u[:, :, None]).sum(-1)
+    return torch.clamp_max(idx, Np - 1)
+
+
+def recombination(draws, theta, prop, kappa: float):
+    """With probability 1 − κ per scalar, keep the current value
+    (``demcmc_tpu/ops/proposals.py:331``); no draw at κ = 1."""
+    if kappa >= 1.0:
+        return prop
+    keep = draws.uniform(tuple(prop.shape)) > f32(1.0 - kappa)
+    return torch.where(keep, prop, theta)
+
+
+def _noise(draws, shape, eps: float):
+    """``U(−ε, ε)`` per scalar, or 0.0 (no draw) at ε = 0."""
+    if eps == 0.0:
+        return 0.0
+    return draws.uniform(tuple(shape), -eps, eps)
+
+
+def random_gamma(ctx: ProposalContext):
+    """θ′ = θ + γ₁(θm − θn) + γ₂(θb − θ) + b, γ₁, γ₂ ~ U(0.5, 1), γ₂ = 0
+    after burn-in (``demcmc_tpu/ops/proposals.py:353``; reference
+    ``crossover.jl:154-172``).  Past burn-in the base draw's columns are
+    skipped, not computed: the term is γ₂ = 0 times a finite difference."""
+    de, theta, draws = ctx.de, ctx.theta, ctx.draws
+    G, Np, d = theta.shape
+    burn = ctx.iteration <= de.burnin
+    if burn:
+        bidx = select_base_idx(draws, ctx.weight, Np)
+    else:
+        draws.skip((G, Np))
+    pm, pn = ctx.partners(2, exclude_self=True)
+    g1 = draws.uniform((G, Np, 1), 0.5, 1.0)
+    prop = theta + g1 * (pm - pn)
+    if burn:
+        g2 = draws.uniform((G, Np, 1), 0.5, 1.0)
+        base = _gather_partners(theta, bidx[None])[0]
+        prop = prop + g2 * (base - theta)
+    else:
+        draws.skip((G, Np, 1))
+    prop = prop + _noise(draws, theta.shape, de.epsilon)
+    return recombination(draws, theta, prop, de.kappa)
+
+
+def _plain_de(ctx: ProposalContext, gamma: float):
+    pm, pn = ctx.partners(2, exclude_self=True)
+    prop = ctx.theta + f32(gamma) * (pm - pn) + _noise(
+        ctx.draws, ctx.theta.shape, ctx.de.epsilon)
+    return recombination(ctx.draws, ctx.theta, prop, ctx.de.kappa)
+
+
+def fixed_gamma(ctx: ProposalContext):
+    """θ′ = θ + 2.38(θm − θn) + b (reference ``crossover.jl:186-199``)."""
+    return _plain_de(ctx, GAMMA_FIXED)
+
+
+def variable_gamma(ctx: ProposalContext):
+    """θ′ = θ + 2.38/√(2d)(θm − θn) + b (reference
+    ``crossover.jl:213-226``)."""
+    return _plain_de(ctx, GAMMA_FIXED / math.sqrt(2.0 * ctx.dim))
+
+
+def _project(p1, p2):
+    """((p1·p2) / (p2·p2)) p2 along the last axis (reference
+    ``project``, ``utilities.jl:239-246``), sums in index order."""
+    return (dot(p1, p2) / dot(p2, p2))[..., None] * p2
+
+
+def snooker(ctx: ProposalContext):
+    """Snooker proposal along θ − z (``demcmc_tpu/ops/proposals.py:429``;
+    reference ``snooker_update!``, ``crossover.jl:239-257``): (z, m, n)
+    distinct members including the target, m and n projected onto θ − z,
+    θ′ = θ + γ(r₁ − r₂) + b with γ ~ U(1.2, 2.2).  A draw with z = θ
+    (‖θ − z‖² ≤ tiny) is degenerate: its proposal is θ and the caller
+    rejects it.  Returns ``(proposal, z, degenerate)``."""
+    de, theta, draws = ctx.de, ctx.theta, ctx.draws
+    G, Np, d = theta.shape
+    pz, pm, pn = ctx.partners(3, exclude_self=False)
+    pd = theta - pz
+    degenerate = dot(pd, pd) <= rng.TINY
+    safe = torch.where(degenerate[..., None], torch.ones_like(pd), pd)
+    gamma = draws.uniform((G, Np, 1), 1.2, 2.2)
+    prop = (theta + gamma * (_project(pm, safe) - _project(pn, safe))
+            + _noise(draws, theta.shape, de.epsilon))
+    prop = recombination(draws, theta, prop, de.kappa)
+    prop = torch.where(degenerate[..., None], theta, prop)
+    return prop, pz, degenerate
+
+
+def snooker_log_adj(theta, prop, z, dim: int, degenerate):
+    """Snooker MH correction (``demcmc_tpu/ops/proposals.py:463``;
+    reference ``adjust_loglike``, ``crossover.jl:268-273``): (d − 1)
+    (log‖θ′ − z‖ − log‖θ − z‖), ``-inf`` for a degenerate draw."""
+    a1 = torch.sqrt(dot(prop - z, prop - z))
+    a2 = torch.sqrt(dot(theta - z, theta - z))
+    adj = float(dim - 1) * (torch.log(a1) - torch.log(a2))
+    return torch.where(degenerate, torch.full_like(adj, -math.inf), adj)

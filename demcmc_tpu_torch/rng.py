@@ -14,11 +14,16 @@ as counter offsets: ``STEP_NS`` holds the per-iteration draw rows,
 ``INIT_NS`` the initial population, ``GATE_NS`` the first iteration's
 migration gate, ``RESAMPLE_NS`` the DE-MCz history index words (row =
 partner slot of the iteration), ``INIT_NOISE_NS`` the noise panel that
-scores a stochastic model's initial population.
+scores a stochastic model's initial population, ``POOL_NS`` and
+``SCALAR_NS`` the unfused step's :class:`Pool` (row = pool column, chain
+= group) and its scalar side channel (chain 0).
 """
 
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
 
 STEP_NS = 0     # per-iteration draw rows (migration + sweep + fire)
@@ -26,11 +31,14 @@ INIT_NS = 1     # initial population draws (iteration slot = 0)
 GATE_NS = 2     # first migration gate of a run
 RESAMPLE_NS = 3  # DE-MCz history indices (row = partner slot)
 INIT_NOISE_NS = 4  # initial weights' noise panel (stochastic models)
+POOL_NS = 5     # the unfused step's pool: row = column, "chain" = group
+SCALAR_NS = 6   # the unfused step's scalar side channel (chain 0)
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # Philox multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key bumps
 _MASK = 0xFFFFFFFF
 TINY = 1.1754943508222875e-38              # float32 smallest normal
+TWO_PI = float(np.float32(2.0 * math.pi))
 
 
 def seed_key(seed: int) -> tuple:
@@ -106,3 +114,176 @@ def to_uni(bits: torch.Tensor) -> torch.Tensor:
 def randint(bits: torch.Tensor, span: int) -> torch.Tensor:
     """``bits % span`` as int64 (the TPU kernel's index draw)."""
     return bits.to(torch.int64) % int(span)
+
+
+# ------------------------------------------------- the unfused step's pool
+
+def _uniform24(w: torch.Tensor) -> torch.Tensor:
+    """uint32 words -> float32 uniforms ``(w >> 8) · 2⁻²⁴`` (the JAX
+    ``Pool``'s map, not the kernels' :func:`to_uni`)."""
+    return (w.to(torch.int64) >> 8).to(torch.float32) * 2.0 ** -24
+
+
+class Scalars:
+    """The :class:`Pool`'s scalar side channel (the JAX ``Pool.scalars``,
+    a ``KeyDraws``): scalar draws in call order, on the host.  From
+    ``words`` (uint32 ints: uniform ``(w >> 8) · 2⁻²⁴``, randint ``lo + w
+    mod (hi − lo)``) or, in tests, from fed ``values`` taken as they are.
+    The unfused step draws two per iteration: the migration gate and, when
+    it fires, the number of groups that take part."""
+
+    N_DRAWS = 2
+
+    def __init__(self, words=(), values=None):
+        self.words, self.values, self.i = list(words), values, 0
+
+    def _next(self):
+        i = self.i
+        self.i += 1
+        return i
+
+    def uniform(self, shape=(), lo=0.0, hi=1.0):
+        if tuple(shape) != ():
+            raise ValueError(f"the scalar side channel draws scalars, not "
+                             f"{shape}")
+        i = self._next()
+        if self.values is not None:
+            u = float(self.values[i])
+        else:
+            u = (int(self.words[i]) >> 8) * 2.0 ** -24
+        return u if (lo, hi) == (0.0, 1.0) else lo + (hi - lo) * u
+
+    def randint(self, shape, lo: int, hi: int):
+        if tuple(shape) != ():
+            raise ValueError(f"the scalar side channel draws scalars, not "
+                             f"{shape}")
+        i = self._next()
+        if self.values is not None:
+            return int(self.values[i])
+        return lo + int(self.words[i]) % (hi - lo)
+
+
+class Pool:
+    """Twin of ``demcmc_tpu.rng.Pool`` (``demcmc_tpu/rng.py:68-193``): one
+    ``[G, n_words]`` uint32 block of words per iteration, from which every
+    group-shaped draw takes the next columns in call order; scalar draws
+    go to the :class:`Scalars` side channel.
+
+    A draw of shape ``(G, ...)`` takes ``prod(shape[1:])`` columns, one of
+    shape ``(n, G, ...)`` takes ``n · prod(rest)`` (group-major, then moved
+    to the front).  Maps: uniform ``(w >> 8) · 2⁻²⁴`` (``lo + (hi − lo)
+    u`` with both constants rounded to float32 once), normal Box–Muller
+    from two uniforms with the first clamped to ``tiny``, gumbel
+    ``−log(−log(max(u, tiny)))``, randint ``lo + w mod (hi − lo)``.
+    ``bits`` comes from Philox namespace ``POOL_NS`` or, in tests, from the
+    JAX ``Pool``'s own ``jax.random.bits``."""
+
+    def __init__(self, bits: torch.Tensor, scalars: Scalars):
+        self.bits, self.scalars = bits, scalars
+        self.n_rows = int(bits.shape[0])
+        self.offset = 0
+
+    def _cols(self, shape):
+        """Columns a group-shaped draw takes, or None for a scalar one."""
+        shape = tuple(shape)
+        rest = 1
+        if shape and shape[0] == self.n_rows:
+            for s in shape[1:]:
+                rest *= int(s)
+            return rest
+        if len(shape) >= 2 and shape[1] == self.n_rows:
+            for s in shape[2:]:
+                rest *= int(s)
+            return int(shape[0]) * rest
+        return None
+
+    def _take(self, shape):
+        shape = tuple(shape)
+        k = self._cols(shape)
+        if k is None:
+            raise ValueError(f"pool draw shape {shape} has no group axis of "
+                             f"size {self.n_rows}")
+        if self.offset + k > self.bits.shape[1]:
+            raise ValueError("random pool exhausted; size it to the step")
+        w = self.bits[:, self.offset:self.offset + k]
+        self.offset += k
+        if shape[0] == self.n_rows:
+            return w.reshape(shape)
+        return w.reshape((self.n_rows, shape[0]) + shape[2:]).movedim(1, 0)
+
+    def skip(self, shape):
+        """Pass over what a draw of ``shape`` would take: the JAX pool
+        slices its columns, and numbers its scalar draws, when the step is
+        traced, so a draw inside a branch that does not run still uses
+        them up."""
+        cols = self._cols(shape)
+        if cols is None:
+            self.scalars.i += 1
+        else:
+            self.offset += cols
+
+    def uniform(self, shape=(), lo=0.0, hi=1.0):
+        if self._cols(shape) is None:
+            return self.scalars.uniform(shape, lo, hi)
+        u = _uniform24(self._take(shape))
+        if (lo, hi) == (0.0, 1.0):
+            return u
+        return float(np.float32(lo)) + float(np.float32(hi - lo)) * u
+
+    def gumbel(self, shape=()):
+        u = self.uniform(shape)
+        return -torch.log(-torch.log(torch.clamp_min(u, TINY)))
+
+    def normal(self, shape=()):
+        u1 = torch.clamp_min(self.uniform(shape), TINY)
+        u2 = self.uniform(shape)
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2)
+
+    def randint(self, shape, lo: int, hi: int):
+        if self._cols(shape) is None:
+            return self.scalars.randint(shape, lo, hi)
+        return self._take(shape).to(torch.int64) % (hi - lo) + lo
+
+
+
+class CountingDraws:
+    """Shape-faithful stand-in that sizes a :class:`Pool` (the JAX
+    ``CountingDraws``, ``demcmc_tpu/rng.py:195``): draws return zeros and
+    ``words`` counts the columns the real pool would take (a normal takes
+    two per element; scalar draws take none)."""
+
+    def __init__(self, n_rows: int, device=None):
+        self.n_rows, self.device, self.words = int(n_rows), device, 0
+        # the migration gate open (0.0), so its exchange's draws count too
+        self.scalars = Scalars(values=[0.0, 2])
+
+    _cols = Pool._cols
+
+    def _zeros(self, shape, k=1, dtype=torch.float32):
+        cols = self._cols(shape)
+        if cols is not None:
+            self.words += k * cols
+        return torch.zeros(tuple(shape), dtype=dtype, device=self.device)
+
+    def skip(self, shape):
+        if self._cols(shape) is None:
+            self.scalars.i += 1
+        else:
+            self._zeros(shape)
+
+    def uniform(self, shape=(), lo=0.0, hi=1.0):
+        if self._cols(shape) is None:
+            return self.scalars.uniform(shape, lo, hi)
+        return self._zeros(shape) + float(np.float32(lo))
+
+    def gumbel(self, shape=()):
+        return self._zeros(shape)
+
+    def normal(self, shape=()):
+        return self._zeros(shape, 2)
+
+    def randint(self, shape, lo: int, hi: int):
+        if self._cols(shape) is None:
+            return self.scalars.randint(shape, lo, hi)
+        return self._zeros(shape, dtype=torch.int64) + lo
+

@@ -1,16 +1,27 @@
-"""The sampling loop (port of ``demcmc_tpu.sampler`` for the main path).
+"""The sampling loop (port of ``demcmc_tpu.sampler``).
 
-Reference: ``src/main.jl:19-42`` (``sample``).  One iteration is two
-launches on the current stream: the migration kernel K2, gated on the
-device-side flag the previous iteration drew, then the DE-step kernel K1,
-which updates the population in place, writes the trajectory row and
-draws the next gate.  A DE-MCz (``sample='resample'``) configuration has
-no migration and runs the resample kernel K3 instead, which also writes
-the new state into the history.  The host loop never reads the device, so
-it runs ahead of the card; the trajectory comes back once, at the end.
+Reference: ``src/main.jl:19-42`` (``sample``).  :func:`build_step` picks
+one of two steps, statically from the model and the configuration, as the
+JAX package's ``build_step`` does (``demcmc_tpu/sampler.py:100-171``):
+
+* :class:`Step`, the kernels' step, for a model that names a CUDA density
+  built into K1, and for DE-MCz: one iteration is two launches on the
+  current stream, the migration kernel K2 (gated on the device-side flag
+  the previous iteration drew) and the DE-step kernel K1, which updates
+  the population in place, writes the trajectory row and draws the next
+  gate; a DE-MCz (``sample='resample'``) configuration runs the resample
+  kernel K3 alone, which also writes the new state into the history;
+* :class:`UnfusedStep` for every other model, or with
+  ``allow_fused=False``: the twin of the JAX XLA step
+  (``demcmc_tpu/sampler.py:954-1130``), plain torch operations around the
+  model's torch density, which may itself launch a kernel (the KDE kernel
+  K4 of ``models/abc_kde.py``).
+
+The host loop never reads the device, so it runs ahead of the card; the
+trajectory comes back once, at the end.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
-which runs the plain PyTorch versions of both kernels (the tests do); with
+which runs the plain PyTorch versions of the kernels (the tests do); with
 no GPU and no ``device=`` they raise.
 """
 
@@ -29,7 +40,10 @@ from .ops import _build
 from .ops import accept as accept_ops
 from .ops import fused_step as fused_ops
 from .ops import migration as migration_ops
+from .ops import mutation as mutation_ops
+from .ops import proposals as proposal_ops
 from .ops import resample_step as resample_ops
+from .utils import dists
 
 
 class SamplerState(NamedTuple):
@@ -270,9 +284,202 @@ class Step:
         return state._replace(iteration=it + 1)
 
 
-def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None) -> Step:
-    """The one-iteration step for this configuration on ``device``."""
-    return Step(model, de, spec, resolve_device(device))
+class UnfusedStep:
+    """One iteration of the unfused step, the twin of the JAX XLA step
+    (``demcmc_tpu/sampler.py:954-1130``: ``do_update`` :966,
+    ``sweep_update`` :1033, ``step_core`` :1055, the integer snap
+    :1013-1014) on the group-major state ``[C, d]`` (the JAX state ``[G,
+    Np, d]`` reshaped): migration with probability α, then the synchronous
+    or sequential sweep, each chain's proposal scored by the model's torch
+    density (:func:`.ops.accept.make_fitness`).
+
+    Its random numbers come as the JAX step's do, from one
+    :class:`~demcmc_tpu_torch.rng.Pool` per iteration: ``[G,
+    pool_words]`` words of Philox namespace ``POOL_NS`` (the pool's width
+    counted by a dry run with :class:`~demcmc_tpu_torch.rng.CountingDraws`
+    before the first iteration), and two scalars on the host (namespace
+    ``SCALAR_NS``), so the migration gate needs no sync.  Words are drawn
+    for many iterations at once.  Blocks, DE-MCz resample and a stochastic
+    model's fresh noise raise ``NotImplementedError`` here (the custom
+    slots, the optimization modes and float64 already do in ``DE``)."""
+
+    WORDS_PER_BLOCK = 1 << 21     # pool words drawn per block, at most
+
+    def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device):
+        for what, bad, item in (
+                ("DE-MCz resample (sample='resample')", de.uses_resample,
+                 "A12-rest 2"),
+                ("a stochastic model's fresh noise panel", model.stochastic,
+                 "A12-rest 6")):
+            if bad:
+                raise NotImplementedError(
+                    f"{what} in the unfused step is not ported yet "
+                    f"(ROADMAP.md {item}); use demcmc_tpu for it")
+        self.de = de
+        self.device = torch.device(device)
+        self.G, self.Np, self.d = de.n_groups, de.Np, spec.dim
+        self.fitness = accept_ops.make_fitness(model, spec)
+        self.int_mask = (torch.as_tensor(spec.int_mask, device=self.device)
+                         if spec.has_int else None)
+        self.proposal = getattr(proposal_ops, de.generate_proposal)
+        counter = rng.CountingDraws(self.G, self.device)
+        self.step_core(counter, torch.zeros((self.G, self.Np, self.d),
+                                            device=self.device),
+                       torch.zeros((self.G, self.Np), device=self.device),
+                       1, lambda x: torch.zeros(x.shape[:-1],
+                                                device=x.device))
+        self.pool_words = max(counter.words, 1)
+        self._blocks = {}             # namespace -> (key, it0, words)
+
+    # ---- the step body, draw for draw as the JAX XLA step
+
+    def do_update(self, draws, theta, weight, it: int, fitness,
+                  member: int = None, mut_mask=None):
+        """One mutate-or-crossover sweep over all groups (``sampler.py:
+        966``; reference ``mutate_or_crossover!``, ``main.jl:199-207``);
+        with ``member`` (sequential sweep) only group slot ``member``
+        accepts, and ``mut_mask`` is the per-group mutation gate drawn
+        once per sweep."""
+        de, d = self.de, self.d
+        G, Np = self.G, self.Np
+        ctx = proposal_ops.ProposalContext(de, theta, weight, it, draws)
+        cross = self.proposal(ctx)
+        log_adj = torch.zeros((G, Np), device=theta.device)
+        if de.theta_snooker > 0.0:
+            sn_gate = draws.uniform((G, Np)) <= dists.f32(de.theta_snooker)
+            sn_prop, z, degen = proposal_ops.snooker(ctx)
+            cross = torch.where(sn_gate[..., None], sn_prop, cross)
+            adj = proposal_ops.snooker_log_adj(theta, cross, z, d, degen)
+            log_adj = torch.where(sn_gate, adj, log_adj)
+        prop = cross
+        if de.beta > 0.0:
+            if mut_mask is None:
+                mut_mask = draws.uniform((G,)) <= dists.f32(de.beta)
+            mut_prop = mutation_ops.mutate(draws, theta, de.sigma)
+            prop = torch.where(mut_mask[:, None, None], mut_prop, cross)
+            log_adj = torch.where(mut_mask[:, None],
+                                  torch.zeros_like(log_adj), log_adj)
+        if self.int_mask is not None:
+            prop = torch.where(self.int_mask, torch.round(prop), prop)
+        w_prop = fitness(prop)
+        acc = accept_ops.mh_update(draws, weight, w_prop, log_adj)
+        if member is not None:
+            acc = acc & (torch.arange(Np, device=acc.device) == member)
+        theta, weight = accept_ops.apply_accept(theta, weight, prop, w_prop,
+                                                acc)
+        return theta, weight, acc
+
+    def sweep_update(self, draws, theta, weight, it: int, fitness):
+        """One sweep (``sampler.py:1033``): synchronous, or the sequential
+        one's Np member-masked sub-sweeps from the partly updated
+        population, the mutation gate drawn once for all of them."""
+        de = self.de
+        if not de.sequential_sweep:
+            return self.do_update(draws, theta, weight, it, fitness)
+        mut_mask = None
+        if de.beta > 0.0:
+            mut_mask = draws.uniform((self.G,)) <= dists.f32(de.beta)
+        acc_tot = None
+        for p0 in range(self.Np):
+            theta, weight, acc = self.do_update(draws, theta, weight, it,
+                                                fitness, member=p0,
+                                                mut_mask=mut_mask)
+            acc_tot = acc if acc_tot is None else acc_tot | acc
+        return theta, weight, acc_tot
+
+    def step_core(self, draws, theta, weight, it: int, fitness):
+        """Migration, then the sweep (``sampler.py:1055``); returns
+        ``(theta [G, Np, d], weight [G, Np], accept [G, Np])``."""
+        theta, weight = migration_ops.maybe_migrate(
+            draws, theta, weight, self.de.alpha, self.G)
+        return self.sweep_update(draws, theta, weight, it, fitness)
+
+    # ---- random numbers
+
+    def _block(self, ns: int, key: int, it: int, n_rows: int, n: int,
+               device):
+        blk_key, it0, block = self._blocks.get(ns, (None, 0, None))
+        if blk_key != key or not it0 <= it < it0 + len(block):
+            n_it = max(1, min(64, self.WORDS_PER_BLOCK // (n * n_rows)))
+            block = rng.words_block(key, it, n_it, n_rows, n, ns=ns,
+                                    device=device)
+            if ns == rng.SCALAR_NS:
+                block = block.to(torch.int64).tolist()
+            self._blocks[ns], it0 = (key, it, block), it
+        return block[it - it0]
+
+    def draws(self, key: int, it: int) -> rng.Pool:
+        """Iteration ``it``'s pool: its ``[G, pool_words]`` words and its
+        scalar side channel."""
+        bits = self._block(rng.POOL_NS, key, it, self.pool_words, self.G,
+                           self.device).T
+        scal = self._block(rng.SCALAR_NS, key, it, rng.Scalars.N_DRAWS, 1,
+                           torch.device("cpu"))
+        return rng.Pool(bits, rng.Scalars([w[0] for w in scal]))
+
+    # ---- run_scan's interface, as Step's
+
+    def check(self, state: SamplerState, out=None):
+        """Raise unless the state (and a trajectory slot) suit the step."""
+        C, d = self.G * self.Np, self.d
+        want = [("theta", state.theta, torch.float32, (C, d)),
+                ("weight", state.weight, torch.float32, (C,))]
+        if out is not None:
+            want += [("out[0]", out[0], torch.float32, (C, d)),
+                     ("out[1]", out[1], torch.float32, (C,)),
+                     ("out[2]", out[2], torch.bool, (C,))]
+        for name, t, dt, shape in want:
+            if (t.device != state.theta.device or t.dtype != dt
+                    or tuple(t.shape) != shape or not t.is_contiguous()
+                    or t.device.type != self.device.type):
+                raise ValueError(f"{name}: need a contiguous {dt} {shape} "
+                                 f"tensor on {self.device}, got {t.dtype} "
+                                 f"{tuple(t.shape)} on {t.device}")
+
+    def __call__(self, state: SamplerState, out=None,
+                 check: bool = True) -> SamplerState:
+        """Advance ``state`` one iteration in place (its tensors are
+        updated); ``out`` is an optional trajectory slot."""
+        if check:
+            self.check(state, out)
+        G, Np, d, it = self.G, self.Np, self.d, state.iteration
+        draws = self.draws(state.key, it)
+        theta, weight, acc = self.step_core(
+            draws, state.theta.view(G, Np, d), state.weight.view(G, Np),
+            it, self.fitness)
+        if draws.offset != self.pool_words:
+            raise RuntimeError(f"the step took {draws.offset} pool columns "
+                               f"of {self.pool_words}")
+        state.theta.copy_(theta.reshape(G * Np, d))
+        state.weight.copy_(weight.reshape(G * Np))
+        if out is not None:
+            out[0].copy_(state.theta)
+            out[1].copy_(state.weight)
+            out[2].copy_(acc.reshape(G * Np))
+        return state._replace(iteration=it + 1)
+
+
+def fused_supported(model: DEModel, de: DE) -> bool:
+    """Static predicate: does this configuration step through the kernels
+    (:class:`Step`)?  DE-MCz always does (K3; the unfused step has no
+    resample), the rest when the model names a CUDA density built into
+    K1."""
+    dens = model.cuda_density
+    return de.uses_resample or (
+        dens is not None and dens.name in _build.KERNEL_DENSITIES["de_step"])
+
+
+def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
+               allow_fused: bool = True):
+    """The one-iteration step for this configuration on ``device``: the
+    kernels' :class:`Step` where :func:`fused_supported`, else (or with
+    ``allow_fused=False``) the :class:`UnfusedStep`.  The choice depends on
+    the model and the configuration only; a kernel that fails to build or
+    launch raises."""
+    device = resolve_device(device)
+    if allow_fused and fused_supported(model, de):
+        return Step(model, de, spec, device)
+    return UnfusedStep(model, de, spec, device)
 
 
 def run_scan(step: Step, state: SamplerState, n_iter: int, thin: int = 1):
@@ -311,7 +518,7 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
            return_state: bool = False, state: SamplerState = None,
            device=None, mesh=None, checkpoint_every: int = 0,
            checkpoint_path: str = None, monitor: bool = False,
-           stop_rhat: float = None):
+           stop_rhat: float = None, allow_fused: bool = True):
     """Sample from the posterior (reference ``sample``,
     ``src/main.jl:19-42``): ``sample(model, de, n_iter)`` or
     ``sample(model, de, MCMCThreads(), n_iter)``.
@@ -319,7 +526,8 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
     ``key`` is the integer Philox seed, ``thin`` keeps every thin-th draw
     (``n_iter`` and, with ``discard_burnin``, ``burnin`` divisible by it),
     ``state`` resumes from a returned state (it is not modified),
-    ``return_state`` also returns the final state.  ``mesh``,
+    ``return_state`` also returns the final state, ``allow_fused=False``
+    takes the unfused step (:func:`build_step`).  ``mesh``,
     ``checkpoint_every``, ``monitor`` and ``stop_rhat`` belong to later
     slices of the port and raise ``NotImplementedError``.
     Returns a :class:`Chains`."""
@@ -349,7 +557,8 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
             for k in ("theta", "weight", "fire", "history")
             if getattr(state, k) is not None})
     state = _grow_history(state, n_iter)
-    step = build_step(model, de, spec, device=device)
+    step = build_step(model, de, spec, device=device,
+                      allow_fused=allow_fused)
     state, ys = run_scan(step, state, n_iter, thin=thin)
     chains = bundle_samples(model, de, spec, ys, n_iter, thin=thin)
     if return_state:

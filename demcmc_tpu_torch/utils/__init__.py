@@ -1,3 +1,3 @@
-from . import dists
+from . import dists, kde
 
-__all__ = ["dists"]
+__all__ = ["dists", "kde"]

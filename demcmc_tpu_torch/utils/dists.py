@@ -34,6 +34,7 @@ def div(x, c: float):
 
 
 LOG2 = f32(math.log(2.0))
+HALF_LOG_2PI = f32(0.5 * math.log(2.0 * math.pi))
 LOG_2PI = f32_log(2.0 * math.pi)
 LOG_PI = f32_log(math.pi)
 
@@ -90,9 +91,6 @@ def as_erfc_poly(t):
     return t * (a1 + t * (a2 + t * (a3 + t * (a4 + t * a5))))
 
 
-LGAMMA_HALF_LOG_2PI = f32(0.5 * math.log(2.0 * math.pi))
-
-
 def lgamma32(x):
     """float32 log-gamma, operation for operation the JAX kernel's
     ``_lgamma32`` (``demcmc_tpu/ops/fused_step.py:1261-1286``): shift x up
@@ -109,7 +107,7 @@ def lgamma32(x):
     zi2 = zi * zi
     series = zi * (f32(1.0 / 12.0) + zi2 * (f32(-1.0 / 360.0)
                                              + zi2 * f32(1.0 / 1260.0)))
-    lg = ((z - 0.5) * torch.log(z) - z + LGAMMA_HALF_LOG_2PI + series)
+    lg = ((z - 0.5) * torch.log(z) - z + HALF_LOG_2PI + series)
     return lg - torch.log(prod)
 
 
@@ -118,3 +116,42 @@ def sample_halfcauchy(u, scale=1.0):
     package's ``scale * tan(π (u' - 0.5))`` with ``u'`` on [0.5, 1)."""
     u = 0.5 + 0.5 * u
     return scale * torch.tan(math.pi * (u - 0.5))
+
+
+# log Φ's float32 segments and the asymptotic series' order
+# (jax/_src/scipy/special.py: _LOGNDTR_FLOAT32_LOWER/UPPER, series_order)
+LOGNDTR_LOWER, LOGNDTR_UPPER, LOGNDTR_ORDER = -10.0, 5.0, 3
+HALF_SQRT2 = float(np.float32(0.5) * np.sqrt(np.float32(2.0)))
+
+
+def ndtr(x):
+    """Φ(x) through erf and erfc, as ``jax.scipy.special.ndtr``."""
+    w = x * HALF_SQRT2
+    z = torch.abs(w)
+    y = torch.where(z < HALF_SQRT2, 1.0 + torch.special.erf(w),
+                    torch.where(w > 0.0, 2.0 - torch.special.erfc(z),
+                                torch.special.erfc(z)))
+    return 0.5 * y
+
+
+def log_ndtr(x):
+    """log Φ(x), ``jax.scipy.special.log_ndtr`` (which
+    ``jax.scipy.stats.norm.logcdf`` is) in its float32 form: −Φ(−x) above
+    5, log Φ(x) down to −10, below that the asymptotic series of order 3.
+    Plain elementwise torch, so ``vmap`` batches it (torch's
+    ``special.log_ndtr`` has no batching rule)."""
+    lo = torch.full_like(x, LOGNDTR_LOWER)
+    xl = torch.minimum(x, lo)
+    x2 = xl * xl
+    series = torch.ones_like(x)
+    x2n = x2
+    for n in range(1, LOGNDTR_ORDER + 1):
+        term = float(np.prod(np.arange(2 * n - 1, 1, -2))) / x2n
+        series = series - term if n % 2 else series + term
+        x2n = x2n * x2
+    lower = (-0.5 * x2 - torch.log(-xl) - HALF_LOG_2PI
+             + torch.log(series))
+    return torch.where(
+        x > LOGNDTR_UPPER, -ndtr(-x),
+        torch.where(x > LOGNDTR_LOWER,
+                    torch.log(ndtr(torch.maximum(x, lo))), lower))

@@ -1,6 +1,7 @@
-"""The LBA, ABC binomial and discrete binomial cells of the PyTorch/CUDA
-port: their sizes and run lengths, the float64 posterior oracles and the
-gates that ``chip_smoke.py`` holds the GPU's ``sample()`` to, and that
+"""The cells of the PyTorch/CUDA port's third and fourth slices (LBA, ABC
+binomial, discrete binomial; abc_kde, the unfused Gaussian, LNR): their
+sizes and run lengths, the float64 posterior oracles and the gates that
+``chip_smoke.py`` holds the GPU's ``sample()`` to, and that
 ``tools/port_oracles_cpu.py`` holds the JAX package and the port's plain
 path to on the CPU.
 
@@ -72,14 +73,44 @@ def lba_log_posterior64(x, choice, rt, min_rt):
     return out
 
 
-def lba_oracle(choice, rt, n_draws=200_000, seed=0):
-    """Posterior means and sds of (ν₀, ν₁, A, k, τ) by self-normalised
-    importance sampling: in the unconstrained coordinates (log ν, log A,
-    log k, logit τ/min_rt) the MAP (Nelder–Mead, then BFGS) and the
-    Laplace covariance (central differences), a multivariate-t(5)
-    proposal with that covariance × 1.3, ``n_draws`` draws.  Returns
-    (mean, sd, effective sample size)."""
+def _laplace_importance(logpost_y, y, n_draws, seed):
+    """Self-normalised importance sampling of a posterior in unconstrained
+    coordinates: the MAP from ``y`` (Nelder–Mead, then BFGS), the Laplace
+    covariance (central differences), a multivariate-t(5) proposal with
+    that covariance × 1.3, ``n_draws`` draws.  Returns the draws and their
+    normalised weights."""
     from scipy import optimize, stats
+    for method in ("Nelder-Mead", "BFGS"):
+        y = optimize.minimize(lambda v: -logpost_y(v)[0], y, method=method,
+                              options={"maxiter": 40_000}).x
+    k = len(y)
+    h, eye = 1e-4, np.eye(k)
+    H = np.empty((k, k))
+    for i in range(k):
+        for j in range(k):
+            a, b = eye[i] * h, eye[j] * h
+            H[i, j] = (logpost_y(y + a + b)[0] - logpost_y(y + a - b)[0]
+                       - logpost_y(y - a + b)[0]
+                       + logpost_y(y - a - b)[0]) / (4 * h * h)
+    prop = stats.multivariate_t(loc=y, shape=np.linalg.inv(-H) * 1.3, df=5,
+                                seed=np.random.default_rng(seed))
+    Y = prop.rvs(n_draws)
+    lw = logpost_y(Y) - prop.logpdf(Y)
+    w = np.exp(lw - lw.max())
+    return Y, w / w.sum()
+
+
+def _moments(X, w):
+    """(mean, sd, effective sample size) of weighted draws."""
+    mean = w @ X
+    return mean, np.sqrt(w @ (X - mean) ** 2), float(1.0 / np.sum(w * w))
+
+
+def lba_oracle(choice, rt, n_draws=200_000, seed=0):
+    """Posterior means and sds of (ν₀, ν₁, A, k, τ) by importance sampling
+    (:func:`_laplace_importance`) in the unconstrained coordinates (log ν,
+    log A, log k, logit τ/min_rt).  Returns (mean, sd, effective sample
+    size)."""
     from scipy.special import expit, logit
     choice = np.asarray(choice, np.int64)
     rt = np.asarray(rt, np.float64)
@@ -97,26 +128,8 @@ def lba_oracle(choice, rt, n_draws=200_000, seed=0):
 
     x0 = np.array([3.0, 2.0, 0.8, 0.2, 0.9 * min_rt])
     y = np.concatenate([np.log(x0[:4]), [logit(x0[4] / min_rt)]])
-    for method in ("Nelder-Mead", "BFGS"):
-        y = optimize.minimize(lambda v: -logpost_y(v)[0], y, method=method,
-                              options={"maxiter": 40_000}).x
-    h, eye = 1e-4, np.eye(5)
-    H = np.empty((5, 5))
-    for i in range(5):
-        for j in range(5):
-            a, b = eye[i] * h, eye[j] * h
-            H[i, j] = (logpost_y(y + a + b)[0] - logpost_y(y + a - b)[0]
-                       - logpost_y(y - a + b)[0]
-                       + logpost_y(y - a - b)[0]) / (4 * h * h)
-    prop = stats.multivariate_t(loc=y, shape=np.linalg.inv(-H) * 1.3, df=5,
-                                seed=np.random.default_rng(seed))
-    Y = prop.rvs(n_draws)
-    lw = logpost_y(Y) - prop.logpdf(Y)
-    w = np.exp(lw - lw.max())
-    w /= w.sum()
-    X = to_x(Y)
-    mean = w @ X
-    return mean, np.sqrt(w @ (X - mean) ** 2), float(1.0 / np.sum(w * w))
+    Y, w = _laplace_importance(logpost_y, y, n_draws, seed)
+    return _moments(to_x(Y), w)
 
 
 def lba_gate(draws, oracle):
@@ -166,3 +179,168 @@ def discrete_gate(N, p, oracle):
         ok = ok and dm < DISC_MEAN_SD and ds < DISC_SD_REL
         rows[name] = (mean, sd, dm, ds)
     return ok, rows
+
+
+# ---------------------------------------------------------------- slice 4
+# The unfused step's cells.  abc_kde: the model's own widths
+# (demcmc_tpu/models/abc_kde.py:22-24: 50 observations, 10,000
+# simulations per evaluation, Np = 6) at G = 512, 3,072 chains; data and
+# panel from numpy seeds 0 and 7.  The 4,096-chain Gaussian of the main
+# path, through the unfused step.  LNR: the model's Np = 24 and its
+# default data (``demcmc_tpu_torch/models/lnr.py::make``: 100 trials from
+# numpy seed 0, ν = (−2, −2, −3, −3), τ = 0.5) at G = 128, 3,072 chains.
+# Run lengths: fixed from the JAX package's XLA step on the CPU before the
+# GPU's run (tools/port_oracles_cpu.py, PERF.md).
+KDE_CELL = dict(n_groups=512, Np=6, burnin=1000, n_iter=3000)
+GAUSS_UNFUSED_CELL = dict(n_groups=256, Np=16, burnin=1000, n_iter=3000)
+LNR_CELL = dict(n_groups=128, Np=24, burnin=2000, n_iter=6000)
+KDE_N_OBS, KDE_N_SIM, KDE_FLOOR = 50, 10_000, 1e-10
+# abc_kde: posterior means and sds of (μ, σ) within KDE_TOL of the grid
+# quadrature, as the Gaussian cells; LNR: each posterior mean and sd within
+# LNR_RTOL relative of the importance-sampling oracle, the reference's
+# tolerance against NUTS (test/lognormal_race_tests.jl), with the oracle's
+# ESS at least LNR_MIN_ESS.
+KDE_TOL, LNR_RTOL, LNR_MIN_ESS = 0.01, 0.05, 10_000
+
+
+def kde_inputs(key=0, sim_key=7):
+    """The abc_kde cell's data ``[50]`` and panel ``[10,000]``, float32,
+    from numpy seeds (``models/abc_kde.py``'s defaults)."""
+    return (np.random.default_rng(key).standard_normal(KDE_N_OBS)
+            .astype(np.float32),
+            np.random.default_rng(sim_key).standard_normal(KDE_N_SIM)
+            .astype(np.float32))
+
+
+def _silverman64(s):
+    """Silverman's bandwidth of ascending ``s`` in float64: 0.9 · min(sd,
+    IQR / 1.34) · n^(−1/5)."""
+    std = s.std()
+    iqr = np.quantile(s, 0.75) - np.quantile(s, 0.25)
+    width = min(std, iqr / 1.34)
+    return 0.9 * (width if width > 0 else max(std, 1e-6)) * len(s) ** -0.2
+
+
+def kde_log_like64(mu, sigma, data, noise):
+    """The fixed-panel synthetic log likelihood in float64 at (μ, σ > 0)
+    of any shape: the simulations are μ + σ·noise, whose bandwidth is
+    σ·h₀ (h₀ the panel's), so the KDE at x is f₀((x − μ)/σ)/σ with f₀ the
+    panel's own KDE, evaluated exactly from prefix sums of the sorted
+    panel over each kernel's window; Σ over the data of log(max(·,
+    1e-10))."""
+    s = np.sort(np.asarray(noise, np.float64))
+    n = len(s)
+    h0 = _silverman64(s)
+    p1 = np.concatenate([[0.0], np.cumsum(s)])
+    p2 = np.concatenate([[0.0], np.cumsum(s * s)])
+    mu, sigma = np.asarray(mu, np.float64), np.asarray(sigma, np.float64)
+    out = np.zeros(np.broadcast(mu, sigma).shape)
+    for x in np.asarray(data, np.float64):
+        y = (x - mu) / sigma
+        lo = np.searchsorted(s, y - h0, "left")
+        hi = np.searchsorted(s, y + h0, "right")
+        cnt, s1, s2 = hi - lo, p1[hi] - p1[lo], p2[hi] - p2[lo]
+        tot = cnt - (cnt * y * y - 2.0 * y * s1 + s2) / (h0 * h0)
+        dens = 0.75 * tot / (n * h0) / sigma
+        out += np.log(np.maximum(dens, KDE_FLOOR))
+    return out
+
+
+def kde_oracle(data, noise, n_grid=301):
+    """Posterior means and sds of (μ, σ) under the fixed-panel synthetic
+    likelihood, μ ~ Normal(0, 1), σ ~ half-Cauchy(0, 1), by quadrature on
+    an ``n_grid``² grid over x̄ ± 6 s/√n × [0.4 s, 2.5 s] (s the data's
+    sd), in float64.  Returns {"mu": (mean, sd), "sigma": (mean, sd)};
+    raises if the grid's edge holds mass."""
+    x = np.asarray(data, np.float64)
+    m, sd = x.mean(), x.std()
+    mu = np.linspace(m - 6 * sd / np.sqrt(len(x)),
+                     m + 6 * sd / np.sqrt(len(x)), n_grid)
+    sg = np.linspace(0.4 * sd, 2.5 * sd, n_grid)
+    MU, SG = np.meshgrid(mu, sg, indexing="ij")
+    logp = (-0.5 * MU ** 2 - np.log1p(SG ** 2)
+            + kde_log_like64(MU, SG, x, noise))
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    edge = max(w[0].max(), w[-1].max(), w[:, 0].max(), w[:, -1].max())
+    if edge > 1e-6 * w.max():
+        raise ValueError("the grid's edge holds posterior mass")
+    out = {}
+    for name, v in (("mu", MU), ("sigma", SG)):
+        mean = float((w * v).sum())
+        out[name] = (mean, float(np.sqrt((w * (v - mean) ** 2).sum())))
+    return out
+
+
+def kde_gate(mu, sigma, oracle):
+    """(ok, {name: (mean, sd)}) of draws of μ and σ: each mean and sd
+    within KDE_TOL of ``kde_oracle``'s."""
+    rows, ok = {}, True
+    for name, v in (("mu", mu), ("sigma", sigma)):
+        v = np.asarray(v, np.float64)
+        mean, sd = float(v.mean()), float(v.std(ddof=1))
+        tm, ts = oracle[name]
+        ok = ok and abs(mean - tm) < KDE_TOL and abs(sd - ts) < KDE_TOL
+        rows[name] = (mean, sd)
+    return ok, rows
+
+
+def lnr_log_posterior64(x, choice, rt, min_rt):
+    """float64 LNR log posterior of ``x [n, 5]`` (ν₀..ν₃, τ), written from
+    the model (σ = 1): Normal(0, 3) priors on ν, Uniform(0, min_rt) on τ;
+    each trial the winner's lognormal density at rt − τ and the others'
+    log survivors log Φ(−z)."""
+    from scipy.special import log_ndtr
+    x = np.atleast_2d(np.asarray(x, np.float64))
+    out = np.empty(len(x))
+    onehot = np.eye(4)[choice]                            # [T, 4]
+    c0 = 0.5 * np.log(2.0 * np.pi)
+    for s0 in range(0, len(x), 20_000):
+        xs = x[s0:s0 + 20_000]
+        nu, tau = xs[:, :4], xs[:, 4:5]
+        prior = ((-0.5 * (nu / 3.0) ** 2 - np.log(3.0) - c0).sum(1)
+                 - np.log(min_rt))
+        t = rt[None, :] - tau
+        ok = (t > 0).all(1) & (tau[:, 0] >= 0) & (tau[:, 0] <= min_rt)
+        lt = np.log(np.where(t > 0, t, 1.0))[:, :, None]
+        z = lt - nu[:, None, :]
+        ll = (onehot * (-lt - c0 - 0.5 * z * z)
+              + (1.0 - onehot) * log_ndtr(-z)).sum((1, 2))
+        out[s0:s0 + 20_000] = np.where(ok, prior + ll, -np.inf)
+    return out
+
+
+def lnr_oracle(choice, rt, n_draws=200_000, seed=0):
+    """Posterior means and sds of (ν₀..ν₃, τ) by importance sampling
+    (:func:`_laplace_importance`) in the coordinates (ν, logit τ/min_rt).
+    Returns (mean, sd, effective sample size)."""
+    from scipy.special import expit, logit
+    choice = np.asarray(choice, np.int64)
+    rt = np.asarray(rt, np.float64)
+    min_rt = float(np.float32(rt.min()))
+
+    def to_x(y):
+        y = np.atleast_2d(y)
+        return np.column_stack([y[:, :4], min_rt * expit(y[:, 4])])
+
+    def logpost_y(y):
+        y = np.atleast_2d(y)
+        jac = (np.log(min_rt) + np.log(expit(y[:, 4]))
+               + np.log(expit(-y[:, 4])))
+        return lnr_log_posterior64(to_x(y), choice, rt, min_rt) + jac
+
+    y = np.array([-2.0, -2.0, -3.0, -3.0, logit(0.8)])
+    Y, w = _laplace_importance(logpost_y, y, n_draws, seed)
+    return _moments(to_x(Y), w)
+
+
+def lnr_gate(draws, oracle):
+    """(ok, (mean, sd, |mean / oracle mean − 1|, |sd / oracle sd − 1|)) of
+    ``draws [n, 5, C]`` against ``lnr_oracle``'s result: each within
+    LNR_RTOL."""
+    mean, sd, _ = oracle
+    x = np.moveaxis(np.asarray(draws, np.float64), 1, -1).reshape(-1, 5)
+    m, s = x.mean(0), x.std(0, ddof=1)
+    dm, ds = np.abs(m / mean - 1.0), np.abs(s / sd - 1.0)
+    return (bool((dm < LNR_RTOL).all() and (ds < LNR_RTOL).all()),
+            (m, s, dm, ds))

@@ -37,6 +37,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert not bad
 
 
+@pytest.mark.parametrize("rel", ["sampler.py", "ops/kde.py", "utils/kde.py",
+                                 "models/abc_kde.py", "models/lnr.py",
+                                 "models/binomial.py"])
+def test_unfused_step_modules_import_neither_jax_nor_the_jax_package(rel):
+    """The unfused step's modules, one by one (the sweep above covers them
+    too): each exists and imports only torch, numpy and the port."""
+    roots = set(_imported_roots(PKG / rel))
+    assert "torch" in roots or rel.startswith("models/")
+    assert not roots & {"jax", "jaxlib", "demcmc_tpu"}
+
+
 @pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
     roots = set(_imported_roots(PKG.parent / name))
@@ -129,9 +140,54 @@ def test_new_settings_are_accepted():
 
 
 def test_model_without_cuda_density_is_cpu_only():
+    """A model without a CUDA density never reaches the DE-step kernels: it
+    samples through the unfused step (on the CPU here, on the card by
+    default), and the kernels' step refuses it on a CUDA device.  The name
+    is historical: before the unfused step such a model ran on the CPU
+    only; the kernels' step still refuses it."""
     model, de = tgauss.make(data=DATA)
     model.cuda_density = None
     spec = tdm.make_spec(model, de)
+    assert isinstance(tdm.build_step(model, de, spec, device="cpu"),
+                      tdm.UnfusedStep)
     assert tdm.sample(model, de.replace(burnin=2), 4, device="cpu")
     with pytest.raises(ValueError, match="CUDA density"):
         tdm.sampler.Step(model, de, spec, "cuda")
+
+
+def test_step_choice_is_static():
+    """``build_step`` picks from the model and the configuration alone: the
+    kernels' step for a model with a K1 density and for DE-MCz, the
+    unfused step otherwise or with ``allow_fused=False``."""
+    from demcmc_tpu_torch.models import mvnormal as tmvn
+    model, de = tgauss.make(data=DATA)
+    spec = tdm.make_spec(model, de)
+    assert type(tdm.build_step(model, de, spec, "cpu")) is tdm.sampler.Step
+    assert isinstance(tdm.build_step(model, de, spec, "cpu",
+                                     allow_fused=False), tdm.UnfusedStep)
+    m30, de30 = tmvn.make()
+    current = de30.replace(sample="current", n_initial=0)
+    assert isinstance(tdm.build_step(m30, current, tdm.make_spec(m30, de30),
+                                     "cpu"), tdm.UnfusedStep)
+    m3, de3 = tmvn.make(d=2, data=np.zeros((5, 2), np.float32), n_initial=4)
+    assert m3.cuda_density is None
+    assert type(tdm.build_step(m3, de3, tdm.make_spec(m3, de3),
+                               "cpu")) is tdm.sampler.Step
+
+
+@pytest.mark.parametrize("case,what", [("resample", "resample"),
+                                       ("stochastic", "noise")])
+def test_unfused_step_refuses_what_it_does_not_carry(case, what):
+    """DE-MCz resample and a stochastic model's fresh noise panel in the
+    unfused step raise, naming the ROADMAP item."""
+    if case == "resample":
+        from demcmc_tpu_torch.models import mvnormal as tmvn
+        model, de = tmvn.make(d=2, data=np.zeros((5, 2), np.float32),
+                              n_initial=4)
+    else:
+        from demcmc_tpu_torch.models import binomial as tbin
+        model, de = tbin.make(N=10, k=6, abc=True, fresh_noise=True,
+                              n_sim=50)
+    spec = tdm.make_spec(model, de)
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+        tdm.build_step(model, de, spec, "cpu", allow_fused=False)

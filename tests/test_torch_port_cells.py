@@ -1,9 +1,10 @@
-"""The oracles and gates of the port's LBA and discrete binomial cells
-(``port_cells.py``, which ``chip_smoke.py`` holds the GPU's ``sample()``
-to): the LBA oracle's float64 density against the JAX model's, its
-importance sampler on a small data set, the exact discrete oracle against
-the closed form of its p integral, and both gates on draws of known
-moments."""
+"""The oracles and gates of the port's cells (``port_cells.py``, which
+``chip_smoke.py`` holds the GPU's ``sample()`` to): the LBA and LNR
+oracles' float64 densities against the JAX models', the LBA importance
+sampler on a small data set, the exact discrete oracle against the closed
+form of its p integral, the abc_kde oracle's exact window sums against a
+direct float64 KDE and the port's float32 density, and the gates on draws
+of known moments."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,10 +12,15 @@ import pytest
 from scipy.special import betaln, gammaln
 
 import port_cells as pc
+import torch
 from demcmc_tpu.models import lba as jlba
+from demcmc_tpu.models import lnr as jlnr
+from demcmc_tpu_torch.models import abc_kde as tabc
 from demcmc_tpu_torch.models import lba as tlba
+from demcmc_tpu_torch.models import lnr as tlnr
 
 LBA_DATA = tlba.simulate(np.random.default_rng(0), 100, **tlba.TRUE)
+LNR_DATA = tlnr.simulate(np.random.default_rng(0), 100, **tlnr.TRUE)
 
 
 def _lba_points(rng, n):
@@ -111,3 +117,88 @@ def test_cells_keep_their_widths():
         assert cell["n_groups"] * cell["Np"] == C
         assert cell["n_iter"] - cell["burnin"] >= 2000
     assert pc.N_SIM == 10_000 and pc.RHAT_MAX == 1.01
+    for cell in (pc.KDE_CELL, pc.LNR_CELL):
+        assert cell["n_groups"] * cell["Np"] == 3072
+        assert cell["n_iter"] - cell["burnin"] >= 2000
+    assert pc.KDE_CELL["Np"] == 6 and pc.LNR_CELL["Np"] == 24
+    assert (pc.KDE_N_OBS, pc.KDE_N_SIM) == (50, 10_000)
+    assert pc.GAUSS_UNFUSED_CELL["n_groups"] * 16 == 4096
+
+
+def test_slice4_inputs_are_the_models_defaults():
+    """The cells' data come from the port's models' own numpy seeds."""
+    data, noise = pc.kde_inputs()
+    model, _ = tabc.make()
+    np.testing.assert_array_equal(model.data, data)
+    assert noise.shape == (10_000,) and data.shape == (50,)
+    choice, rt = tlnr.make()[0].data
+    assert choice.dtype == np.int64 and rt.dtype == np.float32
+    np.testing.assert_array_equal(choice, LNR_DATA[0])
+    np.testing.assert_array_equal(rt, LNR_DATA[1])
+
+
+def test_kde_oracle_likelihood_is_the_direct_kde():
+    """The window sums (prefix sums over the sorted panel) equal the
+    direct float64 kernel sum with bandwidth σ·h₀, and the port's float32
+    density (through the plain version of K4) within 2e-4 relative."""
+    data, noise = pc.kde_inputs()
+    data, noise = data[:20], noise[:3000]
+    mu = np.array([0.0, 0.2, -0.3, 0.14])
+    sg = np.array([1.0, 0.8, 1.3, 0.95])
+    got = pc.kde_log_like64(mu, sg, data, noise)
+    h0 = pc._silverman64(np.sort(noise.astype(np.float64)))
+    want = []
+    for m, s in zip(mu, sg):
+        u = (data[:, None] - m - s * noise[None, :].astype(np.float64)) / (
+            s * h0)
+        k = np.where(np.abs(u) <= 1, 0.75 * (1 - u * u), 0.0)
+        want.append(np.log(np.maximum(k.mean(1) / (s * h0), 1e-10)).sum())
+    np.testing.assert_allclose(got, want, rtol=1e-10)
+    model, _ = tabc.make(data=data, noise=noise)
+    port = model.loglike_batched(None, torch.tensor(mu, dtype=torch.float32),
+                                 torch.tensor(sg, dtype=torch.float32))
+    np.testing.assert_allclose(port.numpy(), got, rtol=2e-4)
+
+
+def test_kde_oracle_grid_holds_the_posterior():
+    """The cell's oracle: finite moments near the data's mean and sd, no
+    mass on the grid's edge (else it raises)."""
+    out = pc.kde_oracle(*pc.kde_inputs(), n_grid=101)
+    data = pc.kde_inputs()[0]
+    assert abs(out["mu"][0] - data.mean()) < 0.05
+    assert 0.05 < out["mu"][1] < 0.3 and 0.05 < out["sigma"][1] < 0.3
+
+
+def test_lnr_oracle_density_matches_jax_model():
+    """float64 and scipy's log_ndtr here, float64 under the harness's x64
+    there: the LNR log posteriors agree within 1e-8 relative at 50 points,
+    and τ past min_rt gives −inf."""
+    choice, rt = LNR_DATA
+    min_rt = float(rt.min())
+    jm, jde = jlnr.make(data=(choice, rt))
+    rng = np.random.default_rng(4)
+    x = np.column_stack([rng.normal(-2.5, 0.5, (50, 4)),
+                         rng.uniform(0.3, 0.99, 50) * min_rt])
+    x[:2, 4] = min_rt + 0.01
+    ours = pc.lnr_log_posterior64(x, choice, rt.astype(np.float64), min_rt)
+    ref = np.array([float(jm.prior_loglike(v[:4], v[4])
+                          + jm.loglike(jm.data, v[:4], v[4])) for v in x])
+    assert np.isneginf(ours[:2]).all() and np.isneginf(ref[:2]).all()
+    np.testing.assert_allclose(ours[2:], ref[2:], rtol=1e-8)
+
+
+@pytest.mark.parametrize("shift,scale,ok", [(0.0, 1.0, True),
+                                            (0.06, 1.0, False),
+                                            (0.0, 1.06, False)])
+def test_lnr_gate_on_draws_of_known_moments(shift, scale, ok):
+    """Draws whose means are off by ``shift`` relative and sds ``scale``
+    times the oracle's pass the 5% gate only inside it."""
+    rng = np.random.default_rng(2)
+    mean, sd = np.array([-2.0, -1.8, -3.0, -2.9, 0.5]), np.array(
+        [0.19, 0.2, 0.13, 0.13, 0.001])
+    z = rng.standard_normal((4000, 5, 16))
+    z = (z - z.mean((0, 2), keepdims=True)) / z.std((0, 2), ddof=1,
+                                                    keepdims=True)
+    draws = (mean * (1 + shift))[None, :, None] + scale * sd[None, :,
+                                                              None] * z
+    assert pc.lnr_gate(draws, (mean, sd, 1e5))[0] == ok

@@ -153,10 +153,11 @@ def test_degenerate_snooker_draw_rejects_without_nan():
     assert torch.equal(theta, th0) and torch.equal(w, w0)
     # the pieces: a degenerate draw proposes θ exactly and corrects −inf
     th = th0.view(G, Np, 2)
-    prop, den0, degen = tprop.snooker(th, th, th.flip(1), th.roll(1, 1),
-                                      torch.full((G, Np), 1.7))
+    prop, den0, degen = tprop.kernel_snooker(th, th, th.flip(1),
+                                             th.roll(1, 1),
+                                             torch.full((G, Np), 1.7))
     assert degen.all() and torch.isfinite(prop).all()
-    adj = tprop.snooker_log_adj(th, th, den0, degen, 2)
+    adj = tprop.kernel_snooker_log_adj(th, th, den0, degen, 2)
     assert torch.isneginf(adj).all()
 
 
@@ -168,8 +169,8 @@ def test_snooker_pieces_match_the_reference_formulas():
     t, z, m, n = (rng.normal(size=(7, 5)).astype(np.float32)
                   for _ in range(4))
     g = rng.uniform(1.2, 2.2, 7).astype(np.float32)
-    prop, den0, degen = tprop.snooker(*(torch.tensor(x) for x in
-                                        (t, z, m, n)), torch.tensor(g))
+    prop, den0, degen = tprop.kernel_snooker(
+        *(torch.tensor(x) for x in (t, z, m, n)), torch.tensor(g))
     T, Z, M, N = (x.astype(np.float64) for x in (t, z, m, n))
     pd = T - Z
     dd = (pd * pd).sum(1, keepdims=True)
@@ -177,7 +178,7 @@ def test_snooker_pieces_match_the_reference_formulas():
                              - (N * pd).sum(1, keepdims=True) / dd * pd)
     np.testing.assert_allclose(prop.numpy(), want, rtol=1e-5, atol=1e-6)
     assert not degen.any()
-    adj = tprop.snooker_log_adj(prop, torch.tensor(z), den0, degen, 5)
+    adj = tprop.kernel_snooker_log_adj(prop, torch.tensor(z), den0, degen, 5)
     a1 = np.sqrt(((want - Z) ** 2).sum(1))
     a2 = np.sqrt(dd[:, 0])
     np.testing.assert_allclose(adj.numpy(), 4 * (np.log(a1) - np.log(a2)),

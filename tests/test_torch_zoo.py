@@ -239,8 +239,10 @@ def test_kernel_arguments_of_the_new_densities():
 
 
 def test_unported_binomial_variants_raise():
-    with pytest.raises(NotImplementedError, match="unfused step"):
-        tbin.make(N=10, k=6)
+    """The fixed-noise ABC binomial still raises; the exact variant is
+    ported since the unfused step (a per-cell density, no CUDA one)."""
+    exact, _ = tbin.make(N=10, k=6)
+    assert exact.cuda_density is None and exact.loglike is not None
     with pytest.raises(NotImplementedError, match="unfused step"):
         tbin.make(N=10, k=6, abc=True)
     with pytest.raises(NotImplementedError, match="float64"):

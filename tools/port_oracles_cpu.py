@@ -1,9 +1,10 @@
 """Hold the JAX package and the port's plain path to the posterior gates of
-the port's LBA and discrete binomial cells (``port_cells.py``) on the CPU,
-so that the GPU's run (``chip_smoke.py``) relies on gates and run lengths
-the reference meets.
+the port's cells (``port_cells.py``) on the CPU, so that the GPU's run
+(``chip_smoke.py``) relies on gates and run lengths the reference meets.
 
-    JAX_PLATFORMS=cpu python tools/port_oracles_cpu.py
+    JAX_PLATFORMS=cpu python tools/port_oracles_cpu.py [CELL ...]
+
+CELL is any of ``lba discrete kde gauss-unfused lnr`` (all by default).
 
 1. LBA (100 trials, numpy seed 0): ``port_cells.lba_oracle``, then
    ``demcmc_tpu.sample`` (the JAX package's XLA step) with 256 chains at
@@ -15,9 +16,19 @@ the reference meets.
    iterations and at the cell's length, each through
    ``port_cells.discrete_gate`` with its max R̂.
 
+3. abc_kde (fixed panel, numpy seeds 0 and 7): ``port_cells.kde_oracle``,
+   then the JAX XLA step on a JAX model with the same data and panel (the
+   JAX ``abc_kde.make``'s fixed-noise density) with 96 chains, at 2,000
+   iterations and at the cell's length, through ``port_cells.kde_gate``.
+4. gauss-unfused: the JAX XLA step on the 4,096-chain Gaussian at the
+   cell's length, against the quadrature oracle (0.01) with its max R̂.
+5. LNR (numpy seed 0): ``port_cells.lnr_oracle``, then the JAX XLA step
+   on the cell's 3,072 chains at 3,000 iterations and at the cell's
+   length, through ``port_cells.lnr_gate``.
+
 Prints one line per run; exits non-zero if a run at the cell's length
 fails its gate or R̂ ≥ ``port_cells.RHAT_MAX``.  About three minutes on
-four cores.
+four cores for the first two cells, twenty for the last three.
 """
 
 import pathlib
@@ -102,7 +113,97 @@ def check_discrete():
     return all_ok
 
 
+def _report(tag, what, n_iter, cell, secs, ok, rows, rhat):
+    good, word = _verdict(ok, float(np.max(rhat)), n_iter, cell["n_iter"])
+    print(f"[{tag}] {what}, {n_iter} iterations ({secs:.1f} s): {rows}; "
+          f"R-hat {np.round(rhat, 5)}; {word}")
+    return good
+
+
+def check_kde(n_groups=16):
+    import jax.numpy as jnp
+    from demcmc_tpu.model import DEModel
+    from demcmc_tpu.models import gaussian as jg
+    from demcmc_tpu.utils.kde import epanechnikov_logpdf
+    cell = pc.KDE_CELL
+    data, noise = pc.kde_inputs()
+    t0 = time.perf_counter()
+    oracle = pc.kde_oracle(data, noise)
+    print(f"[kde] oracle: {oracle} ({time.perf_counter() - t0:.1f} s)")
+    panel = jnp.asarray(noise)
+
+    def loglike(data, mu, sigma):         # demcmc_tpu/models/abc_kde.py:50
+        return jnp.sum(epanechnikov_logpdf(data, mu + sigma * panel))
+
+    jm = DEModel(loglike=loglike, prior_loglike=jg.prior_loglike,
+                 sample_prior=jg.sample_prior, names=jg.NAMES,
+                 data=jnp.asarray(data))
+    jde = jdm.DE(bounds=jg.BOUNDS, burnin=cell["burnin"], Np=cell["Np"],
+                 n_groups=n_groups)
+    all_ok = True
+    for n_iter in (2000, cell["n_iter"]):
+        t0 = time.perf_counter()
+        ch = jdm.sample(jm, jde, n_iter, key=0)
+        secs = time.perf_counter() - t0
+        ok, rows = pc.kde_gate(ch["mu"], ch["sigma"], oracle)
+        all_ok = _report("kde", f"demcmc_tpu.sample, {jde.n_chains} chains",
+                         n_iter, cell, secs, ok, rows,
+                         np.asarray(ch.rhat())) and all_ok
+    return all_ok
+
+
+def check_gauss_unfused():
+    from demcmc_tpu.models import gaussian as jg
+    cell = pc.GAUSS_UNFUSED_CELL
+    data = np.random.default_rng(0).standard_normal(50).astype(np.float32)
+    jm, jde = jg.make(data=data, Np=cell["Np"], n_groups=cell["n_groups"],
+                      burnin=cell["burnin"])
+    truth = jg.posterior_grid(data)
+    t0 = time.perf_counter()
+    ch = jdm.sample(jm, jde, cell["n_iter"], key=0)
+    secs = time.perf_counter() - t0
+    rows = {k: (float(ch.mean(k)), float(ch.std(k))) for k in ("mu", "sigma")}
+    ok = all(abs(rows[k][0] - truth[k]["mean"]) < 0.01
+             and abs(rows[k][1] - truth[k]["std"]) < 0.01 for k in rows)
+    return _report("gauss-unfused", f"demcmc_tpu.sample, {jde.n_chains} "
+                   f"chains (oracle {truth})", cell["n_iter"], cell, secs,
+                   ok, rows, np.asarray(ch.rhat()))
+
+
+def check_lnr():
+    import jax.numpy as jnp
+    from demcmc_tpu.models import lnr as jlnr
+    cell = pc.LNR_CELL
+    from demcmc_tpu_torch.models import lnr as tlnr
+    choice, rt = tlnr.make()[0].data
+    t0 = time.perf_counter()
+    oracle = pc.lnr_oracle(choice, rt)
+    print(f"[lnr] oracle: ESS {oracle[2]:.0f}, mean {np.round(oracle[0], 5)}"
+          f", sd {np.round(oracle[1], 5)} ({time.perf_counter() - t0:.1f} s)")
+    all_ok = oracle[2] >= pc.LNR_MIN_ESS
+    jm, jde = jlnr.make(data=(jnp.asarray(choice), jnp.asarray(rt)),
+                        Np=cell["Np"], n_groups=cell["n_groups"],
+                        burnin=cell["burnin"])
+    for n_iter in (3000, cell["n_iter"]):
+        t0 = time.perf_counter()
+        ch = jdm.sample(jm, jde, n_iter, key=0)
+        secs = time.perf_counter() - t0
+        ok, (m, s, dm, ds) = pc.lnr_gate(np.asarray(ch.data), oracle)
+        rows = (f"mean {np.round(m, 5)}, sd {np.round(s, 5)}; |mean / "
+                f"oracle - 1| {np.round(dm, 4)}, |sd / oracle sd - 1| "
+                f"{np.round(ds, 4)}")
+        all_ok = _report("lnr", f"demcmc_tpu.sample, {jde.n_chains} chains",
+                         n_iter, cell, secs, ok, rows,
+                         np.asarray(ch.rhat())) and all_ok
+    return all_ok
+
+
+CHECKS = {"lba": check_lba, "discrete": check_discrete, "kde": check_kde,
+          "gauss-unfused": check_gauss_unfused, "lnr": check_lnr}
+
 if __name__ == "__main__":
-    ok = check_lba()
-    ok = check_discrete() and ok
+    names = sys.argv[1:] or list(CHECKS)
+    ok = True
+    for name in names:
+        ok = CHECKS[name]() and ok
     sys.exit(0 if ok else 1)
