@@ -5,7 +5,12 @@ CUDA toolkit:
 
     python3 chip_smoke.py
 
-Phases; any failure raises and the script exits non-zero:
+Phases; any failure raises and the script exits non-zero.  Every
+``sample()`` of a model with a CUDA density runs as planned windows of
+at most K iterations per K1 (K3) launch, cut where a migration gate
+opens (K2 runs between two windows) and at the burn-in switch to the
+post variant.  Its launch checks are the counts of
+``plan_counts``, which this script derives from the gates alone.
 
 1. build   the CUDA kernels from ``demcmc_tpu_torch/csrc`` (one ``nvcc``
            per source, all started together);
@@ -16,85 +21,105 @@ Phases; any failure raises and the script exits non-zero:
 4. K1      the DE-step kernel against its plain version at 4,096 chains:
            8 bits-in iterations crossing burn-in 4 with the migration gate
            set at the start, then one iteration on Philox words;
-5. main    ``demcmc_tpu_torch.sample`` on the Gaussian (50 observations
+5. k1-super  K1 windows of K = super_k() iterations against K single
+           launches and the plain window version, bit for bit, with every
+           emission rule across burn-in and the post variant past it, on
+           the 4,096-chain Gaussian, snooker at G = 4,096, the sequential
+           sweep, LBA, the ABC noise panel and the discrete binomial;
+6. k3-super  K3 windows (one CTA) at the MVN flagship's shapes and at C =
+           512 against single launches and the plain window, history
+           included; then the one-CTA rule at its edge (the Gaussian with
+           snooker at 1,024 chains, the 30-dim MVN at 512): the chains one
+           CTA of the kernel holds, a window at that many, ``sample()``
+           at the full population against its loop;
+7. main    ``demcmc_tpu_torch.sample`` on the Gaussian (50 observations
            from numpy seed 0, G=256 groups of Np=16, burn-in 1,000, 3,000
-           iterations) on ``cuda``: both kernels launched 3,000 times,
-           posterior means and sds within 0.01 of the quadrature oracle,
-           max R̂ < 1.01; then acceptance, chain-steps/s and µs/iteration;
-6. trace   ``sample()`` as in phase 5 under ``torch.profiler``: both
-           kernels appear 3,000 times each in the device trace; the
-           device's busy time and idle share over the run;
-7. timing  each kernel's device time per launch at the main path's
+           iterations) on ``cuda``: launches as planned, posterior means
+           and sds within 0.01 of the quadrature oracle, max R̂ < 1.01;
+8. main-super  ``sample()`` through planned windows against the
+           one-launch-per-iteration loop, bit for bit, on the 4,096-chain
+           Gaussian (thin 1) and the 65,536-chain snooker Gaussian (thin
+           10): µs and launches per iteration of both, in turns;
+9. trace   phase 7's ``sample()`` and its loop twin under
+           ``torch.profiler``: every planned launch in the device trace;
+           the device's busy time and idle share over each run;
+10. timing  each kernel's device time per launch at the main path's
            shapes beside its plain version's and its bound;
-8. K1-sync, K1-sequential  K1 with snooker (θs = 0.5) against its plain
+11. K1-sync, K1-sequential  K1 with snooker (θs = 0.5) against its plain
            version at (G, Np, d) = (4096, 16, 2) synchronous and (4096, 4,
            2) sequential: 8 bits-in iterations crossing burn-in 4 with the
            gate set at the start, then one on Philox words; degenerate
            snooker draws (z = θ) must occur;
-9. K3      the DE-MCz kernel against its plain version at the MVN shapes
+12. K3     the DE-MCz kernel against its plain version at the MVN shapes
            (C = 3, d = 30, n_initial = 124, sequential) and at C = 512 (G =
            128, Np = 4, synchronous), θs = 0.5: 8 iterations with random
            history indices and words crossing burn-in, then one on Philox
            words and indices; the history row written must agree too;
-10. main-65k  path A, ``sample()`` on the 65,536-chain snooker Gaussian
+13. main-65k  path A, ``sample()`` on the 65,536-chain snooker Gaussian
            (G = 4,096, Np = 16, α = 0.1, θs = 0.1; burn-in 1,000, 3,000
-           iterations, thin 10): K1 and K2 launched 3,000 times each,
-           posterior within 0.01 of the oracle, max R̂ < 1.01;
-11. main-mvn  path B, ``sample()`` on the 30-dim MVN DE-MCz flagship
-           (burn-in 2,000, 50,000 iterations): K3 launched 50,000 times and
-           the reference's four assertions;
-12. main-wide  the C = 512 DE-MCz Gaussian through ``sample()``: K3
-           launched 3,000 times, posterior within 0.01, max R̂ < 1.01;
-13. main-seq  path A's configuration with Np = 4, so the sequential sweep
-           (16,384 chains): K1 and K2 launched 3,000 times each, posterior
-           within 0.01, max R̂ < 1.01;
-14. trace2  the 65,536-chain cell (1,500 iterations) and the MVN cell
-           (5,000 iterations) under ``torch.profiler``: every launch in the
-           device trace, the device's idle share over each loop;
-15. timing2  device ms per launch of K1 with snooker at 4,096 × 16 and
+           iterations, thin 10): launches as planned, posterior within
+           0.01 of the oracle, max R̂ < 1.01;
+14. main-mvn  path B, ``sample()`` on the 30-dim MVN DE-MCz flagship
+           (burn-in 2,000, 50,000 iterations) against its loop twin, bit
+           for bit: the reference's four assertions;
+15. main-wide  the C = 512 DE-MCz Gaussian through ``sample()`` and its
+           loop twin: posterior within 0.01, max R̂ < 1.01;
+16. main-seq  path A's configuration with Np = 4, so the sequential sweep
+           (16,384 chains), and its loop twin: posterior within 0.01, max
+           R̂ < 1.01;
+17. trace2  the 65,536-chain cell (1,500 iterations) and the MVN cell
+           (5,000 iterations, and its loop twin) under ``torch.profiler``:
+           every planned launch in the device trace, the idle share;
+18. timing2  device ms per launch of K1 with snooker at 4,096 × 16 and
            sequential at 4,096 × 4, K2 fired and unfired at G = 4,096, K3
            at the MVN shape and at C = 512, beside the plain versions and
            the bounds;
-16. K1-zoo  K1 against its plain version, bit for bit, on the LBA (256 ×
+19. K1-zoo  K1 against its plain version, bit for bit, on the LBA (256 ×
            16, 100 trials), pseudo-marginal ABC binomial (512 × 8, n_sim =
            10,000) and discrete binomial (256 × 12) densities: 8 bits-in
            iterations crossing burn-in 4 with the gate set at the start,
            then one on Philox words; every discrete N integral;
-17. main-lba  ``sample()`` on the 4,096-chain LBA cell (burn-in 1,000,
-           5,000 iterations; the cells, oracles and gates of phases 17-19
-           are in ``port_cells.py``): K1 and K2 launched once per
-           iteration, each posterior mean within 0.1 sd and sd within 10%
-           of a float64 importance-sampling oracle (ESS ≥ 10,000), max R̂
-           < 1.01;
-18. main-abc  the 4,096-chain ABC binomial cell (3,000 iterations): θ's
+20. main-lba  ``sample()`` on the 4,096-chain LBA cell (burn-in 1,000,
+           5,000 iterations; the cells, oracles and gates of phases 20-22
+           are in ``port_cells.py``) and its loop twin, bit for bit: each
+           posterior mean within 0.1 sd and sd within 10% of a float64
+           importance-sampling oracle (ESS ≥ 10,000), max R̂ < 1.01;
+21. main-abc  the 4,096-chain ABC binomial cell (3,000 iterations): θ's
            mean and sd within 0.01 of Beta(7, 5), max R̂ < 1.01;
-19. main-discrete  the 3,072-chain discrete binomial cell (11,000
+22. main-discrete  the 3,072-chain discrete binomial cell (11,000
            iterations): every stored N integral, means and sds of N and p
            against the exact oracle, max R̂ < 1.01;
-20. trace3  the three cells under ``torch.profiler``: every launch traced,
-           the device's idle share;
-21. timing3  device ms per launch of K1 on each new density beside its
+23. trace3  the three cells under ``torch.profiler``: every planned
+           launch traced, the device's idle share;
+24. timing3  device ms per launch of K1 on each new density beside its
            plain version and its bound;
-22. k4     the KDE kernel K4 against its plain version at the abc_kde
+25. k4     the KDE kernel K4 against its plain version at the abc_kde
            cell's shape (3,072 chains × 50 points × 10,000 simulations)
            and at (5, 37, 1,537): |K4 − plain| ≤ 2e-5·(1 + |plain|);
-23. main-kde  ``sample()`` on the 3,072-chain abc_kde cell through the
-           unfused step (the cells, oracles and gates of phases 23-25 are
+26. main-kde  ``sample()`` on the 3,072-chain abc_kde cell through the
+           unfused step (the cells, oracles and gates of phases 26-28 are
            in ``port_cells.py``): K4 launched once per iteration and once
            for the initial weights, K1, K2 and K3 never; (μ, σ) within
            0.01 of the float64 grid quadrature of the fixed-panel
            posterior, max R̂ < 1.01;
-24. main-unfused-gauss  the 4,096-chain Gaussian with
+27. main-unfused-gauss  the 4,096-chain Gaussian with
            ``allow_fused=False``: no kernel of the port launched,
            posterior within 0.01 of the quadrature oracle, max R̂ < 1.01;
-25. main-lnr  the 3,072-chain LNR cell (per-cell density through
+28. main-lnr  the 3,072-chain LNR cell (per-cell density through
            ``torch.func.vmap``): means and sds within 5% of a float64
            importance-sampling oracle, max R̂ < 1.01;
-26. trace4  the abc_kde cell and the unfused Gaussian under
+29. trace4  the abc_kde cell and the unfused Gaussian under
            ``torch.profiler``: kernel launches per iteration, K4's count,
            the device's idle share;
-27. timing4  K4's device ms per launch at the cell's shape beside its
-           plain version and its bound.
+30. timing4  K4's device ms per launch at the cell's shape beside its
+           plain version and its bound;
+31. k-sweep  ``sample()`` with at most K ∈ {4, 16, 64, 256} iterations
+           per launch on the 4,096-chain Gaussian (α = 0.1) and the MVN
+           flagship (α = 0): µs and launches per iteration;
+32. timing5  device ms per window launch of K1 (4,096 chains, past
+           burn-in and in it) and K3 (MVN, C = 512) at the chosen K,
+           beside the plain window version and the window's bound (K
+           iterations' operations; the state moved once, the stored rows).
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -141,6 +166,67 @@ def ints(x):
 def random_words(rng, n_rows, n, dev):
     w = rng.integers(0, 2 ** 32, (n_rows, n), dtype=np.uint64)
     return torch.from_numpy(w.astype(np.uint32)).to(dev)
+
+
+# ------------------------------------------- the launches a run must make
+
+
+def _gates(key, it0, n, cfg):
+    """The migration gates iterations it0 .. it0+n-1 write, from this
+    script's own Philox call on the fire row (chain 0)."""
+    from demcmc_tpu_torch import rng
+    if cfg.alpha <= 0.0:
+        return np.zeros(n, dtype=bool)
+    w = rng.words_block(key, it0, n, 1, 1, row0=cfg.rows.fire)[:, 0, 0]
+    return (rng.to_uni(w) <= np.float32(cfg.alpha)).numpy()
+
+
+def plan_counts(model, de, n_iter, key, it0=None, k_max=None):
+    """The launches ``sample(model, de, n_iter, key=key)`` must make,
+    counted here from the gates alone: a K1 (K3) launch per window of at
+    most ``k_max`` (the configured K) iterations, a new window at every
+    iteration whose migration gate is open and at the burn-in switch to
+    the post variant; a K2 launch per open gate (the first one from the
+    run's own GATE_NS word)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step, resample_step
+    spec = tdm.make_spec(model, de)
+    cfg = fused_step.StepConfig.make(model, de, spec)
+    it0 = de.n_initial + 1 if it0 is None else it0
+    if k_max is None:
+        k_max = (resample_step.resample_super_k(cfg, "cuda")
+                 if cfg.resample else fused_step.super_k())
+    u0 = float(rng.to_uni(rng.words(key, it0, 1, 1, ns=rng.GATE_NS))[0, 0])
+    fire0 = cfg.alpha > 0.0 and u0 <= np.float32(cfg.alpha)
+    gates = _gates(key, it0, n_iter, cfg)
+    switch = de.burnin - (it0 - 1) if (cfg.random_gamma
+                                        and de.burnin > 0) else None
+    windows = opened = length = 0
+    for i in range(n_iter):
+        opens = fire0 if i == 0 else bool(gates[i - 1])
+        if i == 0 or opens or length == k_max or i == switch:
+            windows += 1
+            length = 0
+        opened += int(opens)
+        length += 1
+    if cfg.resample:
+        return {"resample_step": windows}
+    return {"de_step": windows, "migrate": opened}
+
+
+def quiet_start(key, cfg, lo, hi, K):
+    """``(key, it)``: the first key from ``key`` on with an iteration ``it``
+    in [lo, hi] that opens a window of ``K`` with no gate open before its
+    last iteration (a window the sampler launches; at α = 0.1 one start in
+    ~800 opens a quiet window of 64)."""
+    n = hi - lo + 1
+    for k in range(key, key + 256):
+        c = np.concatenate([[0], np.cumsum(_gates(k, lo, n + K - 2, cfg))])
+        quiet = np.flatnonzero(c[K - 1:K - 1 + n] == c[:n])
+        if quiet.size:
+            return k, lo + int(quiet[0])
+    raise AssertionError(f"no quiet window of {K} in [{lo}, {hi}]")
 
 
 # ---------------------------------------------------------------- phases
@@ -351,8 +437,10 @@ def phase_main(dev):
     chains = tdm.sample(model, de, n_iter, key=0)
     torch.cuda.synchronize()
     launches = _counts()
-    log("main", f"launches on the main path: {launches}")
-    _counts(de_step=n_iter, migrate=n_iter)
+    want = plan_counts(model, de, n_iter, key=0)
+    log("main", f"launches on the main path: {launches} (the gates' plan: "
+        f"{want})")
+    _counts(**want)
 
     truth = gaussian.posterior_grid(data)
     for name in ("mu", "sigma"):
@@ -373,16 +461,6 @@ def phase_main(dev):
     if not rhat < 1.01:
         raise AssertionError("max R-hat >= 1.01")
 
-    # timed run after the warm-up above: the whole sample() call
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tdm.sample(model, de, n_iter, key=1)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    log("main", f"sample(): {n_iter} iterations in {dt:.4f} s = "
-        f"{dt / n_iter * 1e6:.2f} us/iteration, "
-        f"{C * n_iter / dt:.4g} chain-steps/s")
-
     # the plain PyTorch versions driven the same way on the card
     spec = tdm.make_spec(model, de)
     cfg = fused_step.StepConfig.make(model, de, spec)
@@ -399,9 +477,88 @@ def phase_main(dev):
     log("main", f"plain versions on the card: {dtp / n_plain * 1e6:.2f} "
         f"us/iteration")
     return launches, {"acceptance": acc, "rhat_max": rhat,
-                      "us_per_iteration": dt / n_iter * 1e6,
-                      "chain_steps_per_s": C * n_iter / dt,
                       "plain_us_per_iteration": dtp / n_plain * 1e6}
+
+
+def _loop_run(model, de, n_iter, key, thin=1):
+    """``sample()``'s work with one launch per iteration
+    (``sampler.run_loop``: K2 and K1 at every iteration, or K3): returns
+    the chains and the final state."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import sampler
+    spec = tdm.make_spec(model, de)
+    state = sampler._grow_history(tdm.init_state(model, de, spec, key),
+                                  n_iter)
+    step = tdm.build_step(model, de, spec)
+    state, ys = sampler.run_loop(step, state, n_iter, thin)
+    return sampler.bundle_samples(model, de, spec, ys, n_iter, thin), state
+
+
+def _same_run(tag, a, b):
+    """Raise unless two ``(chains, state)`` results are equal bit for
+    bit: draws, lp, acceptance and the final θ, w, gate and history."""
+    (ca, sa), (cb, sb) = a, b
+    for x, y, what in ((ca.data, cb.data, "draws"), (ca.lp, cb.lp, "lp"),
+                       (ca.acceptance, cb.acceptance, "acceptance")):
+        x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{tag}: {what} differ between the "
+                                 f"planned windows and the loop")
+    if sa.iteration != sb.iteration:
+        raise AssertionError(f"{tag}: final iterations differ")
+    for k in ("theta", "weight", "fire", "history"):
+        x, y = getattr(sa, k), getattr(sb, k)
+        if x is not None and not torch.equal(ints(x), ints(y)):
+            raise AssertionError(f"{tag}: final {k} differs between the "
+                                 f"planned windows and the loop")
+
+
+def _windows_vs_loop(tag, model, de, n_iter, key, thin=1,
+                    turns=("windows", "loop")):
+    """``sample()`` through planned windows against the same run with
+    one launch per iteration (:func:`_loop_run`), in this call: equal bit
+    for bit (:func:`_same_run`); the windows' launches the plan's
+    (:func:`plan_counts`), the loop's one of each kernel per iteration.
+    Each run is one synchronised call on the host clock, in the order
+    ``turns``.  Returns µs and launches per iteration of both."""
+    import demcmc_tpu_torch as tdm
+    want = {"windows": plan_counts(model, de, n_iter, key),
+            "loop": ({"resample_step": n_iter} if de.uses_resample else
+                     {"de_step": n_iter,
+                      "migrate": n_iter if de.alpha > 0.0 else 0})}
+    runs, secs = {}, {}
+    for which in turns:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if which == "windows":
+            out = tdm.sample(model, de, n_iter, key=key, thin=thin,
+                             return_state=True)
+        else:
+            out = _loop_run(model, de, n_iter, key, thin)
+        torch.cuda.synchronize()
+        secs.setdefault(which, []).append(time.perf_counter() - t0)
+        got = _counts()
+        if got != {k: want[which].get(k, 0) for k in got}:
+            raise AssertionError(f"{tag} {which}: launches {got}, expected "
+                                 f"{want[which]}")
+        runs[which] = out
+    _same_run(tag, runs["windows"], runs["loop"])
+    C_ = de.n_chains
+    m = {"launches": want["windows"]}
+    for which in ("windows", "loop"):
+        us = float(np.mean(secs[which])) / n_iter * 1e6
+        per = sum(want[which].values()) / n_iter
+        m[f"{which}_us_per_iteration"] = us
+        m[f"{which}_launches_per_iteration"] = per
+        log(tag, f"{which}: {n_iter} iterations in "
+            + ", ".join(f"{x:.4f}" for x in secs[which])
+            + f" s = {us:.2f} us/iteration, {C_ / us * 1e6:.4g} "
+            f"chain-steps/s; {per:.4f} launches/iteration "
+            f"({want[which]})")
+    log(tag, "the planned windows' draws, lp, acceptance and final state "
+        "equal the one-launch-per-iteration loop's bit for bit")
+    return m, runs["windows"][0]
 
 
 def plain_iteration(cfg, model, spec, st, it, seed=0):
@@ -423,21 +580,29 @@ def _busy(spans, lo=-float("inf"), hi=float("inf")):
     return busy
 
 
-def _trace_sample(tag, model, de, n_iter, names, first, last, fname,
-                  key=2, thin=1):
-    """``sample()`` under ``torch.profiler`` (CUPTI): the device trace must
-    hold each kernel of ``names`` (key -> substring of the kernel's name)
-    ``n_iter`` times.  Returns the device's busy time and idle share over
-    the iteration loop (first ``first`` start to last ``last`` end) and
-    over the whole call (first to last device event), and the time of the
+def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
+                  loop=False):
+    """``sample()`` (``loop``: its one-launch-per-iteration twin,
+    :func:`_loop_run`) under ``torch.profiler`` (CUPTI): the device trace
+    must hold each kernel of ``names`` (key -> substring of the kernel's
+    name) as often as the plan (:func:`plan_counts`) or the loop says.
+    Returns the device's busy time and idle share over the iteration loop
+    (first to last launch of these kernels) and over the whole call (first
+    to last device event), launches per iteration and the time of the
     trajectory's copy to the host."""
     import demcmc_tpu_torch as tdm
     from torch.profiler import ProfilerActivity, profile
+    want = ({k: n_iter if k != "migrate" or de.alpha > 0.0 else 0
+             for k in names} if loop
+            else plan_counts(model, de, n_iter, key))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        tdm.sample(model, de, n_iter, key=key, thin=thin)
+        if loop:
+            _loop_run(model, de, n_iter, key, thin)
+        else:
+            tdm.sample(model, de, n_iter, key=key, thin=thin)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     OUT.mkdir(exist_ok=True)
@@ -454,29 +619,31 @@ def _trace_sample(tag, model, de, n_iter, names, first, last, fname,
     ours = {k: spans(lambda e, n=n: e["cat"] == "kernel" and n in e["name"])
             for k, n in names.items()}
     counts = {k: len(v) for k, v in ours.items()}
-    log(tag, f"kernels in the device trace: {counts}")
-    if counts != {k: n_iter for k in names}:
-        raise AssertionError(f"expected {n_iter} traced launches of each "
-                             f"kernel")
+    log(tag, f"kernels in the device trace: {counts} "
+        f"({'the loop' if loop else 'the plan'}: {want})")
+    if counts != {k: want.get(k, 0) for k in names}:
+        raise AssertionError(f"{tag}: traced launches {counts}, expected "
+                             f"{want}")
     every = spans(lambda e: True)
-    lo = min(a for a, _ in ours[first])
-    hi = max(b for _, b in ours[last])
+    lo = min(a for v in ours.values() for a, _ in v)
+    hi = max(b for v in ours.values() for _, b in v)
     loop_busy = _busy(every, lo, hi)
     call = max(b for _, b in every) - min(a for a, _ in every)
     call_busy = _busy(every)
     copy = _busy(spans(lambda e: e["cat"] == "gpu_memcpy"), hi)
     mean = {k: float(np.mean([b - a for a, b in v])) for k, v in ours.items()}
     out = {"traced_us_per_iteration": wall / n_iter * 1e6,
-           "loop_us_per_iteration": (hi - lo) / n_iter,
-           "loop_busy_us_per_iteration": loop_busy / n_iter,
-           "loop_idle_share": 1.0 - loop_busy / (hi - lo),
+           "launches_per_iteration": sum(counts.values()) / n_iter,
+           "span_us_per_iteration": (hi - lo) / n_iter,
+           "span_busy_us_per_iteration": loop_busy / n_iter,
+           "span_idle_share": 1.0 - loop_busy / (hi - lo),
            "call_idle_share": 1.0 - call_busy / call,
            "trajectory_copy_ms": copy / 1e3}
     log(tag, f"sample() traced: {out['traced_us_per_iteration']:.2f} "
-        f"us/iteration on the host clock; iteration loop "
-        f"{out['loop_us_per_iteration']:.2f} us/iteration on the device "
-        f"clock, busy {out['loop_busy_us_per_iteration']:.3f}, idle share "
-        f"{out['loop_idle_share']:.4f}; whole call {call / 1e3:.3f} ms, idle "
+        f"us/iteration on the host clock; first to last launch "
+        f"{out['span_us_per_iteration']:.2f} us/iteration on the device "
+        f"clock, busy {out['span_busy_us_per_iteration']:.3f}, idle share "
+        f"{out['span_idle_share']:.4f}; whole call {call / 1e3:.3f} ms, idle "
         f"share {out['call_idle_share']:.4f}; trajectory copy to the host "
         f"{out['trajectory_copy_ms']:.3f} ms; mean traced kernel time "
         + ", ".join(f"{k} {v:.3f} us" for k, v in mean.items())
@@ -491,15 +658,20 @@ K1_NAME, K2_NAME, K3_NAME = "GroupPartners", "migrate_kernel", \
 
 
 def phase_trace(dev):
-    """``sample()`` as in phase 5 under ``torch.profiler``: both kernels
-    appear ``N_ITER`` times each in the device trace; the device's busy
-    time and idle share over the run."""
+    """``sample()`` as in phase 7 under ``torch.profiler``, and its
+    one-launch-per-iteration twin: every launch the plan (the loop) says in
+    the device trace; the device's busy time and idle share over each
+    run."""
     from demcmc_tpu_torch.models import gaussian
     data = np.random.default_rng(0).standard_normal(50).astype(np.float32)
     model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN)
-    return _trace_sample("trace", model, de, N_ITER,
-                         {"de_step": K1_NAME, "migrate": K2_NAME},
-                         "migrate", "de_step", "trace_main.json")
+    names = {"de_step": K1_NAME, "migrate": K2_NAME}
+    out = {"trace_" + k: v for k, v in _trace_sample(
+        "trace", model, de, N_ITER, names, "trace_main.json").items()}
+    out.update({"trace_loop_" + k: v for k, v in _trace_sample(
+        "trace-loop", model, de, N_ITER, names, "trace_main_loop.json",
+        loop=True).items()})
+    return out
 
 
 # ---------------------------------------------------------------- timing
@@ -523,13 +695,32 @@ def cycles_per_ms():
     return _cycles_per_ms[0]
 
 
+def gapped_ms(fn, n=1):
+    """Device time per call of ``fn`` over ``n`` calls enqueued right after a
+    synchronisation, host gaps included (for a plain version that waits
+    for the device inside, where no spin can queue its calls)."""
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3 / n
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n, False, enqueue_ms
+
+
 def device_ms(fn, n):
     """Device time per call of ``fn``: ``n`` calls queued behind a spin
     kernel, so they run back to back whatever the host's enqueue time,
     timed with CUDA events.  Returns ``(ms, queued, host_ms)``: ``queued``
     is False when the spin ended before the host had queued every call
     (then the time includes host gaps); ``host_ms`` is the host's time to
-    issue one call."""
+    enqueue one call.  A ``fn`` that waits for the device inside (a host
+    read, a copy from pageable memory) cannot be queued: it is timed by
+    :func:`gapped_ms`."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -537,6 +728,16 @@ def device_ms(fn, n):
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
     spin_ms = max(2.0 * n * host_ms, 5.0)
+    # one call behind a spin twice its host time: if the spin is over when
+    # it returns, the call waited for it
+    torch.cuda._sleep(int(max(2.0 * host_ms, 5.0) * cycles_per_ms()))
+    e = torch.cuda.Event()
+    e.record()
+    fn()
+    blocks = e.query()
+    torch.cuda.synchronize()
+    if blocks:
+        return gapped_ms(fn, n)
     for _ in range(3):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
@@ -652,9 +853,12 @@ def phase_timing(dev, launches, errs):
              "demcmc_tpu/ops/fused_step.py:2066", "k2_unfired", 4, 0,
              errs["k2"], "k2_plain")):
         tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+        # the sampler launches K2 only where a gate is open: an unfired K2
+        # is never launched on the main path
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": repl,
-                     "launches": launches[name.split("/")[0]],
+                     "launches": (0 if name.endswith("unfired") else
+                                  launches[name.split("/")[0]]),
                      "max_abs_err": err, "ms": ms[key],
                      "plain_ms": ms[plain],
                      "bound_ms": max(tb, to),
@@ -895,24 +1099,12 @@ def phase_main_65k(dev):
     chains = tdm.sample(model, de, n_iter, key=0, thin=thin)
     torch.cuda.synchronize()
     launches = _counts()
-    log("main-65k", f"launches: {launches}")
-    if launches != {"de_step": n_iter, "migrate": n_iter,
-                    "resample_step": 0, "kde_logpdf": 0}:
-        raise AssertionError(f"expected {n_iter} launches of K1 and K2")
+    want = plan_counts(model, de, n_iter, key=0)
+    log("main-65k", f"launches: {launches} (the gates' plan: {want})")
+    _counts(**want)
     rhat, acc = _posterior_gate("main-65k", chains, data,
                                 (n_iter - 1000) // thin, G65 * N65)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tdm.sample(model, de, n_iter, key=1, thin=thin)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    C_ = G65 * N65
-    log("main-65k", f"sample(): {n_iter} iterations in {dt:.4f} s = "
-        f"{dt / n_iter * 1e6:.2f} us/iteration, "
-        f"{C_ * n_iter / dt:.4g} chain-steps/s")
-    return launches, {"65k_rhat_max": rhat, "65k_acceptance": acc,
-                      "65k_us_per_iteration": dt / n_iter * 1e6,
-                      "65k_chain_steps_per_s": C_ * n_iter / dt}
+    return launches, {"65k_rhat_max": rhat, "65k_acceptance": acc}
 
 
 def phase_main_mvn(dev):
@@ -920,21 +1112,12 @@ def phase_main_mvn(dev):
     Np = 3, one group, θs = 0.1, resample, n_initial = 124, sequential
     sweep), burn-in 2,000, 50,000 iterations, with the reference's four
     assertions (multivariate_normal_tests.jl:65-69)."""
-    import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch.models import mvnormal
     model, de = mvnormal.make(d=30, n_obs=100, key=1, burnin=MVN_BURNIN)
     if not (de.sequential_sweep and de.uses_resample and de.n_initial == 124):
         raise AssertionError("not the flagship configuration")
-    _reset_counts()
-    t0 = time.perf_counter()
-    chains = tdm.sample(model, de, MVN_ITER, key=3)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = _counts()
-    log("main-mvn", f"launches: {launches}")
-    if launches != {"de_step": 0, "migrate": 0, "resample_step": MVN_ITER,
-                    "kde_logpdf": 0}:
-        raise AssertionError(f"expected {MVN_ITER} launches of K3")
+    m, chains = _windows_vs_loop("main-mvn", model, de, MVN_ITER, key=3)
+    launches = m.pop("launches")
     mu = chains.group("mu")                        # [Ns, 30, 3]
     if mu.shape != (MVN_ITER - MVN_BURNIN, 30, 3) or not np.isfinite(
             chains.data).all():
@@ -953,12 +1136,11 @@ def phase_main_mvn(dev):
         f"{checks}")
     if not all(checks.values()):
         raise AssertionError("the MVN flagship misses a reference assertion")
-    log("main-mvn", f"sample(): {MVN_ITER} iterations in {dt:.4f} s = "
-        f"{MVN_ITER / dt:.1f} iterations/s, {dt / MVN_ITER * 1e6:.2f} "
-        f"us/iteration (first call, kernels already built)")
-    return launches, {"mvn_iterations_per_s": MVN_ITER / dt,
-                      "mvn_max_sd_dev": float(np.abs(sds - 0.1).max()),
-                      "mvn_cor": float(r)}
+    m = {"mvn_" + k: v for k, v in m.items()}
+    m.update({"mvn_iterations_per_s": 1e6 / m["mvn_windows_us_per_iteration"],
+              "mvn_max_sd_dev": float(np.abs(sds - 0.1).max()),
+              "mvn_cor": float(r)})
+    return launches, m
 
 
 def phase_main_wide(dev):
@@ -966,26 +1148,16 @@ def phase_main_wide(dev):
     α = 0, θs = 0.1, resample, n_initial = 50, synchronous sweep) through
     ``sample()``: burn-in 1,000, 3,000 iterations, K3 3,000 times,
     posterior within 0.01 of the oracle, max R̂ < 1.01."""
-    import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch.models import gaussian
     data = _gauss_data()
     model, de = gaussian.make(data=data, n_groups=128, Np=4, alpha=0.0,
                               sample="resample", n_initial=50, burnin=1000,
                               theta_snooker=0.1, sweep="sync")
     n_iter = 3000
-    _reset_counts()
-    t0 = time.perf_counter()
-    chains = tdm.sample(model, de, n_iter, key=0)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = _counts()
-    log("main-wide", f"launches: {launches}")
-    if launches != {"de_step": 0, "migrate": 0, "resample_step": n_iter,
-                    "kde_logpdf": 0}:
-        raise AssertionError(f"expected {n_iter} launches of K3")
+    m, chains = _windows_vs_loop("main-wide", model, de, n_iter, key=0)
+    launches = m.pop("launches")
     _posterior_gate("main-wide", chains, data, n_iter - 1000, 512)
-    log("main-wide", f"sample(): {dt / n_iter * 1e6:.2f} us/iteration")
-    return launches
+    return launches, {"wide_" + k: v for k, v in m.items()}
 
 
 def phase_main_seq(dev):
@@ -994,7 +1166,6 @@ def phase_main_seq(dev):
     one (demcmc_tpu/config.py:86): ``sample()`` with burn-in 1,000, 3,000
     iterations, thin 10; K1 (sequential) and K2 launched 3,000 times each,
     posterior within 0.01 of the oracle, max R̂ < 1.01."""
-    import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch.models import gaussian
     data = _gauss_data()
     model, de = gaussian.make(data=data, Np=NSEQ, n_groups=G65, burnin=1000,
@@ -1002,21 +1173,12 @@ def phase_main_seq(dev):
     if not de.sequential_sweep:
         raise AssertionError("Np = 4 should sweep sequentially")
     n_iter, thin = 3000, 10
-    _reset_counts()
-    t0 = time.perf_counter()
-    chains = tdm.sample(model, de, n_iter, key=0, thin=thin)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
-    launches = _counts()
-    log("main-seq", f"launches: {launches}")
-    if launches != {"de_step": n_iter, "migrate": n_iter,
-                    "resample_step": 0, "kde_logpdf": 0}:
-        raise AssertionError(f"expected {n_iter} launches of K1 and K2")
+    m, chains = _windows_vs_loop("main-seq", model, de, n_iter, key=0,
+                                thin=thin)
+    launches = m.pop("launches")
     _posterior_gate("main-seq", chains, data, (n_iter - 1000) // thin,
                     G65 * NSEQ)
-    log("main-seq", f"sample(): {dt / n_iter * 1e6:.2f} us/iteration "
-        f"(first call)")
-    return launches
+    return launches, {"seq_" + k: v for k, v in m.items()}
 
 
 def phase_trace_slice2(dev):
@@ -1027,14 +1189,17 @@ def phase_trace_slice2(dev):
     from demcmc_tpu_torch.models import gaussian, mvnormal
     model, de = gaussian.make(data=_gauss_data(), Np=N65, n_groups=G65,
                               burnin=1000, alpha=0.1, theta_snooker=0.1)
-    out = {"65k_" + k: v for k, v in _trace_sample(
+    out = {"trace_65k_" + k: v for k, v in _trace_sample(
         "trace-65k", model, de, 1500, {"de_step": K1_NAME,
                                        "migrate": K2_NAME},
-        "migrate", "de_step", "trace_65k.json", thin=10).items()}
+        "trace_65k.json", thin=10).items()}
     model, de = mvnormal.make(d=30, n_obs=100, key=1, burnin=MVN_BURNIN)
-    out.update({"mvn_" + k: v for k, v in _trace_sample(
-        "trace-mvn", model, de, 5000, {"resample_step": K3_NAME},
-        "resample_step", "resample_step", "trace_mvn.json").items()})
+    names = {"resample_step": K3_NAME}
+    out.update({"trace_mvn_" + k: v for k, v in _trace_sample(
+        "trace-mvn", model, de, 5000, names, "trace_mvn.json").items()})
+    out.update({"trace_mvn_loop_" + k: v for k, v in _trace_sample(
+        "trace-mvn-loop", model, de, 5000, names, "trace_mvn_loop.json",
+        loop=True).items()})
     return out
 
 
@@ -1099,8 +1264,32 @@ def _step_work(cfg, words, dens_ops):
                 ops += cnt * f32[k]
     ops += blocks * PHILOX_OPS + C_ * (F32_OPS_PER_DIM * d + F32_OPS
                                        + dens_ops)
-    nbytes = (C_ * (d + 1) * 4 * 2 + C_ + 4     # θ, w in; θ, w, acc, gate out
+    nbytes = (_state_bytes(C_, d)           # θ, w in; θ, w, acc, gate out
               + (n_hist + C_ * cfg.resample) * d * 4)  # history in, row out
+    return nbytes, ops
+
+
+def _state_bytes(C_, d):
+    """θ and w read once, the new θ, w, accept flags and gate written once
+    (one iteration: its trajectory row is the new state)."""
+    return C_ * (d + 1) * 4 * 2 + C_ + 4
+
+
+def _window_work(cfg, seed, it0, K, n_emit, dens_ops, dev):
+    """(bytes, operations) of one window of ``K`` iterations from ``it0``
+    storing ``n_emit`` trajectory rows, for this run's words: the
+    operations of its K iterations (:func:`_step_work`), and the bytes of
+    the state read and written once (it stays in registers), θ, w and the
+    accept flag of each stored row, the gate, and each iteration's
+    history rows read and written (K3)."""
+    from demcmc_tpu_torch import rng
+    C_, d = cfg.G * cfg.Np, cfg.d
+    hist = ops = 0
+    for k in range(K):
+        b, o = _step_work(cfg, rng.words(seed, it0 + k, cfg.rows.n_words, C_,
+                                         device=dev), dens_ops)
+        hist, ops = hist + b - _state_bytes(C_, d), ops + o
+    nbytes = C_ * (d + 1) * 4 * 2 + 4 + n_emit * C_ * (d * 4 + 4 + 1) + hist
     return nbytes, ops
 
 
@@ -1259,7 +1448,7 @@ def phase_timing_slice2(dev, launches, errs):
     rows.append({"name": "migrate/G4096-unfired", "route": "cuda",
                  "source": "demcmc_tpu_torch/csrc/migration.cu",
                  "replaces": "demcmc_tpu/ops/fused_step.py:2066",
-                 "launches": launches["65k"]["migrate"],
+                 "launches": 0,     # the sampler launches K2 only fired
                  "max_abs_err": errs["k2"], "ms": ms["k2g_unfired"],
                  "plain_ms": ms["k2g_plain"],
                  "bound_ms": 4 / PEAK_BYTES * 1e3, "bound_by": "bytes",
@@ -1352,40 +1541,26 @@ def phase_k1_zoo(dev):
 
 
 def _zoo_sample(tag, name, key=0):
-    """``sample()`` on a third-slice cell: K1 and K2 launched once per
-    iteration of the cell.  Returns the model, the chains, the launches
-    and the wall time of a second, timed call."""
-    import demcmc_tpu_torch as tdm
+    """``sample()`` on a third-slice cell through planned windows,
+    against the one-launch-per-iteration loop (:func:`_windows_vs_loop`).
+    Returns the model, the windowed run's chains, its launches (the plan's) and
+    the timings."""
     case, cell = ZOO[name]
     n_iter = cell["n_iter"]
     model, de = case(burnin=cell["burnin"])
-    _reset_counts()
-    chains = tdm.sample(model, de, n_iter, key=key)
-    torch.cuda.synchronize()
-    launches = _counts()
-    log(tag, f"launches: {launches}")
-    if launches != {"de_step": n_iter, "migrate": n_iter,
-                    "resample_step": 0, "kde_logpdf": 0}:
-        raise AssertionError(f"{tag}: expected {n_iter} launches of K1 "
-                             f"and K2")
+    m, chains = _windows_vs_loop(tag, model, de, n_iter, key)
+    launches = m.pop("launches")
     d = chains.data.shape[1]
     if chains.data.shape != (n_iter - cell["burnin"], d, de.n_chains) or \
             not np.isfinite(chains.data).all():
         raise AssertionError(f"{tag}: bad draws {chains.data.shape}")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    tdm.sample(model, de, n_iter, key=key + 1)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
     C_ = de.n_chains
-    log(tag, f"sample(): {n_iter} iterations in {dt:.4f} s = "
-        f"{dt / n_iter * 1e6:.2f} us/iteration, "
-        f"{C_ * n_iter / dt:.4g} chain-steps/s; acceptance "
-        f"{float(chains.acceptance.mean()):.4f}")
-    return model, chains, launches, {
-        f"{name}_us_per_iteration": dt / n_iter * 1e6,
-        f"{name}_chain_steps_per_s": C_ * n_iter / dt,
-        f"{name}_acceptance": float(chains.acceptance.mean())}
+    log(tag, f"acceptance {float(chains.acceptance.mean()):.4f}")
+    m = {f"{name}_" + k: v for k, v in m.items()}
+    m.update({f"{name}_chain_steps_per_s":
+              C_ / m[f"{name}_windows_us_per_iteration"] * 1e6,
+              f"{name}_acceptance": float(chains.acceptance.mean())})
+    return model, chains, launches, m
 
 
 def _rhat_gate(tag, chains):
@@ -1471,9 +1646,9 @@ def phase_trace3(dev):
     out = {}
     for name, (case, _) in ZOO.items():
         model, de = case(burnin=500)
-        out.update({f"{name}_" + k: v for k, v in _trace_sample(
+        out.update({f"trace_{name}_" + k: v for k, v in _trace_sample(
             "trace-" + name, model, de, 1000,
-            {"de_step": K1_NAME, "migrate": K2_NAME}, "migrate", "de_step",
+            {"de_step": K1_NAME, "migrate": K2_NAME},
             f"trace_{name}.json").items()})
     return out
 
@@ -1853,6 +2028,451 @@ def phase_timing4(dev, launches, err):
              "library_ms": None}]
 
 
+# ------------------------------------------- fifth slice: K-iteration
+# windows (supersteps), device-side thinning, the post-burn-in variant
+
+K_SWEEP = (4, 16, 64, 256)     # iterations per launch at most, swept
+KSWEEP_MVN_ITER = 10_000       # the MVN flagship's run in the K sweep
+
+
+def _rules(K):
+    """The emission rules a window is checked with: every iteration, the
+    last (``emit='last'``), every fourth (``('stride', 4)``) and a thin
+    offset carried in from an earlier window."""
+    return {"all": (0, 1), "last": (K - 1, 1), "stride4": (3, 4),
+            "offset": (2, 5)}
+
+
+def _window_check(tag, cfg, model, spec, state, it0, K, emit, phase,
+                  bits=None, idx=None, seed=0):
+    """One K1 (K3) window of ``K`` iterations from ``it0``, the same
+    iterations as K one-iteration launches (phase 'all'), and the plain
+    window version, each from a copy of ``state`` (θ, w, fire and for K3
+    the history): the final θ, w, gate and history, and the stored rows'
+    θ, w and accept flags equal bit for bit.  Returns the window's result
+    state, its accepted count and the largest |window − singles| and
+    |window − plain| of the float tensors measured (equal infinities
+    count 0)."""
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step
+    from demcmc_tpu_torch.ops import resample_step as tres
+    dev = state[0].device
+    C_, d, n = cfg.G * cfg.Np, cfg.d, cfg.rows.n_words
+    m = tres.index_rows(cfg) if cfg.resample else 0
+    first, stride = emit
+    T = fused_step.n_emitted(K, emit)
+
+    def window(st, out):
+        if cfg.resample:
+            tres.resample_step(cfg, model, spec, *st, it0, seed=seed,
+                               out=out, bits=bits, idx=idx, K=K, emit=emit,
+                               phase=phase)
+        else:
+            fused_step.de_step(cfg, model, spec, *st, it0, seed=seed,
+                               out=out, bits=bits, K=K, emit=emit,
+                               phase=phase)
+
+    def singles(st, out):
+        t = 0
+        for k in range(K):
+            keep = k >= first and (k - first) % stride == 0
+            o = tuple(x[t] for x in out) if keep else None
+            t += keep
+            b = None if bits is None else bits[k * n:(k + 1) * n]
+            if cfg.resample:
+                ix = None if idx is None else idx[k * m:(k + 1) * m]
+                tres.resample_step(cfg, model, spec, *st, it0 + k,
+                                   seed=seed, out=o, bits=b, idx=ix)
+            else:
+                fused_step.de_step(cfg, model, spec, *st, it0 + k,
+                                   seed=seed, out=o, bits=b)
+
+    def plain(st, out):
+        if cfg.resample:
+            w_ = bits if bits is not None else rng.words_block(
+                seed, it0, K, n, C_, device=dev).view(-1, C_)
+            ix = idx if idx is not None else torch.cat(
+                [tres.indices(cfg, seed, it0 + k, device=dev)
+                 for k in range(K)])
+            tres.resample_step_plain(cfg, model, spec, *st, it0, w_, ix, out,
+                                     K, emit, phase)
+        else:
+            fused_step.de_step_plain(cfg, model, spec, *st, it0, bits, out,
+                                     K, emit, phase, seed)
+
+    res = {}
+    for which, fn in (("window", window), ("singles", singles),
+                      ("plain", plain)):
+        st = [x.clone() for x in state]
+        out = (torch.empty((T, C_, d), device=dev),
+               torch.empty((T, C_), device=dev),
+               torch.empty((T, C_), dtype=torch.bool, device=dev))
+        fn(st, out)
+        res[which] = st + list(out)
+    torch.cuda.synchronize()
+    names = ["theta", "w", "fire", "history"][:len(state)] + [
+        "stored theta", "stored w", "stored accept flags"]
+    err = 0.0
+    for which in ("singles", "plain"):
+        for a, b, what in zip(res["window"], res[which], names):
+            if a.is_floating_point():
+                diff = torch.where(a == b, 0.0, (a - b).abs())
+                err = max(err, float(diff.max()) if diff.numel() else 0.0)
+            a = a.view(torch.uint8) if a.dtype == torch.bool else ints(a)
+            b = b.view(torch.uint8) if b.dtype == torch.bool else ints(b)
+            if not torch.equal(a, b):
+                raise AssertionError(f"{tag}: the window's {what} differ "
+                                     f"from {which} (it0={it0}, K={K}, "
+                                     f"emit={emit}, phase={phase})")
+    return res["window"][:len(state)], int(res["window"][-1].sum()), err
+
+
+def _closed_inner_gates(bits, cfg, K):
+    """Random window words whose gates before the last iteration are
+    closed (the windows the sampler launches): the fire row's word of
+    chain 0 set to all ones (uniform 1 − 2⁻²³ > α)."""
+    n = cfg.rows.n_words
+    for k in range(K - 1):
+        bits[k * n + cfg.rows.fire, 0] = 0xFFFFFFFF
+    return bits
+
+
+def _k1_super_cases():
+    """(name, model, de, bits-in) of the K1 window checks: the main path's
+    4,096-chain Gaussian (G = 256 × Np = 16), snooker at G = 4,096 × 16,
+    the sequential sweep at 4,096 × 4, LBA, the ABC noise panel (Philox
+    only: its words per chain are 10,000 per iteration) and the discrete
+    binomial, each with burn-in 1,000."""
+    from demcmc_tpu_torch.models import gaussian
+    data = _gauss_data()
+    yield ("sync-4096",) + gaussian.make(data=data, Np=NP, n_groups=G,
+                                         burnin=1000) + (True,)
+    yield ("snooker-65536",) + gaussian.make(
+        data=data, Np=N65, n_groups=G65, burnin=1000,
+        theta_snooker=0.5) + (True,)
+    yield ("sequential-16384",) + gaussian.make(
+        data=data, Np=NSEQ, n_groups=G65, burnin=1000,
+        theta_snooker=0.5) + (True,)
+    yield ("lba",) + _lba_case(1000) + (True,)
+    yield ("abc",) + _abc_case(1000) + (False,)
+    yield ("discrete",) + _disc_case(1000) + (True,)
+
+
+def phase_k1_super(dev):
+    """K1 windows against their one-iteration launches and the plain window
+    version, bit for bit: bits-in windows of 16 across the burn-in
+    boundary with every emission rule, then windows of K = super_k() on
+    Philox words past burn-in with the post variant (every iteration
+    stored, and every fourth), at a start whose inner gates are closed."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.ops import fused_step
+    K = fused_step.super_k()
+    Kb = min(K, 16)     # bits-in windows: K·n_words random words per chain
+    rng_np = np.random.default_rng(14)
+    worst = 0.0
+    for name, model, de, bits_in in _k1_super_cases():
+        tag = "k1-super-" + name
+        spec = tdm.make_spec(model, de)
+        cfg = fused_step.StepConfig.make(model, de, spec)
+        s = tdm.init_state(model, de, spec, 13, device=dev)
+        state = [s.theta, s.weight, s.fire]
+        done = []
+        if bits_in:
+            bits = _closed_inner_gates(random_words(
+                rng_np, Kb * cfg.rows.n_words, de.n_chains, dev), cfg, Kb)
+            for rule, emit in _rules(Kb).items():
+                _, acc, err = _window_check(tag, cfg, model, spec, state,
+                                            de.burnin - 5, Kb, emit, "all",
+                                            bits)
+                worst = max(worst, err)
+                done.append(f"bits-in K={Kb} {rule} across burn-in ({acc} "
+                            f"stored accepts)")
+        seed, it0 = quiet_start(21, cfg, de.burnin + 1, 1 << 16, K)
+        for rule in ("all", "stride4"):
+            _, acc, err = _window_check(tag, cfg, model, spec, state, it0, K,
+                                        _rules(K)[rule], "post", seed=seed)
+            worst = max(worst, err)
+            done.append(f"Philox K={K} post {rule} from {it0}, key {seed} "
+                        f"({acc} stored accepts)")
+        log(tag, f"C={de.n_chains}: window = its single launches = plain "
+            f"window, bit for bit: " + "; ".join(done))
+    log("k1-super", f"max |window - singles|, |window - plain| of θ and w: "
+        f"{worst:.3g}")
+    return worst
+
+
+def _k3_edge_cases(burnin):
+    """(name, model, de) of K3's one-CTA rule at its edge: the Gaussian
+    DE-MCz with snooker (θs = 0.5, synchronous, Np = 4) at 1,024 chains
+    and the 30-dim MVN (sequential, Np = 4) at 512."""
+    from demcmc_tpu_torch.models import gaussian, mvnormal
+    yield ("gauss-snooker-1024",) + gaussian.make(
+        data=_gauss_data(), n_groups=256, Np=4, alpha=0.0, sample="resample",
+        n_initial=N_INITIAL["C512"], burnin=burnin, theta_snooker=0.5,
+        sweep="sync")
+    yield ("mvn30-512",) + mvnormal.make(d=30, n_obs=100, key=1, Np=4,
+                                         n_groups=128, burnin=burnin,
+                                         theta_snooker=0.5)
+
+
+def phase_k3_super(dev):
+    """K3 windows of K = resample_super_k() iterations (one CTA) at the MVN
+    flagship's shapes (C = 3, d = 30, sequential) and at C = 512, θs = 0.5,
+    against K one-iteration launches and the plain window version, bit for
+    bit, history included: indices-in + bits-in across burn-in, then two
+    windows on Philox words past burn-in through the post variant
+    (every fourth iteration stored; then a window of 16, the last).  Then
+    the one-CTA rule at its edge (:func:`_k3_edge_cases`): the chains one
+    CTA of the configuration's kernel holds (``window_chains``), a window
+    of 16 at the largest population of whole groups it holds against its
+    single launches and plain window, and ``sample()`` at the full
+    population (K = 1 where it is above the rule) against the loop, bit for
+    bit, launches the plan's.  Returns the largest |window − singles| and
+    |window − plain| measured."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.ops import fused_step
+    from demcmc_tpu_torch.ops import resample_step as tres
+    rng_np = np.random.default_rng(15)
+    worst = 0.0
+    for which in ("mvn", "C512"):
+        tag = "k3-super-" + which
+        it0 = N_INITIAL[which] + 1
+        model, spec, cfg, s = _resample_case(dev, which, burnin=it0 + 5,
+                                             theta_sn=0.5, key=5,
+                                             extra_rows=3 * 256)
+        K = tres.resample_super_k(cfg, dev)
+        C_ = cfg.G * cfg.Np
+        state = [s.theta, s.weight, s.fire, s.history]
+        bits = random_words(rng_np, K * cfg.rows.n_words, C_, dev)
+        idx = torch.cat([tres.indices_from_words(cfg, random_words(
+            rng_np, tres.index_rows(cfg), C_, dev), it0 + k)
+            for k in range(K)])
+        state, a1, e1 = _window_check(tag, cfg, model, spec, state, it0, K,
+                                      (0, 1), "all", bits, idx)
+        state, a2, e2 = _window_check(tag, cfg, model, spec, state, it0 + K,
+                                      K, _rules(K)["stride4"], "post",
+                                      seed=22)
+        state, a3, e3 = _window_check(tag, cfg, model, spec, state,
+                                      it0 + 2 * K, 16, _rules(16)["last"],
+                                      "post", seed=22)
+        worst = max(worst, e1, e2, e3)
+        log(tag, f"C={C_} d={cfg.d} K={K} (one CTA): window = its single "
+            f"launches = plain window, bit for bit, history included: "
+            f"indices-in + bits-in across burn-in ({a1} accepts), Philox "
+            f"post stride 4 ({a2}), Philox post last of 16 ({a3})")
+    for name, model, de in _k3_edge_cases(burnin=10):
+        tag = "k3-edge-" + name
+        cfg = fused_step.StepConfig.make(model, de, tdm.make_spec(model, de))
+        most = tres.window_chains(cfg, dev)
+        K = tres.resample_super_k(cfg, dev)
+        if K != (tres.RESAMPLE_SUPER_K if de.n_chains <= most else 1):
+            raise AssertionError(f"{tag}: K = {K} at {de.n_chains} chains, "
+                                 f"one CTA holds {most}")
+        # a window at the largest population of whole groups one CTA holds
+        edge = de.replace(n_groups=most // de.Np)
+        spec = tdm.make_spec(model, edge)
+        cfg_e = fused_step.StepConfig.make(model, edge, spec)
+        s = tdm.sampler._grow_history(
+            tdm.init_state(model, edge, spec, 6, device=dev), 32)
+        _, acc, err = _window_check(
+            tag, cfg_e, model, spec, [s.theta, s.weight, s.fire, s.history],
+            edge.n_initial + 1, 16, (0, 1), "post", seed=23)
+        worst = max(worst, err)
+        _windows_vs_loop(tag, model, de, 40, key=7)
+        log(tag, f"d={cfg.d} sequential={de.sequential_sweep}: one CTA holds "
+            f"{most} chains (the kernel's registers and shared memory); a "
+            f"window of 16 at {edge.n_chains} chains = its single launches "
+            f"= plain window ({acc} accepts); sample() at {de.n_chains} "
+            f"chains with K = {K} = the loop, bit for bit")
+    log("k3-super", f"max |window - singles|, |window - plain| of θ, w and "
+        f"the history: {worst:.3g}")
+    return worst
+
+
+def phase_main_super(dev):
+    """``sample()`` through planned windows against the
+    one-launch-per-iteration loop on the 4,096-chain Gaussian (3,000
+    iterations, thin 1) and the 65,536-chain snooker Gaussian (3,000,
+    thin 10): equal bit for bit, the windows' launches the plan's; µs and
+    launches per iteration of both in turns (windows, loop, loop,
+    windows)."""
+    from demcmc_tpu_torch.models import gaussian
+    data = _gauss_data()
+    out = {}
+    for prefix, tag, kw, thin in (
+            ("", "main-super-4096", dict(Np=NP, n_groups=G), 1),
+            ("65k_", "main-super-65536", dict(Np=N65, n_groups=G65,
+                                              theta_snooker=0.1), 10)):
+        model, de = gaussian.make(data=data, burnin=BURNIN, **kw)
+        m, _ = _windows_vs_loop(tag, model, de, N_ITER, key=1, thin=thin,
+                               turns=("windows", "loop", "loop", "windows"))
+        m.pop("launches")
+        m["chain_steps_per_s"] = de.n_chains / m["windows_us_per_iteration"] \
+            * 1e6
+        out.update({prefix + k: v for k, v in m.items()})
+    return out
+
+
+def phase_k_sweep(dev):
+    """``sample()`` with at most K ∈ K_SWEEP iterations per launch, on the
+    4,096-chain Gaussian (α = 0.1, 3,000 iterations) and the MVN flagship
+    (α = 0, 10,000 iterations): µs per iteration on the host clock, one
+    synchronised call each, K rising then falling; the launches the plan's
+    at that K.  The chosen K is the module constant it reads."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian, mvnormal
+    from demcmc_tpu_torch.ops import fused_step, resample_step
+    cells = {"gauss4096": (gaussian.make(data=_gauss_data(), Np=NP,
+                                         n_groups=G, burnin=BURNIN),
+                           N_ITER, fused_step, "SUPER_K"),
+             "mvn": (mvnormal.make(d=30, n_obs=100, key=1,
+                                   burnin=MVN_BURNIN),
+                     KSWEEP_MVN_ITER, resample_step, "RESAMPLE_SUPER_K")}
+    out = {}
+    for name, ((model, de), n_iter, mod, attr) in cells.items():
+        chosen = getattr(mod, attr)
+        t = {}
+        try:
+            for K in K_SWEEP + K_SWEEP[::-1]:
+                setattr(mod, attr, K)
+                _reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tdm.sample(model, de, n_iter, key=1)
+                torch.cuda.synchronize()
+                t.setdefault(K, []).append(time.perf_counter() - t0)
+                want = plan_counts(model, de, n_iter, 1)
+                _counts(**want)
+                t[K].append(sum(want.values()) / n_iter)
+        finally:
+            setattr(mod, attr, chosen)
+        for K in K_SWEEP:
+            us = [x / n_iter * 1e6 for x in (t[K][0], t[K][2])]
+            out[f"ksweep_{name}_K{K}_us_per_iteration"] = float(np.mean(us))
+            log("k-sweep", f"{name} K={K}: " + ", ".join(
+                f"{u:.2f}" for u in us) + f" us/iteration, "
+                f"{t[K][1]:.4f} launches/iteration"
+                + (" (chosen)" if K == chosen else ""))
+    return out
+
+
+def phase_timing5(dev, paths, errs):
+    """Device ms per window launch at the chosen K (spin-queued; plain,
+    kernel, kernel, plain) beside the plain window version and the bound
+    (_window_work: K iterations' operations for this window's words, the
+    state moved once and the stored rows): K1 on the 4,096-chain Gaussian
+    past burn-in (the post variant, all K rows stored) and in burn-in, K3
+    at the MVN flagship and at C = 512 past burn-in (post)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step
+    from demcmc_tpu_torch.ops import resample_step as tres
+    _, model, de, spec, cfg = _k1_setup(dev, burnin=BURNIN)
+    K = fused_step.super_k()
+    s = tdm.init_state(model, de, spec, 5, device=dev)
+    cases = {}
+
+    def k1_case(seed, it0, phase):
+        st = (s.theta, s.weight, s.fire)
+        out = (torch.empty((K, C, D), device=dev),
+               torch.empty((K, C), device=dev),
+               torch.empty((K, C), dtype=torch.bool, device=dev))
+
+        def kern():
+            fused_step.de_step(cfg, model, spec, *st, it0, seed=seed,
+                               out=out, K=K, phase=phase)
+
+        def plain():
+            fused_step.de_step_plain(cfg, model, spec, *st, it0, None, out,
+                                     K, (0, 1), phase, seed)
+        return cfg, seed, it0, K, kern, plain, GAUSS_F32_OPS
+
+    # windows the sampler launches: no gate open before the last iteration
+    cases["k1post"] = k1_case(*quiet_start(0, cfg, 2000, 1 << 16, K),
+                              "post")
+    cases["k1burnin"] = k1_case(*quiet_start(0, cfg, 200, BURNIN - K, K),
+                                "all")
+    for which in ("mvn", "C512"):
+        m3, spec3, cfg3, s3 = _resample_case(dev, which, burnin=(
+            MVN_BURNIN if which == "mvn" else 1000), theta_sn=0.1, key=4,
+            extra_rows=3000)
+        K3 = tres.resample_super_k(cfg3, dev)
+        it3 = 2500 if which == "mvn" else 1500
+        C3 = cfg3.G * cfg3.Np
+        st3 = (s3.theta, s3.weight, s3.fire, s3.history)
+        o3 = (torch.empty((K3, C3, cfg3.d), device=dev),
+              torch.empty((K3, C3), device=dev),
+              torch.empty((K3, C3), dtype=torch.bool, device=dev))
+
+        def k3(a=(cfg3, m3, spec3, st3, it3, o3, K3)):
+            c3, mm, sp, st, i3, o, k3_ = a
+            tres.resample_step(c3, mm, sp, *st, i3, out=o, K=k3_,
+                               phase="post")
+
+        def k3_plain(a=(cfg3, m3, spec3, st3, it3, o3, K3)):
+            c3, mm, sp, st, i3, o, k3_ = a
+            C3_ = c3.G * c3.Np
+            words = rng.words_block(0, i3, k3_, c3.rows.n_words, C3_,
+                                    device=dev).view(-1, C3_)
+            idx = torch.cat([tres.indices(c3, 0, i3 + k, device=dev)
+                             for k in range(k3_)])
+            tres.resample_step_plain(c3, mm, sp, *st, i3, words, idx, o,
+                                     k3_, (0, 1), "post")
+
+        dens = (MVN_F32_OPS_PER_DIM * cfg3.d + MVN_F32_OPS
+                if which == "mvn" else GAUSS_F32_OPS)
+        cases["k3" + which] = (cfg3, 0, it3, K3, k3, k3_plain, dens)
+
+    t = {}
+    for key, (_, _, _, _, kern, plain, _) in cases.items():
+        # the plain window reads the gate after each iteration (and copies
+        # from the host): host-gapped, timed one call at a time
+        for name, fn, n in ((key + "_plain", plain, 0), (key, kern, 50),
+                            (key, kern, 50), (key + "_plain", plain, 0)):
+            t.setdefault(name, []).append(device_ms(fn, n) if n
+                                          else gapped_ms(fn))
+    ms = {k: float(np.mean([x for x, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing5", f"{k}: {ms[k]:.6f} ms per window launch on the "
+            f"device (" + ", ".join(f"{x:.6f}{'' if q else ' host-gapped'}"
+                                   for x, q, _ in v)
+            + "); host enqueues a call in "
+            + ", ".join(f"{h:.6f}" for _, _, h in v) + " ms")
+    meta = {"k1post": ("de_step/window-K{K}-post-4096",
+                       "demcmc_tpu_torch/csrc/de_step.cu",
+                       "demcmc_tpu/ops/fused_step.py:2250",
+                       paths["main"]["de_step"], errs["k1_super"]),
+            "k1burnin": ("de_step/window-K{K}-burnin-4096",
+                         "demcmc_tpu_torch/csrc/de_step.cu",
+                         "demcmc_tpu/ops/fused_step.py:2560",
+                         paths["main"]["de_step"], errs["k1_super"]),
+            "k3mvn": ("resample_step/window-K{K}-post-mvn30-C3",
+                      "demcmc_tpu_torch/csrc/de_step_resample.cu",
+                      "demcmc_tpu/ops/fused_step.py:2560",
+                      paths["mvn"]["resample_step"], errs["k3_super"]),
+            "k3C512": ("resample_step/window-K{K}-post-gauss-C512",
+                       "demcmc_tpu_torch/csrc/de_step_resample.cu",
+                       "demcmc_tpu/ops/fused_step.py:2560",
+                       paths["wide"]["resample_step"], errs["k3_super"])}
+    rows = []
+    for key, (c, seed, it0, Kc, _, _, dens) in cases.items():
+        nbytes, nops = _window_work(c, seed, it0, Kc, Kc, dens, dev)
+        tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+        name, src, repl, n_launch, err = meta[key]
+        rows.append({"name": name.format(K=Kc), "route": "cuda",
+                     "source": src, "replaces": repl, "launches": n_launch,
+                     "max_abs_err": err, "ms": ms[key],
+                     "plain_ms": ms[key + "_plain"],
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": None})
+        log("timing5", f"{name.format(K=Kc)}: {nbytes} bytes, {nops} "
+            f"operations over {Kc} iterations ({Kc} rows stored), bound "
+            f"{max(tb, to):.3g} ms ({'bytes' if tb >= to else 'operations'}); "
+            f"{ms[key] / Kc * 1e3:.3f} us per iteration in the window")
+    return rows
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1882,18 +2502,23 @@ def main():
     run(phase_build)
     run(phase_philox, dev)
     errs = {"k2": run(phase_k2, dev), "k1": run(phase_k1, dev)}
+    errs["k1_super"] = run(phase_k1_super, dev)
+    errs["k3_super"] = run(phase_k3_super, dev)
     launches, metrics = run(phase_main, dev)
+    metrics.update(run(phase_main_super, dev))
     metrics.update(run(phase_trace, dev))
     rows = run(phase_timing, dev, launches, errs)
     errs["k1_variants"] = run(phase_k1_variants, dev)
     errs["k3"] = run(phase_k3, dev)
-    paths = {}
+    paths = {"main": launches}
     paths["65k"], m = run(phase_main_65k, dev)
     metrics.update(m)
     paths["mvn"], m = run(phase_main_mvn, dev)
     metrics.update(m)
-    paths["wide"] = run(phase_main_wide, dev)
-    paths["seq"] = run(phase_main_seq, dev)
+    paths["wide"], m = run(phase_main_wide, dev)
+    metrics.update(m)
+    paths["seq"], m = run(phase_main_seq, dev)
+    metrics.update(m)
     metrics.update(run(phase_trace_slice2, dev))
     rows += run(phase_timing_slice2, dev, paths, errs)
     errs["k1_zoo"] = run(phase_k1_zoo, dev)
@@ -1911,6 +2536,8 @@ def main():
         metrics.update(run(phase, dev)[1])
     metrics.update(run(phase_trace4, dev))
     rows += run(phase_timing4, dev, kde_launches, errs["k4"])
+    metrics.update(run(phase_k_sweep, dev))
+    rows += run(phase_timing5, dev, paths, errs)
     log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(seconds per phase: {json.dumps(took)}); {json.dumps(metrics)}")
     print(json.dumps({"kernels": rows}))

@@ -1,5 +1,5 @@
-// K1: one DE-MCMC iteration over the whole population, partners from the
-// chain's own group.
+// K1: a window of K DE-MCMC iterations over the whole population in one
+// launch, partners from the chain's own group.
 //
 // Replaces the sweep of the TPU kernel demcmc_tpu/ops/fused_step.py
 // build_fused_step (kernel closure :1858, one_sweep/_sweep_tail
@@ -11,7 +11,8 @@
 // accept, synchronous or sequential sweep.  The body is step_body.cuh's
 // sweep_kernel with the GroupPartners source; K3 (de_step_resample.cu) is
 // the same body over the history.  Migration is the separate kernel K2
-// (migration.cu), launched just before this one.
+// (migration.cu), launched before a window whose first iteration's gate
+// is open.
 //
 // What bounds it on an H100: at 4,096 chains one iteration moves about
 // 100 KB (theta and w read, the new theta and w written, here both in place
@@ -20,11 +21,12 @@
 // well under a microsecond.  At 65,536 chains with snooker it moves 1.6 MB
 // (0.5 us at 3.35 TB/s) and needs ~450 operations per chain (0.4 us at the
 // float32 peak), against ~6.5 us measured (PERF.md).  The kernel is bound by launch latency and by
-// each thread's serial chain of dependent operations.  The design keeps
-// one launch per iteration with no host synchronisation, draws its random
-// words in registers instead of reading a pre-drawn buffer, and keeps every
-// group-level reduction in shared memory.  Fewer launches (K iterations per
-// launch, CUDA graphs) are later work.
+// each thread's serial chain of dependent operations.  The design runs a
+// window of K iterations per launch (up to sampler's super_k, cut where a
+// migration gate opens) with no host synchronisation, keeps theta and w in
+// registers across the window, draws its random words in registers
+// instead of reading a pre-drawn buffer, and keeps every group-level
+// reduction in shared memory.
 //
 // The densities other than the Gaussian (densities/*.cuh) run the whole
 // density in the chain's thread: LBA loops over its trials (two
@@ -65,14 +67,14 @@ int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
   const StepArgs<D> a = read_args<Density>(theta, w, out_theta, out_w, out_acc,
                                            fire, bits, ia, fa, sa, theta_sn);
   const Density dens = Density::from(fa + 7 + 2 * D, dens_data);
-  return launch_sweep(a, dens, GroupPartners<D>{}, stream);
+  return launch_sweep(a, dens, GroupPartners<D>{}, ia[19] != 0, stream);
 }
 
 }  // namespace demcmc
 
-// One iteration of K1 on the model's density (argument arrays: see
-// step_body.cuh read_args; dens_data: the density's device buffer, or
-// nullptr).  Returns cudaGetLastError() after the launch.
+// One window of K iterations of K1 on the model's density (argument
+// arrays: see step_body.cuh read_args; dens_data: the density's device
+// buffer, or nullptr).  Returns cudaGetLastError() after the launch.
 #define DE_STEP_ENTRY(NAME, DENSITY)                                          \
   extern "C" int de_step_##NAME(float* theta, float* w, float* out_theta,    \
                                 float* out_w, uint8_t* out_acc, int* fire,   \

@@ -1,4 +1,5 @@
-// K3: one DE-MCz iteration -- partners from the history of past states.
+// K3: a window of K DE-MCz iterations in one launch -- partners from the
+// history of past states.
 //
 // Replaces the resample variant of the TPU kernel demcmc_tpu/ops/
 // fused_step.py build_fused_step: the history partner fetch
@@ -15,7 +16,13 @@
 // the iterations of the run; a partner is a direct global load at flat
 // index row * C + chain, so one engine covers every population size (the
 // TPU kernel's C <= 1,024 cap has no reason here).  The K1 thread layout is
-// kept: one thread per chain, whole groups per block.
+// kept: one thread per chain, whole groups per block.  A window of K > 1
+// iterations needs every chain's history row it - 1 before iteration
+// it + 1, so it runs the population in one CTA with a barrier between
+// iterations, for as many chains as one block of the instantiation holds
+// (its registers and the stage's shared memory: window_chains; 1,024 at
+// most), and the sampler keeps K = 1 above that
+// (ops/resample_step.py::resample_super_k).
 //
 // What bounds it on an H100: at the DE-MCz flagship (C = 3, D = 31) a
 // chain reads 2 history rows of 124 bytes for the DE pair or 3 for a
@@ -49,24 +56,29 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
                                            fire, bits, ia, fa, sa, theta_sn);
   const Density dens = Density::from(fa + 7 + 2 * D, nullptr);
   const int C = a.G * a.Np;
-  if (a.it < 2 || a.it > H) return (int)cudaErrorInvalidValue;
+  if (a.it0 < 2 || a.K < 1 || a.it0 + a.K - 1 > H)
+    return (int)cudaErrorInvalidValue;
   HistoryPartners<D> src;
   src.hist = hist;
   src.idx = idx;
   src.words = WordSource{nullptr, C, ia[5], ia[6], ia[2], kResampleNs};
   src.C = C;
   src.n_slots = a.r_sn >= 0 ? 5 : 2;
-  src.span = (uint32_t)(a.it - 1) * (uint32_t)C;
-  return launch_sweep(a, dens, src, stream);
+  src.n_rows = a.n_members * src.n_slots;
+  src.span = 0;  // set per iteration (HistoryPartners::at)
+  return launch_sweep(a, dens, src, ia[19] != 0, stream);
 }
 
 }  // namespace demcmc
 
-// One iteration of K3 on the model's density: the K1 arguments (see
-// step_body.cuh read_args) plus the history [H, C, D] and, in the
-// indices-in test mode, idx [n_members * n_slots, C] int64 flat history
-// indices (nullptr: drawn from Philox words).  Returns cudaGetLastError()
-// after the launch.
+// One window of K iterations of K3 on the model's density: the K1
+// arguments (see step_body.cuh read_args) plus the history [H, C, D] and,
+// in the indices-in test mode, idx [K n_members n_slots, C] int64 flat
+// history indices (nullptr: drawn from Philox words).  A window of K > 1
+// runs in one CTA (resample_window_chains_NAME).  Returns
+// cudaGetLastError() after the launch.  resample_window_chains_NAME writes
+// the chains a one-CTA window of the configuration (sequential sweep,
+// snooker) holds on the current device and returns a CUDA error code.
 #define RESAMPLE_STEP_ENTRY(NAME, DENSITY)                                    \
   extern "C" int resample_step_##NAME(                                       \
       float* theta, float* w, float* out_theta, float* out_w,                \
@@ -76,6 +88,12 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
     return demcmc::launch_resample_step<DENSITY>(                            \
         theta, w, out_theta, out_w, out_acc, fire, hist, H, bits, idx,       \
         iargs, fargs, sargs, theta_sn, (cudaStream_t)stream);                \
+  }                                                                          \
+  extern "C" int resample_window_chains_##NAME(int seq, int snooker,         \
+                                               int* chains) {                \
+    return demcmc::window_chains<DENSITY,                                    \
+                                 demcmc::HistoryPartners<DENSITY::D>>(       \
+        seq != 0, snooker != 0, chains);                                     \
   }
 
 // one entry per density of ops/_build.py KERNEL_DENSITIES["resample_step"]

@@ -60,9 +60,13 @@ struct BinomialAbcDensity {
       const float pmf = comb[j] * ipow(theta, j) * ipow(one_m, N - j);
       cdf[j] = (j == 0) ? pmf : cdf[j - 1] + pmf;
     }
+    // the panel's rows up to a computed end: with n_sim as the bound, K1's
+    // window loop made ptxas reload it from the constant bank on each
+    // simulation's critical path (9% of K1 on an H100, PERF.md)
     int hits = 0;
-    for (int s = 0; s < n_sim; ++s) {
-      const float u = to_uni(Wc(row0 + s));
+    const int end = row0 + n_sim;
+    for (int r = row0; r < end; ++r) {
+      const float u = to_uni(Wc(r));
       int cnt = 0;
       for (int j = 0; j < N; ++j) cnt += u > cdf[j];
       hits += cnt == k;

@@ -1,6 +1,9 @@
-// K2: the reference migration exchange (src/migration.jl:11-91), one
-// launch per iteration just before K1, gated on the device-side flag K1
-// wrote the iteration before.
+// K2: the reference migration exchange (src/migration.jl:11-91), launched
+// by the sampler before each K1 window whose first iteration's gate its
+// plan finds open (the gates are a pure function of the Philox counter),
+// and still gated on the device-side flag K1 wrote the iteration before:
+// a plan that disagreed with the device would show as a difference from
+// one-iteration launches, never as a silent skip.
 //
 // Replaces the TPU kernel's in-kernel migration, demcmc_tpu/ops/
 // fused_step.py _mig_apply_sorted (:946) with _rank_cycle (:763) -- and

@@ -5,7 +5,8 @@
 // (seed & 0xffffffff, seed >> 32) -- bit for bit the plain torch version in
 // demcmc_tpu_torch/rng.py.  Kernels read their words through WordSource,
 // which in bits-in mode (a test mode) reads a [n_words, C] uint32 buffer
-// instead, so kernel and plain version can be fed identical words;
+// per iteration instead, so kernel and plain version can be fed identical
+// words;
 // ChainWords reads one chain's rows and generates each block only once.
 #pragma once
 
@@ -70,6 +71,17 @@ struct WordSource {
   __device__ __forceinline__ uint32_t operator()(int row, int chain) const {
     if (bits != nullptr) return bits[(size_t)row * C + chain];
     return philox_word(k0, k1, it, (uint32_t)row, (uint32_t)chain, ns);
+  }
+
+  // The words of iteration it_k, the k-th of a window: Philox counter it_k,
+  // or in bits-in mode the k-th [n_words, C] block of a [K n_words, C]
+  // buffer.
+  __device__ __forceinline__ WordSource at(int k, uint32_t it_k,
+                                           int n_words) const {
+    WordSource s = *this;
+    s.it = it_k;
+    if (bits != nullptr) s.bits = bits + (size_t)k * n_words * C;
+    return s;
   }
 };
 

@@ -6,6 +6,22 @@
 // burn-in base term, the snooker branch with its MH correction, epsilon
 // noise, kappa recombination, beta mutation, bounds + NaN mask, log
 // posterior, MH accept -- and the next-iteration migration gate (:2518-2532).
+//
+// A launch runs a window of K iterations it0 .. it0 + K - 1 (the TPU
+// kernel's grid over K, :2618): theta and w stay in registers from one
+// iteration to the next, iteration it0 + k reads its words at Philox
+// counter it0 + k (bits-in mode: rows k n_words .. of a [K n_words, C]
+// buffer, as the interpret-mode kernel_call feeds them, :2717-2735), and a
+// trajectory row is written only for the iterations the emission rule
+// keeps (emit='all', 'last' and ('stride', s), :2560-2575: local iteration
+// k is kept iff k >= emit_first and (k - emit_first) % emit_stride == 0).
+// The state goes to device memory once, at the end, and the gate once,
+// from the last iteration's word.  Migration is never inside a window: the
+// sampler cuts windows where a gate opens (sampler.plan_windows) and
+// launches K2 between them, so groups stay independent within a window
+// and the window is bitwise equal to K one-iteration launches.  kPost (the
+// TPU kernel's phase='post', :2250-2276) statically drops the gamma_2
+// base select, for windows past burn-in.
 // The kernel is one template over a partner source: GroupPartners (K1)
 // draws the DE pair and the snooker triple from the chain's words and reads
 // them from its group staged in shared memory; HistoryPartners (K3) reads
@@ -54,12 +70,13 @@ template <int D>
 struct StepArgs {
   float* theta;      // [C, D] state, updated in place
   float* w;          // [C]
-  float* out_theta;  // [C, D] trajectory row, or nullptr
-  float* out_w;      // [C] or nullptr
-  uint8_t* out_acc;  // [C] or nullptr
+  float* out_theta;  // [T, C, D] trajectory rows (T emitted), or nullptr
+  float* out_w;      // [T, C] or nullptr
+  uint8_t* out_acc;  // [T, C] or nullptr
   int* fire;         // [1] next iteration's migration gate (written)
-  WordSource words;
-  int G, Np, it, burnin, random_gamma;
+  WordSource words;  // the window's first iteration's words
+  int G, Np, it0, burnin, random_gamma;
+  int K, emit_first, emit_stride, n_words;  // the window
   int n_members, stride;  // sub-sweeps, rows per sub-sweep block
   uint32_t int_mask;      // integer dimensions (bit i: dimension i), held
                           // against the density's kIntMask at launch
@@ -70,9 +87,10 @@ struct StepArgs {
   float lo[D], hi[D];
 };
 
-// iargs: G, Np, it, burnin, random_gamma, seed_lo, seed_hi, then the row of
+// iargs: G, Np, it0, burnin, random_gamma, seed_lo, seed_hi, then the row of
 //   the partner, gamma, eps, kappa, gate, normal, accept and fire draws
-//   (0xffffffff where absent).
+//   (0xffffffff where absent), then the window: K, emit_first, emit_stride,
+//   words per iteration and the phase (1: post).
 // fargs: fixed_g1, eps, 2 eps, 1 - kappa, beta, sigma, alpha, lo[D], hi[D],
 //   then the density's constants.
 // sargs: sub-sweeps, rows per sub-sweep block, the snooker member-index row,
@@ -94,7 +112,7 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
   a.fire = fire;
   a.G = (int)ia[0];
   a.Np = (int)ia[1];
-  a.it = (int)ia[2];
+  a.it0 = (int)ia[2];
   a.burnin = (int)ia[3];
   a.random_gamma = (int)ia[4];
   a.words = WordSource{bits, a.G * a.Np, ia[5], ia[6], ia[2]};
@@ -106,6 +124,10 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
   a.r_norm = (int)ia[12];
   a.r_acc = (int)ia[13];
   a.r_fire = (int)ia[14];
+  a.K = (int)ia[15];
+  a.emit_first = (int)ia[16];
+  a.emit_stride = (int)ia[17];
+  a.n_words = (int)ia[18];
   a.n_members = (int)sa[0];
   a.stride = (int)sa[1];
   a.r_triple = (int)sa[2];
@@ -164,7 +186,9 @@ __device__ __forceinline__ float dot(const float* x, const float* y) {
 // (:2332-2339), each index drawn from one of the chain's step words.
 template <int D>
 struct GroupPartners {
+  static constexpr bool kOneCta = false;
   struct Thread {};
+  __device__ __forceinline__ GroupPartners at(int, int) const { return *this; }
   __device__ __forceinline__ Thread thread(int) const { return {}; }
 
   __device__ __forceinline__ void pair(Thread&, ChainWords& Wc, const Slot& s,
@@ -199,25 +223,37 @@ struct GroupPartners {
     pn = stage + (s.lead + cz) * D;
   }
 
-  __device__ __forceinline__ void commit(const StepArgs<D>&, int,
-                                         const float*) const {}
+  __device__ __forceinline__ void commit(int, int, const float*) const {}
 };
 
 // Partners from the history [H, C, D] in device memory (K3), at flat
 // indices row * C + chain over the count * C past (row, chain) pairs: given
-// (idx [n_members * n_slots, C], indices-in test mode) or drawn from the
-// chain's Philox words of namespace RESAMPLE_NS, slot row member * n_slots +
-// slot, without replacement within the pair and within the triple
-// (demcmc_tpu/ops/proposals.py::resample_flat_indices).  The new state goes
-// to history row it - 1 (store_samples!, fused_step.py:2494-2517); reads
-// only touch rows below it - 1, so no read races the write.
+// (idx [K n_rows, C] with n_rows = n_members * n_slots, indices-in test
+// mode) or drawn from the chain's Philox words of namespace RESAMPLE_NS,
+// slot row member * n_slots + slot, without replacement within the pair and
+// within the triple (demcmc_tpu/ops/proposals.py::resample_flat_indices).
+// The new state goes to history row it - 1 (store_samples!, fused_step.py:
+// 2494-2517); an iteration reads only rows below it - 1, so no read races
+// the write.  Iteration it + 1 may read row it - 1 of any chain, so a
+// window of K > 1 runs the whole population in one CTA (kOneCta) with a
+// barrier between iterations.
 template <int D>
 struct HistoryPartners {
+  static constexpr bool kOneCta = true;
   float* hist;         // [H, C, D]
-  const int64_t* idx;  // [n_members * n_slots, C] or nullptr
+  const int64_t* idx;  // [K n_rows, C] or nullptr
   WordSource words;    // RESAMPLE_NS words
-  int C, n_slots;
+  int C, n_slots, n_rows;
   uint32_t span;       // count * C
+
+  // the source of window iteration k (iteration it)
+  __device__ __forceinline__ HistoryPartners at(int k, int it) const {
+    HistoryPartners s = *this;
+    s.words = words.at(k, (uint32_t)it, 0);
+    if (idx) s.idx = idx + (size_t)k * n_rows * C;
+    s.span = (uint32_t)(it - 1) * (uint32_t)C;
+    return s;
+  }
 
   struct Thread {
     ChainWords w;
@@ -270,17 +306,16 @@ struct HistoryPartners {
     pn = at(f2);
   }
 
-  __device__ __forceinline__ void commit(const StepArgs<D>& a, int c,
-                                         const float* th) const {
-    float* row = hist + ((size_t)(a.it - 1) * C + c) * D;
+  __device__ __forceinline__ void commit(int it, int c, const float* th) const {
+    float* row = hist + ((size_t)(it - 1) * C + c) * D;
     for (int i = 0; i < D; ++i) row[i] = th[i];
   }
 };
 
-// kSeq (the sequential sweep) and kSnooker are compile-time, so a
+// kSeq (the sequential sweep), kSnooker and kPost are compile-time, so a
 // configuration without them runs none of their code: as run-time flags
 // they made K1 measurably slower on an H100 (PERF.md).
-template <class Density, class Source, bool kSeq, bool kSnooker>
+template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost>
 __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
                              Source src) {
   constexpr int D = Density::D;
@@ -293,9 +328,7 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
   const int g = blockIdx.x * (T / Np) + tid / Np;
   const bool valid = g < a.G;
   const int c = valid ? g * Np + p : 0;
-  const WordSource& W = a.words;   // other chains' words (leader, chain 0)
-  ChainWords Wc(a.words, c);       // this chain's words, rising rows
-  typename Source::Thread st = src.thread(c);
+  const size_t C = (size_t)a.G * Np;
 
   float th[D], prop[D];
   float w = 0.0f;
@@ -304,201 +337,306 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
   for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
   __syncthreads();
 
-  // beta mutation: one gate per group and sweep, from the leader's word.
-  // The sequential sweep reads it before its sub-sweeps, the synchronous
-  // one next to its use, where it overlaps the proposal (K1 measured
-  // faster on an H100 than with the gate read here).
-  auto beta_gate = [&]() {
-    return a.r_gate >= 0 && to_uni(W(a.r_gate, valid ? g * Np : 0)) <= a.beta;
-  };
-  const bool mut_sweep = kSeq && beta_gate();
-  const bool base_phase = a.random_gamma && a.it <= a.burnin;  // block-wide
   const float half_dm1 = 0.5f * (float)(D - 1);
-  bool acc_any = false;
+  int t_out = 0;  // trajectory rows written so far
+  for (int k = 0; k < a.K; ++k) {
+    const int it = a.it0 + k;
+    const WordSource W = a.words.at(k, (uint32_t)it, a.n_words);
+    ChainWords Wc(W, c);  // this chain's words, rising rows
+    const Source sk = src.at(k, it);
+    typename Source::Thread st = sk.thread(c);
 
-  for (int m = 0; m < (kSeq ? a.n_members : 1); ++m) {
-    if (base_phase) {
-      // softmax(w) CDF over each group (every thread takes part)
-      s_q[tid] = w;
-      __syncthreads();
-      seg_scan<false>(s_q, tid, p, Np);
-      const float mx = s_q[lead + Np - 1];
-      __syncthreads();
-      s_q[tid] = expf(w - (isfinite(mx) ? mx : 0.0f));
-      __syncthreads();
-      seg_scan<true>(s_q, tid, p, Np);
-    }
-    // The synchronous sweep runs every thread through the body (chain 0's
-    // words and a zero group for the threads past the last group, whose
-    // results are never written): K1 measured faster on an H100 than with
-    // the test.  The sequential sweep keeps it: its few proposing threads
-    // would wait on diverging idle ones.
-    if (kSeq ? valid && p == m : true) {
-      const Slot s{c, p, lead, m, m * a.stride};
-      const float *pm, *pn;
-      src.pair(st, Wc, s, a, s_th, pm, pn);
-      if (a.random_gamma) {
-        const float ub = to_uni(Wc(a.r_gamma + s.off));
-        const float g1 = to_uni(Wc(a.r_gamma + s.off + 1)) * 0.5f + 0.5f;
-        const float g2 = to_uni(Wc(a.r_gamma + s.off + 2)) * 0.5f + 0.5f;
-        float bterm[D];
-        for (int i = 0; i < D; ++i) bterm[i] = 0.0f;
-        if (base_phase) {
-          // base chain drawn from softmax(w) over the group by inverse CDF
-          const float ubs = fmaxf(ub, FLT_MIN) * s_q[lead + Np - 1];
-          int cnt = 0;
-          for (int o = 0; o < Np; ++o) cnt += s_q[lead + o] < ubs;
-          const float* base = s_th + (lead + min(cnt, Np - 1)) * D;
-          for (int i = 0; i < D; ++i) bterm[i] = g2 * (base[i] - th[i]);
-        }
-        for (int i = 0; i < D; ++i)
-          prop[i] = (th[i] + g1 * (pm[i] - pn[i])) + bterm[i];
-      } else {
-        for (int i = 0; i < D; ++i)
-          prop[i] = th[i] + a.fixed_g1 * (pm[i] - pn[i]);
+    // beta mutation: one gate per group and sweep, from the leader's word.
+    // The sequential sweep reads it before its sub-sweeps, the synchronous
+    // one next to its use, where it overlaps the proposal (K1 measured
+    // faster on an H100 than with the gate read here).
+    auto beta_gate = [&]() {
+      return a.r_gate >= 0 &&
+             to_uni(W(a.r_gate, valid ? g * Np : 0)) <= a.beta;
+    };
+    const bool mut_sweep = kSeq && beta_gate();
+    const bool base_phase = !kPost && a.random_gamma && it <= a.burnin;
+    bool acc_any = false;
+
+    for (int m = 0; m < (kSeq ? a.n_members : 1); ++m) {
+      if (base_phase) {
+        // softmax(w) CDF over each group (every thread takes part)
+        s_q[tid] = w;
+        __syncthreads();
+        seg_scan<false>(s_q, tid, p, Np);
+        const float mx = s_q[lead + Np - 1];
+        __syncthreads();
+        s_q[tid] = expf(w - (isfinite(mx) ? mx : 0.0f));
+        __syncthreads();
+        seg_scan<true>(s_q, tid, p, Np);
       }
-
-      // snooker, per chain with probability theta_sn (fused_step.py:
-      // 2322-2351): project the triple's pm, pn onto theta - z
-      const float* pz = nullptr;
-      bool sn = false, degen = false;
-      float den0 = 0.0f;
-      if (kSnooker) {
-        const float *pm2, *pn2;
-        src.triple(st, Wc, s, a, s_th, pz, pm2, pn2);
-        float sp[D];
-        for (int i = 0; i < D; ++i) sp[i] = th[i] - pz[i];
-        den0 = dot<D>(sp, sp);
-        degen = den0 <= FLT_MIN;
-        if (degen)
-          for (int i = 0; i < D; ++i) sp[i] = 1.0f;
-        const float dens2 = dot<D>(sp, sp);
-        const float q1 = dot<D>(pm2, sp) / dens2;
-        const float q2 = dot<D>(pn2, sp) / dens2;
-        const float gsn = to_uni(Wc(a.r_sn + s.off)) + 1.2f;
-        sn = to_uni(Wc(a.r_sn + s.off + 1)) <= a.theta_sn;
-        if (sn)
+      // The synchronous sweep runs every thread through the body (chain 0's
+      // words and a zero group for the threads past the last group, whose
+      // results are never written): K1 measured faster on an H100 than
+      // with the test.  The sequential sweep keeps it: its few proposing
+      // threads would wait on diverging idle ones.
+      if (kSeq ? valid && p == m : true) {
+        const Slot s{c, p, lead, m, m * a.stride};
+        const float *pm, *pn;
+        sk.pair(st, Wc, s, a, s_th, pm, pn);
+        if (a.random_gamma) {
+          const float ub = to_uni(Wc(a.r_gamma + s.off));
+          const float g1 = to_uni(Wc(a.r_gamma + s.off + 1)) * 0.5f + 0.5f;
+          const float g2 = to_uni(Wc(a.r_gamma + s.off + 2)) * 0.5f + 0.5f;
+          // past burn-in the base term is +0.0 and is still added: the add
+          // turns -0.0 into +0.0, as in the TPU kernel's post variant
+          // (fused_step.py:2262-2275), so kPost changes no bit
+          float bterm[D];
+          for (int i = 0; i < D; ++i) bterm[i] = 0.0f;
+          if (base_phase) {
+            // base chain drawn from softmax(w) over the group by inverse CDF
+            const float ubs = fmaxf(ub, FLT_MIN) * s_q[lead + Np - 1];
+            int cnt = 0;
+            for (int o = 0; o < Np; ++o) cnt += s_q[lead + o] < ubs;
+            const float* base = s_th + (lead + min(cnt, Np - 1)) * D;
+            for (int i = 0; i < D; ++i) bterm[i] = g2 * (base[i] - th[i]);
+          }
           for (int i = 0; i < D; ++i)
-            prop[i] = th[i] + gsn * (q1 * sp[i] - q2 * sp[i]);
-      }
+            prop[i] = (th[i] + g1 * (pm[i] - pn[i])) + bterm[i];
+        } else {
+          for (int i = 0; i < D; ++i)
+            prop[i] = th[i] + a.fixed_g1 * (pm[i] - pn[i]);
+        }
 
-      if (a.r_eps >= 0)
-        for (int i = 0; i < D; ++i)
-          prop[i] = prop[i] + (to_uni(Wc(a.r_eps + s.off + i)) * a.eps2 - a.eps);
-      if (a.r_kappa >= 0)
-        for (int i = 0; i < D; ++i)
-          if (!(to_uni(Wc(a.r_kappa + s.off + i)) > a.kappa_keep)) prop[i] = th[i];
+        // snooker, per chain with probability theta_sn (fused_step.py:
+        // 2322-2351): project the triple's pm, pn onto theta - z
+        const float* pz = nullptr;
+        bool sn = false, degen = false;
+        float den0 = 0.0f;
+        if (kSnooker) {
+          const float *pm2, *pn2;
+          sk.triple(st, Wc, s, a, s_th, pz, pm2, pn2);
+          float sp[D];
+          for (int i = 0; i < D; ++i) sp[i] = th[i] - pz[i];
+          den0 = dot<D>(sp, sp);
+          degen = den0 <= FLT_MIN;
+          if (degen)
+            for (int i = 0; i < D; ++i) sp[i] = 1.0f;
+          const float dens2 = dot<D>(sp, sp);
+          const float q1 = dot<D>(pm2, sp) / dens2;
+          const float q2 = dot<D>(pn2, sp) / dens2;
+          const float gsn = to_uni(Wc(a.r_sn + s.off)) + 1.2f;
+          sn = to_uni(Wc(a.r_sn + s.off + 1)) <= a.theta_sn;
+          if (sn)
+            for (int i = 0; i < D; ++i)
+              prop[i] = th[i] + gsn * (q1 * sp[i] - q2 * sp[i]);
+        }
 
-      // snooker MH correction 0.5 (d - 1) (log|theta' - z|^2 - log|theta -
-      // z|^2) on the final proposal; a degenerate draw z == theta proposes
-      // theta and is rejected with -inf (:2374-2384)
-      float adj = 0.0f;
-      if (sn) {
-        if (degen)
-          for (int i = 0; i < D; ++i) prop[i] = th[i];
-        float a1[D];
-        for (int i = 0; i < D; ++i) a1[i] = prop[i] - pz[i];
-        const float a1sq = dot<D>(a1, a1);
-        adj = degen ? -INFINITY : half_dm1 * (logf(a1sq) - logf(den0));
-      }
+        if (a.r_eps >= 0)
+          for (int i = 0; i < D; ++i)
+            prop[i] = prop[i] +
+                      (to_uni(Wc(a.r_eps + s.off + i)) * a.eps2 - a.eps);
+        if (a.r_kappa >= 0)
+          for (int i = 0; i < D; ++i)
+            if (!(to_uni(Wc(a.r_kappa + s.off + i)) > a.kappa_keep))
+              prop[i] = th[i];
 
-      // Box-Muller normals.  Narrow densities draw them in every chain and
-      // let the gate select; wide ones only where the group's gate fired
-      // (kNormalsIfGated: on an H100 the branch slows K1 at d = 2 and saves
-      // K3 at d = 31 more than half its time).  The radii come from the
-      // first d rows and then the angles, so the words are read in rising
-      // rows; only the narrow synchronous sweep takes u1, u2 per dimension,
-      // which K1 runs faster.
-      const bool mut = kSeq ? mut_sweep : beta_gate();
-      if constexpr (!kSeq && !kNormalsIfGated<D>) {
-        if (a.r_gate >= 0)
+        // snooker MH correction 0.5 (d - 1) (log|theta' - z|^2 - log|theta -
+        // z|^2) on the final proposal; a degenerate draw z == theta
+        // proposes theta and is rejected with -inf (:2374-2384)
+        float adj = 0.0f;
+        if (sn) {
+          if (degen)
+            for (int i = 0; i < D; ++i) prop[i] = th[i];
+          float a1[D];
+          for (int i = 0; i < D; ++i) a1[i] = prop[i] - pz[i];
+          const float a1sq = dot<D>(a1, a1);
+          adj = degen ? -INFINITY : half_dm1 * (logf(a1sq) - logf(den0));
+        }
+
+        // Box-Muller normals.  Narrow densities draw them in every chain
+        // and let the gate select; wide ones only where the group's gate
+        // fired (kNormalsIfGated: on an H100 the branch slows K1 at d = 2
+        // and saves K3 at d = 31 more than half its time).  The radii come
+        // from the first d rows and then the angles, so the words are read
+        // in rising rows; only the narrow synchronous sweep takes u1, u2
+        // per dimension, which K1 runs faster.
+        const bool mut = kSeq ? mut_sweep : beta_gate();
+        if constexpr (!kSeq && !kNormalsIfGated<D>) {
+          if (a.r_gate >= 0)
+            for (int i = 0; i < D; ++i) {
+              const float u1 =
+                  fmaxf(to_uni(Wc(a.r_norm + s.off + i)), FLT_MIN);
+              const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
+              const float nrm = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+              if (mut) prop[i] = th[i] + a.sigma * nrm;
+            }
+        } else if (kNormalsIfGated<D> ? mut : a.r_gate >= 0) {
+          float rad[D];
+          for (int i = 0; i < D; ++i)
+            rad[i] = sqrtf(-2.0f *
+                           logf(fmaxf(to_uni(Wc(a.r_norm + s.off + i)),
+                                      FLT_MIN)));
           for (int i = 0; i < D; ++i) {
-            const float u1 = fmaxf(to_uni(Wc(a.r_norm + s.off + i)), FLT_MIN);
             const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
-            const float nrm = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+            const float nrm = rad[i] * cosf(kTwoPi * u2);
             if (mut) prop[i] = th[i] + a.sigma * nrm;
           }
-      } else if (kNormalsIfGated<D> ? mut : a.r_gate >= 0) {
-        float rad[D];
-        for (int i = 0; i < D; ++i)
-          rad[i] = sqrtf(-2.0f * logf(fmaxf(to_uni(Wc(a.r_norm + s.off + i)),
-                                            FLT_MIN)));
-        for (int i = 0; i < D; ++i) {
-          const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
-          const float nrm = rad[i] * cosf(kTwoPi * u2);
-          if (mut) prop[i] = th[i] + a.sigma * nrm;
         }
-      }
-      if (mut) adj = 0.0f;  // a mutation carries no snooker correction
+        if (mut) adj = 0.0f;  // a mutation carries no snooker correction
 
-      // integer snap (fused_step.py:2402-2410) on the density's compile-time
-      // mask: rintf rounds half to even, as jnp.round and torch.round do
-      if constexpr (Density::kIntMask != 0u)
-        for (int i = 0; i < D; ++i)
-          if ((Density::kIntMask >> i) & 1u) prop[i] = rintf(prop[i]);
+        // integer snap (fused_step.py:2402-2410) on the density's
+        // compile-time mask: rintf rounds half to even, as jnp.round and
+        // torch.round do
+        if constexpr (Density::kIntMask != 0u)
+          for (int i = 0; i < D; ++i)
+            if ((Density::kIntMask >> i) & 1u) prop[i] = rintf(prop[i]);
 
-      bool inb = true;
-      for (int i = 0; i < D; ++i) {
-        if (isfinite(a.lo[i])) inb = inb && prop[i] >= a.lo[i];
-        if (isfinite(a.hi[i])) inb = inb && prop[i] <= a.hi[i];
+        bool inb = true;
+        for (int i = 0; i < D; ++i) {
+          if (isfinite(a.lo[i])) inb = inb && prop[i] >= a.lo[i];
+          if (isfinite(a.hi[i])) inb = inb && prop[i] <= a.hi[i];
+        }
+        // a density that draws noise streams its panel from the chain's
+        // words (rows r_noise.. of the sub-sweep block, before the accept
+        // row)
+        float lp;
+        if constexpr (Density::kNoise)
+          lp = dens(prop, Wc, a.r_noise + s.off);
+        else
+          lp = dens(prop);
+        const float wp = (inb && !isnan(lp)) ? lp : -INFINITY;
+        const float u = fmaxf(to_uni(Wc(a.r_acc + s.off)), FLT_MIN);
+        float delta = wp - w;
+        if (kSnooker) delta = delta + adj;
+        const bool acc = logf(u) <= delta;
+        if (acc) {
+          for (int i = 0; i < D; ++i) th[i] = prop[i];
+          w = wp;
+        }
+        acc_any = acc_any || acc;
+        if (kSeq)
+          for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
       }
-      // a density that draws noise streams its panel from the chain's words
-      // (rows r_noise.. of the sub-sweep block, before the accept row)
-      float lp;
-      if constexpr (Density::kNoise)
-        lp = dens(prop, Wc, a.r_noise + s.off);
-      else
-        lp = dens(prop);
-      const float wp = (inb && !isnan(lp)) ? lp : -INFINITY;
-      const float u = fmaxf(to_uni(Wc(a.r_acc + s.off)), FLT_MIN);
-      float delta = wp - w;
-      if (kSnooker) delta = delta + adj;
-      const bool acc = logf(u) <= delta;
-      if (acc) {
-        for (int i = 0; i < D; ++i) th[i] = prop[i];
-        w = wp;
-      }
-      acc_any = acc_any || acc;
-      if (kSeq)
-        for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
+      if (kSeq) __syncthreads();  // the commit, before the next sub-sweep
     }
-    if (kSeq) __syncthreads();  // the commit, before the next sub-sweep
+
+    const bool emit =
+        k >= a.emit_first && (k - a.emit_first) % a.emit_stride == 0;
+    if (valid) {
+      if (emit) {
+        const size_t row = (size_t)t_out * C + c;
+        if (a.out_theta)
+          for (int i = 0; i < D; ++i) a.out_theta[row * D + i] = th[i];
+        if (a.out_w) a.out_w[row] = w;
+        if (a.out_acc) a.out_acc[row] = acc_any ? 1 : 0;
+      }
+      sk.commit(it, c, th);
+    }
+    t_out += emit;
+    if (k + 1 < a.K) {
+      // the next iteration reads this one's state: every read of the stage
+      // (and, in K3, the history row just written) is done before the
+      // synchronous sweep refreshes the stage, and the refresh is seen
+      // before the next reads.  The sequential sweep's stage is current.
+      __syncthreads();
+      if (!kSeq)
+        for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
+      __syncthreads();
+    }
   }
 
   if (!valid) return;
-  for (int i = 0; i < D; ++i) {
-    a.theta[(size_t)c * D + i] = th[i];
-    if (a.out_theta) a.out_theta[(size_t)c * D + i] = th[i];
-  }
+  for (int i = 0; i < D; ++i) a.theta[(size_t)c * D + i] = th[i];
   a.w[c] = w;
-  if (a.out_w) a.out_w[c] = w;
-  if (a.out_acc) a.out_acc[c] = acc_any ? 1 : 0;
-  src.commit(a, c, th);
   if (c == 0) {
+    const int last = a.K - 1;
+    const WordSource W = a.words.at(last, (uint32_t)(a.it0 + last), a.n_words);
     const float uf = to_uni(W(a.r_fire, 0));
     *a.fire = (a.alpha > 0.0f && uf <= a.alpha) ? 1 : 0;
   }
 }
 
-// Launch one iteration: whole groups per block, about kThreadsTarget
-// threads.  Returns cudaGetLastError() after the launch.
+// The instantiation a configuration launches.
+template <class Density, class Source>
+auto pick_kernel(bool seq, bool snooker, bool post) {
+  using S = Source;
+  using Dn = Density;
+  if (seq)
+    return snooker ? (post ? sweep_kernel<Dn, S, true, true, true>
+                           : sweep_kernel<Dn, S, true, true, false>)
+                   : (post ? sweep_kernel<Dn, S, true, false, true>
+                           : sweep_kernel<Dn, S, true, false, false>);
+  return snooker ? (post ? sweep_kernel<Dn, S, false, true, true>
+                         : sweep_kernel<Dn, S, false, true, false>)
+                 : (post ? sweep_kernel<Dn, S, false, false, true>
+                         : sweep_kernel<Dn, S, false, false, false>);
+}
+
+// Chains one block of `kernel` holds on the current device, one thread
+// each: the threads its registers allow (cudaFuncGetAttributes'
+// maxThreadsPerBlock) and the stage, D + 1 floats a chain, within the
+// shared memory a block may opt in to.  Returns a CUDA error code.
+template <int D, class Kernel>
+int block_chains(Kernel kernel, int* chains) {
+  cudaFuncAttributes fa;
+  cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
+  if (e != cudaSuccess) return (int)e;
+  int dev = 0, optin = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin,
+                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int by_smem =
+      (optin - (int)fa.sharedSizeBytes) / ((D + 1) * (int)sizeof(float));
+  *chains = fa.maxThreadsPerBlock < by_smem ? fa.maxThreadsPerBlock : by_smem;
+  return (int)cudaSuccess;
+}
+
+// Chains a one-CTA window (K > 1 of a kOneCta source) holds for a
+// configuration: the fewer of its two phases' instantiations.  The
+// sampler reads it once per configuration and keeps K = 1 above it
+// (ops/resample_step.py::resample_super_k).
+template <class Density, class Source>
+int window_chains(bool seq, bool snooker, int* chains) {
+  constexpr int D = Density::D;
+  int all = 0, post = 0;
+  int e = block_chains<D>(pick_kernel<Density, Source>(seq, snooker, false),
+                          &all);
+  if (e == 0)
+    e = block_chains<D>(pick_kernel<Density, Source>(seq, snooker, true),
+                        &post);
+  *chains = all < post ? all : post;
+  return e;
+}
+
+// Launch one window: whole groups per block, about kThreadsTarget threads;
+// a Source that needs one CTA (K3's history) for K > 1 runs the whole
+// population in one block, if the instantiation can launch that block
+// (block_chains).  Returns cudaGetLastError() after the launch.
 template <class Density, class Source>
 int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
-                 const Source& src, cudaStream_t stream) {
+                 const Source& src, bool post, cudaStream_t stream) {
   constexpr int D = Density::D;
-  if (a.Np < 3 || a.Np > 1024 || a.G < 1 || a.n_members < 1)
+  if (a.Np < 3 || a.Np > 1024 || a.G < 1 || a.n_members < 1 || a.K < 1 ||
+      a.emit_first < 0 || a.emit_stride < 1)
     return (int)cudaErrorInvalidValue;
   // the model's integer dimensions must be the ones the density snaps
   if (a.int_mask != Density::kIntMask) return (int)cudaErrorInvalidValue;
-  const int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;
+  auto kernel =
+      pick_kernel<Density, Source>(a.n_members > 1, a.r_sn >= 0, post);
+  int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;
+  if (Source::kOneCta && a.K > 1) {
+    int most = 0;
+    const int e = block_chains<D>(kernel, &most);
+    if (e != 0) return e;
+    if (a.G * a.Np > most) return (int)cudaErrorInvalidValue;
+    gpb = a.G;
+  }
   const int threads = gpb * a.Np;
   const int blocks = (a.G + gpb - 1) / gpb;
   const size_t smem = (size_t)threads * (D + 1) * sizeof(float);
-  auto kernel = a.n_members > 1
-      ? (a.r_sn >= 0 ? sweep_kernel<Density, Source, true, true>
-                     : sweep_kernel<Density, Source, true, false>)
-      : (a.r_sn >= 0 ? sweep_kernel<Density, Source, false, true>
-                     : sweep_kernel<Density, Source, false, false>);
+  if (smem > 48 * 1024) {  // above the default: opt in (one-CTA K3 windows)
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
   kernel<<<blocks, threads, smem, stream>>>(a, dens, src);
   return (int)cudaGetLastError();
 }

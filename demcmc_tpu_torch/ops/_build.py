@@ -24,14 +24,18 @@ CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
 SOURCES = ("de_step", "de_step_resample", "migration", "kde")
 # no --use_fast_math: logf/expf/cosf stay full precision; -fmad=false keeps
-# each float operation rounded like the plain PyTorch versions
+# each float operation rounded like the plain PyTorch versions;
+# --split-compile=0 runs the optimizer on every core (de_step.cu holds 32
+# instantiations of the sweep)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+         "-fmad=false", "--split-compile=0", "-shared", "-Xcompiler",
+         "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _U32P = ctypes.POINTER(ctypes.c_uint32)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I, _U, _F = ctypes.c_int, ctypes.c_uint32, ctypes.c_float
+_IP = ctypes.POINTER(ctypes.c_int)
 # the csrc/densities each step kernel is instantiated on: K1 (de_step) for
 # the models that run it, K3 (resample_step) for the DE-MCz ones
 KERNEL_DENSITIES = {"de_step": ("gaussian", "lba", "binomial_abc",
@@ -44,8 +48,12 @@ SIGNATURES = {
         **{f"de_step_{d}": _K1 for d in KERNEL_DENSITIES["de_step"]},
         "philox_fill": [_P, _I, _I, _U, _U, _U, _U, _P],
     },
-    "de_step_resample": {f"resample_step_{d}": _K3
-                         for d in KERNEL_DENSITIES["resample_step"]},
+    "de_step_resample": {
+        **{f"resample_step_{d}": _K3
+           for d in KERNEL_DENSITIES["resample_step"]},
+        **{f"resample_window_chains_{d}": [_I, _I, _IP]
+           for d in KERNEL_DENSITIES["resample_step"]},
+    },
     "migration": {
         "migrate_f32": [_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P],
     },

@@ -1,12 +1,21 @@
-"""One DE iteration: the wrapper of CUDA kernel K1 (``csrc/de_step.cu``)
-and the plain PyTorch sweep it shares with K3 (:mod:`.resample_step`).
+"""A window of DE iterations: the wrapper of CUDA kernel K1
+(``csrc/de_step.cu``) and the plain PyTorch sweep it shares with K3
+(:mod:`.resample_step`).
 
 K1 is the port of the TPU kernel ``demcmc_tpu/ops/fused_step.py::
 build_fused_step`` (standard layout, MH, random/fixed/variable γ, the
-snooker branch, synchronous or sequential sweep) for one iteration in the
-flat ``[C, d]`` layout; the name of this module is kept so the counterpart
-is easy to find.  Migration is the separate kernel K2 (:mod:`.migration`),
-launched first.
+snooker branch, synchronous or sequential sweep) in the flat ``[C, d]``
+layout; the name of this module is kept so the counterpart is easy to
+find.  Like the TPU kernel's grid over K (``fused_step.py:2618``), one
+launch runs a window of ``K`` iterations, storing the trajectory rows of
+its emission rule ``(emit_first, emit_stride)``: local iteration k is
+stored iff ``k >= emit_first`` and ``(k - emit_first) % emit_stride ==
+0`` (``emit='all'`` is ``(0, 1)``, ``'last'`` ``(K - 1, 1)``, ``('stride',
+s)`` ``(s - 1, s)``), and with ``phase='post'`` (``:2250-2276``) past
+burn-in without the γ₂ base select.  Migration is the separate kernel K2
+(:mod:`.migration`), launched between windows: a window never holds an
+open migration gate before its last iteration (``sampler.plan_windows``
+cuts it there), so it is bitwise equal to K one-iteration launches.
 
 Random words come in the order of the TPU kernel's draw calls
 (``fused_step.py:1802-1828``, ``_sweep_tail`` :2248-2451; :func:`draw_rows`):
@@ -22,8 +31,9 @@ resample variant (K3) has no partner or member-index rows: its partners
 come from the history.
 Every draw is taken whether or not its branch applies, so the layout is
 static.  In normal runs word (row, chain) is Philox(seed, iteration, row,
-chain); in bits-in mode (tests) it is read from a ``[n_words, C]`` uint32
-tensor — the same tensor the JAX interpret-mode kernel can be fed.
+chain); in bits-in mode (tests) a window reads iteration k's words from
+rows ``k·n_words ..`` of a ``[K·n_words, C]`` uint32 tensor — the same
+tensor the JAX interpret-mode kernel is fed (``fused_step.py:2717-2735``).
 """
 
 from __future__ import annotations
@@ -42,6 +52,29 @@ from . import accept as accept_ops
 from . import migration as migration_ops
 from . import mutation as mutation_ops
 from . import proposals as proposal_ops
+
+# Iterations per K1 window at most (the JAX package's SUPER_K,
+# demcmc_tpu/ops/fused_step.py:121), chosen on an H100 by chip_smoke.py's
+# K sweep (PERF.md: on the 4,096-chain Gaussian at α = 0.1, K = 4, 16, 64
+# and 256 within a few µs per iteration of each other, 64 the lowest);
+# any K gives the same draws.
+SUPER_K = 64
+
+
+def super_k() -> int:
+    """Iterations per K1 launch at most (windows are also cut where a
+    migration gate opens and at the burn-in boundary)."""
+    return SUPER_K
+
+
+def n_emitted(K: int, emit) -> int:
+    """Trajectory rows a window of ``K`` iterations stores under the
+    emission rule ``emit = (emit_first, emit_stride)``."""
+    first, stride = emit
+    if first < 0 or stride < 1:
+        raise ValueError(f"emission rule {emit}: need first >= 0 and "
+                         f"stride >= 1")
+    return 0 if first >= K else (K - 1 - first) // stride + 1
 
 
 class Rows(NamedTuple):
@@ -161,10 +194,12 @@ class StepConfig:
         then the snooker triple."""
         return 5 if self.theta_snooker > 0.0 else 2
 
-    def iargs(self, it: int, seed: int):
+    def iargs(self, it: int, seed: int, K: int = 1, emit=(0, 1),
+              post: bool = False):
         """K1's and K3's integer arguments (``csrc/step_body.cuh``) as a
         ctypes array, built once per seed; a launch rewrites only the
-        iteration."""
+        window: its first iteration, K, the emission rule and the
+        phase."""
         a = self._iargs.get(seed)
         if a is None:
             k0, k1 = rng.seed_key(seed)
@@ -172,8 +207,10 @@ class StepConfig:
             a = self._iargs[seed] = _build.u32_array(
                 [self.G, self.Np, it, self.burnin, int(self.random_gamma),
                  k0, k1, r.partners, r.gamma, r.eps, r.kappa, r.gate,
-                 r.normal, r.accept, r.fire])
+                 r.normal, r.accept, r.fire, K, *emit, r.n_words,
+                 int(post)])
         a[2] = it & 0xFFFFFFFF
+        a[15], a[16], a[17], a[19] = K, emit[0], emit[1], int(post)
         return a
 
     @functools.cached_property
@@ -343,36 +380,105 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     return margin.view(-1)
 
 
+def check_window(cfg: StepConfig, it: int, K: int, emit, phase: str):
+    """Raise unless ``(it, K, emit, phase)`` is a window the kernels take:
+    K >= 1, a valid emission rule, and ``phase='post'`` only past
+    burn-in (the γ₂ base select is left out)."""
+    if K < 1:
+        raise ValueError(f"a window runs K >= 1 iterations, not {K}")
+    n_emitted(K, emit)
+    if phase not in ("all", "post"):
+        raise ValueError(f"phase must be 'all' or 'post', not {phase!r}")
+    if phase == "post" and it <= cfg.burnin:
+        raise ValueError(f"phase='post' runs past burn-in only: iteration "
+                         f"{it} <= burnin {cfg.burnin}")
+
+
+def trajectory(cfg: StepConfig, out, K: int, emit):
+    """``out`` as ``([T, C, d], [T, C], [T, C])`` views (a ``[C, d]`` row
+    is T = 1), T the rows the window stores; None stays None."""
+    if out is None:
+        return None
+    C, d = cfg.G * cfg.Np, cfg.d
+    T = n_emitted(K, emit)
+    views = (out[0].view(-1, C, d), out[1].view(-1, C), out[2].view(-1, C))
+    if any(v.shape[0] != T for v in views):
+        raise ValueError(f"the window stores {T} trajectory rows; out holds "
+                         f"{views[0].shape[0]}")
+    return views
+
+
+def window_plain(cfg: StepConfig, fire, it: int, K: int, emit, out, one):
+    """The plain window of K1 and K3: ``one(k, it_k, slot)`` runs
+    iteration ``it_k = it + k`` in place and returns its accept margins,
+    writing the trajectory ``slot`` (a ``(θ [C, d], w [C], acc [C])``
+    row, or None) where the emission rule stores iteration k.  Raises if
+    an iteration before the last writes an open migration gate: the
+    sampler cuts windows there (a host read of ``fire`` per iteration).
+    Returns the margins, ``[C]`` for K = 1 and ``[K, C]`` above."""
+    first, stride = emit
+    margins, t = [], 0
+    for k in range(K):
+        slot = None
+        if out is not None and k >= first and (k - first) % stride == 0:
+            slot = (out[0][t], out[1][t], out[2][t])
+            t += 1
+        margins.append(one(k, it + k, slot))
+        if k + 1 < K and cfg.alpha > 0.0 and bool(fire[0]):
+            raise RuntimeError(
+                f"iteration {it + k} opened the migration gate inside a "
+                f"window of {K} from {it}: migration must come before "
+                f"iteration {it + k + 1} (cut the window there)")
+    return margins[0] if K == 1 else torch.stack(margins)
+
+
 def de_step_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
-                  words, out=None):
-    """Plain version of K1, in place (:func:`sweep_plain` with partners
-    from the current group).  Returns each chain's accept margin."""
-    return sweep_plain(cfg, model, spec, theta, w, fire, it, words,
-                       group_partners(cfg, words), out)
+                  words, out=None, K: int = 1, emit=(0, 1),
+                  phase: str = "all", seed: int = 0):
+    """Plain version of K1 for a window of ``K`` iterations from ``it``,
+    in place: :func:`sweep_plain` with partners from the current group,
+    iteration by iteration.  ``words [K·n_words, C]`` (None: Philox(seed,
+    it + k)); ``out`` the window's trajectory slice (:func:`trajectory`).
+    Returns the accept margins (:func:`window_plain`)."""
+    check_window(cfg, it, K, emit, phase)
+    out = trajectory(cfg, out, K, emit)
+    n, C = cfg.rows.n_words, cfg.G * cfg.Np
+
+    def one(k, it_k, slot):
+        wk = (rng.words(seed, it_k, n, C, device=theta.device)
+              if words is None else words[k * n:(k + 1) * n])
+        return sweep_plain(cfg, model, spec, theta, w, fire, it_k, wk,
+                           group_partners(cfg, wk), slot)
+
+    return window_plain(cfg, fire, it, K, emit, out, one)
 
 
 def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
-            seed: int = 0, out=None, bits=None, check: bool = True):
-    """One DE iteration in place on ``theta [C, d]`` / ``w [C]``; writes
-    the next migration gate into ``fire [1]`` and, with ``out =
-    (theta_row [C, d], w_row [C], acc_row [C] bool)``, the trajectory row.
+            seed: int = 0, out=None, bits=None, check: bool = True,
+            K: int = 1, emit=(0, 1), phase: str = "all"):
+    """A window of ``K`` DE iterations from ``it`` in place on ``theta [C,
+    d]`` / ``w [C]``; writes the gate the last iteration draws into ``fire
+    [1]`` and, with ``out = (θ [T, C, d], w [T, C], acc [T, C] bool)``
+    (for one row also ``[C, d]``, ``[C]``, ``[C]``), the T trajectory rows
+    the emission rule ``emit = (emit_first, emit_stride)`` stores;
+    ``phase='post'`` (past burn-in only) drops the γ₂ base select.  The
+    window must hold no open migration gate before its last iteration.
 
-    Words are Philox(seed, it) or, in bits-in mode, ``bits [n_words, C]``
-    uint32.  CPU tensors take the plain version; CUDA tensors launch K1
-    (``de_step.launches`` counts the launches).  ``check=False`` skips the
-    tensor checks, for a caller that made them once for a run
-    (:func:`check_cuda`)."""
-    C = cfg.G * cfg.Np
+    Words are Philox(seed, it + k) or, in bits-in mode, ``bits
+    [K·n_words, C]`` uint32.  CPU tensors take the plain version; CUDA
+    tensors launch K1 once (``de_step.launches`` counts the launches).
+    ``check=False`` skips the tensor checks, for a caller that made them
+    once for a run (:func:`check_cuda`)."""
     if cfg.resample:
         raise ValueError("a resample configuration steps with "
                          "resample_step (K3), not de_step")
     if theta.device.type == "cpu":
-        words = (bits if bits is not None
-                 else rng.words(seed, it, cfg.rows.n_words, C))
-        de_step_plain(cfg, model, spec, theta, w, fire, it, words, out)
+        de_step_plain(cfg, model, spec, theta, w, fire, it, bits, out, K,
+                      emit, phase, seed)
         return
+    check_window(cfg, it, K, emit, phase)
     if check:
-        check_cuda(cfg, theta, w, fire, bits, out)
+        check_cuda(cfg, theta, w, fire, bits, out, K=K, emit=emit)
     lib = _build.library("de_step")
     name = _build.entry("de_step", cfg.density)
     o_t, o_w, o_a = (None, None, None) if out is None else (
@@ -380,8 +486,9 @@ def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     rc = getattr(lib, name)(
         theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
         None if bits is None else bits.data_ptr(),
-        cfg.iargs(it, seed), cfg.fargs, cfg.sweep_args,
-        cfg.theta_snooker_arg, _ptr(cfg.density_data(theta.device)),
+        cfg.iargs(it, seed, K, emit, phase == "post"), cfg.fargs,
+        cfg.sweep_args, cfg.theta_snooker_arg,
+        _ptr(cfg.density_data(theta.device)),
         torch.cuda.current_stream(theta.device).cuda_stream)
     de_step.launches += 1
     _build.check(lib, rc, name)
@@ -394,29 +501,34 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step"):
+def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
+               K: int = 1, emit=(0, 1)):
     """Raise unless the tensors are what K1 (or K3) takes on a CUDA
-    device."""
+    device for a window of ``K`` iterations storing by ``emit``."""
     dev = theta.device
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
     _build.entry(what, cfg.density)
     C, d = cfg.G * cfg.Np, cfg.d
-    want = [("theta", theta, torch.float32, (C, d)),
-            ("w", w, torch.float32, (C,)),
-            ("fire", fire, torch.int32, (1,))]
+    T = n_emitted(K, emit)
+    want = [("theta", theta, torch.float32, [(C, d)]),
+            ("w", w, torch.float32, [(C,)]),
+            ("fire", fire, torch.int32, [(1,)])]
     if bits is not None:
-        want.append(("bits", bits, torch.uint32, (cfg.rows.n_words, C)))
+        want.append(("bits", bits, torch.uint32, [(K * cfg.rows.n_words,
+                                                   C)]))
     if out is not None:
-        want += [("out[0]", out[0], torch.float32, (C, d)),
-                 ("out[1]", out[1], torch.float32, (C,)),
-                 ("out[2]", out[2], torch.bool, (C,))]
-    for name, t, dt, shape in want:
-        if (t.device != dev or t.dtype != dt or tuple(t.shape) != shape
+        one = T == 1
+        want += [("out[0]", out[0], torch.float32,
+                  [(T, C, d)] + [(C, d)] * one),
+                 ("out[1]", out[1], torch.float32, [(T, C)] + [(C,)] * one),
+                 ("out[2]", out[2], torch.bool, [(T, C)] + [(C,)] * one)]
+    for name, t, dt, shapes in want:
+        if (t.device != dev or t.dtype != dt or tuple(t.shape) not in shapes
                 or not t.is_contiguous()):
-            raise ValueError(f"{name}: need a contiguous {dt} {shape} tensor "
-                             f"on {dev}, got {t.dtype} {tuple(t.shape)} on "
-                             f"{t.device}")
+            raise ValueError(f"{name}: need a contiguous {dt} {shapes[0]} "
+                             f"tensor on {dev}, got {t.dtype} "
+                             f"{tuple(t.shape)} on {t.device}")
 
 
 def philox_words_cuda(out, seed: int, it: int, ns: int = rng.STEP_NS):

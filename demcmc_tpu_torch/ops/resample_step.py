@@ -1,4 +1,4 @@
-"""One DE-MCz iteration: the wrapper of CUDA kernel K3
+"""A window of DE-MCz iterations: the wrapper of CUDA kernel K3
 (``csrc/de_step_resample.cu``) and its plain PyTorch version.
 
 K3 is the port of the resample variant of the TPU kernel
@@ -21,10 +21,21 @@ chain), slot row ``member·n_slots + slot`` with slots 0-1 the pair and 2-4
 the triple — one slot set per sub-sweep, like ``_resample_idx`` (:2637).
 The JAX package draws these words with threefry; the port's draw cannot
 reproduce that stream, so tests feed both the same indices (indices-in
-mode, ``idx [n_members·n_slots, C]``) and the same step words (bits-in).
+mode, ``idx [K·n_members·n_slots, C]`` for a window of K iterations) and
+the same step words (bits-in).
+
+A window of K iterations runs as one launch, as K1's does
+(:mod:`.fused_step`).  Iteration ``it + 1`` may read history row ``it −
+1`` of any chain, so a window of K > 1 runs the whole population in one
+CTA.  How many chains one CTA holds depends on the instantiation (its
+registers per thread, the stage's shared memory); above that K3 takes one
+iteration per launch (:func:`resample_super_k`, a rule on the
+configuration and the built kernel, read once).
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -32,6 +43,47 @@ from .. import rng
 from . import _build
 from . import fused_step as fused_ops
 from . import proposals as proposal_ops
+
+MAX_WINDOW_C = 1024      # threads of one CTA: the most a K3 window holds
+# Iterations per K3 window at most, chosen on an H100 by chip_smoke.py's K
+# sweep on the MVN flagship (PERF.md: K = 4 to 256 within 4% of each
+# other, K3 being bound by one thread's serial chain; 64 the lowest); any
+# K gives the same draws.
+RESAMPLE_SUPER_K = 64
+_window_chains: dict = {}
+
+
+def window_chains(cfg, device) -> int:
+    """Chains a K3 window of K > 1 (one CTA) holds for this configuration.
+    On a CUDA device: the fewer that the two instantiations it launches
+    (phase 'all' and 'post') hold in one block — the threads their
+    registers allow and the stage, d + 1 floats a chain, within the shared
+    memory a block may opt in to — read from the built library once per
+    configuration.  On the CPU (the plain version): :data:`MAX_WINDOW_C`."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return MAX_WINDOW_C
+    _build.entry("resample_step", cfg.density)      # raises if not built
+    name = cfg.density.name
+    key = (name, cfg.rows.n_members > 1, cfg.rows.snooker >= 0,
+           device.index)
+    if key not in _window_chains:
+        lib = _build.library("de_step_resample")
+        n = ctypes.c_int()
+        with torch.cuda.device(device):
+            rc = getattr(lib, "resample_window_chains_" + name)(
+                int(key[1]), int(key[2]), ctypes.byref(n))
+        _build.check(lib, rc, "resample_window_chains_" + name)
+        _window_chains[key] = min(n.value, MAX_WINDOW_C)
+    return _window_chains[key]
+
+
+def resample_super_k(cfg, device="cpu") -> int:
+    """Iterations per K3 launch at most: :data:`RESAMPLE_SUPER_K`, or 1
+    where the population is more than one CTA holds
+    (:func:`window_chains`)."""
+    return (RESAMPLE_SUPER_K if cfg.G * cfg.Np <= window_chains(cfg, device)
+            else 1)
 
 
 def index_rows(cfg) -> int:
@@ -77,59 +129,85 @@ def history_partners(cfg, hist, idx):
 
 
 def resample_step_plain(cfg, model, spec, theta, w, fire, hist, it: int,
-                        words, idx, out=None):
-    """Plain version of K3, in place on ``theta [C, d]``, ``w [C]``,
-    ``fire [1]`` and history row ``it − 1`` of ``hist [H, C, d]``;
-    ``words [n_words, C]`` uint32, ``idx [n_members·n_slots, C]`` int64
-    flat history indices.  Returns each chain's accept margin."""
-    margin = fused_ops.sweep_plain(cfg, model, spec, theta, w, fire, it,
-                                   words, history_partners(cfg, hist, idx),
-                                   out)
-    hist[it - 1].copy_(theta)
-    return margin
+                        words, idx, out=None, K: int = 1, emit=(0, 1),
+                        phase: str = "all"):
+    """Plain version of K3 for a window of ``K`` iterations from ``it``, in
+    place on ``theta [C, d]``, ``w [C]``, ``fire [1]`` and history rows
+    ``it − 1 .. it + K − 2`` of ``hist [H, C, d]``; ``words [K·n_words, C]``
+    uint32, ``idx [K·n_members·n_slots, C]`` int64 flat history indices,
+    ``out`` the window's trajectory slice (``fused_step.trajectory``).
+    Returns the accept margins (``fused_step.window_plain``)."""
+    _check_window(cfg, hist, it, K, emit, phase)
+    out = fused_ops.trajectory(cfg, out, K, emit)
+    n, m = cfg.rows.n_words, index_rows(cfg)
+
+    def one(k, it_k, slot):
+        wk = words[k * n:(k + 1) * n]
+        margin = fused_ops.sweep_plain(
+            cfg, model, spec, theta, w, fire, it_k, wk,
+            history_partners(cfg, hist, idx[k * m:(k + 1) * m]), slot)
+        hist[it_k - 1].copy_(theta)
+        return margin
+
+    return fused_ops.window_plain(cfg, fire, it, K, emit, out, one)
+
+
+def _check_window(cfg, hist, it, K, emit, phase):
+    fused_ops.check_window(cfg, it, K, emit, phase)
+    H = hist.shape[0]
+    if not (2 <= it and it + K - 1 <= H):
+        raise ValueError(f"iterations {it}..{it + K - 1} need history rows "
+                         f"0..{it + K - 2}; the history has {H} rows")
+    most = window_chains(cfg, hist.device)
+    if K > 1 and cfg.G * cfg.Np > most:
+        raise ValueError(f"a K3 window of K > 1 runs in one CTA, at most "
+                         f"{most} chains for this configuration; this "
+                         f"population has {cfg.G * cfg.Np} "
+                         f"(resample_super_k gives 1)")
 
 
 def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
                   seed: int = 0, out=None, bits=None, idx=None,
-                  check: bool = True):
-    """One DE-MCz iteration in place on ``theta [C, d]`` / ``w [C]``,
-    writing the new state to history row ``it − 1`` of ``hist [H, C,
-    d]``, the next gate (always 0: resample runs have no migration) to
-    ``fire [1]`` and, with ``out``, the trajectory row (as
+                  check: bool = True, K: int = 1, emit=(0, 1),
+                  phase: str = "all"):
+    """A window of ``K`` DE-MCz iterations from ``it`` in place on ``theta
+    [C, d]`` / ``w [C]``, writing each iteration's state to history row
+    ``it_k − 1`` of ``hist [H, C, d]``, the next gate (always 0: resample
+    runs have no migration) to ``fire [1]`` and, with ``out``, the
+    trajectory rows of the emission rule ``emit`` (as
     :func:`.fused_step.de_step`).
 
-    Words are Philox(seed, it) or ``bits [n_words, C]``; history indices
-    are drawn from Philox ``RESAMPLE_NS`` words or given as ``idx``.  CPU
-    tensors take the plain version; CUDA tensors launch K3
-    (``resample_step.launches`` counts the launches); there is no
-    fallback."""
+    Words are Philox(seed, it + k) or ``bits [K·n_words, C]``; history
+    indices are drawn from Philox ``RESAMPLE_NS`` words or given as ``idx
+    [K·n_members·n_slots, C]``.  CPU tensors take the plain version; CUDA
+    tensors launch K3 once (``resample_step.launches`` counts the
+    launches); there is no fallback."""
     C = cfg.G * cfg.Np
     if not cfg.resample:
         raise ValueError("resample_step needs a resample configuration")
-    H = hist.shape[0]
-    if not 2 <= it <= H:
-        raise ValueError(f"iteration {it} needs history rows 0..{it - 1}; "
-                         f"the history has {H} rows")
+    _check_window(cfg, hist, it, K, emit, phase)
     if theta.device.type == "cpu":
-        words = (bits if bits is not None
-                 else rng.words(seed, it, cfg.rows.n_words, C))
+        if bits is None:
+            bits = rng.words_block(seed, it, K, cfg.rows.n_words,
+                                   C).view(-1, C)
         if idx is None:
-            idx = indices(cfg, seed, it)
+            idx = torch.cat([indices(cfg, seed, it + k) for k in range(K)])
         resample_step_plain(cfg, model, spec, theta, w, fire, hist, it,
-                            words, idx, out)
+                            bits, idx, out, K, emit, phase)
         return
     if check:
-        check_cuda(cfg, theta, w, fire, hist, bits, idx, out)
+        check_cuda(cfg, theta, w, fire, hist, bits, idx, out, K, emit)
     lib = _build.library("de_step_resample")
     name = _build.entry("resample_step", cfg.density)
     o_t, o_w, o_a = (None, None, None) if out is None else (
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
     rc = getattr(lib, name)(
         theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
-        hist.data_ptr(), H, None if bits is None else bits.data_ptr(),
+        hist.data_ptr(), hist.shape[0],
+        None if bits is None else bits.data_ptr(),
         None if idx is None else idx.data_ptr(),
-        cfg.iargs(it, seed), cfg.fargs, cfg.sweep_args,
-        cfg.theta_snooker_arg,
+        cfg.iargs(it, seed, K, emit, phase == "post"), cfg.fargs,
+        cfg.sweep_args, cfg.theta_snooker_arg,
         torch.cuda.current_stream(theta.device).cuda_stream)
     resample_step.launches += 1
     _build.check(lib, rc, name)
@@ -138,13 +216,16 @@ def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
 resample_step.launches = 0
 
 
-def check_cuda(cfg, theta, w, fire, hist, bits=None, idx=None, out=None):
-    """Raise unless the tensors are what K3 takes on a CUDA device."""
-    fused_ops.check_cuda(cfg, theta, w, fire, bits, out, "resample_step")
+def check_cuda(cfg, theta, w, fire, hist, bits=None, idx=None, out=None,
+               K: int = 1, emit=(0, 1)):
+    """Raise unless the tensors are what K3 takes on a CUDA device for a
+    window of ``K`` iterations storing by ``emit``."""
+    fused_ops.check_cuda(cfg, theta, w, fire, bits, out, "resample_step",
+                         K, emit)
     C, d = cfg.G * cfg.Np, cfg.d
     want = [("hist", hist, torch.float32, (hist.shape[0], C, d))]
     if idx is not None:
-        want.append(("idx", idx, torch.int64, (index_rows(cfg), C)))
+        want.append(("idx", idx, torch.int64, (K * index_rows(cfg), C)))
     for name, t, dt, shape in want:
         if (t.device != theta.device or t.dtype != dt
                 or tuple(t.shape) != shape or not t.is_contiguous()):

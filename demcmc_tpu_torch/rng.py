@@ -102,6 +102,18 @@ def words_block(seed: int, iteration: int, n_iter: int, n_rows: int, n: int,
     return torch.gather(out, 0, lane)[0].to(torch.uint32)
 
 
+def gates(seed: int, it0: int, n: int, row: int, alpha: float) -> np.ndarray:
+    """The migration gates iterations ``it0 .. it0+n-1`` write: ``[n]``
+    bool, True where ``to_uni(word(seed, it, row, chain 0)) <= α`` (α
+    rounded to float32) and α > 0 — the host twin of the step kernels'
+    gate draw (``csrc/step_body.cuh``, from the ``fire`` row).  One
+    vectorised Philox call on the CPU; the card is not touched."""
+    if alpha <= 0.0 or n <= 0:
+        return np.zeros(max(n, 0), dtype=bool)
+    w = words_block(seed, it0, n, 1, 1, row0=row)[:, 0, 0]
+    return (to_uni(w) <= float(np.float32(alpha))).numpy()
+
+
 def to_uni(bits: torch.Tensor) -> torch.Tensor:
     """uint32 words -> float32 uniforms in [0, 1) with 23 random bits:
     ``float_from_bits((b >> 9) | 0x3F800000) - 1`` — the TPU kernel's map

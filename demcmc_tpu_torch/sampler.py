@@ -5,20 +5,25 @@ one of two steps, statically from the model and the configuration, as the
 JAX package's ``build_step`` does (``demcmc_tpu/sampler.py:100-171``):
 
 * :class:`Step`, the kernels' step, for a model that names a CUDA density
-  built into K1, and for DE-MCz: one iteration is two launches on the
-  current stream, the migration kernel K2 (gated on the device-side flag
-  the previous iteration drew) and the DE-step kernel K1, which updates
-  the population in place, writes the trajectory row and draws the next
-  gate; a DE-MCz (``sample='resample'``) configuration runs the resample
-  kernel K3 alone, which also writes the new state into the history;
+  built into K1, and for DE-MCz.  :func:`run_scan` runs it as the JAX
+  main path does (``demcmc_tpu/sampler.py:464-595``, ``run_scan``
+  :1226): K-iteration launches of the DE-step kernel K1 (or, for DE-MCz,
+  the resample kernel K3, which also writes each state into the history),
+  device-side thinning, and the post-burn-in variant past burn-in.  The
+  migration gates are a pure function of the Philox counter, so the host
+  computes them all before the first launch (:func:`rng.gates`) and cuts
+  the run into windows (:func:`plan_windows`) that end where a gate opens;
+  the migration kernel K2 runs between two windows, and each window is
+  bitwise equal to the same iterations run one launch at a time
+  (``Step.__call__``: K2 gated on the device-side flag, then K1);
 * :class:`UnfusedStep` for every other model, or with
   ``allow_fused=False``: the twin of the JAX XLA step
   (``demcmc_tpu/sampler.py:954-1130``), plain torch operations around the
   model's torch density, which may itself launch a kernel (the KDE kernel
   K4 of ``models/abc_kde.py``).
 
-The host loop never reads the device, so it runs ahead of the card; the
-trajectory comes back once, at the end.
+The host loop reads the device once, the first gate before the loop, so
+it runs ahead of the card; the trajectory comes back once, at the end.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 which runs the plain PyTorch versions of the kernels (the tests do); with
@@ -27,6 +32,7 @@ no GPU and no ``device=`` they raise.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -209,9 +215,59 @@ def state_from_numpy(theta, weight, iteration, fire, layout: str,
         history=hist)
 
 
+class Window(NamedTuple):
+    """One launch of a planned run (:func:`plan_windows`): iterations
+    ``it0 .. it0+K-1``, with K2 first where ``migrate`` (the gate of
+    ``it0`` is open), storing ``n_emit`` trajectory rows from row ``t0``
+    by the emission rule ``emit = (emit_first, emit_stride)``, through the
+    post-burn-in step where ``post``."""
+    it0: int
+    K: int
+    migrate: bool
+    emit: tuple
+    t0: int
+    n_emit: int
+    post: bool
+
+
+def plan_windows(it0: int, n_iter: int, fire0: bool, gates, k_max: int,
+                 thin: int = 1, switch: int = None):
+    """Cut the iterations ``it0 .. it0+n_iter-1`` of a run into windows of
+    at most ``k_max``: a window ends before an iteration whose migration
+    gate is open (``fire0`` for the first iteration, ``gates[i]`` — the
+    gate iteration ``it0 + i`` writes — for the next, None: no migration),
+    at run index ``switch`` (the first iteration of phase 2, or None) and
+    at the end.  Run index i is stored where ``(i + 1) % thin == 0``, so a
+    window that ends mid-thin carries its offset into the next.  Returns
+    a list of :class:`Window`."""
+    opens = np.zeros(n_iter, dtype=bool)
+    if gates is not None and n_iter:
+        opens[0] = bool(fire0)
+        opens[1:] = np.asarray(gates, dtype=bool)[:n_iter - 1]
+    cuts = {0, n_iter, *np.flatnonzero(opens).tolist()}
+    if switch is not None and 0 < switch < n_iter:
+        cuts.add(switch)
+    cuts = sorted(cuts)
+    out = []
+    for a, b in zip(cuts, cuts[1:]):
+        for s in range(a, b, k_max):
+            K = min(k_max, b - s)
+            first = (thin - 1 - s) % thin
+            out.append(Window(
+                it0 + s, K, bool(opens[s]), (first, thin),
+                (s + first + 1) // thin - 1,
+                fused_ops.n_emitted(K, (first, thin)),
+                switch is not None and s >= switch))
+    return out
+
+
 class Step:
-    """One iteration for a (model, de, spec) configuration: K2 then K1, or
-    K3 for DE-MCz.
+    """The kernels' step for a (model, de, spec) configuration: one
+    iteration (``__call__``: K2 then K1, or K3 for DE-MCz), or a planned
+    run of K-iteration windows (:meth:`advance`, which :func:`run_scan`
+    takes), with the JAX step's superstep names (``superstep_k``,
+    :meth:`get_superstep`, :meth:`get_thin_step`, :meth:`get_post_burnin`,
+    ``demcmc_tpu/sampler.py:464-595``).
 
     On the CPU the plain versions read their words from blocks drawn for
     many iterations at once (the same words, with fewer torch calls)."""
@@ -226,6 +282,15 @@ class Step:
             _build.entry("resample_step" if self.cfg.resample else "de_step",
                          model.cuda_density)
         self._blocks = {}             # CPU: namespace -> (key, it0, words)
+
+    @functools.cached_property
+    def superstep_k(self) -> int:
+        """Iterations per launch at most (windows are cut shorter where a
+        gate opens): K3 takes one CTA per window, so K = 1 above the chains
+        one CTA of its kernel holds (read from the library at first use)."""
+        if self.cfg.resample:
+            return resample_ops.resample_super_k(self.cfg, self.device)
+        return fused_ops.super_k()
 
     def _words(self, key: int, it: int, ns: int, n_rows: int):
         blk_key, it0, block = self._blocks.get(ns, (None, 0, None))
@@ -255,10 +320,11 @@ class Step:
         fused_ops.check_cuda(cfg, state.theta, state.weight, state.fire,
                              out=out)
 
-    def __call__(self, state: SamplerState, out=None,
-                 check: bool = True) -> SamplerState:
+    def __call__(self, state: SamplerState, out=None, check: bool = True,
+                 phase: str = "all") -> SamplerState:
         """Advance ``state`` one iteration in place (its tensors are
-        updated); ``out`` is an optional trajectory slot."""
+        updated); ``out`` is an optional trajectory slot, ``phase='post'``
+        the post-burn-in variant (:meth:`get_post_burnin`)."""
         cfg, it = self.cfg, state.iteration
         cpu = self.device.type == "cpu"
         bits = (self._words(state.key, it, rng.STEP_NS, cfg.rows.n_words)
@@ -272,7 +338,7 @@ class Step:
             resample_ops.resample_step(
                 cfg, self.model, self.spec, state.theta, state.weight,
                 state.fire, state.history, it, seed=state.key, out=out,
-                bits=bits, idx=idx, check=check)
+                bits=bits, idx=idx, check=check, phase=phase)
             return state._replace(iteration=it + 1)
         if cfg.rows.mig >= 0:
             migration_ops.migrate(state.theta, state.weight, state.fire,
@@ -280,8 +346,95 @@ class Step:
                                   bits=bits, check=check)
         fused_ops.de_step(cfg, self.model, self.spec, state.theta,
                           state.weight, state.fire, it, seed=state.key,
-                          out=out, bits=bits, check=check)
+                          out=out, bits=bits, check=check, phase=phase)
         return state._replace(iteration=it + 1)
+
+    def window(self, state: SamplerState, w: Window, traj=None):
+        """Launch window ``w`` on the state's tensors in place: K2 first
+        where ``w.migrate``, then one K1 (or K3) launch of ``w.K``
+        iterations writing its rows of ``traj = (θ [T, C, d], w [T, C],
+        acc [T, C])``, unchecked (:meth:`check` checks a run once), through
+        the post-burn-in variant where ``w.post``.  The state's
+        ``iteration`` is not advanced."""
+        cfg, key = self.cfg, state.key
+        phase = "post" if w.post else "all"
+        C = cfg.G * cfg.Np
+        out = None
+        if traj is not None and w.n_emit:
+            out = tuple(x[w.t0:w.t0 + w.n_emit] for x in traj)
+        bits = idx = None
+        if self.device.type == "cpu":     # one Philox call per window
+            bits = rng.words_block(key, w.it0, w.K, cfg.rows.n_words, C,
+                                   device=self.device).view(-1, C)
+            if cfg.resample:
+                words = rng.words_block(key, w.it0, w.K,
+                                        resample_ops.index_rows(cfg), C,
+                                        ns=rng.RESAMPLE_NS,
+                                        device=self.device)
+                idx = torch.cat([resample_ops.indices_from_words(
+                    cfg, words[k], w.it0 + k) for k in range(w.K)])
+        if cfg.resample:
+            resample_ops.resample_step(
+                cfg, self.model, self.spec, state.theta, state.weight,
+                state.fire, state.history, w.it0, seed=key, out=out,
+                bits=bits, idx=idx, check=False, K=w.K, emit=w.emit,
+                phase=phase)
+            return
+        if w.migrate:
+            migration_ops.migrate(state.theta, state.weight, state.fire,
+                                  cfg.G, cfg.Np, seed=key, it=w.it0,
+                                  bits=bits, check=False)
+        fused_ops.de_step(cfg, self.model, self.spec, state.theta,
+                          state.weight, state.fire, w.it0, seed=key,
+                          out=out, bits=bits, check=False, K=w.K,
+                          emit=w.emit, phase=phase)
+
+    def plan(self, state: SamplerState, n_iter: int, thin: int = 1,
+             fire=None, switch: int = None):
+        """The windows of ``n_iter`` iterations from ``state``
+        (:func:`plan_windows`): the gates from :func:`rng.gates`, the
+        first one ``fire`` or, when None, read from ``state.fire`` (the
+        run's one host sync)."""
+        cfg = self.cfg
+        gates, fire0 = None, False
+        if cfg.rows.mig >= 0:
+            fire0 = bool(int(state.fire[0]) if fire is None else fire)
+            gates = rng.gates(state.key, state.iteration, n_iter,
+                              cfg.rows.fire, cfg.alpha)
+        return plan_windows(state.iteration, n_iter, fire0, gates,
+                            self.superstep_k, thin, switch)
+
+    def advance(self, state: SamplerState, n_iter: int, thin: int = 1,
+                traj=None, fire=None, switch: int = None) -> SamplerState:
+        """Run ``n_iter`` iterations in place as planned windows
+        (:meth:`plan`), storing every ``thin``-th into ``traj``; the
+        windows from run index ``switch`` on take the post-burn-in
+        variant.  No host sync after the plan."""
+        for w in self.plan(state, n_iter, thin, fire, switch):
+            self.window(state, w, traj)
+        return state._replace(iteration=state.iteration + n_iter)
+
+    def get_superstep(self):
+        """``superstep(state, out=None) -> state``: ``superstep_k``
+        iterations as planned windows, each stored into ``out`` (``[K, C,
+        d]``, ``[K, C]``, ``[K, C]``)."""
+        return lambda state, out=None: self.advance(
+            state, self.superstep_k, 1, out)
+
+    def get_thin_step(self, thin: int):
+        """``thin_step(state, out=None) -> state``: ``thin`` iterations as
+        planned windows, the last one stored into ``out`` (device-side
+        thinning, ``emit='last'``)."""
+        return lambda state, out=None: self.advance(state, thin, thin, out)
+
+    def get_post_burnin(self):
+        """The one-iteration step past burn-in (``phase='post'``), bitwise
+        equal to this one for iterations > burnin; None where there is no
+        γ₂ base select to leave out (not random γ, no burn-in).  A planned
+        run takes it per window (:meth:`advance`'s ``switch``)."""
+        if self.cfg.burnin <= 0 or not self.cfg.random_gamma:
+            return None
+        return functools.partial(self, phase="post")
 
 
 class UnfusedStep:
@@ -482,30 +635,59 @@ def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
     return UnfusedStep(model, de, spec, device)
 
 
-def run_scan(step: Step, state: SamplerState, n_iter: int, thin: int = 1):
-    """Run ``n_iter`` iterations, storing every ``thin``-th (iterations
-    thin, 2·thin, ...); returns ``(state, StepOutput)`` with the trajectory
-    on the host.  The loop issues launches only: no ``.item()``, no
-    synchronisation until the final copy."""
+def _trajectory_run(step, state, n_iter: int, thin: int, body):
+    """Allocate the trajectory, check once, run ``body(state, traj)`` and
+    bring the stored rows to the host."""
     if thin < 1 or n_iter % thin:
         raise ValueError(f"n_iter ({n_iter}) must be a positive multiple "
                          f"of thin ({thin})")
     C, d = state.theta.shape
     T = n_iter // thin
     dev = state.theta.device
-    traj_t = torch.empty((T, C, d), dtype=torch.float32, device=dev)
-    traj_w = torch.empty((T, C), dtype=torch.float32, device=dev)
-    traj_a = torch.empty((T, C), dtype=torch.bool, device=dev)
-    step.check(state, (traj_t[0], traj_w[0], traj_a[0]))
-    for i in range(n_iter):
-        out = None
-        if (i + 1) % thin == 0:
-            t = (i + 1) // thin - 1
-            out = (traj_t[t], traj_w[t], traj_a[t])
-        state = step(state, out, check=False)
-    ys = StepOutput(theta=traj_t.cpu().numpy(), accept=traj_a.cpu().numpy(),
-                    lp=traj_w.cpu().numpy())
+    traj = (torch.empty((T, C, d), dtype=torch.float32, device=dev),
+            torch.empty((T, C), dtype=torch.float32, device=dev),
+            torch.empty((T, C), dtype=torch.bool, device=dev))
+    step.check(state, tuple(x[0] for x in traj))
+    state = body(state, traj)
+    ys = StepOutput(theta=traj[0].cpu().numpy(), accept=traj[2].cpu().numpy(),
+                    lp=traj[1].cpu().numpy())
     return state, ys
+
+
+def run_scan(step, state: SamplerState, n_iter: int, thin: int = 1,
+             phase2: int = None):
+    """Run ``n_iter`` iterations, storing every ``thin``-th (iterations
+    thin, 2·thin, ... of the run); returns ``(state, StepOutput)`` with the
+    trajectory on the host.  The kernels' :class:`Step` runs as planned
+    K-iteration windows (:meth:`Step.advance`: one read of ``state.fire``,
+    then launches only); ``phase2`` is the run index from which they take
+    the post-burn-in variant (the switch of the JAX ``run_scan``'s
+    ``phase2 = (post_step, switch)``; :func:`sample` wires it).  The
+    unfused step runs one iteration at a time (:func:`run_loop`), with no
+    sync."""
+    if not isinstance(step, Step):
+        if phase2 is not None:
+            raise ValueError("phase2 needs the kernels' Step")
+        return run_loop(step, state, n_iter, thin)
+    return _trajectory_run(
+        step, state, n_iter, thin,
+        lambda s, traj: step.advance(s, n_iter, thin, traj, switch=phase2))
+
+
+def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1):
+    """:func:`run_scan` one iteration at a time through ``step(state,
+    out)`` (for :class:`Step`: K2, gated on the device flag, and K1 at
+    every iteration, or K3): the unfused step's loop, and the kernels'
+    one-launch-per-iteration reference."""
+    def body(s, traj):
+        for i in range(n_iter):
+            out = None
+            if (i + 1) % thin == 0:
+                t = (i + 1) // thin - 1
+                out = (traj[0][t], traj[1][t], traj[2][t])
+            s = step(s, out, check=False)
+        return s
+    return _trajectory_run(step, state, n_iter, thin, body)
 
 
 def _not_ported(name: str, where: str):
@@ -559,7 +741,15 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
     state = _grow_history(state, n_iter)
     step = build_step(model, de, spec, device=device,
                       allow_fused=allow_fused)
-    state, ys = run_scan(step, state, n_iter, thin=thin)
+    # past burn-in the kernels' post variant (demcmc_tpu/sampler.py:
+    # 1537-1556), bitwise equal; windows store by thin on either side of
+    # the switch, so it needs no alignment to thin
+    phase2 = None
+    if isinstance(step, Step) and step.get_post_burnin() is not None:
+        remaining = max(de.burnin - (state.iteration - 1), 0)
+        if remaining < n_iter:
+            phase2 = remaining
+    state, ys = run_scan(step, state, n_iter, thin=thin, phase2=phase2)
     chains = bundle_samples(model, de, spec, ys, n_iter, thin=thin)
     if return_state:
         return chains, state

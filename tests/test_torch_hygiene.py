@@ -48,7 +48,8 @@ def test_unfused_step_modules_import_neither_jax_nor_the_jax_package(rel):
     assert not roots & {"jax", "jaxlib", "demcmc_tpu"}
 
 
-@pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py"])
+@pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py",
+                                  "tools/k1_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
     roots = set(_imported_roots(PKG.parent / name))
     assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}
