@@ -120,11 +120,37 @@ post variant.  Its launch checks are the counts of
            burn-in and in it) and K3 (MVN, C = 512) at the chosen K,
            beside the plain window version and the window's bound (K
            iterations' operations; the state moved once, the stored rows).
+33. k3-mig  K3 with its migration gate and K2 between K3 iterations
+           against the plain versions, bit for bit, at C = 512 (G = 128 ×
+           Np = 4, synchronous) and at G = 4 × Np = 3, d = 30
+           (sequential), θs = 0.5: 8 bits-in iterations crossing burn-in
+           with gates open at the start and inside, then one on Philox
+           words (θ, w, the history row, the accept flags, the gate
+           written); a window of 16 against single launches;
+34. k-blocks  K1 (4,096 × 16 synchronous, 4,096 × 4 sequential) and K3
+           (C = 512) with the blocks (μ), (σ) against the plain versions,
+           bit for bit, windows against single launches; ``sample()`` of
+           the K3 case against its loop;
+35. main-mcz-mig  the C = 512 DE-MCz Gaussian with α = 0.1
+           (``port_cells.MCZ_MIG_CELL``) through ``sample()`` and its loop
+           twin: one K3 per window, one K2 per open gate, bit for bit,
+           posterior within 0.01, max R̂ < 1.01;
+36. main-blocked  the 4,096-chain Gaussian with two blocks
+           (``port_cells.BLOCKED_CELL``), the same gates;
+37. main-hier  the hierarchical model (20 subjects × 50 observations, d =
+           23, 6 chains; ``port_cells.HIER_CELL``) through the unfused
+           step, no kernel launched: posterior means against a float64
+           quadrature with β0 integrated out, max R̂ written down;
+38. trace5  the mcz-mig and blocked cells under ``torch.profiler``;
+39. timing6  device ms per launch of K1 and K3 with two blocks and of K3
+           with the gate (one iteration and a window of K), and K2 at G =
+           128, beside the plain versions and the bounds.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import subprocess
 import sys
@@ -210,9 +236,8 @@ def plan_counts(model, de, n_iter, key, it0=None, k_max=None):
             length = 0
         opened += int(opens)
         length += 1
-    if cfg.resample:
-        return {"resample_step": windows}
-    return {"de_step": windows, "migrate": opened}
+    return {"resample_step" if cfg.resample else "de_step": windows,
+            "migrate": opened}
 
 
 def quiet_start(key, cfg, lo, hi, K):
@@ -523,9 +548,8 @@ def _windows_vs_loop(tag, model, de, n_iter, key, thin=1,
     ``turns``.  Returns µs and launches per iteration of both."""
     import demcmc_tpu_torch as tdm
     want = {"windows": plan_counts(model, de, n_iter, key),
-            "loop": ({"resample_step": n_iter} if de.uses_resample else
-                     {"de_step": n_iter,
-                      "migrate": n_iter if de.alpha > 0.0 else 0})}
+            "loop": {"resample_step" if de.uses_resample else "de_step":
+                     n_iter, "migrate": n_iter if de.alpha > 0.0 else 0}}
     runs, secs = {}, {}
     for which in turns:
         _reset_counts()
@@ -973,29 +997,53 @@ def _resample_case(dev, which, burnin, theta_sn, key=3, extra_rows=10):
 
 
 def _compare_resample(cfg, model, spec, state, it, words=None, idx=None,
-                      seed=0):
-    """One iteration by K3 and by its plain version from the same state
-    (θ, w, fire, history); returns the plain result, the largest θ/w/
-    history-row difference, the near-ties excluded and the accepts."""
+                      seed=0, exact=False):
+    """One iteration (K2 where the configuration migrates, gated on the
+    state's flag, then K3) by the kernels and by the plain versions from
+    the same state (θ, w, fire, history); returns the plain result, the
+    largest θ/w/history-row difference, the near-ties excluded and the
+    accepts.  ``exact``: θ, w, the trajectory row, the history row and
+    every accept flag equal bit for bit (no near-tie excluded)."""
     from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import migration as mig
     from demcmc_tpu_torch.ops import resample_step as tres
     dev = state[0].device
     C_ = cfg.G * cfg.Np
+    migrates = cfg.rows.mig >= 0
     k = [x.clone() for x in state]
     p = [x.clone() for x in state]
     ok = (torch.empty((C_, cfg.d), device=dev), torch.empty(C_, device=dev),
           torch.empty(C_, dtype=torch.bool, device=dev))
     op = tuple(torch.empty_like(x) for x in ok)
     if words is None:
+        if migrates:
+            mig.migrate(k[0], k[1], k[2], cfg.G, cfg.Np, seed=seed, it=it)
         tres.resample_step(cfg, model, spec, *k, it, seed=seed, out=ok)
         words = rng.words(seed, it, cfg.rows.n_words, C_, device=dev)
         idx = tres.indices(cfg, seed, it, device=dev)
     else:
+        if migrates:
+            mig.migrate(k[0], k[1], k[2], cfg.G, cfg.Np, bits=words)
         tres.resample_step(cfg, model, spec, *k, it, out=ok, bits=words,
                            idx=idx)
+    if migrates:
+        mig.migrate_plain(p[0], p[1], p[2], words, cfg.G, cfg.Np)
     margin = tres.resample_step_plain(cfg, model, spec, *p, it, words, idx,
                                       out=op)
     torch.cuda.synchronize()
+    if exact:
+        pairs = ((k[0], p[0], "theta"), (k[1], p[1], "w"),
+                 (ok[0], op[0], "trajectory theta"),
+                 (ok[1], op[1], "trajectory w"),
+                 (k[3], p[3], "history"), (k[2], p[2], "gate"),
+                 (ok[2], op[2], "accept flags"))
+        for a, b, what in pairs:
+            if not torch.equal(a.view(torch.uint8) if a.dtype == torch.bool
+                               else ints(a), b.view(torch.uint8)
+                               if b.dtype == torch.bool else ints(b)):
+                raise AssertionError(f"K3 {what} differ from the plain "
+                                     f"version at it={it}")
+        return p, 0.0, 0, int(op[2].sum())
     clear = margin.abs() > NEAR_TIE
     if not torch.equal(ok[2][clear], op[2][clear]):
         raise AssertionError(f"K3 accept flags differ at it={it}")
@@ -1205,15 +1253,16 @@ def phase_trace_slice2(dev):
 
 def _step_work(cfg, words, dens_ops):
     """(bytes, operations) that one K1 or K3 iteration needs for this run's
-    words.  Each chain makes one of three proposals, and only its words,
-    history rows and arithmetic count: the DE pair (kind 0), the snooker
-    triple where the chain's snooker gate fired (1), or the mutation where
-    its group's β gate fired (2, which replaces the other two and ε, κ).
-    Philox words count as whole 4-word blocks, each chain's in its own
-    sub-sweep block, plus the group leader's β gate and chain 0's gate of
-    the next iteration; K3's history indices come from RESAMPLE_NS blocks.
-    Bytes: θ and w read once, the new θ, w, accept flags and gate written
-    once; for K3 also the history rows read and the row written."""
+    words.  Each chain makes one of three proposals in each block sweep,
+    and only its words, history rows and arithmetic count: the DE pair
+    (kind 0), the snooker triple where the chain's snooker gate fired (1),
+    or the mutation where its group's β gate fired (2, which replaces the
+    other two and ε, κ).  Philox words count as whole 4-word blocks, each
+    chain's in its own sub-sweep block, plus the group leader's β gate and
+    chain 0's gate of the next iteration; K3's history indices come from
+    RESAMPLE_NS blocks.  Bytes: θ and w read once, the new θ, w, accept
+    flags and gate written once; for K3 also the history rows read and
+    the row written."""
     from demcmc_tpu_torch import rng
     r, d = cfg.rows, cfg.d
     G_, Np_ = cfg.G, cfg.Np
@@ -1221,13 +1270,6 @@ def _step_work(cfg, words, dens_ops):
     w64 = words.to(torch.int64)         # (no uint32 gather on CUDA)
     cols = torch.arange(C_, device=words.device)
     member = cols % Np_ if r.n_members > 1 else torch.zeros_like(cols)
-    kind = torch.zeros_like(cols)
-    if r.snooker >= 0:
-        u = rng.to_uni(w64[r.snooker + 1 + member * r.stride, cols])
-        kind[u <= np.float32(cfg.theta_snooker)] = 1
-    if r.gate >= 0:
-        u = rng.to_uni(w64[r.gate].view(G_, Np_)[:, 0])
-        kind[(u <= np.float32(cfg.beta)).repeat_interleave(Np_)] = 2
     lead = (cols % Np_ == 0).to(torch.int64)
 
     def span(start, n):
@@ -1243,27 +1285,40 @@ def _step_work(cfg, words, dens_ops):
     f32 = {0: DE_F32_OPS_PER_DIM * d + DE_F32_OPS,
            1: SN_F32_OPS_PER_DIM * d + SN_F32_OPS,
            2: BM_F32_OPS_PER_DIM * d}
-    def own(m, k, ld):
-        blk = {(x + m * r.stride) >> 2 for x in rows[k] + span(r.accept, 1)}
-        if ld and r.gate >= 0:
-            blk.add(r.gate >> 2)                # the group's β gate
-        return blk
+    blocks = n_hist = ops = 0
+    for b in range(r.n_blocks):
+        bo = b * r.blk_stride
+        kind = torch.zeros_like(cols)
+        if r.snooker >= 0:
+            u = rng.to_uni(w64[bo + r.snooker + 1 + member * r.stride, cols])
+            kind[u <= np.float32(cfg.theta_snooker)] = 1
+        if r.gate >= 0:
+            u = rng.to_uni(w64[bo + r.gate].view(G_, Np_)[:, 0])
+            kind[(u <= np.float32(cfg.beta)).repeat_interleave(Np_)] = 2
 
-    n = torch.bincount((member * 3 + kind) * 2 + lead,
-                       minlength=r.n_members * 6).tolist()
+        def own(m, k, ld):
+            blk = {(x + bo + m * r.stride) >> 2
+                   for x in rows[k] + span(r.accept, 1)}
+            if ld and r.gate >= 0:
+                blk.add((bo + r.gate) >> 2)     # the group's β gate
+            return blk
+
+        n = torch.bincount((member * 3 + kind) * 2 + lead,
+                           minlength=r.n_members * 6).tolist()
+        for m in range(r.n_members):
+            for k in range(3):
+                for ld in (0, 1):
+                    sset = b * r.n_members + m
+                    idx = {(sset * cfg.n_slots + x) >> 2
+                           for x in slots.get(k, [])}
+                    cnt = n[(m * 3 + k) * 2 + ld]
+                    blocks += cnt * (len(own(m, k, ld)) + len(idx))
+                    n_hist += cnt * len(slots.get(k, []))
+                    ops += cnt * f32[k]
+        ops += C_ * (F32_OPS_PER_DIM * d + F32_OPS + dens_ops)
     # chain 0 also reads the next iteration's migration gate
-    blocks = int(r.fire >> 2 not in own(0, int(kind[0]), 1))
-    n_hist = ops = 0
-    for m in range(r.n_members):
-        for k in range(3):
-            for ld in (0, 1):
-                idx = {(m * cfg.n_slots + s) >> 2 for s in slots.get(k, [])}
-                cnt = n[(m * 3 + k) * 2 + ld]
-                blocks += cnt * (len(own(m, k, ld)) + len(idx))
-                n_hist += cnt * len(slots.get(k, []))
-                ops += cnt * f32[k]
-    ops += blocks * PHILOX_OPS + C_ * (F32_OPS_PER_DIM * d + F32_OPS
-                                       + dens_ops)
+    blocks += int(r.fire >> 2 not in own(0, int(kind[0]), 1))
+    ops += blocks * PHILOX_OPS
     nbytes = (_state_bytes(C_, d)           # θ, w in; θ, w, acc, gate out
               + (n_hist + C_ * cfg.resample) * d * 4)  # history in, row out
     return nbytes, ops
@@ -2473,6 +2528,448 @@ def phase_timing5(dev, paths, errs):
     return rows
 
 
+# ------------------------------------------ sixth slice: DE-MCz with
+# migration (K3's gate, K2 between K3 windows) and constant blocks in K1 and
+# K3; the hierarchical model through the unfused step
+
+BLOCKS = ((True, False), (False, True))   # the Gaussian's blocks (μ), (σ)
+
+
+def _mcz_mig_case(dev, which, burnin, theta_sn, key=3, extra_rows=10):
+    """(model, spec, cfg, state) of a DE-MCz configuration with migration
+    (α = 0.1): the C = 512 Gaussian of the mcz-mig cell (G = 128 × Np = 4,
+    synchronous, n_initial = 50) or the 30-dim MVN at G = 4 × Np = 3
+    (sequential, n_initial = 124)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian, mvnormal
+    from demcmc_tpu_torch.ops import fused_step
+    if which == "C512":
+        cell = pc.MCZ_MIG_CELL
+        model, de = gaussian.make(
+            data=_gauss_data(), n_groups=cell["n_groups"], Np=cell["Np"],
+            alpha=cell["alpha"], sample="resample",
+            n_initial=cell["n_initial"], burnin=burnin,
+            theta_snooker=theta_sn, sweep="sync")
+    else:
+        model, de = mvnormal.make(d=30, n_obs=100, key=1, n_groups=4, Np=3,
+                                  alpha=0.1, burnin=burnin,
+                                  theta_snooker=theta_sn)
+    spec = tdm.make_spec(model, de)
+    cfg = fused_step.StepConfig.make(model, de, spec)
+    s = tdm.sampler._grow_history(
+        tdm.init_state(model, de, spec, key, device=dev), extra_rows)
+    return model, de, spec, cfg, s
+
+
+def phase_k3_mig(dev):
+    """K3 with its migration gate and K2 between K3 iterations against the
+    plain versions, bit for bit, at C = 512 (G = 128 × Np = 4, synchronous,
+    θs = 0.5) and at G = 4 × Np = 3, d = 30 (sequential): 8 bits-in
+    iterations crossing burn-in with the gate open at the start and forced
+    open by the words at two more, then one on Philox words; θ, w, the
+    trajectory row, the history row, the accept flags and the gate each
+    iteration writes.  Then a window of 16 (its inner gates shut, its last
+    open) against its single launches and the plain window."""
+    from demcmc_tpu_torch.ops import resample_step as tres
+    rng = np.random.default_rng(31)
+    worst = 0.0
+    for which, it0 in (("C512", pc.MCZ_MIG_CELL["n_initial"] + 1),
+                       ("mvn-G4", 125)):
+        tag = "k3-mig-" + which
+        model, de, spec, cfg, s = _mcz_mig_case(dev, which, burnin=it0 + 3,
+                                                theta_sn=0.5, extra_rows=40)
+        C_ = de.n_chains
+        assert cfg.rows.mig == 0 and cfg.alpha > 0.0
+        state = [s.theta, s.weight, torch.ones(1, dtype=torch.int32,
+                                               device=dev), s.history]
+        opened = 0
+        for k in range(9):
+            it = it0 + k
+            words = idx = None
+            if k < 8:
+                words = random_words(rng, cfg.rows.n_words, C_, dev)
+                if k in (2, 5):            # open the next iteration's gate
+                    words[cfg.rows.fire, 0] = 0
+                idx = tres.indices_from_words(cfg, random_words(
+                    rng, tres.index_rows(cfg), C_, dev), it)
+            gate_in = int(state[2][0])
+            opened += gate_in
+            state, _, _, n_acc = _compare_resample(
+                cfg, model, spec, state, it, words=words, idx=idx, seed=92,
+                exact=True)
+            log(tag, f"{'indices-in + bits-in' if k < 8 else 'Philox'} "
+                f"it={it} ({'burn-in' if it <= it0 + 3 else 'sampling'}, "
+                f"gate in {gate_in}): {n_acc} accepted; gate written "
+                f"{int(state[2][0])}")
+        if opened < 3:
+            raise AssertionError(f"{tag}: only {opened} gates opened")
+        K = 16
+        bits = _closed_inner_gates(random_words(
+            rng, K * cfg.rows.n_words, C_, dev), cfg, K)
+        bits[(K - 1) * cfg.rows.n_words + cfg.rows.fire, 0] = 0
+        idx = torch.cat([tres.indices_from_words(cfg, random_words(
+            rng, tres.index_rows(cfg), C_, dev), it0 + 9 + k)
+            for k in range(K)])
+        state, acc, err = _window_check(tag, cfg, model, spec, state,
+                                        it0 + 9, K, (0, 1), "all", bits,
+                                        idx)
+        if int(state[2][0]) != 1:
+            raise AssertionError(f"{tag}: the window's last gate is shut")
+        worst = max(worst, err)
+        log(tag, f"C={C_} d={cfg.d} G={de.n_groups} n_members="
+            f"{cfg.rows.n_members}: K2 + K3 = plain, bit for bit, over 9 "
+            f"iterations ({opened} exchanges); a window of {K} = its single "
+            f"launches = plain window ({acc} stored accepts), gate written "
+            f"1")
+    return worst
+
+
+def _blocked_cases(burnin):
+    """(name, model, de) of the blocked checks: the 4,096-chain Gaussian
+    (synchronous), its sequential twin at 4,096 × 4 and the C = 512 DE-MCz
+    Gaussian (α = 0), each with the blocks (μ), (σ) swept every
+    iteration."""
+    from demcmc_tpu_torch.models import gaussian
+    data = _gauss_data()
+    kw = dict(blocks=BLOCKS, blocking_on=True, burnin=burnin)
+    yield ("sync-4096",) + gaussian.make(data=data, Np=NP, n_groups=G, **kw)
+    yield ("sequential-16384",) + gaussian.make(
+        data=data, Np=NSEQ, n_groups=G65, theta_snooker=0.5, **kw)
+    cell = pc.MCZ_MIG_CELL
+    yield ("mcz-C512",) + gaussian.make(
+        data=data, n_groups=cell["n_groups"], Np=cell["Np"], alpha=0.0,
+        sample="resample", n_initial=cell["n_initial"], theta_snooker=0.5,
+        sweep="sync", **kw)
+
+
+def phase_k_blocks(dev):
+    """K1 and K3 with two blocks against their plain versions, bit for bit
+    (:func:`_blocked_cases`): 8 bits-in iterations crossing burn-in with
+    the gate set at the start, then one on Philox words; then windows of
+    16 (bits-in, across burn-in) and of the configuration's K (Philox,
+    post) against their single launches and the plain window; then
+    ``sample()`` of the DE-MCz case (300 iterations) against its loop.
+    Returns the largest |window − singles|, |window − plain| and the
+    launches of that ``sample()``."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.ops import fused_step
+    from demcmc_tpu_torch.ops import resample_step as tres
+    rng = np.random.default_rng(33)
+    worst, launches = 0.0, {}
+    for name, model, de in _blocked_cases(burnin=0):
+        tag = "k-blocks-" + name
+        it0 = de.n_initial + 1
+        de = de.replace(burnin=it0 + 3)
+        spec = tdm.make_spec(model, de)
+        cfg = fused_step.StepConfig.make(model, de, spec)
+        if cfg.rows.n_blocks != 2 or cfg.blocks != BLOCKS:
+            raise AssertionError(f"{tag}: not a two-block configuration")
+        s = tdm.sampler._grow_history(
+            tdm.init_state(model, de, spec, 5, device=dev), 200)
+        C_ = de.n_chains
+        state = [s.theta, s.weight, torch.ones(1, dtype=torch.int32,
+                                               device=dev)]
+        if cfg.resample:
+            state.append(s.history)
+        for k in range(9):
+            it = it0 + k
+            words = idx = None
+            if k < 8:
+                words = random_words(rng, cfg.rows.n_words, C_, dev)
+                if cfg.resample:
+                    idx = tres.indices_from_words(cfg, random_words(
+                        rng, tres.index_rows(cfg), C_, dev), it)
+            if cfg.resample:
+                state, _, _, n_acc = _compare_resample(
+                    cfg, model, spec, state, it, words=words, idx=idx,
+                    seed=93, exact=True)
+            else:
+                state, _, _, n_acc = _compare_iteration(
+                    cfg, model, spec, state, it, words=words, seed=93,
+                    exact=True)
+            log(tag, f"{'bits-in' if k < 8 else 'Philox'} it={it} "
+                f"({'burn-in' if it <= it0 + 3 else 'sampling'}): {n_acc} "
+                f"accepted (last block), bit for bit")
+        Kb = 16
+        bits = _closed_inner_gates(random_words(
+            rng, Kb * cfg.rows.n_words, C_, dev), cfg, Kb)
+        idx = None
+        if cfg.resample:
+            idx = torch.cat([tres.indices_from_words(cfg, random_words(
+                rng, tres.index_rows(cfg), C_, dev), it0 + 9 + k)
+                for k in range(Kb)])
+        state, a1, e1 = _window_check(tag, cfg, model, spec, state, it0 + 9,
+                                      Kb, _rules(Kb)["offset"], "all", bits,
+                                      idx)
+        K = (tres.resample_super_k(cfg, dev) if cfg.resample
+             else fused_step.super_k())
+        if cfg.resample:
+            it1, seed = it0 + 9 + Kb, 24
+        else:
+            seed, it1 = quiet_start(24, cfg, de.burnin + 1, 1 << 16, K)
+        state, a2, e2 = _window_check(tag, cfg, model, spec, state, it1, K,
+                                      _rules(K)["stride4"], "post",
+                                      seed=seed)
+        worst = max(worst, e1, e2)
+        log(tag, f"C={C_}: windows = their single launches = plain "
+            f"windows, bit for bit: bits-in K={Kb} across burn-in ({a1} "
+            f"stored accepts), Philox K={K} post ({a2})")
+        if cfg.resample:
+            m, _ = _windows_vs_loop(tag, model, de.replace(burnin=100), 300,
+                                    key=8)
+            launches = m["launches"]
+    return worst, launches
+
+
+def phase_main_mcz_mig(dev):
+    """The mcz-mig cell (port_cells.MCZ_MIG_CELL: the C = 512 DE-MCz
+    Gaussian with α = 0.1) through ``sample()`` and its loop twin: one K3
+    per window and one K2 per open gate as the gates' plan says, bit for
+    bit equal, posterior within 0.01 of the oracle, max R̂ < 1.01."""
+    from demcmc_tpu_torch.models import gaussian
+    cell = pc.MCZ_MIG_CELL
+    data = _gauss_data()
+    model, de = gaussian.make(
+        data=data, n_groups=cell["n_groups"], Np=cell["Np"],
+        alpha=cell["alpha"], sample="resample", n_initial=cell["n_initial"],
+        burnin=cell["burnin"], theta_snooker=cell["theta_snooker"],
+        sweep="sync")
+    n_iter = cell["n_iter"]
+    m, chains = _windows_vs_loop("main-mcz-mig", model, de, n_iter, key=0)
+    launches = m.pop("launches")
+    if not launches["migrate"]:
+        raise AssertionError("main-mcz-mig: no migration")
+    rhat, acc = _posterior_gate("main-mcz-mig", chains, data,
+                                n_iter - cell["burnin"], de.n_chains)
+    m = {"mcz_mig_" + k: v for k, v in m.items()}
+    m.update({"mcz_mig_rhat_max": rhat, "mcz_mig_acceptance": acc})
+    return launches, m
+
+
+def phase_main_blocked(dev):
+    """The blocked cell (port_cells.BLOCKED_CELL: the 4,096-chain Gaussian
+    with the blocks (μ), (σ) every iteration, blocking_on=True) through
+    ``sample()`` and its loop twin: launches as planned, bit for bit
+    equal, posterior within 0.01 of the oracle, max R̂ < 1.01."""
+    from demcmc_tpu_torch.models import gaussian
+    cell = pc.BLOCKED_CELL
+    data = _gauss_data()
+    model, de = gaussian.make(data=data, Np=cell["Np"],
+                              n_groups=cell["n_groups"],
+                              burnin=cell["burnin"], blocks=cell["blocks"],
+                              blocking_on=True)
+    n_iter = cell["n_iter"]
+    m, chains = _windows_vs_loop("main-blocked", model, de, n_iter, key=0)
+    launches = m.pop("launches")
+    rhat, acc = _posterior_gate("main-blocked", chains, data,
+                                n_iter - cell["burnin"], de.n_chains)
+    m = {"blocked_" + k: v for k, v in m.items()}
+    m.update({"blocked_rhat_max": rhat, "blocked_acceptance": acc})
+    return launches, m
+
+
+def phase_main_hier(dev):
+    """The hierarchical cell (port_cells.HIER_CELL: 20 subjects × 50
+    observations, d = 23, 6 chains, DE-MCz with snooker, α = 0.1, two
+    blocks) through ``sample()`` on the card: the unfused step (the model
+    names no CUDA density), no kernel of the port launched; the posterior
+    means of μβ0, σβ0 and σ and of every β0ᵢ against the float64
+    quadrature (port_cells.hier_oracle); max R̂ written down."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import hierarchical
+    cell = pc.HIER_CELL
+    model, de = hierarchical.make(n_subj=cell["n_subj"],
+                                  n_data=cell["n_data"], key=cell["key"],
+                                  burnin=cell["burnin"])
+    spec = tdm.make_spec(model, de)
+    if not isinstance(tdm.build_step(model, de, spec, dev), tdm.UnfusedStep):
+        raise AssertionError("main-hier: not the unfused step")
+    oracle = pc.hier_oracle(model.data)
+    if oracle["mass_at_edge"]:
+        raise AssertionError("main-hier: the quadrature box cuts mass")
+    n_iter = cell["n_iter"]
+    chains, launches, dt = _unfused_sample("main-hier", model, de, n_iter,
+                                           {})
+    x = chains.data
+    means = {"mu_b0": float(x[:, 0].mean()),
+             "sigma_b0": float(x[:, 1].mean()),
+             "sigma": float(x[:, -1].mean())}
+    ok, rows = pc.hier_gate(means, x[:, 2:-1].mean(axis=(0, 2)), oracle)
+    rhat = float(np.max(chains.rhat()))
+    log("main-hier", "posterior means against the quadrature: " + "; ".join(
+        f"{k} {v[0]:.5f} (oracle {v[1]:.5f}, |diff| {v[2]:.5f} <= "
+        f"{v[3]:.5f})" for k, v in rows.items() if k != "b0")
+        + f"; max |b0 - oracle| {rows['b0'][0]:.5f} <= {rows['b0'][1]}; "
+        f"max R-hat {rhat:.5f}; acceptance "
+        f"{float(chains.acceptance.mean()):.4f}")
+    if not ok:
+        raise AssertionError("main-hier: posterior off the oracle")
+    return launches, {"hier_us_per_iteration": dt / n_iter * 1e6,
+                      "hier_rhat_max": rhat}
+
+
+def phase_trace5(dev):
+    """The mcz-mig cell (2,000 iterations, burn-in 1,000) and the blocked
+    cell under ``torch.profiler``: every planned launch of K3, K1 and K2
+    in the device trace, the device's idle share."""
+    from demcmc_tpu_torch.models import gaussian
+    cell = pc.MCZ_MIG_CELL
+    model, de = gaussian.make(
+        data=_gauss_data(), n_groups=cell["n_groups"], Np=cell["Np"],
+        alpha=cell["alpha"], sample="resample", n_initial=cell["n_initial"],
+        burnin=cell["burnin"], theta_snooker=cell["theta_snooker"],
+        sweep="sync")
+    out = {"trace_mcz_mig_" + k: v for k, v in _trace_sample(
+        "trace-mcz-mig", model, de, 2000, {"resample_step": K3_NAME,
+                                           "migrate": K2_NAME},
+        "trace_mcz_mig.json").items()}
+    cell = pc.BLOCKED_CELL
+    model, de = gaussian.make(data=_gauss_data(), Np=cell["Np"],
+                              n_groups=cell["n_groups"],
+                              burnin=cell["burnin"], blocks=cell["blocks"],
+                              blocking_on=True)
+    out.update({"trace_blocked_" + k: v for k, v in _trace_sample(
+        "trace-blocked", model, de, cell["n_iter"],
+        {"de_step": K1_NAME, "migrate": K2_NAME},
+        "trace_blocked.json").items()})
+    return out
+
+
+def phase_timing6(dev, paths, errs):
+    """Device ms per launch (spin-queued; plain, kernel, kernel, plain) of
+    K1 with two blocks on the 4,096-chain Gaussian, K3 with two blocks and
+    K3 with the migration gate at C = 512, one iteration past burn-in each
+    and a window of the configuration's K (post), and K2 fired at G = 128,
+    beside the plain versions and the bounds (_step_work / _window_work:
+    n_blk sweeps)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step, migration as mig
+    from demcmc_tpu_torch.ops import resample_step as tres
+    cases = {}
+    for name, model, de in _blocked_cases(burnin=1000):
+        if name == "sequential-16384":
+            continue
+        cases["blocks-" + name] = (model, de)
+    m, de, _, _, _ = _mcz_mig_case(dev, "C512", burnin=1000, theta_sn=0.1)
+    cases["gate-C512"] = (m, de)
+    calls, meta = {}, {}
+    for key, (model, de) in cases.items():
+        spec = tdm.make_spec(model, de)
+        cfg = fused_step.StepConfig.make(model, de, spec)
+        s = tdm.sampler._grow_history(
+            tdm.init_state(model, de, spec, 5, device=dev), 3000)
+        C_ = de.n_chains
+        st = [s.theta, s.weight, s.fire] + ([s.history] if cfg.resample
+                                            else [])
+        it = 2000
+        K = (tres.resample_super_k(cfg, dev) if cfg.resample
+             else fused_step.super_k())
+        # a window the sampler launches (no gate open before its last
+        # iteration) inside the history
+        seed, itw = quiet_start(0, cfg, 1500, 2900 - K, K)
+        o1 = (torch.empty((C_, cfg.d), device=dev),
+              torch.empty(C_, device=dev),
+              torch.empty(C_, dtype=torch.bool, device=dev))
+        oK = tuple(torch.empty((K,) + tuple(x.shape), dtype=x.dtype,
+                               device=dev) for x in o1)
+
+        def kern(a=(cfg, model, spec, st, o1, oK, it, itw, seed, K),
+                 window=False):
+            c, mm, sp, st_, o1_, oK_, i1, iw, sd, k_ = a
+            f = tres.resample_step if c.resample else fused_step.de_step
+            if window:
+                f(c, mm, sp, *st_, iw, seed=sd, out=oK_, K=k_,
+                  phase="post")
+            else:
+                f(c, mm, sp, *st_, i1, out=o1_)
+
+        def plain(a=(cfg, model, spec, st, o1, oK, it, itw, seed, K),
+                  window=False):
+            c, mm, sp, st_, o1_, oK_, i1, iw, sd, k_ = a
+            C__ = c.G * c.Np
+            i0, n, o = (iw, k_, oK_) if window else (i1, 1, o1_)
+            sd = sd if window else 0
+            words = rng.words_block(sd, i0, n, c.rows.n_words, C__,
+                                    device=dev).view(-1, C__)
+            if c.resample:
+                idx = torch.cat([tres.indices(c, sd, i0 + k, device=dev)
+                                 for k in range(n)])
+                tres.resample_step_plain(c, mm, sp, *st_, i0, words, idx,
+                                         o, n, (0, 1),
+                                         "post" if window else "all")
+            else:
+                fused_step.de_step_plain(c, mm, sp, *st_, i0, words, o, n,
+                                         (0, 1), "post" if window
+                                         else "all")
+
+        calls[key] = (kern, plain)
+        calls[key + "-window"] = (functools.partial(kern, window=True),
+                                  functools.partial(plain, window=True))
+        dens = GAUSS_F32_OPS
+        nb1, no1 = _step_work(cfg, rng.words(0, it, cfg.rows.n_words, C_,
+                                             device=dev), dens)
+        meta[key] = (cfg, nb1, no1, 1)
+        nbK, noK = _window_work(cfg, seed, itw, K, K, dens, dev)
+        meta[key + "-window"] = (cfg, nbK, noK, K)
+    Gm = pc.MCZ_MIG_CELL["n_groups"]
+    s = _mcz_mig_case(dev, "C512", burnin=1000, theta_sn=0.1)[4]
+    fired = torch.ones(1, dtype=torch.int32, device=dev)
+    C_ = s.theta.shape[0]
+    Npm = C_ // Gm
+    calls["k2-G128"] = (
+        lambda: mig.migrate(s.theta, s.weight, fired, Gm, Npm, it=2000),
+        lambda: mig.migrate_plain(s.theta, s.weight, fired, rng.words(
+            0, 2000, mig.N_ROWS, C_, device=dev), Gm, Npm))
+    k2_bytes = 4 + C_ * 4 + 2 * Gm * (D + 1) * 4
+    k2_ops = (C_ * (PHILOX_OPS + K2_F32_OPS)
+              + 4 * Gm * (Gm.bit_length() - 1) ** 2)
+    meta["k2-G128"] = (None, k2_bytes, k2_ops, 1)
+    t = {}
+    for key, (kern, plain) in calls.items():
+        for name, fn, n in ((key + "_plain", plain, 0), (key, kern, 100),
+                            (key, kern, 100), (key + "_plain", plain, 0)):
+            t.setdefault(name, []).append(device_ms(fn, n) if n
+                                          else gapped_ms(fn))
+    ms = {k: float(np.mean([x for x, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing6", f"{k}: {ms[k]:.6f} ms per launch on the device ("
+            + ", ".join(f"{x:.6f}{'' if q else ' host-gapped'}"
+                        for x, q, _ in v)
+            + "); host issues a call in "
+            + ", ".join(f"{h:.6f}" for _, _, h in v) + " ms")
+    src = {"de_step": "demcmc_tpu_torch/csrc/de_step.cu",
+           "resample_step": "demcmc_tpu_torch/csrc/de_step_resample.cu",
+           "migrate": "demcmc_tpu_torch/csrc/migration.cu"}
+    info = {"blocks-sync-4096": ("de_step", "demcmc_tpu/ops/fused_step.py:"
+                                 "2479", paths["blocked"], errs["k_blocks"]),
+            "blocks-mcz-C512": ("resample_step", "demcmc_tpu/ops/"
+                                   "fused_step.py:2479",
+                                   paths["k_blocks"], errs["k_blocks"]),
+            "gate-C512": ("resample_step", "demcmc_tpu/ops/fused_step.py:"
+                          "2061", paths["mcz_mig"], errs["k3_mig"]),
+            "k2-G128": ("migrate", "demcmc_tpu/ops/fused_step.py:946",
+                        paths["mcz_mig"], errs["k3_mig"])}
+    rows = []
+    for key, (cfg, nbytes, nops, Kc) in meta.items():
+        kern_name, repl, launched, err = info[key.replace("-window", "")]
+        tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+        name = f"{kern_name}/{key}" + (f"-K{Kc}-post" if Kc > 1 else "")
+        rows.append({"name": name, "route": "cuda",
+                     "source": src[kern_name], "replaces": repl,
+                     "launches": launched[kern_name],
+                     "max_abs_err": err, "ms": ms[key],
+                     "plain_ms": ms[key + "_plain"],
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": None})
+        log("timing6", f"{name}: {nbytes} bytes, {nops} operations over "
+            f"{Kc} iteration(s), bound {max(tb, to):.3g} ms "
+            f"({'bytes' if tb >= to else 'operations'}); "
+            f"{ms[key] / Kc * 1e3:.3f} us per iteration")
+    return rows
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2538,6 +3035,15 @@ def main():
     rows += run(phase_timing4, dev, kde_launches, errs["k4"])
     metrics.update(run(phase_k_sweep, dev))
     rows += run(phase_timing5, dev, paths, errs)
+    errs["k3_mig"] = run(phase_k3_mig, dev)
+    errs["k_blocks"], paths["k_blocks"] = run(phase_k_blocks, dev)
+    for name, phase in (("mcz_mig", phase_main_mcz_mig),
+                        ("blocked", phase_main_blocked),
+                        ("hier", phase_main_hier)):
+        paths[name], m = run(phase, dev)
+        metrics.update(m)
+    metrics.update(run(phase_trace5, dev))
+    rows += run(phase_timing6, dev, paths, errs)
     log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(seconds per phase: {json.dumps(took)}); {json.dumps(metrics)}")
     print(json.dumps({"kernels": rows}))

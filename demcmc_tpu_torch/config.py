@@ -4,9 +4,8 @@ Same fields, names and defaults as the JAX package's frozen ``DE``
 (reference ``src/structs.jl:57-131``; unicode spelled out: α→alpha,
 β→beta, ϵ→epsilon, σ→sigma, κ→kappa, θsnooker→theta_snooker).  Settings
 whose machinery the port does not carry yet raise ``NotImplementedError``
-naming the later slice (ROADMAP.md, "B1"/"A" items) instead of running
-something else: block updates, resample with migration, the optimization
-modes and float64.
+naming the ROADMAP.md item that carries them instead of running something
+else: the custom strategy slots, the optimization modes and float64.
 """
 
 from __future__ import annotations
@@ -21,8 +20,42 @@ _PROPOSALS = ("random_gamma", "fixed_gamma", "variable_gamma")
 
 def _later(what: str, where: str):
     raise NotImplementedError(
-        f"{what} is not ported to demcmc_tpu_torch yet ({where}, "
-        "ROADMAP.md); use demcmc_tpu for it")
+        f"{what} is not ported to demcmc_tpu_torch yet (ROADMAP.md "
+        f"{where}); use demcmc_tpu for it")
+
+
+def _default_blocking_on(de) -> bool:
+    return False
+
+
+def _always_blocking_on(de) -> bool:
+    return True
+
+
+def _blocking_const(de):
+    """True or False where ``blocking_on`` is one of the two constant
+    forms, None for any other callable, whose flag is a function of the
+    iteration (``demcmc_tpu/ops/fused_step.py:380-389``)."""
+    if de.blocking_on is _always_blocking_on:
+        return True
+    if de.blocking_on is _default_blocking_on:
+        return False
+    return None
+
+
+def _freeze_block(block):
+    """One block mask as nested tuples of bools (hashable, like the frozen
+    ``DE``): a scalar element stays a bool, an array element becomes the
+    nested tuple of its values."""
+    out = []
+    for elem in block:
+        a = np.asarray(elem, dtype=bool)
+        out.append(bool(a) if a.shape == () else _tuples(a.tolist()))
+    return tuple(out)
+
+
+def _tuples(x):
+    return tuple(_tuples(v) for v in x) if isinstance(x, list) else bool(x)
 
 
 @dataclass(frozen=True)
@@ -34,7 +67,10 @@ class DE:
     sigma=.05, kappa=1.0, theta_snooker=0.0, bounds, n_initial=0`` plus
     the strategy slots.  ``generate_proposal`` takes ``'random_gamma'``
     (default), ``'fixed_gamma'``, ``'variable_gamma'`` or the functions of
-    the same names in :mod:`demcmc_tpu_torch.ops.proposals`.
+    the same names in :mod:`demcmc_tpu_torch.ops.proposals`.  ``blocks``,
+    a list of masks over the parameters (reference ``src/structs.jl:48``),
+    runs one sweep per block where ``blocking_on`` (a bool, or a callable
+    of the sampler's view ``sampler._DEView``) says so.
     """
 
     Np: int = None
@@ -53,7 +89,7 @@ class DE:
     update_particle: Any = None
     evaluate_fitness: Any = None
     sample: Any = None
-    blocking_on: Any = None
+    blocking_on: Any = _default_blocking_on
     blocks: Any = None
     dtype: Any = np.float32
     sweep: str = "auto"
@@ -74,9 +110,8 @@ class DE:
         elif callable(gp):
             gp = getattr(gp, "__name__", gp)
         if gp not in _PROPOSALS:
-            raise NotImplementedError(
-                f"generate_proposal={self.generate_proposal!r}: custom "
-                "proposal slots are not ported (ROADMAP.md A2)")
+            _later(f"generate_proposal={self.generate_proposal!r} (custom "
+                   "proposal slots)", "A12 rest 3")
         object.__setattr__(self, "generate_proposal", gp)
         if self.sweep not in ("auto", "sync", "sequential"):
             raise ValueError(f"sweep must be 'auto', 'sync' or "
@@ -84,24 +119,34 @@ class DE:
         if self.Np < 3:
             raise ValueError("Np must be >= 3 (two distinct non-self "
                              "partners, three distinct snooker members)")
-        if self.blocks is not None or self.blocking_on not in (None, False):
-            _later("block updates", "kernel B1(f), constant blocks")
+        if self.blocking_on is None or isinstance(self.blocking_on,
+                                                  (bool, np.bool_)):
+            # the reference slot is a callable of the sampler's view; a
+            # bool is one of the two constant forms (JAX config.py:112-119)
+            object.__setattr__(self, "blocking_on",
+                               _always_blocking_on if self.blocking_on
+                               else _default_blocking_on)
+        elif not callable(self.blocking_on):
+            raise TypeError(f"blocking_on must be a bool or a callable of "
+                            f"the sampler's view, not {self.blocking_on!r}")
+        if self.blocks is not None:
+            if len(self.blocks) == 0:
+                raise ValueError("blocks must be a non-empty list of "
+                                 "parameter masks (or None)")
+            object.__setattr__(self, "blocks", tuple(
+                _freeze_block(b) for b in self.blocks))
         if self.sample not in (None, "sample", "current", "resample"):
-            raise NotImplementedError(
-                f"sample={self.sample!r}: custom partner slots are not "
-                "ported (ROADMAP.md A2)")
-        if self.uses_resample and self.n_groups > 1 and self.alpha > 0:
-            _later("sample='resample' with migration (alpha > 0 and "
-                   "n_groups > 1)", "kernel B3, resample with migration")
+            _later(f"sample={self.sample!r} (custom partner slots)",
+                   "A12 rest 3")
         if self.update_particle not in (None, "mh", "mh_update"):
             _later(f"update_particle={self.update_particle!r} "
-                   "(optimization modes)", "kernel B1(g)")
+                   "(optimization modes)", "A5, kernel B1(g)")
         if self.evaluate_fitness not in (None, "posterior",
                                          "compute_posterior"):
-            _later(f"evaluate_fitness={self.evaluate_fitness!r}",
-                   "kernel B1(g)")
+            _later(f"evaluate_fitness={self.evaluate_fitness!r} "
+                   "(optimization modes)", "A5, kernel B1(g)")
         if np.dtype(self.dtype) != np.float32:
-            _later(f"dtype={np.dtype(self.dtype)}", "ROADMAP.md A5")
+            _later(f"dtype={np.dtype(self.dtype)}", "A5")
 
     @property
     def n_chains(self) -> int:

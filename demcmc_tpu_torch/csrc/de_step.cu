@@ -75,6 +75,10 @@ int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
 // One window of K iterations of K1 on the model's density (argument
 // arrays: see step_body.cuh read_args; dens_data: the density's device
 // buffer, or nullptr).  Returns cudaGetLastError() after the launch.
+// de_step_block_chains_NAME writes the chains one block of the
+// configuration's kernel (sequential sweep, snooker, block sweeps) holds on
+// the current device -- a group must fit one block -- and returns a CUDA
+// error code.
 #define DE_STEP_ENTRY(NAME, DENSITY)                                          \
   extern "C" int de_step_##NAME(float* theta, float* w, float* out_theta,    \
                                 float* out_w, uint8_t* out_acc, int* fire,   \
@@ -86,6 +90,11 @@ int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
                                            out_acc, fire, bits, iargs,       \
                                            fargs, sargs, theta_sn,           \
                                            dens_data, (cudaStream_t)stream); \
+  }                                                                          \
+  extern "C" int de_step_block_chains_##NAME(int seq, int snooker, int n_blk, \
+                                             int* chains) {                  \
+    return demcmc::window_chains<DENSITY, demcmc::GroupPartners<DENSITY::D>>( \
+        seq != 0, snooker != 0, n_blk, chains);                              \
   }
 
 // one entry per density of ops/_build.py KERNEL_DENSITIES["de_step"]

@@ -64,7 +64,7 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
   src.words = WordSource{nullptr, C, ia[5], ia[6], ia[2], kResampleNs};
   src.C = C;
   src.n_slots = a.r_sn >= 0 ? 5 : 2;
-  src.n_rows = a.n_members * src.n_slots;
+  src.n_rows = a.n_blk * a.n_members * src.n_slots;
   src.span = 0;  // set per iteration (HistoryPartners::at)
   return launch_sweep(a, dens, src, ia[19] != 0, stream);
 }
@@ -73,12 +73,13 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
 
 // One window of K iterations of K3 on the model's density: the K1
 // arguments (see step_body.cuh read_args) plus the history [H, C, D] and,
-// in the indices-in test mode, idx [K n_members n_slots, C] int64 flat
-// history indices (nullptr: drawn from Philox words).  A window of K > 1
+// in the indices-in test mode, idx [K n_blk n_members n_slots, C] int64
+// flat history indices (nullptr: drawn from Philox words).  A window of K > 1
 // runs in one CTA (resample_window_chains_NAME).  Returns
 // cudaGetLastError() after the launch.  resample_window_chains_NAME writes
 // the chains a one-CTA window of the configuration (sequential sweep,
-// snooker) holds on the current device and returns a CUDA error code.
+// snooker, block sweeps) holds on the current device and returns a CUDA
+// error code.
 #define RESAMPLE_STEP_ENTRY(NAME, DENSITY)                                    \
   extern "C" int resample_step_##NAME(                                       \
       float* theta, float* w, float* out_theta, float* out_w,                \
@@ -90,10 +91,10 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
         iargs, fargs, sargs, theta_sn, (cudaStream_t)stream);                \
   }                                                                          \
   extern "C" int resample_window_chains_##NAME(int seq, int snooker,         \
-                                               int* chains) {                \
+                                               int n_blk, int* chains) {     \
     return demcmc::window_chains<DENSITY,                                    \
                                  demcmc::HistoryPartners<DENSITY::D>>(       \
-        seq != 0, snooker != 0, chains);                                     \
+        seq != 0, snooker != 0, n_blk, chains);                              \
   }
 
 // one entry per density of ops/_build.py KERNEL_DENSITIES["resample_step"]

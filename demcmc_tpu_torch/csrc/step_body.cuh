@@ -22,6 +22,14 @@
 // and the window is bitwise equal to K one-iteration launches.  kPost (the
 // TPU kernel's phase='post', :2250-2276) statically drops the gamma_2
 // base select, for windows past burn-in.
+// Constant blocks (the TPU kernel's block sweeps, :2479-2488): with a
+// compile-time block count kNBlk > 1 an iteration runs the whole sweep
+// once per block, each from the state the earlier blocks left, on its own
+// rows (blk_stride apart) and, in K3, its own partner slot sets; the
+// block's bit mask keeps the crossover or snooker proposal to its
+// dimensions after the recombination and before the snooker correction
+// (:2360-2372), the mutation ignores it, and the last block's accepts are
+// recorded.  kNBlk = 1 is the unblocked kernel, with no block code.
 // The kernel is one template over a partner source: GroupPartners (K1)
 // draws the DE pair and the snooker triple from the chain's words and reads
 // them from its group staged in shared memory; HistoryPartners (K3) reads
@@ -60,6 +68,7 @@
 namespace demcmc {
 
 constexpr int kThreadsTarget = 64;
+constexpr int kMaxBlocks = 2;  // block counts built: 1 (none) and 2
 constexpr float kTwoPi = 6.283185307179586f;
 // Draw the mutation's normals only in groups whose beta gate fired: chosen
 // at compile time from the width (see the mutation in sweep_kernel).
@@ -83,6 +92,8 @@ struct StepArgs {
   int r_noise;            // first row of a density's noise panel
   int r_part, r_triple, r_gamma, r_sn, r_eps, r_kappa, r_gate, r_norm, r_acc,
       r_fire;
+  int n_blk, blk_stride;          // block sweeps, rows per block sweep
+  uint32_t blk_mask[kMaxBlocks];  // each block's dimensions (bit i: dim i)
   float fixed_g1, eps, eps2, kappa_keep, beta, sigma, alpha, theta_sn;
   float lo[D], hi[D];
 };
@@ -94,8 +105,9 @@ struct StepArgs {
 // fargs: fixed_g1, eps, 2 eps, 1 - kappa, beta, sigma, alpha, lo[D], hi[D],
 //   then the density's constants.
 // sargs: sub-sweeps, rows per sub-sweep block, the snooker member-index row,
-//   the snooker gamma row, the integer-dimension bit mask and the noise
-//   panel's row (rows 0xffffffff where absent).
+//   the snooker gamma row, the integer-dimension bit mask, the noise
+//   panel's row (rows 0xffffffff where absent), the block sweeps, rows per
+//   block sweep, then each block's dimension bit mask (none for one).
 template <class Density>
 StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
                                float* out_w, uint8_t* out_acc, int* fire,
@@ -134,6 +146,10 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
   a.r_sn = (int)sa[3];
   a.int_mask = sa[4];
   a.r_noise = (int)sa[5];
+  a.n_blk = (int)sa[6];
+  a.blk_stride = (int)sa[7];
+  for (int b = 0; b < kMaxBlocks; ++b)
+    a.blk_mask[b] = (a.n_blk > 1 && b < a.n_blk) ? sa[8 + b] : ~0u;
   a.fixed_g1 = fa[0];
   a.eps = fa[1];
   a.eps2 = fa[2];
@@ -153,6 +169,7 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
 struct Slot {
   int c, p, lead, member, off;  // chain, group slot, group's first thread,
                                 // sub-sweep, its row offset
+  int set;                      // partner slot set: block * n_members + member
 };
 
 // max that propagates NaN, like jnp.maximum / torch.maximum (fmaxf drops it)
@@ -228,10 +245,11 @@ struct GroupPartners {
 
 // Partners from the history [H, C, D] in device memory (K3), at flat
 // indices row * C + chain over the count * C past (row, chain) pairs: given
-// (idx [K n_rows, C] with n_rows = n_members * n_slots, indices-in test
-// mode) or drawn from the chain's Philox words of namespace RESAMPLE_NS,
-// slot row member * n_slots + slot, without replacement within the pair and
-// within the triple (demcmc_tpu/ops/proposals.py::resample_flat_indices).
+// (idx [K n_rows, C] with n_rows = n_blk * n_members * n_slots, indices-in
+// test mode) or drawn from the chain's Philox words of namespace
+// RESAMPLE_NS, slot row set * n_slots + slot (set: block-major, then
+// member), without replacement within the pair and within the triple
+// (demcmc_tpu/ops/proposals.py::resample_flat_indices).
 // The new state goes to history row it - 1 (store_samples!, fused_step.py:
 // 2494-2517); an iteration reads only rows below it - 1, so no read races
 // the write.  Iteration it + 1 may read row it - 1 of any chain, so a
@@ -264,7 +282,7 @@ struct HistoryPartners {
 
   __device__ __forceinline__ uint32_t flat(Thread& t, const Slot& s,
                                            int slot) const {
-    const int row = s.member * n_slots + slot;
+    const int row = s.set * n_slots + slot;
     return idx ? (uint32_t)idx[(size_t)row * C + s.c] : t.w(row);
   }
 
@@ -312,10 +330,11 @@ struct HistoryPartners {
   }
 };
 
-// kSeq (the sequential sweep), kSnooker and kPost are compile-time, so a
-// configuration without them runs none of their code: as run-time flags
-// they made K1 measurably slower on an H100 (PERF.md).
-template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost>
+// kSeq (the sequential sweep), kSnooker, kPost and kNBlk are compile-time,
+// so a configuration without them runs none of their code: as run-time
+// flags they made K1 measurably slower on an H100 (PERF.md).
+template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost,
+          int kNBlk>
 __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
                              Source src) {
   constexpr int D = Density::D;
@@ -346,175 +365,196 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
     const Source sk = src.at(k, it);
     typename Source::Thread st = sk.thread(c);
 
-    // beta mutation: one gate per group and sweep, from the leader's word.
-    // The sequential sweep reads it before its sub-sweeps, the synchronous
-    // one next to its use, where it overlaps the proposal (K1 measured
-    // faster on an H100 than with the gate read here).
-    auto beta_gate = [&]() {
-      return a.r_gate >= 0 &&
-             to_uni(W(a.r_gate, valid ? g * Np : 0)) <= a.beta;
-    };
-    const bool mut_sweep = kSeq && beta_gate();
     const bool base_phase = !kPost && a.random_gamma && it <= a.burnin;
     bool acc_any = false;
 
-    for (int m = 0; m < (kSeq ? a.n_members : 1); ++m) {
-      if (base_phase) {
-        // softmax(w) CDF over each group (every thread takes part)
-        s_q[tid] = w;
-        __syncthreads();
-        seg_scan<false>(s_q, tid, p, Np);
-        const float mx = s_q[lead + Np - 1];
-        __syncthreads();
-        s_q[tid] = expf(w - (isfinite(mx) ? mx : 0.0f));
-        __syncthreads();
-        seg_scan<true>(s_q, tid, p, Np);
-      }
-      // The synchronous sweep runs every thread through the body (chain 0's
-      // words and a zero group for the threads past the last group, whose
-      // results are never written): K1 measured faster on an H100 than
-      // with the test.  The sequential sweep keeps it: its few proposing
-      // threads would wait on diverging idle ones.
-      if (kSeq ? valid && p == m : true) {
-        const Slot s{c, p, lead, m, m * a.stride};
-        const float *pm, *pn;
-        sk.pair(st, Wc, s, a, s_th, pm, pn);
-        if (a.random_gamma) {
-          const float ub = to_uni(Wc(a.r_gamma + s.off));
-          const float g1 = to_uni(Wc(a.r_gamma + s.off + 1)) * 0.5f + 0.5f;
-          const float g2 = to_uni(Wc(a.r_gamma + s.off + 2)) * 0.5f + 0.5f;
-          // past burn-in the base term is +0.0 and is still added: the add
-          // turns -0.0 into +0.0, as in the TPU kernel's post variant
-          // (fused_step.py:2262-2275), so kPost changes no bit
-          float bterm[D];
-          for (int i = 0; i < D; ++i) bterm[i] = 0.0f;
-          if (base_phase) {
-            // base chain drawn from softmax(w) over the group by inverse CDF
-            const float ubs = fmaxf(ub, FLT_MIN) * s_q[lead + Np - 1];
-            int cnt = 0;
-            for (int o = 0; o < Np; ++o) cnt += s_q[lead + o] < ubs;
-            const float* base = s_th + (lead + min(cnt, Np - 1)) * D;
-            for (int i = 0; i < D; ++i) bterm[i] = g2 * (base[i] - th[i]);
-          }
-          for (int i = 0; i < D; ++i)
-            prop[i] = (th[i] + g1 * (pm[i] - pn[i])) + bterm[i];
-        } else {
-          for (int i = 0; i < D; ++i)
-            prop[i] = th[i] + a.fixed_g1 * (pm[i] - pn[i]);
-        }
+    for (int b = 0; b < kNBlk; ++b) {
+      const int bo = b * a.blk_stride;  // the block sweep's first row
+      // beta mutation: one gate per group and sweep, from the leader's word.
+      // The sequential sweep reads it before its sub-sweeps, the synchronous
+      // one next to its use, where it overlaps the proposal (K1 measured
+      // faster on an H100 than with the gate read here).
+      auto beta_gate = [&]() {
+        return a.r_gate >= 0 &&
+               to_uni(W(a.r_gate + bo, valid ? g * Np : 0)) <= a.beta;
+      };
+      const bool mut_sweep = kSeq && beta_gate();
+      acc_any = false;  // the last block's accepts are recorded
 
-        // snooker, per chain with probability theta_sn (fused_step.py:
-        // 2322-2351): project the triple's pm, pn onto theta - z
-        const float* pz = nullptr;
-        bool sn = false, degen = false;
-        float den0 = 0.0f;
-        if (kSnooker) {
-          const float *pm2, *pn2;
-          sk.triple(st, Wc, s, a, s_th, pz, pm2, pn2);
-          float sp[D];
-          for (int i = 0; i < D; ++i) sp[i] = th[i] - pz[i];
-          den0 = dot<D>(sp, sp);
-          degen = den0 <= FLT_MIN;
-          if (degen)
-            for (int i = 0; i < D; ++i) sp[i] = 1.0f;
-          const float dens2 = dot<D>(sp, sp);
-          const float q1 = dot<D>(pm2, sp) / dens2;
-          const float q2 = dot<D>(pn2, sp) / dens2;
-          const float gsn = to_uni(Wc(a.r_sn + s.off)) + 1.2f;
-          sn = to_uni(Wc(a.r_sn + s.off + 1)) <= a.theta_sn;
-          if (sn)
+      for (int m = 0; m < (kSeq ? a.n_members : 1); ++m) {
+        if (base_phase) {
+          // softmax(w) CDF over each group (every thread takes part)
+          s_q[tid] = w;
+          __syncthreads();
+          seg_scan<false>(s_q, tid, p, Np);
+          const float mx = s_q[lead + Np - 1];
+          __syncthreads();
+          s_q[tid] = expf(w - (isfinite(mx) ? mx : 0.0f));
+          __syncthreads();
+          seg_scan<true>(s_q, tid, p, Np);
+        }
+        // The synchronous sweep runs every thread through the body (chain 0's
+        // words and a zero group for the threads past the last group, whose
+        // results are never written): K1 measured faster on an H100 than
+        // with the test.  The sequential sweep keeps it: its few proposing
+        // threads would wait on diverging idle ones.
+        if (kSeq ? valid && p == m : true) {
+          const Slot s{c, p, lead, m, bo + m * a.stride, b * a.n_members + m};
+          const float *pm, *pn;
+          sk.pair(st, Wc, s, a, s_th, pm, pn);
+          if (a.random_gamma) {
+            const float ub = to_uni(Wc(a.r_gamma + s.off));
+            const float g1 = to_uni(Wc(a.r_gamma + s.off + 1)) * 0.5f + 0.5f;
+            const float g2 = to_uni(Wc(a.r_gamma + s.off + 2)) * 0.5f + 0.5f;
+            // past burn-in the base term is +0.0 and is still added: the add
+            // turns -0.0 into +0.0, as in the TPU kernel's post variant
+            // (fused_step.py:2262-2275), so kPost changes no bit
+            float bterm[D];
+            for (int i = 0; i < D; ++i) bterm[i] = 0.0f;
+            if (base_phase) {
+              // base chain drawn from softmax(w) over the group by inverse CDF
+              const float ubs = fmaxf(ub, FLT_MIN) * s_q[lead + Np - 1];
+              int cnt = 0;
+              for (int o = 0; o < Np; ++o) cnt += s_q[lead + o] < ubs;
+              const float* base = s_th + (lead + min(cnt, Np - 1)) * D;
+              for (int i = 0; i < D; ++i) bterm[i] = g2 * (base[i] - th[i]);
+            }
             for (int i = 0; i < D; ++i)
-              prop[i] = th[i] + gsn * (q1 * sp[i] - q2 * sp[i]);
-        }
+              prop[i] = (th[i] + g1 * (pm[i] - pn[i])) + bterm[i];
+          } else {
+            for (int i = 0; i < D; ++i)
+              prop[i] = th[i] + a.fixed_g1 * (pm[i] - pn[i]);
+          }
 
-        if (a.r_eps >= 0)
-          for (int i = 0; i < D; ++i)
-            prop[i] = prop[i] +
-                      (to_uni(Wc(a.r_eps + s.off + i)) * a.eps2 - a.eps);
-        if (a.r_kappa >= 0)
-          for (int i = 0; i < D; ++i)
-            if (!(to_uni(Wc(a.r_kappa + s.off + i)) > a.kappa_keep))
-              prop[i] = th[i];
+          // snooker, per chain with probability theta_sn (fused_step.py:
+          // 2322-2351): project the triple's pm, pn onto theta - z
+          const float* pz = nullptr;
+          bool sn = false, degen = false;
+          float den0 = 0.0f;
+          if (kSnooker) {
+            const float *pm2, *pn2;
+            sk.triple(st, Wc, s, a, s_th, pz, pm2, pn2);
+            float sp[D];
+            for (int i = 0; i < D; ++i) sp[i] = th[i] - pz[i];
+            den0 = dot<D>(sp, sp);
+            degen = den0 <= FLT_MIN;
+            if (degen)
+              for (int i = 0; i < D; ++i) sp[i] = 1.0f;
+            const float dens2 = dot<D>(sp, sp);
+            const float q1 = dot<D>(pm2, sp) / dens2;
+            const float q2 = dot<D>(pn2, sp) / dens2;
+            const float gsn = to_uni(Wc(a.r_sn + s.off)) + 1.2f;
+            sn = to_uni(Wc(a.r_sn + s.off + 1)) <= a.theta_sn;
+            if (sn)
+              for (int i = 0; i < D; ++i)
+                prop[i] = th[i] + gsn * (q1 * sp[i] - q2 * sp[i]);
+          }
 
-        // snooker MH correction 0.5 (d - 1) (log|theta' - z|^2 - log|theta -
-        // z|^2) on the final proposal; a degenerate draw z == theta
-        // proposes theta and is rejected with -inf (:2374-2384)
-        float adj = 0.0f;
-        if (sn) {
-          if (degen)
-            for (int i = 0; i < D; ++i) prop[i] = th[i];
-          float a1[D];
-          for (int i = 0; i < D; ++i) a1[i] = prop[i] - pz[i];
-          const float a1sq = dot<D>(a1, a1);
-          adj = degen ? -INFINITY : half_dm1 * (logf(a1sq) - logf(den0));
-        }
+          if (a.r_eps >= 0)
+            for (int i = 0; i < D; ++i)
+              prop[i] = prop[i] +
+                        (to_uni(Wc(a.r_eps + s.off + i)) * a.eps2 - a.eps);
+          if (a.r_kappa >= 0)
+            for (int i = 0; i < D; ++i)
+              if (!(to_uni(Wc(a.r_kappa + s.off + i)) > a.kappa_keep))
+                prop[i] = th[i];
+          // the block's dimensions only (reset!, crossover.jl:336-352); a
+          // static index into the masks (b is 0 or 1)
+          if constexpr (kNBlk > 1) {
+            const uint32_t keep = b == 0 ? a.blk_mask[0] : a.blk_mask[1];
+            for (int i = 0; i < D; ++i)
+              if (!((keep >> i) & 1u)) prop[i] = th[i];
+          }
 
-        // Box-Muller normals.  Narrow densities draw them in every chain
-        // and let the gate select; wide ones only where the group's gate
-        // fired (kNormalsIfGated: on an H100 the branch slows K1 at d = 2
-        // and saves K3 at d = 31 more than half its time).  The radii come
-        // from the first d rows and then the angles, so the words are read
-        // in rising rows; only the narrow synchronous sweep takes u1, u2
-        // per dimension, which K1 runs faster.
-        const bool mut = kSeq ? mut_sweep : beta_gate();
-        if constexpr (!kSeq && !kNormalsIfGated<D>) {
-          if (a.r_gate >= 0)
+          // snooker MH correction 0.5 (d - 1) (log|theta' - z|^2 - log|theta -
+          // z|^2) on the final proposal; a degenerate draw z == theta
+          // proposes theta and is rejected with -inf (:2374-2384)
+          float adj = 0.0f;
+          if (sn) {
+            if (degen)
+              for (int i = 0; i < D; ++i) prop[i] = th[i];
+            float a1[D];
+            for (int i = 0; i < D; ++i) a1[i] = prop[i] - pz[i];
+            const float a1sq = dot<D>(a1, a1);
+            adj = degen ? -INFINITY : half_dm1 * (logf(a1sq) - logf(den0));
+          }
+
+          // Box-Muller normals.  Narrow densities draw them in every chain
+          // and let the gate select; wide ones only where the group's gate
+          // fired (kNormalsIfGated: on an H100 the branch slows K1 at d = 2
+          // and saves K3 at d = 31 more than half its time).  The radii come
+          // from the first d rows and then the angles, so the words are read
+          // in rising rows; only the narrow synchronous sweep takes u1, u2
+          // per dimension, which K1 runs faster.
+          const bool mut = kSeq ? mut_sweep : beta_gate();
+          if constexpr (!kSeq && !kNormalsIfGated<D>) {
+            if (a.r_gate >= 0)
+              for (int i = 0; i < D; ++i) {
+                const float u1 =
+                    fmaxf(to_uni(Wc(a.r_norm + s.off + i)), FLT_MIN);
+                const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
+                const float nrm = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+                if (mut) prop[i] = th[i] + a.sigma * nrm;
+              }
+          } else if (kNormalsIfGated<D> ? mut : a.r_gate >= 0) {
+            float rad[D];
+            for (int i = 0; i < D; ++i)
+              rad[i] = sqrtf(-2.0f *
+                             logf(fmaxf(to_uni(Wc(a.r_norm + s.off + i)),
+                                        FLT_MIN)));
             for (int i = 0; i < D; ++i) {
-              const float u1 =
-                  fmaxf(to_uni(Wc(a.r_norm + s.off + i)), FLT_MIN);
               const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
-              const float nrm = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
+              const float nrm = rad[i] * cosf(kTwoPi * u2);
               if (mut) prop[i] = th[i] + a.sigma * nrm;
             }
-        } else if (kNormalsIfGated<D> ? mut : a.r_gate >= 0) {
-          float rad[D];
-          for (int i = 0; i < D; ++i)
-            rad[i] = sqrtf(-2.0f *
-                           logf(fmaxf(to_uni(Wc(a.r_norm + s.off + i)),
-                                      FLT_MIN)));
-          for (int i = 0; i < D; ++i) {
-            const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
-            const float nrm = rad[i] * cosf(kTwoPi * u2);
-            if (mut) prop[i] = th[i] + a.sigma * nrm;
           }
-        }
-        if (mut) adj = 0.0f;  // a mutation carries no snooker correction
+          if (mut) adj = 0.0f;  // a mutation carries no snooker correction
 
-        // integer snap (fused_step.py:2402-2410) on the density's
-        // compile-time mask: rintf rounds half to even, as jnp.round and
-        // torch.round do
-        if constexpr (Density::kIntMask != 0u)
-          for (int i = 0; i < D; ++i)
-            if ((Density::kIntMask >> i) & 1u) prop[i] = rintf(prop[i]);
+          // integer snap (fused_step.py:2402-2410) on the density's
+          // compile-time mask: rintf rounds half to even, as jnp.round and
+          // torch.round do
+          if constexpr (Density::kIntMask != 0u)
+            for (int i = 0; i < D; ++i)
+              if ((Density::kIntMask >> i) & 1u) prop[i] = rintf(prop[i]);
 
-        bool inb = true;
-        for (int i = 0; i < D; ++i) {
-          if (isfinite(a.lo[i])) inb = inb && prop[i] >= a.lo[i];
-          if (isfinite(a.hi[i])) inb = inb && prop[i] <= a.hi[i];
+          bool inb = true;
+          for (int i = 0; i < D; ++i) {
+            if (isfinite(a.lo[i])) inb = inb && prop[i] >= a.lo[i];
+            if (isfinite(a.hi[i])) inb = inb && prop[i] <= a.hi[i];
+          }
+          // a density that draws noise streams its panel from the chain's
+          // words (rows r_noise.. of the sub-sweep block, before the accept
+          // row)
+          float lp;
+          if constexpr (Density::kNoise)
+            lp = dens(prop, Wc, a.r_noise + s.off);
+          else
+            lp = dens(prop);
+          const float wp = (inb && !isnan(lp)) ? lp : -INFINITY;
+          const float u = fmaxf(to_uni(Wc(a.r_acc + s.off)), FLT_MIN);
+          float delta = wp - w;
+          if (kSnooker) delta = delta + adj;
+          const bool acc = logf(u) <= delta;
+          if (acc) {
+            for (int i = 0; i < D; ++i) th[i] = prop[i];
+            w = wp;
+          }
+          acc_any = acc_any || acc;
+          if (kSeq)
+            for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
         }
-        // a density that draws noise streams its panel from the chain's
-        // words (rows r_noise.. of the sub-sweep block, before the accept
-        // row)
-        float lp;
-        if constexpr (Density::kNoise)
-          lp = dens(prop, Wc, a.r_noise + s.off);
-        else
-          lp = dens(prop);
-        const float wp = (inb && !isnan(lp)) ? lp : -INFINITY;
-        const float u = fmaxf(to_uni(Wc(a.r_acc + s.off)), FLT_MIN);
-        float delta = wp - w;
-        if (kSnooker) delta = delta + adj;
-        const bool acc = logf(u) <= delta;
-        if (acc) {
-          for (int i = 0; i < D; ++i) th[i] = prop[i];
-          w = wp;
-        }
-        acc_any = acc_any || acc;
-        if (kSeq)
-          for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
+        if (kSeq) __syncthreads();  // the commit, before the next sub-sweep
       }
-      if (kSeq) __syncthreads();  // the commit, before the next sub-sweep
-    }
+      if constexpr (kNBlk > 1 && !kSeq) {
+        // the next block reads this one's state: the synchronous sweep's
+        // stage is refreshed between two barriers, as between iterations
+        if (b + 1 < kNBlk) {
+          __syncthreads();
+          for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
+          __syncthreads();
+        }
+      }
+    }  // block sweeps
 
     const bool emit =
         k >= a.emit_first && (k - a.emit_first) % a.emit_stride == 0;
@@ -553,19 +593,25 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
 }
 
 // The instantiation a configuration launches.
-template <class Density, class Source>
-auto pick_kernel(bool seq, bool snooker, bool post) {
-  using S = Source;
-  using Dn = Density;
+template <class Dn, class S, int kNBlk>
+auto pick_kernel_blocks(bool seq, bool snooker, bool post) {
   if (seq)
-    return snooker ? (post ? sweep_kernel<Dn, S, true, true, true>
-                           : sweep_kernel<Dn, S, true, true, false>)
-                   : (post ? sweep_kernel<Dn, S, true, false, true>
-                           : sweep_kernel<Dn, S, true, false, false>);
-  return snooker ? (post ? sweep_kernel<Dn, S, false, true, true>
-                         : sweep_kernel<Dn, S, false, true, false>)
-                 : (post ? sweep_kernel<Dn, S, false, false, true>
-                         : sweep_kernel<Dn, S, false, false, false>);
+    return snooker ? (post ? sweep_kernel<Dn, S, true, true, true, kNBlk>
+                           : sweep_kernel<Dn, S, true, true, false, kNBlk>)
+                   : (post ? sweep_kernel<Dn, S, true, false, true, kNBlk>
+                           : sweep_kernel<Dn, S, true, false, false, kNBlk>);
+  return snooker ? (post ? sweep_kernel<Dn, S, false, true, true, kNBlk>
+                         : sweep_kernel<Dn, S, false, true, false, kNBlk>)
+                 : (post ? sweep_kernel<Dn, S, false, false, true, kNBlk>
+                         : sweep_kernel<Dn, S, false, false, false, kNBlk>);
+}
+
+template <class Density, class Source>
+auto pick_kernel(bool seq, bool snooker, bool post, int n_blk) {
+  return n_blk > 1
+             ? pick_kernel_blocks<Density, Source, kMaxBlocks>(seq, snooker,
+                                                               post)
+             : pick_kernel_blocks<Density, Source, 1>(seq, snooker, post);
 }
 
 // Chains one block of `kernel` holds on the current device, one thread
@@ -589,19 +635,20 @@ int block_chains(Kernel kernel, int* chains) {
   return (int)cudaSuccess;
 }
 
-// Chains a one-CTA window (K > 1 of a kOneCta source) holds for a
-// configuration: the fewer of its two phases' instantiations.  The
-// sampler reads it once per configuration and keeps K = 1 above it
+// Chains one block of a configuration's kernel holds: the fewer of its two
+// phases' instantiations.  The sampler reads it once per configuration: a
+// group must fit one block (sampler.fused_supported), and a one-CTA window
+// (K > 1 of a kOneCta source) the whole population, else K = 1
 // (ops/resample_step.py::resample_super_k).
 template <class Density, class Source>
-int window_chains(bool seq, bool snooker, int* chains) {
+int window_chains(bool seq, bool snooker, int n_blk, int* chains) {
   constexpr int D = Density::D;
   int all = 0, post = 0;
-  int e = block_chains<D>(pick_kernel<Density, Source>(seq, snooker, false),
-                          &all);
+  int e = block_chains<D>(
+      pick_kernel<Density, Source>(seq, snooker, false, n_blk), &all);
   if (e == 0)
-    e = block_chains<D>(pick_kernel<Density, Source>(seq, snooker, true),
-                        &post);
+    e = block_chains<D>(
+        pick_kernel<Density, Source>(seq, snooker, true, n_blk), &post);
   *chains = all < post ? all : post;
   return e;
 }
@@ -615,12 +662,13 @@ int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
                  const Source& src, bool post, cudaStream_t stream) {
   constexpr int D = Density::D;
   if (a.Np < 3 || a.Np > 1024 || a.G < 1 || a.n_members < 1 || a.K < 1 ||
-      a.emit_first < 0 || a.emit_stride < 1)
+      a.emit_first < 0 || a.emit_stride < 1 ||
+      (a.n_blk != 1 && a.n_blk != kMaxBlocks))
     return (int)cudaErrorInvalidValue;
   // the model's integer dimensions must be the ones the density snaps
   if (a.int_mask != Density::kIntMask) return (int)cudaErrorInvalidValue;
-  auto kernel =
-      pick_kernel<Density, Source>(a.n_members > 1, a.r_sn >= 0, post);
+  auto kernel = pick_kernel<Density, Source>(a.n_members > 1, a.r_sn >= 0,
+                                             post, a.n_blk);
   int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;
   if (Source::kOneCta && a.K > 1) {
     int most = 0;

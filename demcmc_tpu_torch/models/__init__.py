@@ -1,5 +1,5 @@
-from . import (abc_kde, binomial, discrete_binomial, gaussian, lba, lnr,
-               mvnormal)
+from . import (abc_kde, binomial, discrete_binomial, gaussian, hierarchical,
+               lba, lnr, mvnormal)
 
-__all__ = ["abc_kde", "binomial", "discrete_binomial", "gaussian", "lba",
-           "lnr", "mvnormal"]
+__all__ = ["abc_kde", "binomial", "discrete_binomial", "gaussian",
+           "hierarchical", "lba", "lnr", "mvnormal"]

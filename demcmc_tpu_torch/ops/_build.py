@@ -25,7 +25,7 @@ BUILD = PKG / "_build"
 SOURCES = ("de_step", "de_step_resample", "migration", "kde")
 # no --use_fast_math: logf/expf/cosf stay full precision; -fmad=false keeps
 # each float operation rounded like the plain PyTorch versions;
-# --split-compile=0 runs the optimizer on every core (de_step.cu holds 32
+# --split-compile=0 runs the optimizer on every core (de_step.cu holds 64
 # instantiations of the sweep)
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "--split-compile=0", "-shared", "-Xcompiler",
@@ -41,17 +41,22 @@ _IP = ctypes.POINTER(ctypes.c_int)
 KERNEL_DENSITIES = {"de_step": ("gaussian", "lba", "binomial_abc",
                                 "discrete_binomial"),
                     "resample_step": ("gaussian", "mvnormal30")}
+# block sweeps per iteration K1 and K3 are instantiated for besides 1 (no
+# blocks): csrc/step_body.cuh kMaxBlocks
+BLOCK_COUNTS = (2,)
 _K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P, _P]
 _K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _P]
 SIGNATURES = {
     "de_step": {
         **{f"de_step_{d}": _K1 for d in KERNEL_DENSITIES["de_step"]},
+        **{f"de_step_block_chains_{d}": [_I, _I, _I, _IP]
+           for d in KERNEL_DENSITIES["de_step"]},
         "philox_fill": [_P, _I, _I, _U, _U, _U, _U, _P],
     },
     "de_step_resample": {
         **{f"resample_step_{d}": _K3
            for d in KERNEL_DENSITIES["resample_step"]},
-        **{f"resample_window_chains_{d}": [_I, _I, _IP]
+        **{f"resample_window_chains_{d}": [_I, _I, _I, _IP]
            for d in KERNEL_DENSITIES["resample_step"]},
     },
     "migration": {
@@ -132,8 +137,9 @@ def library(name: str) -> ctypes.CDLL:
 
 def entry(kernel: str, density) -> str:
     """The C entry point of ``kernel`` (``de_step`` or ``resample_step``)
-    on a model's ``CudaDensity``; raises where none is built (such a model
-    steps through the unfused step, ``sampler.build_step``)."""
+    on a model's ``CudaDensity``; raises where none is built
+    (``sampler.build_step`` gives such a model the unfused step, so only a
+    caller that builds the kernels' ``Step`` itself meets the raise)."""
     if density is None:
         raise ValueError(f"{kernel} needs a CUDA density and the model "
                          f"names none (DEModel.cuda_density)")

@@ -26,9 +26,12 @@ the snooker rows (3 member indices, γ and the snooker gate), d rows of ε,
 d rows of κ (κ < 1), the β gate (synchronous sweep), 2d Box–Muller rows,
 a stochastic model's noise panel (n_sim rows, ``fused_step.py:1824``,
 :2422-2427) and the accept row; last the next-iteration gate row — 17
-words per chain for the d = 2 Gaussian with default settings.  The
-resample variant (K3) has no partner or member-index rows: its partners
-come from the history.
+words per chain for the d = 2 Gaussian with default settings.  With
+constant blocks (``:2479-2488``) everything between the migration rows
+and the gate row repeats once per block sweep (``:1827``), and each
+block's mask keeps the crossover or snooker proposal to its dimensions.
+The resample variant (K3) has no partner or member-index rows: its
+partners come from the history.
 Every draw is taken whether or not its branch applies, so the layout is
 static.  In normal runs word (row, chain) is Philox(seed, iteration, row,
 chain); in bits-in mode (tests) a window reads iteration k's words from
@@ -47,6 +50,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..config import _blocking_const
 from . import _build
 from . import accept as accept_ops
 from . import migration as migration_ops
@@ -59,6 +63,39 @@ from . import proposals as proposal_ops
 # and 256 within a few µs per iteration of each other, 64 the lowest);
 # any K gives the same draws.
 SUPER_K = 64
+
+
+MAX_BLOCK_CHAINS = 1024     # threads of one CTA: launch_sweep's Np limit
+_block_chains: dict = {}
+
+
+def block_chains(resample: bool, density, seq: bool, snooker: bool,
+                 n_blocks: int, device) -> int:
+    """Chains one block of K1 (K3 where ``resample``) holds for a
+    configuration: on a CUDA device the fewer that its two phases'
+    instantiations hold in one block (the threads their registers allow,
+    and the stage, d + 1 floats a chain, within the shared memory a block
+    may opt in to), read from the built library once per configuration
+    (``csrc/step_body.cuh`` ``block_chains``); on the CPU the launch's
+    static limit, :data:`MAX_BLOCK_CHAINS`.  A group must fit one block,
+    and a K3 window of K > 1 the whole population."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return MAX_BLOCK_CHAINS
+    kernel = "resample_step" if resample else "de_step"
+    _build.entry(kernel, density)                   # raises if not built
+    fn = ("resample_window_chains_" if resample
+          else "de_step_block_chains_") + density.name
+    key = (fn, bool(seq), bool(snooker), int(n_blocks), device.index)
+    if key not in _block_chains:
+        lib = _build.library("de_step_resample" if resample else "de_step")
+        n = ctypes.c_int()
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn)(int(seq), int(snooker), int(n_blocks),
+                                  ctypes.byref(n))
+        _build.check(lib, rc, fn)
+        _block_chains[key] = min(n.value, MAX_BLOCK_CHAINS)
+    return _block_chains[key]
 
 
 def super_k() -> int:
@@ -99,12 +136,16 @@ class Rows(NamedTuple):
     stride: int = 0       # rows per sub-sweep block
     noise: int = -1       # a stochastic model's noise panel (n_noise rows)
     n_noise: int = 0
+    n_blocks: int = 1     # block sweeps per iteration (constant blocks)
+    blk_stride: int = 0   # rows per block sweep (its gate and sub-sweeps)
 
 
-def draw_rows(de, d: int, n_noise: int = 0) -> Rows:
+def draw_rows(de, d: int, n_noise: int = 0, n_blocks: int = 1) -> Rows:
     """The per-iteration row layout of ``fused_step.py:1802-1828`` in the
     order ``_sweep_tail`` draws (module docstring); ``n_noise`` uniforms
-    per evaluation for a stochastic model."""
+    per evaluation for a stochastic model; ``n_blocks`` block sweeps, each
+    with its own rows (``n_words`` times the block count, :1827), the
+    migration rows before them and the gate row after."""
     at = [0]
 
     def take(n, present=True):
@@ -120,6 +161,7 @@ def draw_rows(de, d: int, n_noise: int = 0) -> Rows:
     beta = float(de.beta) > 0.0
     alpha = float(de.alpha) if de.n_groups > 1 else 0.0
     mig = take(migration_ops.N_ROWS, alpha > 0.0)
+    blk0 = at[0]
     seq_gate = take(1, beta and seq)
     block = at[0]
     partners = take(2, not resample)
@@ -135,10 +177,23 @@ def draw_rows(de, d: int, n_noise: int = 0) -> Rows:
     stride = at[0] - block
     n_members = de.Np if seq else 1
     at[0] = block + n_members * stride
+    blk_stride = at[0] - blk0
+    at[0] = blk0 + max(n_blocks, 1) * blk_stride
     fire = take(1)
     return Rows(mig, partners, gamma, eps, kappa,
                 seq_gate if seq else gate, normal, acc, fire, at[0],
-                triple, sn, n_members, stride, noise, n_noise)
+                triple, sn, n_members, stride, noise, n_noise,
+                max(n_blocks, 1), blk_stride)
+
+
+def const_blocks(de) -> tuple:
+    """The blocks every iteration sweeps (constant-True ``blocking_on``),
+    else ``()``: constant False never applies them, and a callable
+    ``blocking_on`` decides per iteration, which the kernels do not take
+    (the JAX kernel's gate, ``fused_step.py:218-221``)."""
+    if de.blocks is not None and _blocking_const(de) is True:
+        return tuple(de.blocks)
+    return ()
 
 
 def _f32(x: float) -> float:
@@ -165,12 +220,17 @@ class StepConfig:
     theta_snooker: float = 0.0
     resample: bool = False      # DE-MCz: partners from the history (K3)
     int_dims: Tuple[int, ...] = ()   # integer dimensions, snapped
+    # the constant blocks' flat [d] masks, one per block sweep (none: ())
+    blocks: Tuple[Tuple[bool, ...], ...] = ()
     _iargs: dict = field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
     def make(model, de, spec) -> "StepConfig":
+        from ..sampler import flatten_block
         d = spec.dim
         int_dims = tuple(int(i) for i in np.flatnonzero(spec.int_mask))
+        blocks = tuple(tuple(bool(v) for v in flatten_block(spec, b))
+                       for b in const_blocks(de))
         return StepConfig(
             G=de.n_groups, Np=de.Np, d=d, burnin=int(de.burnin),
             proposal=de.generate_proposal,
@@ -179,10 +239,11 @@ class StepConfig:
             alpha=float(de.alpha) if de.n_groups > 1 else 0.0,
             lo=tuple(float(v) for v in spec.lo),
             hi=tuple(float(v) for v in spec.hi),
-            rows=draw_rows(de, d, model.noise_words),
+            rows=draw_rows(de, d, model.noise_words, len(blocks)),
             density=model.cuda_density,
             theta_snooker=float(de.theta_snooker),
-            resample=bool(de.uses_resample), int_dims=int_dims)
+            resample=bool(de.uses_resample), int_dims=int_dims,
+            blocks=blocks)
 
     @property
     def random_gamma(self) -> bool:
@@ -193,6 +254,12 @@ class StepConfig:
         """History partner slots per sub-sweep (resample): the DE pair,
         then the snooker triple."""
         return 5 if self.theta_snooker > 0.0 else 2
+
+    @property
+    def n_sets(self) -> int:
+        """Partner slot sets per iteration: one per block sweep and
+        sub-sweep, block-major (``fused_step.py:2235-2237``)."""
+        return self.rows.n_blocks * self.rows.n_members
 
     def iargs(self, it: int, seed: int, K: int = 1, emit=(0, 1),
               post: bool = False):
@@ -227,14 +294,22 @@ class StepConfig:
     def sweep_args(self):
         """The sweep layout (``csrc/step_body.cuh``): sub-sweeps, rows per
         sub-sweep block, the snooker member-index and snooker rows, the
-        integer dimensions as a bit mask and the noise panel's row."""
+        integer dimensions as a bit mask, the noise panel's row, the block
+        sweeps, rows per block sweep and each block's dimensions as a bit
+        mask."""
         r = self.rows
         if self.int_dims and self.int_dims[-1] >= 32:
             raise ValueError("the kernels snap integer dimensions 0..31 "
                              "only (a 32-bit mask)")
-        return _build.u32_array([r.n_members, r.stride, r.triple,
-                                 r.snooker, sum(1 << i for i in self.int_dims),
-                                 r.noise])
+        if self.blocks and self.d > 32:
+            raise ValueError("the kernels take block masks over 32 "
+                             "dimensions at most (a 32-bit mask)")
+        return _build.u32_array(
+            [r.n_members, r.stride, r.triple, r.snooker,
+             sum(1 << i for i in self.int_dims), r.noise, r.n_blocks,
+             r.blk_stride,
+             *(sum(1 << i for i, v in enumerate(m) if v)
+               for m in self.blocks)])
 
     def density_data(self, device):
         """The density's data buffer on ``device`` (or None), passed to the
@@ -249,13 +324,13 @@ class StepConfig:
 def group_partners(cfg: StepConfig, words):
     """K1's partner source: the DE pair, and the snooker triple, drawn
     from the words of sub-sweep block ``off`` and read from the current
-    group ``th [G, Np, d]``."""
+    group ``th [G, Np, d]`` (the slot set is K3's)."""
     G, Np, r = cfg.G, cfg.Np, cfg.rows
 
     def row(i):
         return words[i].view(G, Np)
 
-    def partners(th, member, off):
+    def partners(th, slot_set, off):
         a, b = proposal_ops.partner_indices(row(r.partners + off),
                                             row(r.partners + off + 1), Np)
         pm = proposal_ops.gather_members(th, a)
@@ -275,16 +350,22 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
                 words, partners, out=None):
     """The plain sweep of K1 and K3, in place: ``theta [C, d]``, ``w [C]``,
     ``fire [1]`` int32 (overwritten with the next gate), ``words
-    [n_words, C]`` uint32, ``partners(th, member, row_offset) -> (pm, pn,
-    triple or None)`` the partner source, ``out`` an optional
+    [n_words, C]`` uint32, ``partners(th, slot_set, row_offset) -> (pm,
+    pn, triple or None)`` the partner source, ``out`` an optional
     ``(theta_row, w_row, acc_row)`` trajectory slot.  Same operations,
     same order as the kernels.
 
     The sequential sweep runs Np sub-sweeps that each compute every
     chain's proposal from the partly updated group and commit only group
     slot ``member`` (``fused_step.py:2453-2475``); the β gate is drawn
-    once per sweep.  Returns each chain's accept margin (``accept.
-    mh_accept``, accepted where ≤ 0) from its own sub-sweep ``[C]``."""
+    once per sweep.  With constant blocks the sweep runs once per block
+    (``:2479-2488``), each from the state the earlier blocks left, on its
+    own rows and slot sets; the block's mask keeps the crossover or
+    snooker proposal to its dimensions before the snooker correction
+    (``:2360-2372``), the mutation ignores it, and the last block's
+    accepts are recorded.  Returns each chain's accept margin (``accept.
+    mh_accept``, accepted where ≤ 0) from its own sub-sweep of the last
+    block, ``[C]``."""
     G, Np, d, r = cfg.G, cfg.Np, cfg.d, cfg.rows
     th = theta.view(G, Np, d)
     wg = w.view(G, Np)
@@ -298,75 +379,84 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     if cfg.int_dims:
         int_mask = torch.zeros(d, dtype=torch.bool, device=theta.device)
         int_mask[list(cfg.int_dims)] = True
-    gate = uni(r.gate)[:, 0] if r.gate >= 0 else None    # group leader's
+    masks = [torch.tensor(m, device=theta.device) for m in cfg.blocks]
     slot = torch.arange(Np, device=theta.device)
-    acc_all = margin = None
-    for member in range(r.n_members):
-        o = member * r.stride
-        pm, pn, triple = partners(th, member, o)
-        if cfg.random_gamma:
-            u_b = uni(r.gamma + o)
-            g1 = uni(r.gamma + o + 1) * 0.5 + 0.5
-            g2 = uni(r.gamma + o + 2) * 0.5 + 0.5
-            if it <= cfg.burnin:
-                base = proposal_ops.gather_members(
-                    th, proposal_ops.select_base(wg, u_b))
-                bterm = g2[..., None] * (base - th)
+    for blk in range(r.n_blocks):
+        bo = blk * r.blk_stride
+        gate = uni(r.gate + bo)[:, 0] if r.gate >= 0 else None  # leader's
+        acc_all = margin = None
+        for member in range(r.n_members):
+            o = bo + member * r.stride
+            pm, pn, triple = partners(th, blk * r.n_members + member, o)
+            if cfg.random_gamma:
+                u_b = uni(r.gamma + o)
+                g1 = uni(r.gamma + o + 1) * 0.5 + 0.5
+                g2 = uni(r.gamma + o + 2) * 0.5 + 0.5
+                if it <= cfg.burnin:
+                    base = proposal_ops.gather_members(
+                        th, proposal_ops.select_base(wg, u_b))
+                    bterm = g2[..., None] * (base - th)
+                else:
+                    bterm = torch.zeros_like(th)
+                prop = proposal_ops.kernel_random_gamma(th, pm, pn, g1,
+                                                        bterm)
             else:
-                bterm = torch.zeros_like(th)
-            prop = proposal_ops.kernel_random_gamma(th, pm, pn, g1, bterm)
-        else:
-            prop = getattr(proposal_ops, "kernel_" + cfg.proposal)(th, pm,
-                                                                   pn)
-        if snooker:
-            pz, pm2, pn2 = triple
-            g_sn = uni(r.snooker + o) + _f32(1.2)
-            sn_gate = uni(r.snooker + o + 1) <= _f32(cfg.theta_snooker)
-            p_sn, den0, degen = proposal_ops.kernel_snooker(
-                th, pz, pm2, pn2, g_sn)
-            prop = torch.where(sn_gate[..., None], p_sn, prop)
-        if r.eps >= 0:
-            u = torch.stack([uni(r.eps + o + i) for i in range(d)], -1)
-            prop = prop + (u * _f32(2 * cfg.eps) - _f32(cfg.eps))
-        if r.kappa >= 0:
-            u = torch.stack([uni(r.kappa + o + i) for i in range(d)], -1)
-            prop = torch.where(u > _f32(1.0 - cfg.kappa), prop, th)
-        log_adj = None
-        if snooker:
-            prop = torch.where((sn_gate & degen)[..., None], th, prop)
-            adj = proposal_ops.kernel_snooker_log_adj(prop, pz, den0,
-                                                      degen, d)
-            log_adj = torch.where(sn_gate, adj, torch.zeros_like(adj))
-        if gate is not None:
-            u1 = torch.stack([uni(r.normal + o + i) for i in range(d)], -1)
-            u2 = torch.stack([uni(r.normal + o + d + i) for i in range(d)],
-                             -1)
-            nrm = mutation_ops.box_muller(u1, u2)
-            prop = mutation_ops.kernel_mutate(th, prop, gate, nrm,
-                                              cfg.beta, cfg.sigma)
-            if log_adj is not None:
-                mut = (gate <= _f32(cfg.beta))[:, None]
-                log_adj = torch.where(mut, torch.zeros_like(log_adj),
-                                      log_adj)
-        if int_mask is not None:
-            # integer snap (fused_step.py:2402-2410), round half to even
-            prop = torch.where(int_mask, torch.round(prop), prop)
-        noise = None
-        if r.noise >= 0:
-            noise = uniforms[r.noise + o:r.noise + o + r.n_noise].view(
-                r.n_noise, G, Np)
-        w_prop = accept_ops.compute_posterior(model, spec, prop, noise)
-        u_acc = uni(r.accept + o)
-        acc, mg = accept_ops.mh_accept(w_prop, wg, u_acc, log_adj)
-        if r.n_members > 1:
-            mine = slot == member
-            acc = acc & mine
-            margin = mg if margin is None else torch.where(mine, mg, margin)
-        else:
-            margin = mg
-        th = torch.where(acc[..., None], prop, th)
-        wg = torch.where(acc, w_prop, wg)
-        acc_all = acc if acc_all is None else acc_all | acc
+                prop = getattr(proposal_ops, "kernel_" + cfg.proposal)(
+                    th, pm, pn)
+            if snooker:
+                pz, pm2, pn2 = triple
+                g_sn = uni(r.snooker + o) + _f32(1.2)
+                sn_gate = uni(r.snooker + o + 1) <= _f32(cfg.theta_snooker)
+                p_sn, den0, degen = proposal_ops.kernel_snooker(
+                    th, pz, pm2, pn2, g_sn)
+                prop = torch.where(sn_gate[..., None], p_sn, prop)
+            if r.eps >= 0:
+                u = torch.stack([uni(r.eps + o + i) for i in range(d)], -1)
+                prop = prop + (u * _f32(2 * cfg.eps) - _f32(cfg.eps))
+            if r.kappa >= 0:
+                u = torch.stack([uni(r.kappa + o + i) for i in range(d)],
+                                -1)
+                prop = torch.where(u > _f32(1.0 - cfg.kappa), prop, th)
+            if masks:
+                prop = torch.where(masks[blk], prop, th)
+            log_adj = None
+            if snooker:
+                prop = torch.where((sn_gate & degen)[..., None], th, prop)
+                adj = proposal_ops.kernel_snooker_log_adj(prop, pz, den0,
+                                                          degen, d)
+                log_adj = torch.where(sn_gate, adj, torch.zeros_like(adj))
+            if gate is not None:
+                u1 = torch.stack([uni(r.normal + o + i) for i in range(d)],
+                                 -1)
+                u2 = torch.stack([uni(r.normal + o + d + i)
+                                  for i in range(d)], -1)
+                nrm = mutation_ops.box_muller(u1, u2)
+                prop = mutation_ops.kernel_mutate(th, prop, gate, nrm,
+                                                  cfg.beta, cfg.sigma)
+                if log_adj is not None:
+                    mut = (gate <= _f32(cfg.beta))[:, None]
+                    log_adj = torch.where(mut, torch.zeros_like(log_adj),
+                                          log_adj)
+            if int_mask is not None:
+                # integer snap (fused_step.py:2402-2410), round half to even
+                prop = torch.where(int_mask, torch.round(prop), prop)
+            noise = None
+            if r.noise >= 0:
+                noise = uniforms[r.noise + o:r.noise + o + r.n_noise].view(
+                    r.n_noise, G, Np)
+            w_prop = accept_ops.compute_posterior(model, spec, prop, noise)
+            u_acc = uni(r.accept + o)
+            acc, mg = accept_ops.mh_accept(w_prop, wg, u_acc, log_adj)
+            if r.n_members > 1:
+                mine = slot == member
+                acc = acc & mine
+                margin = mg if margin is None else torch.where(mine, mg,
+                                                               margin)
+            else:
+                margin = mg
+            th = torch.where(acc[..., None], prop, th)
+            wg = torch.where(acc, w_prop, wg)
+            acc_all = acc if acc_all is None else acc_all | acc
     new_t, new_w = th.reshape(-1, d), wg.reshape(-1)
     uf = uniforms[r.fire, :1]
     nfire = ((uf <= _f32(cfg.alpha)) & (cfg.alpha > 0.0)).to(torch.int32)

@@ -179,7 +179,7 @@ def distinct_flat_draws(draw_fn, n: int):
     for k in range(n):
         a = draw_fn(k)
         for s in ordered:
-            a = a + (a >= s).to(a.dtype)
+            a = a + (a >= s)
         picks.append(a)
         if k + 1 < n:
             out, cur = [], a
@@ -210,23 +210,27 @@ def resample_flat_indices(words, count: int, C: int):
 class ProposalContext:
     """What a proposal strategy of the unfused step reads (``demcmc_tpu/
     ops/proposals.py:39``): the configuration, the group-shaped population
-    ``theta [G, Np, d]`` and ``weight [G, Np]``, the 1-based iteration
-    and the :class:`~demcmc_tpu_torch.rng.Pool` of the iteration."""
+    ``theta [G, Np, d]`` and ``weight [G, Np]``, the 1-based iteration,
+    the :class:`~demcmc_tpu_torch.rng.Pool` of the iteration and, for
+    DE-MCz, the ``history [H, C, d]`` of past states."""
 
     de: Any
     theta: torch.Tensor
     weight: torch.Tensor
     iteration: int
     draws: Any
+    history: Any = None
 
     @property
     def dim(self) -> int:
         return self.theta.shape[-1]
 
     def partners(self, n: int, exclude_self: bool, replace: bool = False):
-        """``n`` partner populations ``[n, G, Np, d]`` from the current
-        group (the ``sample`` slot's ``sample_current``; DE-MCz resample
-        in the unfused step is ROADMAP A12-rest)."""
+        """``n`` partner populations ``[n, G, Np, d]`` from the ``sample``
+        slot: the current group (:func:`sample_current`) or, for DE-MCz,
+        the history (:func:`resample`)."""
+        if self.de.uses_resample:
+            return resample(self, n, exclude_self, replace)
         return sample_current(self, n, exclude_self, replace)
 
 
@@ -267,6 +271,28 @@ def sample_current(ctx: ProposalContext, n: int, exclude_self: bool,
     G, Np = ctx.theta.shape[:2]
     return _gather_partners(ctx.theta, _distinct_indices(
         ctx.draws, G, Np, n, exclude_self, replace))
+
+
+def resample(ctx: ProposalContext, n: int, exclude_self: bool,
+             replace: bool = False):
+    """DE-MCz partners (``demcmc_tpu/ops/proposals.py:271-295``; reference
+    ``resample``, ``crossover.jl:113-124``): ``n`` uniform draws over the
+    flat ``count·C`` space of (past row, chain) pairs, ``count = max(it −
+    1, 1)``, without replacement unless ``replace`` (the shift trick,
+    :func:`distinct_flat_draws`, over the pool's uint32-span draws); the
+    target is not excluded.  Returns ``[n, G, Np, d]``."""
+    if ctx.history is None:
+        raise ValueError("sample='resample' needs the history of past "
+                         "states (n_initial > 0)")
+    C, d = ctx.history.shape[1:]
+    G, Np = ctx.theta.shape[:2]
+    span = max(int(ctx.iteration) - 1, 1) * C
+    if replace:
+        flats = [ctx.draws.randuint((G, Np), span) for _ in range(n)]
+    else:
+        flats = distinct_flat_draws(
+            lambda k: ctx.draws.randuint((G, Np), (span - k) & _U32), n)
+    return ctx.history.reshape(-1, d)[torch.stack(flats)]
 
 
 def select_base_idx(draws, weight, Np: int):
@@ -345,8 +371,11 @@ def variable_gamma(ctx: ProposalContext):
 
 def _project(p1, p2):
     """((p1·p2) / (p2·p2)) p2 along the last axis (reference
-    ``project``, ``utilities.jl:239-246``), sums in index order."""
-    return (dot(p1, p2) / dot(p2, p2))[..., None] * p2
+    ``project``, ``utilities.jl:239-246``; ``demcmc_tpu/ops/proposals.py:
+    421``).  The unfused step's sums are one reduction each, as the JAX
+    XLA step's ``jnp.sum``, which holds it by tolerance; the kernels'
+    forms sum in index order (:func:`dot`)."""
+    return (torch.sum(p1 * p2, -1) / torch.sum(p2 * p2, -1))[..., None] * p2
 
 
 def snooker(ctx: ProposalContext):
@@ -360,7 +389,7 @@ def snooker(ctx: ProposalContext):
     G, Np, d = theta.shape
     pz, pm, pn = ctx.partners(3, exclude_self=False)
     pd = theta - pz
-    degenerate = dot(pd, pd) <= rng.TINY
+    degenerate = torch.sum(pd * pd, -1) <= rng.TINY
     safe = torch.where(degenerate[..., None], torch.ones_like(pd), pd)
     gamma = draws.uniform((G, Np, 1), 1.2, 2.2)
     prop = (theta + gamma * (_project(pm, safe) - _project(pn, safe))
@@ -374,7 +403,7 @@ def snooker_log_adj(theta, prop, z, dim: int, degenerate):
     """Snooker MH correction (``demcmc_tpu/ops/proposals.py:463``;
     reference ``adjust_loglike``, ``crossover.jl:268-273``): (d − 1)
     (log‖θ′ − z‖ − log‖θ − z‖), ``-inf`` for a degenerate draw."""
-    a1 = torch.sqrt(dot(prop - z, prop - z))
-    a2 = torch.sqrt(dot(theta - z, theta - z))
+    a1 = torch.sqrt(torch.sum((prop - z) * (prop - z), -1))
+    a2 = torch.sqrt(torch.sum((theta - z) * (theta - z), -1))
     adj = float(dim - 1) * (torch.log(a1) - torch.log(a2))
     return torch.where(degenerate, torch.full_like(adj, -math.inf), adj)

@@ -17,11 +17,12 @@ Partner indices are flat ``row·C + chain`` over the ``count·C`` past
 (row, chain) pairs, ``count = max(it − 1, 1)``, drawn without replacement
 within each pair and each triple (:func:`.proposals.resample_flat_indices`)
 from Philox words of namespace ``RESAMPLE_NS``: word (seed, it, slot row,
-chain), slot row ``member·n_slots + slot`` with slots 0-1 the pair and 2-4
-the triple — one slot set per sub-sweep, like ``_resample_idx`` (:2637).
+chain), slot row ``set·n_slots + slot`` with slots 0-1 the pair and 2-4
+the triple — one slot set per block sweep and sub-sweep, block-major, like
+``_resample_idx`` (:2637).
 The JAX package draws these words with threefry; the port's draw cannot
 reproduce that stream, so tests feed both the same indices (indices-in
-mode, ``idx [K·n_members·n_slots, C]`` for a window of K iterations) and
+mode, ``idx [K·n_sets·n_slots, C]`` for a window of K iterations) and
 the same step words (bits-in).
 
 A window of K iterations runs as one launch, as K1's does
@@ -31,11 +32,18 @@ CTA.  How many chains one CTA holds depends on the instantiation (its
 registers per thread, the stage's shared memory); above that K3 takes one
 iteration per launch (:func:`resample_super_k`, a rule on the
 configuration and the built kernel, read once).
+
+With migration (α > 0 and G > 1, the JAX kernel's ``mig_in_kernel`` on
+the resample layout, :2061-2101) the iteration's words begin with the
+three migration rows and K3 draws the next gate at its last row, as K1
+does; the exchange is K2, launched between windows on the same θ and w
+(``sampler.Step``).  The history is never migrated.  The JAX kernel
+pads the population to whole lanes, and its pad groups rank last (key
+2.0, ``G_mig`` :1412-1419) with N ~ U{2..G} over the real groups, so its
+exchange is K2's over the G real groups.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -44,38 +52,21 @@ from . import _build
 from . import fused_step as fused_ops
 from . import proposals as proposal_ops
 
-MAX_WINDOW_C = 1024      # threads of one CTA: the most a K3 window holds
+MAX_WINDOW_C = fused_ops.MAX_BLOCK_CHAINS  # the most a K3 window holds
 # Iterations per K3 window at most, chosen on an H100 by chip_smoke.py's K
 # sweep on the MVN flagship (PERF.md: K = 4 to 256 within 4% of each
 # other, K3 being bound by one thread's serial chain; 64 the lowest); any
 # K gives the same draws.
 RESAMPLE_SUPER_K = 64
-_window_chains: dict = {}
 
 
 def window_chains(cfg, device) -> int:
-    """Chains a K3 window of K > 1 (one CTA) holds for this configuration.
-    On a CUDA device: the fewer that the two instantiations it launches
-    (phase 'all' and 'post') hold in one block — the threads their
-    registers allow and the stage, d + 1 floats a chain, within the shared
-    memory a block may opt in to — read from the built library once per
-    configuration.  On the CPU (the plain version): :data:`MAX_WINDOW_C`."""
-    device = torch.device(device)
-    if device.type != "cuda":
-        return MAX_WINDOW_C
-    _build.entry("resample_step", cfg.density)      # raises if not built
-    name = cfg.density.name
-    key = (name, cfg.rows.n_members > 1, cfg.rows.snooker >= 0,
-           device.index)
-    if key not in _window_chains:
-        lib = _build.library("de_step_resample")
-        n = ctypes.c_int()
-        with torch.cuda.device(device):
-            rc = getattr(lib, "resample_window_chains_" + name)(
-                int(key[1]), int(key[2]), ctypes.byref(n))
-        _build.check(lib, rc, "resample_window_chains_" + name)
-        _window_chains[key] = min(n.value, MAX_WINDOW_C)
-    return _window_chains[key]
+    """Chains a K3 window of K > 1 (one CTA) holds for this configuration
+    (``fused_step.block_chains`` of its K3 instantiations; 1,024 on the
+    CPU)."""
+    r = cfg.rows
+    return fused_ops.block_chains(True, cfg.density, r.n_members > 1,
+                                  r.snooker >= 0, r.n_blocks, device)
 
 
 def resample_super_k(cfg, device="cpu") -> int:
@@ -87,18 +78,19 @@ def resample_super_k(cfg, device="cpu") -> int:
 
 
 def index_rows(cfg) -> int:
-    """Index word rows per iteration: one slot set per sub-sweep."""
-    return cfg.rows.n_members * cfg.n_slots
+    """Index word rows per iteration: one slot set per block sweep and
+    sub-sweep (``StepConfig.n_sets``)."""
+    return cfg.n_sets * cfg.n_slots
 
 
 def indices_from_words(cfg, words, it: int):
-    """Flat history indices ``[n_members·n_slots, C]`` int64 from the
+    """Flat history indices ``[n_sets·n_slots, C]`` int64 from the
     ``RESAMPLE_NS`` words of iteration ``it`` (same shape, uint32): per
-    sub-sweep, the pair and then the triple, each without replacement."""
+    slot set, the pair and then the triple, each without replacement."""
     C, k = cfg.G * cfg.Np, cfg.n_slots
     count = max(int(it) - 1, 1)
     out = []
-    for m in range(cfg.rows.n_members):
+    for m in range(cfg.n_sets):
         w = words[m * k:(m + 1) * k]
         out.append(proposal_ops.resample_flat_indices(w[:2], count, C))
         if k == 5:
@@ -114,14 +106,14 @@ def indices(cfg, seed: int, it: int, device=None):
 
 
 def history_partners(cfg, hist, idx):
-    """K3's partner source: the pair (and triple) of sub-sweep ``member``
+    """K3's partner source: the pair (and triple) of slot set ``slot_set``
     read from ``hist [H, C, d]`` at the flat indices ``idx``."""
     G, Np, d, k = cfg.G, cfg.Np, cfg.d, cfg.n_slots
     flat = hist.view(-1, d)
 
-    def partners(th, member, off):
+    def partners(th, slot_set, off):
         def get(slot):
-            return flat[idx[member * k + slot]].view(G, Np, d)
+            return flat[idx[slot_set * k + slot]].view(G, Np, d)
         triple = (get(2), get(3), get(4)) if k == 5 else None
         return get(0), get(1), triple
 
@@ -134,7 +126,7 @@ def resample_step_plain(cfg, model, spec, theta, w, fire, hist, it: int,
     """Plain version of K3 for a window of ``K`` iterations from ``it``, in
     place on ``theta [C, d]``, ``w [C]``, ``fire [1]`` and history rows
     ``it − 1 .. it + K − 2`` of ``hist [H, C, d]``; ``words [K·n_words, C]``
-    uint32, ``idx [K·n_members·n_slots, C]`` int64 flat history indices,
+    uint32, ``idx [K·n_sets·n_slots, C]`` int64 flat history indices,
     ``out`` the window's trajectory slice (``fused_step.trajectory``).
     Returns the accept margins (``fused_step.window_plain``)."""
     _check_window(cfg, hist, it, K, emit, phase)
@@ -172,14 +164,15 @@ def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
                   phase: str = "all"):
     """A window of ``K`` DE-MCz iterations from ``it`` in place on ``theta
     [C, d]`` / ``w [C]``, writing each iteration's state to history row
-    ``it_k − 1`` of ``hist [H, C, d]``, the next gate (always 0: resample
-    runs have no migration) to ``fire [1]`` and, with ``out``, the
-    trajectory rows of the emission rule ``emit`` (as
+    ``it_k − 1`` of ``hist [H, C, d]``, the migration gate its last
+    iteration draws to ``fire [1]`` (the window holds no open gate before
+    its last iteration; K2 runs between windows, ``sampler.Step``) and,
+    with ``out``, the trajectory rows of the emission rule ``emit`` (as
     :func:`.fused_step.de_step`).
 
     Words are Philox(seed, it + k) or ``bits [K·n_words, C]``; history
     indices are drawn from Philox ``RESAMPLE_NS`` words or given as ``idx
-    [K·n_members·n_slots, C]``.  CPU tensors take the plain version; CUDA
+    [K·n_sets·n_slots, C]``.  CPU tensors take the plain version; CUDA
     tensors launch K3 once (``resample_step.launches`` counts the
     launches); there is no fallback."""
     C = cfg.G * cfg.Np

@@ -21,6 +21,7 @@ scores a stochastic model's initial population, ``POOL_NS`` and
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -188,7 +189,10 @@ class Pool:
     from two uniforms with the first clamped to ``tiny``, gumbel
     ``−log(−log(max(u, tiny)))``, randint ``lo + w mod (hi − lo)``.
     ``bits`` comes from Philox namespace ``POOL_NS`` or, in tests, from the
-    JAX ``Pool``'s own ``jax.random.bits``."""
+    JAX ``Pool``'s own ``jax.random.bits``.  The block is converted to
+    int64 and mapped to uniforms once, at its first draw, and each draw
+    slices them: on the card the step is host-bound, one torch launch a
+    draw fewer is what counts."""
 
     def __init__(self, bits: torch.Tensor, scalars: Scalars):
         self.bits, self.scalars = bits, scalars
@@ -209,7 +213,19 @@ class Pool:
             return int(shape[0]) * rest
         return None
 
-    def _take(self, shape):
+    @functools.cached_property
+    def _words(self):
+        """The block as int64, converted once (draws are slices of it)."""
+        return self.bits.to(torch.int64)
+
+    @functools.cached_property
+    def _uniforms(self):
+        """The block's uniforms, mapped once for the iteration's draws."""
+        return _uniform24(self._words)
+
+    def _take(self, shape, src=None):
+        """The next columns of ``src`` (the int64 words by default) for a
+        group-shaped draw of ``shape``."""
         shape = tuple(shape)
         k = self._cols(shape)
         if k is None:
@@ -217,7 +233,8 @@ class Pool:
                              f"size {self.n_rows}")
         if self.offset + k > self.bits.shape[1]:
             raise ValueError("random pool exhausted; size it to the step")
-        w = self.bits[:, self.offset:self.offset + k]
+        src = self._words if src is None else src
+        w = src[:, self.offset:self.offset + k]
         self.offset += k
         if shape[0] == self.n_rows:
             return w.reshape(shape)
@@ -237,7 +254,7 @@ class Pool:
     def uniform(self, shape=(), lo=0.0, hi=1.0):
         if self._cols(shape) is None:
             return self.scalars.uniform(shape, lo, hi)
-        u = _uniform24(self._take(shape))
+        u = self._take(shape, self._uniforms)
         if (lo, hi) == (0.0, 1.0):
             return u
         return float(np.float32(lo)) + float(np.float32(hi - lo)) * u
@@ -254,8 +271,14 @@ class Pool:
     def randint(self, shape, lo: int, hi: int):
         if self._cols(shape) is None:
             return self.scalars.randint(shape, lo, hi)
-        return self._take(shape).to(torch.int64) % (hi - lo) + lo
+        idx = self._take(shape) % (hi - lo)
+        return idx + lo if lo else idx
 
+    def randuint(self, shape, span: int):
+        """Words modulo ``span``, a uint32 span held in a Python int (the
+        JAX ``Pool.randuint``, over resample's flat (row, chain) space);
+        int64 values."""
+        return self._take(shape) % (int(span) & 0xFFFFFFFF)
 
 
 class CountingDraws:
@@ -298,4 +321,7 @@ class CountingDraws:
         if self._cols(shape) is None:
             return self.scalars.randint(shape, lo, hi)
         return self._zeros(shape, dtype=torch.int64) + lo
+
+    def randuint(self, shape, span: int):
+        return self._zeros(shape, dtype=torch.int64)
 

@@ -5,18 +5,19 @@ one of two steps, statically from the model and the configuration, as the
 JAX package's ``build_step`` does (``demcmc_tpu/sampler.py:100-171``):
 
 * :class:`Step`, the kernels' step, for a model that names a CUDA density
-  built into K1, and for DE-MCz.  :func:`run_scan` runs it as the JAX
-  main path does (``demcmc_tpu/sampler.py:464-595``, ``run_scan``
+  built into K1 or, for DE-MCz, K3 (:func:`fused_supported`).
+  :func:`run_scan` runs it as the JAX main path does (``demcmc_tpu/sampler.py:464-595``, ``run_scan``
   :1226): K-iteration launches of the DE-step kernel K1 (or, for DE-MCz,
   the resample kernel K3, which also writes each state into the history),
   device-side thinning, and the post-burn-in variant past burn-in.  The
   migration gates are a pure function of the Philox counter, so the host
   computes them all before the first launch (:func:`rng.gates`) and cuts
   the run into windows (:func:`plan_windows`) that end where a gate opens;
-  the migration kernel K2 runs between two windows, and each window is
-  bitwise equal to the same iterations run one launch at a time
-  (``Step.__call__``: K2 gated on the device-side flag, then K1);
-* :class:`UnfusedStep` for every other model, or with
+  the migration kernel K2 runs between two windows (of K1 or K3), and
+  each window is bitwise equal to the same iterations run one launch at a
+  time (``Step.__call__``: K2 gated on the device-side flag, then K1 or
+  K3);
+* :class:`UnfusedStep` for every other configuration, or with
   ``allow_fused=False``: the twin of the JAX XLA step
   (``demcmc_tpu/sampler.py:954-1130``), plain torch operations around the
   model's torch density, which may itself launch a kernel (the KDE kernel
@@ -40,7 +41,7 @@ import torch
 
 from . import rng
 from .chains import Chains
-from .config import DE, MCMCThreads
+from .config import DE, MCMCThreads, _blocking_const
 from .model import DEModel, ParamSpec
 from .ops import _build
 from .ops import accept as accept_ops
@@ -74,6 +75,40 @@ class StepOutput(NamedTuple):
     lp: np.ndarray        # [T, C]
 
 
+class _DEView:
+    """What a callable ``blocking_on`` sees (``demcmc_tpu/sampler.py:
+    63-73``; reference ``de.blocking_on(de)``, ``src/main.jl:162``): the
+    configuration's fields and ``iter``, the iteration as a host int, so
+    the flag costs no device sync."""
+
+    def __init__(self, de: DE, iteration: int):
+        self._de = de
+        self.iter = iteration
+
+    def __getattr__(self, name):
+        return getattr(self._de, name)
+
+
+def flatten_block(spec: ParamSpec, block) -> np.ndarray:
+    """One block mask (a bool or a nested mask per parameter, reference
+    ``blocks``, ``src/structs.jl:48``) as a flat ``[d]`` bool mask
+    (``demcmc_tpu/sampler.py:76-100``): a scalar element covers its whole
+    parameter, an array element must have the parameter's size."""
+    if isinstance(block, np.ndarray) and block.dtype != object:
+        block = list(block)
+    parts = []
+    for elem, shape, size in zip(block, spec.shapes, spec.sizes):
+        a = np.asarray(elem, dtype=bool)
+        if a.shape == ():
+            parts.append(np.full(size, bool(a)))
+        else:
+            if int(np.prod(a.shape)) != size:
+                raise ValueError(f"block element shape {a.shape} does not "
+                                 f"match parameter shape {shape}")
+            parts.append(a.reshape(-1))
+    return np.concatenate(parts)
+
+
 def resolve_device(device=None) -> torch.device:
     """``cuda`` by default; raises when CUDA is asked for (by default or
     by name) and there is no GPU."""
@@ -97,8 +132,10 @@ def make_spec(model: DEModel, de: DE) -> ParamSpec:
 
 
 def _first_gate(de: DE, key: int, iteration: int, device) -> torch.Tensor:
-    """Migration gate of a run's first iteration, from its own Philox
-    namespace (later gates are drawn by the step kernel)."""
+    """Migration gate of a run's first iteration, K1's and K3's runs alike
+    (the JAX look-ahead gate's seeding, ``demcmc_tpu/sampler.py:806-813``),
+    from its own Philox namespace; later gates are drawn by the step
+    kernel."""
     alpha = float(de.alpha) if de.n_groups > 1 else 0.0
     u = rng.to_uni(rng.words(key, iteration, 1, 1, ns=rng.GATE_NS))
     fire = (u <= float(np.float32(alpha))) & (alpha > 0.0)
@@ -263,7 +300,8 @@ def plan_windows(it0: int, n_iter: int, fire0: bool, gates, k_max: int,
 
 class Step:
     """The kernels' step for a (model, de, spec) configuration: one
-    iteration (``__call__``: K2 then K1, or K3 for DE-MCz), or a planned
+    iteration (``__call__``: K2 where the configuration migrates, then K1,
+    or K3 for DE-MCz), or a planned
     run of K-iteration windows (:meth:`advance`, which :func:`run_scan`
     takes), with the JAX step's superstep names (``superstep_k``,
     :meth:`get_superstep`, :meth:`get_thin_step`, :meth:`get_post_burnin`,
@@ -276,7 +314,16 @@ class Step:
 
     def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device):
         self.model, self.spec = model, spec
+        if de.blocks is not None and _blocking_const(de) is None:
+            raise ValueError("the kernels' step sweeps constant blocks "
+                             "only (blocking_on a bool); a callable "
+                             "blocking_on takes the unfused step")
         self.cfg = fused_ops.StepConfig.make(model, de, spec)
+        n_blk = len(self.cfg.blocks)
+        if n_blk and n_blk not in _build.BLOCK_COUNTS:
+            raise ValueError(f"K1 and K3 are built for {_build.BLOCK_COUNTS} "
+                             f"block sweeps, not {n_blk}; such a "
+                             f"configuration takes the unfused step")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             _build.entry("resample_step" if self.cfg.resample else "de_step",
@@ -310,15 +357,15 @@ class Step:
             raise ValueError("a resample run needs state.history")
         if self.device.type != "cuda":
             return
-        if cfg.resample:
-            resample_ops.check_cuda(cfg, state.theta, state.weight,
-                                    state.fire, state.history, out=out)
-            return
         if cfg.rows.mig >= 0:
             migration_ops.check_cuda(state.theta, state.weight, state.fire,
                                      cfg.G, cfg.Np)
-        fused_ops.check_cuda(cfg, state.theta, state.weight, state.fire,
-                             out=out)
+        if cfg.resample:
+            resample_ops.check_cuda(cfg, state.theta, state.weight,
+                                    state.fire, state.history, out=out)
+        else:
+            fused_ops.check_cuda(cfg, state.theta, state.weight, state.fire,
+                                 out=out)
 
     def __call__(self, state: SamplerState, out=None, check: bool = True,
                  phase: str = "all") -> SamplerState:
@@ -329,6 +376,10 @@ class Step:
         cpu = self.device.type == "cpu"
         bits = (self._words(state.key, it, rng.STEP_NS, cfg.rows.n_words)
                 if cpu else None)
+        if cfg.rows.mig >= 0:
+            migration_ops.migrate(state.theta, state.weight, state.fire,
+                                  cfg.G, cfg.Np, seed=state.key, it=it,
+                                  bits=bits, check=check)
         if cfg.resample:
             idx = None
             if cpu:
@@ -339,14 +390,10 @@ class Step:
                 cfg, self.model, self.spec, state.theta, state.weight,
                 state.fire, state.history, it, seed=state.key, out=out,
                 bits=bits, idx=idx, check=check, phase=phase)
-            return state._replace(iteration=it + 1)
-        if cfg.rows.mig >= 0:
-            migration_ops.migrate(state.theta, state.weight, state.fire,
-                                  cfg.G, cfg.Np, seed=state.key, it=it,
-                                  bits=bits, check=check)
-        fused_ops.de_step(cfg, self.model, self.spec, state.theta,
-                          state.weight, state.fire, it, seed=state.key,
-                          out=out, bits=bits, check=check, phase=phase)
+        else:
+            fused_ops.de_step(cfg, self.model, self.spec, state.theta,
+                              state.weight, state.fire, it, seed=state.key,
+                              out=out, bits=bits, check=check, phase=phase)
         return state._replace(iteration=it + 1)
 
     def window(self, state: SamplerState, w: Window, traj=None):
@@ -373,21 +420,21 @@ class Step:
                                         device=self.device)
                 idx = torch.cat([resample_ops.indices_from_words(
                     cfg, words[k], w.it0 + k) for k in range(w.K)])
+        if w.migrate:
+            migration_ops.migrate(state.theta, state.weight, state.fire,
+                                  cfg.G, cfg.Np, seed=key, it=w.it0,
+                                  bits=bits, check=False)
         if cfg.resample:
             resample_ops.resample_step(
                 cfg, self.model, self.spec, state.theta, state.weight,
                 state.fire, state.history, w.it0, seed=key, out=out,
                 bits=bits, idx=idx, check=False, K=w.K, emit=w.emit,
                 phase=phase)
-            return
-        if w.migrate:
-            migration_ops.migrate(state.theta, state.weight, state.fire,
-                                  cfg.G, cfg.Np, seed=key, it=w.it0,
-                                  bits=bits, check=False)
-        fused_ops.de_step(cfg, self.model, self.spec, state.theta,
-                          state.weight, state.fire, w.it0, seed=key,
-                          out=out, bits=bits, check=False, K=w.K,
-                          emit=w.emit, phase=phase)
+        else:
+            fused_ops.de_step(cfg, self.model, self.spec, state.theta,
+                              state.weight, state.fire, w.it0, seed=key,
+                              out=out, bits=bits, check=False, K=w.K,
+                              emit=w.emit, phase=phase)
 
     def plan(self, state: SamplerState, n_iter: int, thin: int = 1,
              fire=None, switch: int = None):
@@ -441,10 +488,13 @@ class UnfusedStep:
     """One iteration of the unfused step, the twin of the JAX XLA step
     (``demcmc_tpu/sampler.py:954-1130``: ``do_update`` :966,
     ``sweep_update`` :1033, ``step_core`` :1055, the integer snap
-    :1013-1014) on the group-major state ``[C, d]`` (the JAX state ``[G,
-    Np, d]`` reshaped): migration with probability α, then the synchronous
-    or sequential sweep, each chain's proposal scored by the model's torch
-    density (:func:`.ops.accept.make_fitness`).
+    :1013-1014, the history write :1116-1123) on the group-major state
+    ``[C, d]`` (the JAX state ``[G, Np, d]`` reshaped): migration with
+    probability α, then the synchronous or sequential sweep, once per
+    block where the blocks apply, each chain's proposal scored by the
+    model's torch density (:func:`.ops.accept.make_fitness`); partners
+    come from the current group or, for DE-MCz, from the history, whose
+    row ``it − 1`` takes the new state.
 
     Its random numbers come as the JAX step's do, from one
     :class:`~demcmc_tpu_torch.rng.Pool` per iteration: ``[G,
@@ -452,22 +502,23 @@ class UnfusedStep:
     counted by a dry run with :class:`~demcmc_tpu_torch.rng.CountingDraws`
     before the first iteration), and two scalars on the host (namespace
     ``SCALAR_NS``), so the migration gate needs no sync.  Words are drawn
-    for many iterations at once.  Blocks, DE-MCz resample and a stochastic
-    model's fresh noise raise ``NotImplementedError`` here (the custom
-    slots, the optimization modes and float64 already do in ``DE``)."""
+    for many iterations at once.  A callable ``blocking_on`` is the JAX
+    step's ``lax.cond``, which traces both branches, the blocked one
+    first: the pool holds the blocked sweeps' columns and then the plain
+    sweep's, and an iteration uses one set and passes over the other (a
+    callable that ignores the iteration is taken as one that reads it).
+    A stochastic model's fresh noise raises ``NotImplementedError`` here
+    (the custom slots, the optimization modes and float64 already do in
+    ``DE``)."""
 
     WORDS_PER_BLOCK = 1 << 21     # pool words drawn per block, at most
 
     def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device):
-        for what, bad, item in (
-                ("DE-MCz resample (sample='resample')", de.uses_resample,
-                 "A12-rest 2"),
-                ("a stochastic model's fresh noise panel", model.stochastic,
-                 "A12-rest 6")):
-            if bad:
-                raise NotImplementedError(
-                    f"{what} in the unfused step is not ported yet "
-                    f"(ROADMAP.md {item}); use demcmc_tpu for it")
+        if model.stochastic:
+            raise NotImplementedError(
+                "a stochastic model's fresh noise panel in the unfused step "
+                "is not ported yet (ROADMAP.md A12 rest 6); use demcmc_tpu "
+                "for it")
         self.de = de
         self.device = torch.device(device)
         self.G, self.Np, self.d = de.n_groups, de.Np, spec.dim
@@ -475,33 +526,57 @@ class UnfusedStep:
         self.int_mask = (torch.as_tensor(spec.int_mask, device=self.device)
                          if spec.has_int else None)
         self.proposal = getattr(proposal_ops, de.generate_proposal)
+        self.block_masks = None
+        if de.blocks is not None:
+            self.block_masks = [torch.as_tensor(flatten_block(spec, b),
+                                                device=self.device)
+                                for b in de.blocks]
+        self.blocking = _blocking_const(de)
+        zeros = (torch.zeros((self.G, self.Np, self.d), device=self.device),
+                 torch.zeros((self.G, self.Np), device=self.device))
+        hist = (torch.zeros((1, self.G * self.Np, self.d),
+                            device=self.device)
+                if de.uses_resample else None)
+
+        def fit0(x):
+            return torch.zeros(x.shape[:-1], device=x.device)
+        self.branch_cols = {}
+        if self.block_masks is not None and self.blocking is None:
+            for blocked in (True, False):
+                counter = rng.CountingDraws(self.G, self.device)
+                self.sweeps(counter, *zeros, 1, fit0, hist, blocked)
+                self.branch_cols[blocked] = counter.words
         counter = rng.CountingDraws(self.G, self.device)
-        self.step_core(counter, torch.zeros((self.G, self.Np, self.d),
-                                            device=self.device),
-                       torch.zeros((self.G, self.Np), device=self.device),
-                       1, lambda x: torch.zeros(x.shape[:-1],
-                                                device=x.device))
+        self.step_core(counter, *zeros, 1, fit0, hist)
         self.pool_words = max(counter.words, 1)
         self._blocks = {}             # namespace -> (key, it0, words)
 
     # ---- the step body, draw for draw as the JAX XLA step
 
     def do_update(self, draws, theta, weight, it: int, fitness,
-                  member: int = None, mut_mask=None):
+                  history=None, block_mask=None, member: int = None,
+                  mut_mask=None):
         """One mutate-or-crossover sweep over all groups (``sampler.py:
         966``; reference ``mutate_or_crossover!``, ``main.jl:199-207``);
         with ``member`` (sequential sweep) only group slot ``member``
         accepts, and ``mut_mask`` is the per-group mutation gate drawn
-        once per sweep."""
+        once per sweep.  ``block_mask [d]`` keeps the crossover or snooker
+        proposal to the block's dimensions before the snooker correction
+        (``reset!``, ``crossover.jl:84-87,336-352``); the mutation ignores
+        it (``main.jl:199-207``)."""
         de, d = self.de, self.d
         G, Np = self.G, self.Np
-        ctx = proposal_ops.ProposalContext(de, theta, weight, it, draws)
+        ctx = proposal_ops.ProposalContext(de, theta, weight, it, draws,
+                                           history)
         cross = self.proposal(ctx)
         log_adj = torch.zeros((G, Np), device=theta.device)
         if de.theta_snooker > 0.0:
             sn_gate = draws.uniform((G, Np)) <= dists.f32(de.theta_snooker)
             sn_prop, z, degen = proposal_ops.snooker(ctx)
             cross = torch.where(sn_gate[..., None], sn_prop, cross)
+        if block_mask is not None:
+            cross = torch.where(block_mask, cross, theta)
+        if de.theta_snooker > 0.0:
             adj = proposal_ops.snooker_log_adj(theta, cross, z, d, degen)
             log_adj = torch.where(sn_gate, adj, log_adj)
         prop = cross
@@ -522,30 +597,57 @@ class UnfusedStep:
                                                 acc)
         return theta, weight, acc
 
-    def sweep_update(self, draws, theta, weight, it: int, fitness):
+    def sweep_update(self, draws, theta, weight, it: int, fitness,
+                     history=None, block_mask=None):
         """One sweep (``sampler.py:1033``): synchronous, or the sequential
         one's Np member-masked sub-sweeps from the partly updated
         population, the mutation gate drawn once for all of them."""
         de = self.de
         if not de.sequential_sweep:
-            return self.do_update(draws, theta, weight, it, fitness)
+            return self.do_update(draws, theta, weight, it, fitness,
+                                  history, block_mask)
         mut_mask = None
         if de.beta > 0.0:
             mut_mask = draws.uniform((self.G,)) <= dists.f32(de.beta)
         acc_tot = None
         for p0 in range(self.Np):
             theta, weight, acc = self.do_update(draws, theta, weight, it,
-                                                fitness, member=p0,
-                                                mut_mask=mut_mask)
+                                                fitness, history, block_mask,
+                                                member=p0, mut_mask=mut_mask)
             acc_tot = acc if acc_tot is None else acc_tot | acc
         return theta, weight, acc_tot
 
-    def step_core(self, draws, theta, weight, it: int, fitness):
-        """Migration, then the sweep (``sampler.py:1055``); returns
+    def sweeps(self, draws, theta, weight, it: int, fitness, history,
+               blocked: bool):
+        """The iteration's sweeps after migration: one (``blocked`` False)
+        or one per block, later blocks from earlier blocks' accepts, the
+        last block's accept and lp kept (``block_update!``, ``main.jl:
+        174-179``; the JAX step's ``blocked``, ``sampler.py:1066-1075``)."""
+        if not blocked:
+            return self.sweep_update(draws, theta, weight, it, fitness,
+                                     history)
+        for mask in self.block_masks:
+            theta, weight, acc = self.sweep_update(draws, theta, weight, it,
+                                                   fitness, history, mask)
+        return theta, weight, acc
+
+    def step_core(self, draws, theta, weight, it: int, fitness,
+                  history=None):
+        """Migration, then the sweeps (``sampler.py:1055``); returns
         ``(theta [G, Np, d], weight [G, Np], accept [G, Np])``."""
         theta, weight = migration_ops.maybe_migrate(
             draws, theta, weight, self.de.alpha, self.G)
-        return self.sweep_update(draws, theta, weight, it, fitness)
+        if self.block_masks is None or self.blocking is not None:
+            return self.sweeps(draws, theta, weight, it, fitness, history,
+                               self.block_masks is not None
+                               and self.blocking)
+        flag = bool(self.de.blocking_on(_DEView(self.de, it)))
+        if not flag:
+            draws.skip((self.G, self.branch_cols[True]))
+        out = self.sweeps(draws, theta, weight, it, fitness, history, flag)
+        if flag:
+            draws.skip((self.G, self.branch_cols[False]))
+        return out
 
     # ---- random numbers
 
@@ -575,6 +677,12 @@ class UnfusedStep:
     def check(self, state: SamplerState, out=None):
         """Raise unless the state (and a trajectory slot) suit the step."""
         C, d = self.G * self.Np, self.d
+        if self.de.uses_resample and (
+                state.history is None
+                or tuple(state.history.shape[1:]) != (C, d)
+                or state.history.shape[0] < state.iteration):
+            raise ValueError("a resample run needs state.history [H, C, d] "
+                             "with a row for each iteration")
         want = [("theta", state.theta, torch.float32, (C, d)),
                 ("weight", state.weight, torch.float32, (C,))]
         if out is not None:
@@ -599,12 +707,14 @@ class UnfusedStep:
         draws = self.draws(state.key, it)
         theta, weight, acc = self.step_core(
             draws, state.theta.view(G, Np, d), state.weight.view(G, Np),
-            it, self.fitness)
+            it, self.fitness, state.history)
         if draws.offset != self.pool_words:
             raise RuntimeError(f"the step took {draws.offset} pool columns "
                                f"of {self.pool_words}")
         state.theta.copy_(theta.reshape(G * Np, d))
         state.weight.copy_(weight.reshape(G * Np))
+        if state.history is not None:     # store_samples!, row it - 1
+            state.history[it - 1].copy_(state.theta)
         if out is not None:
             out[0].copy_(state.theta)
             out[1].copy_(state.weight)
@@ -612,14 +722,28 @@ class UnfusedStep:
         return state._replace(iteration=it + 1)
 
 
-def fused_supported(model: DEModel, de: DE) -> bool:
+def fused_supported(model: DEModel, de: DE, device="cpu") -> bool:
     """Static predicate: does this configuration step through the kernels
-    (:class:`Step`)?  DE-MCz always does (K3; the unfused step has no
-    resample), the rest when the model names a CUDA density built into
-    K1."""
+    (:class:`Step`)?  It does where the model names a CUDA density that
+    the configuration's kernel is built for (K3 for DE-MCz, K1 else), the
+    blocks, if any, are constant and as many as the kernels are built for,
+    and a group fits one block of the kernel (``fused_step.block_chains``,
+    read from the built kernel on a CUDA device; the launch's static limit
+    of 1,024 chains on the CPU), as the JAX predicate falls back outside
+    its kernel's shapes (``demcmc_tpu/ops/fused_step.py:200-204``).  Every
+    other configuration takes the unfused step."""
     dens = model.cuda_density
-    return de.uses_resample or (
-        dens is not None and dens.name in _build.KERNEL_DENSITIES["de_step"])
+    kernel = "resample_step" if de.uses_resample else "de_step"
+    if dens is None or dens.name not in _build.KERNEL_DENSITIES[kernel]:
+        return False
+    if de.blocks is not None and _blocking_const(de) is None:
+        return False
+    n_blk = len(fused_ops.const_blocks(de))
+    if n_blk and n_blk not in _build.BLOCK_COUNTS:
+        return False
+    return de.Np <= fused_ops.block_chains(
+        de.uses_resample, dens, de.sequential_sweep, de.theta_snooker > 0.0,
+        max(n_blk, 1), device)
 
 
 def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
@@ -630,7 +754,7 @@ def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
     the model and the configuration only; a kernel that fails to build or
     launch raises."""
     device = resolve_device(device)
-    if allow_fused and fused_supported(model, de):
+    if allow_fused and fused_supported(model, de, device):
         return Step(model, de, spec, device)
     return UnfusedStep(model, de, spec, device)
 
@@ -693,7 +817,7 @@ def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1):
 def _not_ported(name: str, where: str):
     raise NotImplementedError(
         f"sample(..., {name}) is not ported to demcmc_tpu_torch yet "
-        f"({where}, ROADMAP.md); use demcmc_tpu for it")
+        f"(ROADMAP.md {where}); use demcmc_tpu for it")
 
 
 def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
@@ -719,13 +843,13 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
                         "sample(model, de, MCMCThreads(), n_iter)")
     n_iter = int(args[0])
     if mesh is not None:
-        _not_ported("mesh=", "multi-GPU, A10")
+        _not_ported("mesh=", "A10, multi-GPU")
     if checkpoint_every or checkpoint_path:
-        _not_ported("checkpoint_every=", "checkpointing, A9")
+        _not_ported("checkpoint_every=", "A9, checkpointing")
     if monitor:
-        _not_ported("monitor=True", "streaming monitor, A9")
+        _not_ported("monitor=True", "A9, streaming monitor")
     if stop_rhat is not None:
-        _not_ported("stop_rhat=", "streaming monitor, A9")
+        _not_ported("stop_rhat=", "A9, streaming monitor")
     if thin > 1 and de.discard_burnin and de.burnin % thin:
         raise ValueError(f"burnin ({de.burnin}) must be divisible by "
                          f"thin ({thin})")

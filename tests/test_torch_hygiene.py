@@ -39,7 +39,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 
 @pytest.mark.parametrize("rel", ["sampler.py", "ops/kde.py", "utils/kde.py",
                                  "models/abc_kde.py", "models/lnr.py",
-                                 "models/binomial.py"])
+                                 "models/binomial.py",
+                                 "models/hierarchical.py"])
 def test_unfused_step_modules_import_neither_jax_nor_the_jax_package(rel):
     """The unfused step's modules, one by one (the sweep above covers them
     too): each exists and imports only torch, numpy and the port."""
@@ -91,25 +92,54 @@ def test_kernel_wrappers_never_fall_back():
         tdm.sample(model, de, 10, device="meta")
 
 
+# the cases keep the ids they had when migration and blocks raised too
 @pytest.mark.parametrize("kw,what", [
     ({"generate_proposal": "snooker"}, "snooker"),
-    ({"sample": "resample", "n_initial": 10, "n_groups": 4}, "migration"),
-    ({"blocking_on": True}, "block"),
-    ({"blocks": [[True, False]]}, "block"),
     ({"sample": "custom"}, "partner slots"),
     ({"update_particle": "maximize"}, "optimization"),
     ({"update_particle": "minimize"}, "optimization"),
     ({"dtype": np.float64}, "float64"),
-])
+], ids=["kw0-snooker", "kw4-partner slots", "kw5-optimization",
+        "kw6-optimization", "kw7-float64"])
 def test_unported_settings_raise(kw, what):
+    """A setting the port does not carry raises, naming the ROADMAP item
+    that carries it."""
     kw = {"Np": 6, **kw}
-    with pytest.raises(NotImplementedError, match=what):
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md A"):
         tdm.DE(bounds=tgauss.BOUNDS, **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    {"sample": "resample", "n_initial": 10, "n_groups": 4},
+    {"blocking_on": True},
+    {"blocks": [[True, False], [False, True]], "blocking_on": True},
+], ids=["migration", "blocking_on", "blocks"])
+def test_ported_settings_run(kw):
+    """DE-MCz with migration as ``DE(Np=3, sample='resample',
+    n_initial=...)`` gives it (the default four groups and α = 0.1), a
+    constant ``blocking_on`` and two blocks, which raised before the port
+    carried them: each builds a step, the kernels' and the unfused one,
+    and runs two iterations on the CPU."""
+    model, _ = tgauss.make(data=DATA)
+    de = tdm.DE(bounds=tgauss.BOUNDS, Np=3, burnin=1, **kw)
+    assert de.alpha == 0.1 and de.n_groups == 4
+    spec = tdm.make_spec(model, de)
+    for allow_fused in (True, False):
+        state = tdm.sampler._grow_history(
+            tdm.init_state(model, de, spec, 3, device="cpu"), 2)
+        step = tdm.build_step(model, de, spec, device="cpu",
+                              allow_fused=allow_fused)
+        for _ in range(2):
+            state = step(state)
+        assert state.iteration == de.n_initial + 3
+        assert torch.isfinite(state.weight).all()
 
 
 def test_resample_wrapper_never_falls_back():
     """K3's wrapper, like K1's, runs the plain version for CPU tensors only,
-    and K1's refuses a resample configuration."""
+    and K1's refuses a resample configuration; the kernels' step refuses
+    on a CUDA device a model without a K3 density (``build_step`` gives
+    it the unfused step)."""
     from demcmc_tpu_torch.models import mvnormal as tmvn
     from demcmc_tpu_torch.ops import resample_step as tres
     model, de = tmvn.make(d=2, data=np.zeros((5, 2), np.float32),
@@ -124,8 +154,11 @@ def test_resample_wrapper_never_falls_back():
     with pytest.raises(ValueError, match="resample_step"):
         tfused.de_step(cfg, model, None, theta, w, fire, 5)
     assert model.cuda_density is None          # only d = 30 is compiled
+    spec = tdm.make_spec(model, de)
     with pytest.raises(ValueError, match="CUDA density"):
-        tdm.sampler.Step(model, de, tdm.make_spec(model, de), "cuda")
+        tdm.sampler.Step(model, de, spec, "cuda")
+    assert isinstance(tdm.build_step(model, de, spec, "cpu"),
+                      tdm.UnfusedStep)
 
 
 def test_new_settings_are_accepted():
@@ -158,8 +191,9 @@ def test_model_without_cuda_density_is_cpu_only():
 
 def test_step_choice_is_static():
     """``build_step`` picks from the model and the configuration alone: the
-    kernels' step for a model with a K1 density and for DE-MCz, the
-    unfused step otherwise or with ``allow_fused=False``."""
+    kernels' step for a model with a K1 density, and for DE-MCz with a K3
+    density, the unfused step otherwise (DE-MCz of an MVN whose width has
+    no K3 density included) or with ``allow_fused=False``."""
     from demcmc_tpu_torch.models import mvnormal as tmvn
     model, de = tgauss.make(data=DATA)
     spec = tdm.make_spec(model, de)
@@ -170,25 +204,37 @@ def test_step_choice_is_static():
     current = de30.replace(sample="current", n_initial=0)
     assert isinstance(tdm.build_step(m30, current, tdm.make_spec(m30, de30),
                                      "cpu"), tdm.UnfusedStep)
+    assert type(tdm.build_step(m30, de30, tdm.make_spec(m30, de30),
+                               "cpu")) is tdm.sampler.Step
     m3, de3 = tmvn.make(d=2, data=np.zeros((5, 2), np.float32), n_initial=4)
     assert m3.cuda_density is None
-    assert type(tdm.build_step(m3, de3, tdm.make_spec(m3, de3),
-                               "cpu")) is tdm.sampler.Step
+    assert isinstance(tdm.build_step(m3, de3, tdm.make_spec(m3, de3),
+                                     "cpu"), tdm.UnfusedStep)
 
 
-@pytest.mark.parametrize("case,what", [("resample", "resample"),
-                                       ("stochastic", "noise")])
+@pytest.mark.parametrize("case,what", [("stochastic", "noise")])
 def test_unfused_step_refuses_what_it_does_not_carry(case, what):
-    """DE-MCz resample and a stochastic model's fresh noise panel in the
-    unfused step raise, naming the ROADMAP item."""
-    if case == "resample":
-        from demcmc_tpu_torch.models import mvnormal as tmvn
-        model, de = tmvn.make(d=2, data=np.zeros((5, 2), np.float32),
-                              n_initial=4)
-    else:
-        from demcmc_tpu_torch.models import binomial as tbin
-        model, de = tbin.make(N=10, k=6, abc=True, fresh_noise=True,
-                              n_sim=50)
+    """A stochastic model's fresh noise panel in the unfused step raises,
+    naming the ROADMAP item."""
+    from demcmc_tpu_torch.models import binomial as tbin
+    model, de = tbin.make(N=10, k=6, abc=True, fresh_noise=True, n_sim=50)
     spec = tdm.make_spec(model, de)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md "
+                                                  f"A12 rest 6"):
         tdm.build_step(model, de, spec, "cpu", allow_fused=False)
+
+
+def test_unfused_step_runs_resample():
+    """The unfused step runs DE-MCz (it raised before it carried the
+    history): an MVN without a K3 density samples on the CPU and writes
+    each state into its history row."""
+    from demcmc_tpu_torch.models import mvnormal as tmvn
+    model, de = tmvn.make(d=2, data=np.zeros((5, 2), np.float32),
+                          n_initial=4, burnin=1)
+    spec = tdm.make_spec(model, de)
+    step = tdm.build_step(model, de, spec, "cpu", allow_fused=False)
+    assert isinstance(step, tdm.UnfusedStep)
+    chains, end = tdm.sample(model, de, 3, device="cpu", return_state=True)
+    assert end.history.shape == (7, 3, 3)
+    assert torch.equal(end.history[6], end.theta)
+    assert chains.data.shape == (2, 3, 3)

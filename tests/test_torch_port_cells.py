@@ -202,3 +202,51 @@ def test_lnr_gate_on_draws_of_known_moments(shift, scale, ok):
     draws = (mean * (1 + shift))[None, :, None] + scale * sd[None, :,
                                                               None] * z
     assert pc.lnr_gate(draws, (mean, sd, 1e5))[0] == ok
+
+
+def test_hier_marginal_is_the_b0_integral():
+    """The hierarchical oracle's log posterior, β0 integrated out in closed
+    form, equals the log of a numerical integral over each β0ᵢ of the full
+    float64 density (priors, half-Cauchy scales, Jacobian σβ0·σ) at a few
+    points, up to the constant the closed form drops."""
+    from scipy.integrate import quad
+    from scipy.stats import norm
+    rng = np.random.default_rng(4)
+    y = 1.0 + rng.normal(0.0, 1.0, (3, 1)) + 0.5 * rng.normal(0, 1, (3, 5))
+    n, ybar = y.shape[1], y.mean(1)
+    ssw = ((y - ybar[:, None]) ** 2).sum(1)
+    got, want = [], []
+    for mu, sb, s in ((0.8, 0.9, 0.5), (1.3, 0.4, 0.7), (0.2, 1.7, 0.3)):
+        lp = pc._hier_logpost64(mu, np.log(sb), np.log(s), ybar, ssw, n)
+        full = (norm.logpdf(mu, 1.0, 1.0) + np.log(2 / np.pi / (1 + sb ** 2))
+                + np.log(2 / np.pi / (1 + s ** 2)) + np.log(sb * s))
+        for yi in y:
+            f = lambda b, yi=yi: np.exp(norm.logpdf(b, 0.0, sb) + norm.logpdf(
+                yi, mu + b, s).sum() + 10.0)
+            full += np.log(quad(f, -8, 8, points=[yi.mean() - mu])[0]) - 10.0
+        got.append(lp)
+        want.append(full)
+    diff = np.array(got) - np.array(want)
+    np.testing.assert_allclose(diff, diff[0], atol=1e-8)
+
+
+def test_hier_oracle_and_gate():
+    """The quadrature oracle of the hierarchical cell's data keeps its
+    mass inside its box and agrees with a finer grid; the gate passes the
+    oracle's own means and fails a μβ0 off by more than its limit."""
+    from demcmc_tpu_torch.models import hierarchical as thier
+    cell = pc.HIER_CELL
+    model, de = thier.make(n_subj=cell["n_subj"], n_data=cell["n_data"],
+                           key=cell["key"])
+    assert de.n_chains == 6 and model.data.shape == (20, 50)
+    o = pc.hier_oracle(model.data)
+    fine = pc.hier_oracle(model.data, n_grid=161)
+    assert not o["mass_at_edge"]
+    for k in ("mu_b0", "sigma_b0", "sigma"):
+        np.testing.assert_allclose(o[k], fine[k], rtol=1e-6)
+    means = {k: o[k][0] for k in ("mu_b0", "sigma_b0", "sigma")}
+    assert pc.hier_gate(means, o["b0"], o)[0]
+    lim = pc.HIER_ATOL + pc.HIER_RTOL * abs(o["mu_b0"][0])
+    bad = dict(means, mu_b0=o["mu_b0"][0] + 1.01 * lim)
+    assert not pc.hier_gate(bad, o["b0"], o)[0]
+    assert not pc.hier_gate(means, o["b0"] + 0.16, o)[0]

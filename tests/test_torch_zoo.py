@@ -209,19 +209,22 @@ def test_noise_rows_sit_before_the_accept_row(sweep):
 
 def test_kernel_arguments_of_the_new_densities():
     """K1's sweep arguments carry the integer-dimension mask and the noise
-    row; the densities' constants and data buffers have the layouts the
-    CUDA headers read."""
+    row (then the block sweeps: one, of all the rows between the migration
+    and gate rows); the densities' constants and data buffers have the
+    layouts the CUDA headers read."""
     model, de = tdisc.make(dtype=np.float32)
     cfg = tfused.StepConfig.make(model, de, tdm.make_spec(model, de))
     assert cfg.int_dims == (0,)
-    assert list(cfg.sweep_args)[4:] == [1, 0xFFFFFFFF]
+    r = cfg.rows
+    assert list(cfg.sweep_args)[4:] == [1, 0xFFFFFFFF, 1,
+                                        r.fire - r.mig - 3]
     dens = model.cuda_density
     assert len(dens.params) == 6 and dens.data.shape[1] == 2
     assert dens.params[3] == dens.data[:, 0].max()
     model, de = tbin.make(N=10, k=6, abc=True, fresh_noise=True, Np=8,
                           n_groups=4)
     cfg = tfused.StepConfig.make(model, de, tdm.make_spec(model, de))
-    assert list(cfg.sweep_args)[4:] == [0, cfg.rows.noise]
+    assert list(cfg.sweep_args)[4:6] == [0, cfg.rows.noise]
     assert cfg.rows.n_noise == 10_000
     assert model.cuda_density.params == (10.0, 6.0, 10_000.0)
     model, de = tlba.make(data=LBA_DATA)

@@ -4,7 +4,8 @@ the port's cells (``port_cells.py``) on the CPU, so that the GPU's run
 
     JAX_PLATFORMS=cpu python tools/port_oracles_cpu.py [CELL ...]
 
-CELL is any of ``lba discrete kde gauss-unfused lnr`` (all by default).
+CELL is any of ``lba discrete kde gauss-unfused lnr mcz-mig blocked
+hier`` (all by default).
 
 1. LBA (100 trials, numpy seed 0): ``port_cells.lba_oracle``, then
    ``demcmc_tpu.sample`` (the JAX package's XLA step) with 256 chains at
@@ -25,6 +26,17 @@ CELL is any of ``lba discrete kde gauss-unfused lnr`` (all by default).
 5. LNR (numpy seed 0): ``port_cells.lnr_oracle``, then the JAX XLA step
    on the cell's 3,072 chains at 3,000 iterations and at the cell's
    length, through ``port_cells.lnr_gate``.
+
+6. mcz-mig: the JAX XLA step on the C = 512 DE-MCz Gaussian with α = 0.1
+   (``port_cells.MCZ_MIG_CELL``) at 5,000 iterations and at the cell's
+   length, against the quadrature oracle (0.01) with its max R̂.
+7. blocked: the JAX XLA step on the 4,096-chain Gaussian with the blocks
+   (μ), (σ) every iteration (``port_cells.BLOCKED_CELL``) at the cell's
+   length, the same gate.
+8. hier: ``port_cells.hier_oracle`` of the hierarchical cell's data, then
+   the JAX XLA step (the JAX model on the same data) at the cell's length,
+   through ``port_cells.hier_gate`` at 6,000, 10,000 and 20,000 kept
+   draws, with max R̂ printed (not gated: see ``port_cells.HIER_CELL``).
 
 Prints one line per run; exits non-zero if a run at the cell's length
 fails its gate or R̂ ≥ ``port_cells.RHAT_MAX``.  About three minutes on
@@ -198,8 +210,89 @@ def check_lnr():
     return all_ok
 
 
+def _gauss_gate(tag, what, ch, data, n_iter, cell, secs):
+    from demcmc_tpu.models import gaussian as jg
+    truth = jg.posterior_grid(data)
+    rows = {k: (float(ch.mean(k)), float(ch.std(k))) for k in ("mu", "sigma")}
+    ok = all(abs(rows[k][0] - truth[k]["mean"]) < 0.01
+             and abs(rows[k][1] - truth[k]["std"]) < 0.01 for k in rows)
+    return _report(tag, f"{what} (oracle {truth})", n_iter, cell, secs, ok,
+                   rows, np.asarray(ch.rhat()))
+
+
+def check_mcz_mig():
+    from demcmc_tpu.models import gaussian as jg
+    cell = pc.MCZ_MIG_CELL
+    data = np.random.default_rng(0).standard_normal(50).astype(np.float32)
+    jm, jde = jg.make(data=data, Np=cell["Np"], n_groups=cell["n_groups"],
+                      burnin=cell["burnin"], alpha=cell["alpha"],
+                      sample="resample", n_initial=cell["n_initial"],
+                      theta_snooker=cell["theta_snooker"], sweep="sync")
+    all_ok = True
+    for n_iter in (5000, cell["n_iter"]):
+        t0 = time.perf_counter()
+        ch = jdm.sample(jm, jde, n_iter, key=0)
+        all_ok = _gauss_gate("mcz-mig", f"demcmc_tpu.sample, {jde.n_chains} "
+                             f"chains", ch, data, n_iter, cell,
+                             time.perf_counter() - t0) and all_ok
+    return all_ok
+
+
+def check_blocked():
+    from demcmc_tpu.models import gaussian as jg
+    cell = pc.BLOCKED_CELL
+    data = np.random.default_rng(0).standard_normal(50).astype(np.float32)
+    jm, jde = jg.make(data=data, Np=cell["Np"], n_groups=cell["n_groups"],
+                      burnin=cell["burnin"], blocking_on=True,
+                      blocks=[list(b) for b in cell["blocks"]])
+    t0 = time.perf_counter()
+    ch = jdm.sample(jm, jde, cell["n_iter"], key=0)
+    return _gauss_gate("blocked", f"demcmc_tpu.sample, {jde.n_chains} "
+                       f"chains", ch, data, cell["n_iter"], cell,
+                       time.perf_counter() - t0)
+
+
+def check_hier():
+    import jax.numpy as jnp
+    from demcmc_tpu.models import hierarchical as jh
+    from demcmc_tpu_torch.diagnostics import rank_normalized_rhat
+    from demcmc_tpu_torch.models import hierarchical as th
+    cell = pc.HIER_CELL
+    model, _ = th.make(n_subj=cell["n_subj"], n_data=cell["n_data"],
+                       key=cell["key"])
+    oracle = pc.hier_oracle(model.data)
+    print(f"[hier] oracle: " + ", ".join(
+        f"{k} {oracle[k][0]:.5f} (sd {oracle[k][1]:.5f})"
+        for k in ("mu_b0", "sigma_b0", "sigma"))
+        + f"; mass at the box's edge: {oracle['mass_at_edge']}")
+    jm, jde = jh.make(data=jnp.asarray(model.data), burnin=cell["burnin"])
+    t0 = time.perf_counter()
+    data = np.asarray(jdm.sample(jm, jde, cell["n_iter"], key=0).data)
+    secs = time.perf_counter() - t0
+    ok_all = not oracle["mass_at_edge"]
+    for n in (6000, 10000, cell["n_iter"] - cell["burnin"]):
+        x = data[:n]
+        means = {"mu_b0": float(x[:, 0].mean()),
+                 "sigma_b0": float(x[:, 1].mean()),
+                 "sigma": float(x[:, -1].mean())}
+        ok, rows = pc.hier_gate(means, x[:, 2:-1].mean(axis=(0, 2)), oracle)
+        rhat = max(rank_normalized_rhat(x[:, j]) for j in range(x.shape[1]))
+        last = n == cell["n_iter"] - cell["burnin"]
+        ok_all = ok_all and (ok or not last)
+        print(f"[hier] demcmc_tpu.sample, {jde.n_chains} chains, {n} kept "
+              f"draws ({secs:.1f} s for the run): " + "; ".join(
+                  f"{k} {v[0]:.5f} (oracle {v[1]:.5f}, |diff| {v[2]:.4f}, "
+                  f"allowed {v[3]:.4f})" for k, v in rows.items()
+                  if k != "b0")
+              + f"; max |b0 - oracle| {rows['b0'][0]:.4f}; max R-hat "
+              f"{rhat:.5f}; {'passes' if ok else 'FAILS'} the gate")
+    return ok_all
+
+
 CHECKS = {"lba": check_lba, "discrete": check_discrete, "kde": check_kde,
-          "gauss-unfused": check_gauss_unfused, "lnr": check_lnr}
+          "gauss-unfused": check_gauss_unfused, "lnr": check_lnr,
+          "mcz-mig": check_mcz_mig, "blocked": check_blocked,
+          "hier": check_hier}
 
 if __name__ == "__main__":
     names = sys.argv[1:] or list(CHECKS)
