@@ -144,7 +144,32 @@ post variant.  Its launch checks are the counts of
 38. trace5  the mcz-mig and blocked cells under ``torch.profiler``;
 39. timing6  device ms per launch of K1 and K3 with two blocks and of K3
            with the gate (one iteration and a window of K), and K2 at G =
-           128, beside the plain versions and the bounds.
+           128, beside the plain versions and the bounds;
+40. k1-greedy  K1 with the greedy accept, max (the bench Gaussian's
+           objective) and min (the 2-d Rastrigin), against its plain
+           version bit for bit at 4,096 × 16 (synchronous, θs = 0.5), 4,096
+           × 4 (sequential) and with two constant blocks: 8 bits-in
+           iterations crossing burn-in 4 with the gate set at the start
+           and ∓inf weights in a group (min mode: the base select's
+           clamp), then one on Philox words; out-of-bounds proposals
+           scoring ∓inf; windows of 16 (every iteration stored, and none)
+           and of K against single launches and the plain window;
+41. main-opt-rastrigin  ``optimize()`` on the 2-d Rastrigin in float32
+           through K1 min (``port_cells.OPT_RASTRIGIN_CELL``: 4,096
+           chains, burn-in 1,000, 3,000 iterations, α = 0.1) in turns with
+           its one-launch-per-iteration loop: launches as planned, no
+           trajectory, final populations bit for bit equal, the optimum
+           within the gate fixed on the CPU;
+42. main-opt-mle  the same on the bench Gaussian's MLE through K1 max
+           (``port_cells.OPT_MLE_CELL``): μ̂, σ̂ against the closed form;
+43. main-opt-f64  the reference's float64 optimizations through the
+           unfused step, no port kernel launched: ``examples/optimize.py``
+           (best within 1e-8 of 0, argmin within 1e-5) and
+           ``tests/test_optimization.py::test_gaussian_mle`` (1e-4); µs
+           per iteration;
+44. timing7  device ms per launch of K1 max and K1 min at 4,096 chains,
+           one iteration and a window of K storing no row, beside the
+           plain versions and the bounds.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -2970,6 +2995,406 @@ def phase_timing6(dev, paths, errs):
     return rows
 
 
+# ------------------------------------------- seventh slice: optimization
+# (K1 with the greedy max/min accept; the unfused step in float64)
+
+RASTRIGIN_F32_OPS = 2 * (4 + 1) + 2     # per chain: x², 2πx, A·cos, −, +
+                                        # per dimension (cos counted as
+                                        # one), + A·n
+GAUSS_LIKE_F32_OPS = 11                 # the Gaussian's loglike alone
+OPT_PEAK_BYTES = 16 << 20               # device memory an optimize() may
+                                        # hold at its peak: no trajectory
+
+
+def _greedy_cases(burnin):
+    """(name, model, de) of K1's greedy checks: max mode on the bench
+    Gaussian's objective and min mode on the 2-d Rastrigin, each at 4,096
+    × 16 (synchronous, θs = 0.5), 4,096 × 4 (sequential, θs = 0.5) and
+    4,096 × 16 with the two constant blocks."""
+    from demcmc_tpu_torch.models import gaussian, rastrigin
+    data = _gauss_data()
+    for mode in ("max", "min"):
+        for sweep, Np_, kw in (("sync", NP, dict(theta_snooker=0.5)),
+                               ("sequential", NSEQ,
+                                dict(theta_snooker=0.5)),
+                               ("blocks", NP, dict(blocking_on=True))):
+            G_ = C // Np_
+            if mode == "max":
+                if sweep == "blocks":
+                    kw = dict(kw, blocks=BLOCKS)
+                model, de = gaussian.make(
+                    data=data, Np=Np_, n_groups=G_, burnin=burnin,
+                    update_particle="maximize", evaluate_fitness="fun",
+                    **kw)
+            else:
+                if sweep == "blocks":
+                    kw = dict(kw, blocks=(([True, False],),
+                                          ([False, True],)))
+                model, de = rastrigin.make(n_dim=2, Np=Np_, n_groups=G_,
+                                           dtype=np.float32, burnin=burnin,
+                                           **kw)
+            yield f"{mode}-{sweep}-{C}", model, de
+
+
+def _greedy_start(model, de, spec, dev, key):
+    """An initial state with ∓inf weights: the first four chains of group
+    3 out of bounds (the Rastrigin's x₀ at 5.5, the Gaussian's σ at −1),
+    so in min mode a group holds +inf weights in burn-in."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.ops import accept
+    s = tdm.init_state(model, de, spec, key, device=dev)
+    lo = 3 * de.Np
+    if de.is_minimize:
+        s.theta[lo:lo + 4, 0] = 5.5
+    else:
+        s.theta[lo:lo + 4, 1] = -1.0
+    s.weight.copy_(accept.evaluate_fun(model, spec, de, s.theta))
+    return s
+
+
+def phase_k1_greedy(dev):
+    """K1 with the greedy accept (max: the Gaussian's objective, min: the
+    Rastrigin) against its plain version, bit for bit (_greedy_cases): 8
+    bits-in iterations crossing burn-in 4 with the gate set at the start,
+    then one on Philox words, from a state with ∓inf weights (min mode: a
+    group holding +inf weights in burn-in, which the kernel clamps);
+    out-of-bounds proposals scoring ∓inf must occur; then windows of 16
+    (bits-in, across burn-in, every iteration stored and none, as
+    optimize() runs them) and of K (Philox, post) against their single
+    launches and the plain window.  Returns the largest difference
+    measured (0 where bit for bit)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.ops import fused_step, migration as mig
+    rng_np = np.random.default_rng(41)
+    worst = 0.0
+    for name, model, de in _greedy_cases(burnin=0):
+        tag = "k1-greedy-" + name
+        de = de.replace(burnin=4)
+        spec = tdm.make_spec(model, de)
+        cfg = fused_step.StepConfig.make(model, de, spec)
+        if cfg.mode != name[:3]:
+            raise AssertionError(f"{tag}: accept mode {cfg.mode}")
+        s = _greedy_start(model, de, spec, dev, key=6)
+        state = [s.theta, s.weight, torch.ones(1, dtype=torch.int32,
+                                               device=dev)]
+        n_inf = 0
+        for k in range(9):
+            it = 1 + k
+            words = (random_words(rng_np, cfg.rows.n_words, C, dev) if k < 8
+                     else None)
+            if words is not None:     # the plain margins: ∓inf proposals
+                probe = [x.clone() for x in state]
+                if cfg.rows.mig >= 0:
+                    mig.migrate_plain(*probe, words, cfg.G, cfg.Np)
+                margin = fused_step.de_step_plain(cfg, model, spec, *probe,
+                                                  it, words)
+                n_inf += int(torch.isinf(margin).sum())
+            state, err, _, n_acc = _compare_iteration(
+                cfg, model, spec, state, it, words=words, seed=94,
+                exact=True)
+            worst = max(worst, err)
+            log(tag, f"{'bits-in' if k < 8 else 'Philox'} it={it} "
+                f"({'burn-in' if it <= 4 else 'past burn-in'}): {n_acc} "
+                f"accepted, bit for bit")
+        if n_inf == 0:
+            raise AssertionError(f"{tag}: no out-of-bounds proposal scored "
+                                 f"inf")
+        Kb = 16
+        bits = _closed_inner_gates(random_words(
+            rng_np, Kb * cfg.rows.n_words, C, dev), cfg, Kb)
+        done = []
+        for rule, emit in (("all", (0, 1)), ("none", (Kb, 1))):
+            _, acc, err = _window_check(tag, cfg, model, spec, state, 3, Kb,
+                                        emit, "all", bits)
+            worst = max(worst, err)
+            done.append(f"bits-in K={Kb} {rule} across burn-in ({acc} "
+                        f"stored accepts)")
+        K = fused_step.super_k()
+        seed, it0 = quiet_start(25, cfg, 5, 1 << 16, K)
+        _, acc, err = _window_check(tag, cfg, model, spec, state, it0, K,
+                                    _rules(K)["stride4"], "post", seed=seed)
+        worst = max(worst, err)
+        done.append(f"Philox K={K} post from {it0} ({acc} stored accepts)")
+        log(tag, f"{n_inf} proposals scored {'+' if cfg.mode == 'min' else '-'}"
+            f"inf over the bits-in iterations; windows = single launches = "
+            f"plain windows, bit for bit: " + "; ".join(done))
+    return worst
+
+
+def _opt_model(which):
+    """(model, de, cell) of a float32 optimization cell on the card."""
+    from demcmc_tpu_torch.models import gaussian, rastrigin
+    if which == "rastrigin":
+        cell = pc.OPT_RASTRIGIN_CELL
+        model, de = rastrigin.make(n_dim=cell["n_dim"], Np=cell["Np"],
+                                   n_groups=cell["n_groups"],
+                                   burnin=cell["burnin"], dtype=np.float32)
+    else:
+        cell = pc.OPT_MLE_CELL
+        model, de = gaussian.make_mle(data=pc.opt_mle_data(cell),
+                                      Np=cell["Np"],
+                                      n_groups=cell["n_groups"],
+                                      burnin=cell["burnin"])
+    return model, de, cell
+
+
+def _main_opt(dev, which):
+    """``optimize()`` on a float32 optimization cell (port_cells.OPT_*)
+    through K1's greedy accept, in turns with its one-launch-per-iteration
+    twin (``run_loop(..., collect=False)``; windows, loop, loop,
+    windows): one K1 per planned window and one K2 per open gate
+    (plan_counts), no trajectory (device memory at its peak under
+    OPT_PEAK_BYTES); every run's final population equal bit for bit; the
+    optimum against the cell's gate, fixed on the CPU beforehand."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import sampler
+    tag = "main-opt-" + which
+    model, de, cell = _opt_model(which)
+    n_iter, key = cell["n_iter"], cell["key"]
+    spec = tdm.make_spec(model, de)
+    step = tdm.build_step(model, de, spec, dev)
+    if type(step) is not sampler.Step or step.cfg.mode == "mh":
+        raise AssertionError(f"{tag}: not K1's greedy accept")
+    want = {"windows": plan_counts(model, de, n_iter, key),
+            "loop": {"de_step": n_iter,
+                     "migrate": n_iter if de.alpha > 0 else 0}}
+    secs, results, peaks = {}, [], []
+    for turn in ("windows", "loop", "loop", "windows"):
+        _reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        if turn == "windows":
+            pop = tdm.optimize(model, de, n_iter, key=key)
+            res = (pop.theta, pop.weight)
+        else:
+            state = sampler._grow_history(tdm.init_state(
+                model, de, spec, key, start_iteration=1), n_iter)
+            end, _ = sampler.run_loop(step, state, n_iter, collect=False)
+            res = (end.theta.cpu().numpy(), end.weight.cpu().numpy())
+        torch.cuda.synchronize()
+        secs.setdefault(turn, []).append(time.perf_counter() - t0)
+        got = _counts()
+        if got != {k: want[turn].get(k, 0) for k in got}:
+            raise AssertionError(f"{tag} {turn}: launches {got}, expected "
+                                 f"{want[turn]}")
+        if turn == "windows":
+            peaks.append(torch.cuda.max_memory_allocated(dev) - base)
+            if peaks[-1] > OPT_PEAK_BYTES:
+                raise AssertionError(f"{tag}: {peaks[-1]} bytes at the "
+                                     f"peak: a trajectory was stored")
+        results.append(res)
+    for res in results[1:]:
+        for a, b, what in zip(res, results[0], ("theta", "weight")):
+            if a.tobytes() != b.tobytes():
+                raise AssertionError(f"{tag}: final {what} differs between "
+                                     f"the windows and the loop")
+    theta, best = tdm.get_optimal(de, model, pop)
+    if which == "rastrigin":
+        ok, rows = pc.rastrigin_gate(best, theta["x"], pc.OPT_BEST_F32,
+                                     pc.OPT_ARGMIN_F32)
+    else:
+        ok, rows = pc.mle_gate(theta["mu"], theta["sigma"],
+                               pc.opt_mle_data(cell), pc.OPT_MLE_F32)
+    m = {"launches": want["windows"]}
+    for turn in ("windows", "loop"):
+        us = float(np.mean(secs[turn])) / n_iter * 1e6
+        per = sum(want[turn].values()) / n_iter
+        m[f"opt_{which}_{turn}_us_per_iteration"] = us
+        m[f"opt_{which}_{turn}_launches_per_iteration"] = per
+        log(tag, f"{turn}: {n_iter} iterations in "
+            + ", ".join(f"{x:.4f}" for x in secs[turn])
+            + f" s = {us:.2f} us/iteration, {de.n_chains / us * 1e6:.4g} "
+            f"chain-steps/s; {per:.4f} launches/iteration")
+    log(tag, f"launches {want['windows']} as planned, peak device memory "
+        f"{max(peaks)} bytes (no trajectory); every run's final population "
+        f"bit for bit the same; optimum {rows}: "
+        f"{'passes' if ok else 'FAILS'} the gate")
+    if not ok:
+        raise AssertionError(f"{tag}: the optimum misses its gate")
+    return m
+
+
+def phase_main_opt_rastrigin(dev):
+    """The opt-rastrigin cell (:func:`_main_opt`)."""
+    return _main_opt(dev, "rastrigin")
+
+
+def phase_main_opt_mle(dev):
+    """The opt-mle cell (:func:`_main_opt`)."""
+    return _main_opt(dev, "mle")
+
+
+def _mle64_model(data):
+    """The reference test's Gaussian MLE model
+    (``tests/test_optimization.py::test_gaussian_mle``) in the port: a
+    per-cell float64 loglike in ``jax.scipy.stats.norm.logpdf``'s order,
+    U(−5, 5) × U(0.1, 5) initial draws, bounds σ ≥ 1e-6."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.model import DeviceArrays
+    arrays = DeviceArrays(np.asarray(data, np.float64))
+
+    def loglike(data, mu, sigma):
+        x = arrays.on(mu.device)[0]
+        s2 = sigma * sigma
+        return torch.sum((torch.log(2.0 * np.pi * s2)
+                          + (x - mu) * (x - mu) / s2) / -2.0)
+
+    def sample_prior(uniform, n):
+        u = uniform(2)
+        return [-5.0 + 10.0 * u[0], 0.1 + 4.9 * u[1]]
+
+    model = tdm.DEModel(loglike=loglike, sample_prior=sample_prior,
+                        names=("mu", "sigma"), data=data)
+    return model
+
+
+def phase_main_opt_f64(dev):
+    """The reference's two float64 optimizations through the unfused step
+    on the card, no port kernel launched: ``examples/optimize.py`` (the
+    2-d Rastrigin, Np = 10 × 4, 10,000 iterations, key 0: best within
+    1e-8 of 0, argmin within 1e-5) and ``tests/test_optimization.py::
+    test_gaussian_mle`` (100 draws of N(2, 1.5) from numpy seed 3, Np =
+    12 × 4, 8,000 iterations, key 1: μ̂, σ̂ within 1e-4); µs per
+    iteration."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import rastrigin
+    out = {}
+    for which in ("rastrigin", "mle"):
+        tag = "main-opt-f64-" + which
+        if which == "rastrigin":
+            cell = pc.OPT_F64_RASTRIGIN_CELL
+            model, de = rastrigin.make(n_dim=cell["n_dim"], Np=cell["Np"],
+                                       n_groups=cell["n_groups"])
+        else:
+            cell = pc.OPT_F64_MLE_CELL
+            model = _mle64_model(pc.opt_mle_data(cell))
+            de = tdm.DE(bounds=((-np.inf, np.inf), (1e-6, np.inf)),
+                        Np=cell["Np"], n_groups=cell["n_groups"],
+                        update_particle="maximize", evaluate_fitness="fun",
+                        dtype=np.float64)
+        spec = tdm.make_spec(model, de)
+        if not isinstance(tdm.build_step(model, de, spec, dev),
+                          tdm.UnfusedStep):
+            raise AssertionError(f"{tag}: not the unfused step")
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pop = tdm.optimize(model, de, tdm.MCMCThreads(), cell["n_iter"],
+                           key=cell["key"])
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        if any(_counts().values()):
+            raise AssertionError(f"{tag}: a port kernel was launched")
+        theta, best = tdm.get_optimal(de, model, pop)
+        if pop.theta.dtype != np.float64:
+            raise AssertionError(f"{tag}: not float64")
+        if which == "rastrigin":
+            ok, rows = pc.rastrigin_gate(best, theta["x"], pc.OPT_BEST_F64,
+                                         pc.OPT_ARGMIN_F64)
+        else:
+            ok, rows = pc.mle_gate(theta["mu"], theta["sigma"],
+                                   pc.opt_mle_data(cell), pc.OPT_MLE_F64)
+        us = dt / cell["n_iter"] * 1e6
+        out[f"opt_f64_{which}_us_per_iteration"] = us
+        log(tag, f"{de.n_chains} chains, {cell['n_iter']} iterations in "
+            f"{dt:.3f} s = {us:.2f} us/iteration, no port kernel launched; "
+            f"optimum {rows}: {'passes' if ok else 'FAILS'} the gate")
+        if not ok:
+            raise AssertionError(f"{tag}: the optimum misses its gate")
+    return out
+
+
+def phase_timing7(dev, paths, errs):
+    """Device ms per launch (spin-queued; plain, kernel, kernel, plain) of
+    K1 max (the Gaussian's objective) and K1 min (the Rastrigin) at 4,096
+    chains, one iteration past burn-in and a window of K (post) storing no
+    row, as optimize() launches it, beside the plain versions and the
+    bounds (_step_work / _window_work with the objective's operations,
+    the Rastrigin's cosf counted as one)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step
+    calls, meta = {}, {}
+    for which, dens in (("max-gaussian", GAUSS_LIKE_F32_OPS),
+                        ("min-rastrigin", RASTRIGIN_F32_OPS)):
+        model, de, _ = _opt_model("mle" if which == "max-gaussian"
+                                  else "rastrigin")
+        spec = tdm.make_spec(model, de)
+        cfg = fused_step.StepConfig.make(model, de, spec)
+        s = tdm.init_state(model, de, spec, 5, device=dev)
+        st = [s.theta, s.weight, s.fire]
+        it, K = 2000, fused_step.super_k()
+        seed, itw = quiet_start(0, cfg, 1500, 2900 - K, K)
+        o1 = (torch.empty((C, cfg.d), device=dev), torch.empty(C, device=dev),
+              torch.empty(C, dtype=torch.bool, device=dev))
+
+        def kern(a=(cfg, model, spec, st, o1, it, itw, seed, K),
+                 window=False):
+            c, mm, sp, st_, o1_, i1, iw, sd, k_ = a
+            if window:
+                fused_step.de_step(c, mm, sp, *st_, iw, seed=sd, K=k_,
+                                   emit=(k_, 1), phase="post")
+            else:
+                fused_step.de_step(c, mm, sp, *st_, i1, out=o1_)
+
+        def plain(a=(cfg, model, spec, st, o1, it, itw, seed, K),
+                  window=False):
+            c, mm, sp, st_, o1_, i1, iw, sd, k_ = a
+            i0, n = (iw, k_) if window else (i1, 1)
+            words = rng.words_block(sd if window else 0, i0, n,
+                                    c.rows.n_words, C,
+                                    device=dev).view(-1, C)
+            fused_step.de_step_plain(c, mm, sp, *st_, i0, words,
+                                     None if window else o1_, n,
+                                     (n, 1) if window else (0, 1),
+                                     "post" if window else "all")
+
+        calls[which] = (kern, plain)
+        calls[which + "-window"] = (functools.partial(kern, window=True),
+                                    functools.partial(plain, window=True))
+        nb1, no1 = _step_work(cfg, rng.words(0, it, cfg.rows.n_words, C,
+                                             device=dev), dens)
+        meta[which] = (cfg, nb1, no1, 1)
+        nbK, noK = _window_work(cfg, seed, itw, K, 0, dens, dev)
+        meta[which + "-window"] = (cfg, nbK, noK, K)
+    t = {}
+    for key, (kern, plain) in calls.items():
+        for name, fn, n in ((key + "_plain", plain, 0), (key, kern, 100),
+                            (key, kern, 100), (key + "_plain", plain, 0)):
+            t.setdefault(name, []).append(device_ms(fn, n) if n
+                                          else gapped_ms(fn))
+    ms = {k: float(np.mean([x for x, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing7", f"{k}: {ms[k]:.6f} ms per launch on the device ("
+            + ", ".join(f"{x:.6f}{'' if q else ' host-gapped'}"
+                        for x, q, _ in v)
+            + "); host issues a call in "
+            + ", ".join(f"{h:.6f}" for _, _, h in v) + " ms")
+    info = {"max-gaussian": ("opt_mle", "k1_greedy"),
+            "min-rastrigin": ("opt_rastrigin", "k1_greedy")}
+    rows = []
+    for key, (cfg, nbytes, nops, Kc) in meta.items():
+        path, err = info[key.replace("-window", "")]
+        tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+        name = f"de_step/{key}" + (f"-K{Kc}-post" if Kc > 1 else "")
+        rows.append({"name": name, "route": "cuda",
+                     "source": "demcmc_tpu_torch/csrc/de_step.cu",
+                     "replaces": "demcmc_tpu/ops/fused_step.py:2442",
+                     "launches": paths[path]["de_step"],
+                     "max_abs_err": errs[err], "ms": ms[key],
+                     "plain_ms": ms[key + "_plain"],
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": None})
+        log("timing7", f"{name}: {nbytes} bytes, {nops} operations over "
+            f"{Kc} iteration(s), bound {max(tb, to):.3g} ms "
+            f"({'bytes' if tb >= to else 'operations'}); "
+            f"{ms[key] / Kc * 1e3:.3f} us per iteration")
+    return rows
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3044,6 +3469,14 @@ def main():
         metrics.update(m)
     metrics.update(run(phase_trace5, dev))
     rows += run(phase_timing6, dev, paths, errs)
+    errs["k1_greedy"] = run(phase_k1_greedy, dev)
+    for which, phase in (("rastrigin", phase_main_opt_rastrigin),
+                         ("mle", phase_main_opt_mle)):
+        m = run(phase, dev)
+        paths["opt_" + which] = m.pop("launches")
+        metrics.update(m)
+    metrics.update(run(phase_main_opt_f64, dev))
+    rows += run(phase_timing7, dev, paths, errs)
     log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(seconds per phase: {json.dumps(took)}); {json.dumps(metrics)}")
     print(json.dumps({"kernels": rows}))

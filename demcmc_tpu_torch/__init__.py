@@ -4,7 +4,9 @@ The port of :mod:`demcmc_tpu` (JAX, TPU) to one NVIDIA H100, beside it in
 the same repository; the JAX package stays the reference the port is
 tested against.  It carries ``sample(model, de, n_iter)`` with the
 synchronous or sequential DE sweep, the snooker proposal, migration and
-DE-MCz resampling from the history, through hand-written CUDA kernels
+DE-MCz resampling from the history, and ``optimize(model, de, n_iter)``
+with the greedy accepts, in float32 or float64, through hand-written CUDA
+kernels
 (``csrc/de_step.cu``, ``csrc/de_step_resample.cu``, ``csrc/migration.cu``)
 for models that name a CUDA density, and through the unfused step (the
 JAX XLA step's twin, plain torch around the model's own torch density)
@@ -19,7 +21,12 @@ from .config import DE, MCMCThreads
 from .diagnostics import (ess, ess_bulk, ess_tail, rank_normalized_rhat,
                           split_rhat)
 from .model import CudaDensity, DEModel, ParamSpec
+from .ops.accept import (compute_posterior, evaluate_fun, greedy_update,
+                         maximize, mh_update, minimize)
 from .ops.proposals import fixed_gamma, random_gamma, variable_gamma
+from .optimize import (Population, get_optimal, optimize,
+                       optimize_replicated)
+from .particle import Particle
 from .sampler import (SamplerState, UnfusedStep, build_step, init_state,
                       make_spec, run_scan, sample, state_from_numpy)
 
@@ -27,8 +34,11 @@ __version__ = "0.1.0"
 
 __all__ = [
     "DE", "DEModel", "MCMCThreads", "Chains", "ParamSpec", "CudaDensity",
+    "Particle", "Population",
     "SamplerState", "UnfusedStep", "sample", "init_state", "make_spec",
-    "build_step",
+    "build_step", "optimize", "optimize_replicated", "get_optimal",
+    "mh_update", "maximize", "minimize", "greedy_update",
+    "compute_posterior", "evaluate_fun",
     "run_scan", "state_from_numpy", "random_gamma", "fixed_gamma",
     "variable_gamma", "split_rhat", "rank_normalized_rhat", "ess",
     "ess_bulk", "ess_tail", "diagnostics", "models", "ops", "utils",

@@ -5,7 +5,11 @@ Same fields, names and defaults as the JAX package's frozen ``DE``
 β→beta, ϵ→epsilon, σ→sigma, κ→kappa, θsnooker→theta_snooker).  Settings
 whose machinery the port does not carry yet raise ``NotImplementedError``
 naming the ROADMAP.md item that carries them instead of running something
-else: the custom strategy slots, the optimization modes and float64.
+else: the custom strategy slots.  The optimization modes
+(``update_particle='maximize'``/``'minimize'`` with ``evaluate_fitness=
+'fun'``) and ``dtype=float64`` are carried: float32 greedy configurations
+of a model with a greedy CUDA density run on K1, every other one on the
+unfused step.
 """
 
 from __future__ import annotations
@@ -14,14 +18,34 @@ from dataclasses import dataclass, replace
 from typing import Any
 
 import numpy as np
+import torch
 
 _PROPOSALS = ("random_gamma", "fixed_gamma", "variable_gamma")
+_UPDATES = {"mh": "mh", "mh_update": "mh", "maximize": "maximize",
+            "minimize": "minimize"}
+_FITNESS = {"posterior": "posterior", "compute_posterior": "posterior",
+            "fun": "fun", "evaluate_fun": "fun"}
+_DTYPES = (np.dtype(np.float32), np.dtype(np.float64))
 
 
 def _later(what: str, where: str):
     raise NotImplementedError(
         f"{what} is not ported to demcmc_tpu_torch yet (ROADMAP.md "
         f"{where}); use demcmc_tpu for it")
+
+
+def _slot(value, names: dict, builtins: tuple, default: str):
+    """A strategy slot as the name of the port's built-in it selects:
+    None is ``default``, a name or one of the port's functions of that name
+    (``builtins``) its canonical name, anything else None (a custom
+    slot)."""
+    if value is None:
+        return default
+    if isinstance(value, str):
+        return names.get(value)
+    if any(value is f for f in builtins):
+        return names[value.__name__]
+    return None
 
 
 def _default_blocking_on(de) -> bool:
@@ -67,7 +91,12 @@ class DE:
     sigma=.05, kappa=1.0, theta_snooker=0.0, bounds, n_initial=0`` plus
     the strategy slots.  ``generate_proposal`` takes ``'random_gamma'``
     (default), ``'fixed_gamma'``, ``'variable_gamma'`` or the functions of
-    the same names in :mod:`demcmc_tpu_torch.ops.proposals`.  ``blocks``,
+    the same names in :mod:`demcmc_tpu_torch.ops.proposals`;
+    ``update_particle`` ``'mh'`` (default), ``'maximize'`` or
+    ``'minimize'`` and ``evaluate_fitness`` ``'posterior'`` (default) or
+    ``'fun'``, or the functions of those names in
+    :mod:`demcmc_tpu_torch.ops.accept`, each kept as its name; ``dtype``
+    float32 (default) or float64, the state's type.  ``blocks``,
     a list of masks over the parameters (reference ``src/structs.jl:48``),
     runs one sweep per block where ``blocking_on`` (a bool, or a callable
     of the sampler's view ``sampler._DEView``) says so.
@@ -138,15 +167,25 @@ class DE:
         if self.sample not in (None, "sample", "current", "resample"):
             _later(f"sample={self.sample!r} (custom partner slots)",
                    "A12 rest 3")
-        if self.update_particle not in (None, "mh", "mh_update"):
-            _later(f"update_particle={self.update_particle!r} "
-                   "(optimization modes)", "A5, kernel B1(g)")
-        if self.evaluate_fitness not in (None, "posterior",
-                                         "compute_posterior"):
-            _later(f"evaluate_fitness={self.evaluate_fitness!r} "
-                   "(optimization modes)", "A5, kernel B1(g)")
-        if np.dtype(self.dtype) != np.float32:
-            _later(f"dtype={np.dtype(self.dtype)}", "A5")
+        from .ops import accept    # the slots' functions; no cycle here
+        up = _slot(self.update_particle, _UPDATES,
+                   (accept.mh_update, accept.maximize, accept.minimize),
+                   "mh")
+        if up is None:
+            _later(f"update_particle={self.update_particle!r} (custom "
+                   "update slots)", "A12 rest 3")
+        object.__setattr__(self, "update_particle", up)
+        fit = _slot(self.evaluate_fitness, _FITNESS,
+                    (accept.compute_posterior, accept.evaluate_fun),
+                    "posterior")
+        if fit is None:
+            _later(f"evaluate_fitness={self.evaluate_fitness!r} (custom "
+                   "fitness slots)", "A12 rest 3")
+        object.__setattr__(self, "evaluate_fitness", fit)
+        if np.dtype(self.dtype) not in _DTYPES:
+            raise ValueError(f"dtype must be float32 or float64, not "
+                             f"{np.dtype(self.dtype)}")
+        object.__setattr__(self, "dtype", np.dtype(self.dtype).type)
 
     @property
     def n_chains(self) -> int:
@@ -156,6 +195,31 @@ class DE:
     def uses_resample(self) -> bool:
         """DE-MCz: partners come from the history of past states."""
         return self.sample == "resample"
+
+    @property
+    def is_mh(self) -> bool:
+        """Metropolis–Hastings accept (sampling), the default."""
+        return self.update_particle == "mh"
+
+    @property
+    def is_maximize(self) -> bool:
+        """Greedy accept of a larger objective (optimization)."""
+        return self.update_particle == "maximize"
+
+    @property
+    def is_minimize(self) -> bool:
+        """Greedy accept of a smaller objective (optimization)."""
+        return self.update_particle == "minimize"
+
+    @property
+    def fun_fitness(self) -> bool:
+        """Objective-only fitness (``evaluate_fun``), no prior."""
+        return self.evaluate_fitness == "fun"
+
+    @property
+    def torch_dtype(self) -> torch.dtype:
+        """The state's torch dtype."""
+        return torch.float64 if self.dtype is np.float64 else torch.float32
 
     @property
     def sequential_sweep(self) -> bool:

@@ -8,11 +8,13 @@
 // from the current group, random/fixed/variable gamma with the gamma_2
 // burn-in base term, the snooker branch, epsilon noise, kappa
 // recombination, beta mutation, bounds + NaN mask, log posterior, MH
-// accept, synchronous or sequential sweep.  The body is step_body.cuh's
-// sweep_kernel with the GroupPartners source; K3 (de_step_resample.cu) is
-// the same body over the history.  Migration is the separate kernel K2
-// (migration.cu), launched before a window whose first iteration's gate
-// is open.
+// accept, synchronous or sequential sweep; and, for optimization, the
+// greedy max/min accept on the objective alone (:2429-2445, with the
+// min-mode clamp of the base select, :2289-2293).  The body is
+// step_body.cuh's sweep_kernel with the GroupPartners source; K3
+// (de_step_resample.cu) is the same body over the history.  Migration is
+// the separate kernel K2 (migration.cu), launched before a window whose
+// first iteration's gate is open.
 //
 // What bounds it on an H100: at 4,096 chains one iteration moves about
 // 100 KB (theta and w read, the new theta and w written, here both in place
@@ -44,6 +46,7 @@
 #include "densities/discrete_binomial.cuh"
 #include "densities/gaussian.cuh"
 #include "densities/lba.cuh"
+#include "densities/rastrigin.cuh"
 #include "philox.cuh"
 #include "step_body.cuh"
 
@@ -57,7 +60,7 @@ __global__ void philox_fill_kernel(uint32_t* out, int n_rows, int n,
   out[i] = philox_word(k0, k1, it, (uint32_t)(i / n), (uint32_t)(i % n), ns);
 }
 
-template <class Density>
+template <class Density, int kMode = kAcceptMH>
 int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
                    uint8_t* out_acc, int* fire, const uint32_t* bits,
                    const uint32_t* ia, const float* fa, const uint32_t* sa,
@@ -67,7 +70,8 @@ int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
   const StepArgs<D> a = read_args<Density>(theta, w, out_theta, out_w, out_acc,
                                            fire, bits, ia, fa, sa, theta_sn);
   const Density dens = Density::from(fa + 7 + 2 * D, dens_data);
-  return launch_sweep(a, dens, GroupPartners<D>{}, ia[19] != 0, stream);
+  return launch_sweep<Density, GroupPartners<D>, kMode>(
+      a, dens, GroupPartners<D>{}, ia[19] != 0, stream);
 }
 
 }  // namespace demcmc
@@ -102,6 +106,34 @@ DE_STEP_ENTRY(gaussian, demcmc::GaussianDensity)
 DE_STEP_ENTRY(lba, demcmc::LbaDensity)
 DE_STEP_ENTRY(binomial_abc, demcmc::BinomialAbcDensity)
 DE_STEP_ENTRY(discrete_binomial, demcmc::DiscreteBinomialDensity)
+
+// K1 with the greedy accept MODE (max or min) on a density's objective:
+// de_step_MODE_NAME and de_step_block_chains_MODE_NAME, as above.
+#define DE_STEP_GREEDY_ENTRY(MODE, KMODE, NAME, DENSITY)                     \
+  extern "C" int de_step_##MODE##_##NAME(                                    \
+      float* theta, float* w, float* out_theta, float* out_w,                \
+      uint8_t* out_acc, int* fire, const uint32_t* bits,                     \
+      const uint32_t* iargs, const float* fargs, const uint32_t* sargs,      \
+      float theta_sn, const float* dens_data, void* stream) {                \
+    return demcmc::launch_de_step<DENSITY, KMODE>(                           \
+        theta, w, out_theta, out_w, out_acc, fire, bits, iargs, fargs, sargs, \
+        theta_sn, dens_data, (cudaStream_t)stream);                          \
+  }                                                                          \
+  extern "C" int de_step_block_chains_##MODE##_##NAME(int seq, int snooker,  \
+                                                      int n_blk,             \
+                                                      int* chains) {         \
+    return demcmc::window_chains<DENSITY,                                    \
+                                 demcmc::GroupPartners<DENSITY::D>, KMODE>(  \
+        seq != 0, snooker != 0, n_blk, chains);                              \
+  }
+
+// one per mode and density of ops/_build.py GREEDY_MODES, GREEDY_DENSITIES
+DE_STEP_GREEDY_ENTRY(max, demcmc::kAcceptMax, gaussian, demcmc::GaussianDensity)
+DE_STEP_GREEDY_ENTRY(min, demcmc::kAcceptMin, gaussian, demcmc::GaussianDensity)
+DE_STEP_GREEDY_ENTRY(max, demcmc::kAcceptMax, rastrigin,
+                     demcmc::RastriginDensity)
+DE_STEP_GREEDY_ENTRY(min, demcmc::kAcceptMin, rastrigin,
+                     demcmc::RastriginDensity)
 
 // Philox words (seed, it, row, chain) for rows 0..n_rows-1, chains 0..n-1
 // into out [n_rows, n] -- used to hold the device generator against the

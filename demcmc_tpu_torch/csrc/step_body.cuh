@@ -6,6 +6,12 @@
 // burn-in base term, the snooker branch with its MH correction, epsilon
 // noise, kappa recombination, beta mutation, bounds + NaN mask, log
 // posterior, MH accept -- and the next-iteration migration gate (:2518-2532).
+// The accept mode is a template value: MH on the log posterior, or, for
+// optimization, the greedy max/min accept on the density's objective alone
+// (the TPU kernel's mode 'max'/'min': out of bounds or NaN scores -inf/+inf,
+// :2429; the accept row is read in every mode, :2436; w' > w or w' < w with
+// no snooker correction, :2442-2445; min mode clamps the weights of the
+// gamma_2 base select, :2289-2293).
 //
 // A launch runs a window of K iterations it0 .. it0 + K - 1 (the TPU
 // kernel's grid over K, :2618): theta and w stay in registers from one
@@ -45,9 +51,11 @@
 // commits, writes its new theta to the stage, and __syncthreads() makes it
 // visible before sub-sweep m + 1 (reference crossover.jl:12-17).
 //
-// Densities (csrc/densities/*.cuh) are functors over the proposal; one
-// that draws noise (kNoise, the pseudo-marginal panel) also takes the
-// chain's words positioned at its panel.  The dimensions of a density's
+// Densities (csrc/densities/*.cuh) are functors over the proposal: the log
+// posterior (operator()) and, for a density with a greedy instantiation,
+// its objective (like(), the loglike with no prior); one that draws noise
+// (kNoise, the pseudo-marginal panel) also takes the chain's words
+// positioned at its panel.  The dimensions of a density's
 // compile-time kIntMask are snapped to integers before the bounds (as
 // run-time flags, branches cost K1 measurable time on an H100, PERF.md).
 //
@@ -68,6 +76,10 @@
 namespace demcmc {
 
 constexpr int kThreadsTarget = 64;
+// accept modes (ops/fused_step.py accept_mode: 'mh', 'max', 'min')
+constexpr int kAcceptMH = 0, kAcceptMax = 1, kAcceptMin = 2;
+// min mode's clamp of +inf weights in the base select (fused_step.py:2292)
+constexpr float kMinModeClamp = 3.0e38f;
 constexpr int kMaxBlocks = 2;  // block counts built: 1 (none) and 2
 constexpr float kTwoPi = 6.283185307179586f;
 // Draw the mutation's normals only in groups whose beta gate fired: chosen
@@ -330,11 +342,12 @@ struct HistoryPartners {
   }
 };
 
-// kSeq (the sequential sweep), kSnooker, kPost and kNBlk are compile-time,
-// so a configuration without them runs none of their code: as run-time
-// flags they made K1 measurably slower on an H100 (PERF.md).
+// kSeq (the sequential sweep), kSnooker, kPost, kNBlk and kMode (the
+// accept) are compile-time, so a configuration without them runs none of
+// their code: as run-time flags they made K1 measurably slower on an H100
+// (PERF.md).
 template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost,
-          int kNBlk>
+          int kNBlk, int kMode = kAcceptMH>
 __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
                              Source src) {
   constexpr int D = Density::D;
@@ -383,13 +396,16 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
 
       for (int m = 0; m < (kSeq ? a.n_members : 1); ++m) {
         if (base_phase) {
-          // softmax(w) CDF over each group (every thread takes part)
-          s_q[tid] = w;
+          // softmax(w) CDF over each group (every thread takes part); min
+          // mode's +inf weights (out-of-bounds scores) clamped, so the
+          // exponentials stay finite
+          const float wb = kMode == kAcceptMin ? fminf(w, kMinModeClamp) : w;
+          s_q[tid] = wb;
           __syncthreads();
           seg_scan<false>(s_q, tid, p, Np);
           const float mx = s_q[lead + Np - 1];
           __syncthreads();
-          s_q[tid] = expf(w - (isfinite(mx) ? mx : 0.0f));
+          s_q[tid] = expf(wb - (isfinite(mx) ? mx : 0.0f));
           __syncthreads();
           seg_scan<true>(s_q, tid, p, Np);
         }
@@ -524,17 +540,28 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
           }
           // a density that draws noise streams its panel from the chain's
           // words (rows r_noise.. of the sub-sweep block, before the accept
-          // row)
+          // row); the greedy modes score the objective alone
           float lp;
-          if constexpr (Density::kNoise)
+          if constexpr (kMode != kAcceptMH)
+            lp = dens.like(prop);
+          else if constexpr (Density::kNoise)
             lp = dens(prop, Wc, a.r_noise + s.off);
           else
             lp = dens(prop);
-          const float wp = (inb && !isnan(lp)) ? lp : -INFINITY;
+          const float bad = kMode == kAcceptMin ? INFINITY : -INFINITY;
+          const float wp = (inb && !isnan(lp)) ? lp : bad;
+          // the accept word, read in every mode (the layout is the same)
           const float u = fmaxf(to_uni(Wc(a.r_acc + s.off)), FLT_MIN);
-          float delta = wp - w;
-          if (kSnooker) delta = delta + adj;
-          const bool acc = logf(u) <= delta;
+          bool acc;
+          if constexpr (kMode == kAcceptMH) {
+            float delta = wp - w;
+            if (kSnooker) delta = delta + adj;
+            acc = logf(u) <= delta;
+          } else if constexpr (kMode == kAcceptMax) {
+            acc = wp > w;
+          } else {
+            acc = wp < w;
+          }
           if (acc) {
             for (int i = 0; i < D; ++i) th[i] = prop[i];
             w = wp;
@@ -593,25 +620,27 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
 }
 
 // The instantiation a configuration launches.
-template <class Dn, class S, int kNBlk>
+template <class Dn, class S, int kNBlk, int kM>
 auto pick_kernel_blocks(bool seq, bool snooker, bool post) {
   if (seq)
-    return snooker ? (post ? sweep_kernel<Dn, S, true, true, true, kNBlk>
-                           : sweep_kernel<Dn, S, true, true, false, kNBlk>)
-                   : (post ? sweep_kernel<Dn, S, true, false, true, kNBlk>
-                           : sweep_kernel<Dn, S, true, false, false, kNBlk>);
-  return snooker ? (post ? sweep_kernel<Dn, S, false, true, true, kNBlk>
-                         : sweep_kernel<Dn, S, false, true, false, kNBlk>)
-                 : (post ? sweep_kernel<Dn, S, false, false, true, kNBlk>
-                         : sweep_kernel<Dn, S, false, false, false, kNBlk>);
+    return snooker
+               ? (post ? sweep_kernel<Dn, S, true, true, true, kNBlk, kM>
+                       : sweep_kernel<Dn, S, true, true, false, kNBlk, kM>)
+               : (post ? sweep_kernel<Dn, S, true, false, true, kNBlk, kM>
+                       : sweep_kernel<Dn, S, true, false, false, kNBlk, kM>);
+  return snooker
+             ? (post ? sweep_kernel<Dn, S, false, true, true, kNBlk, kM>
+                     : sweep_kernel<Dn, S, false, true, false, kNBlk, kM>)
+             : (post ? sweep_kernel<Dn, S, false, false, true, kNBlk, kM>
+                     : sweep_kernel<Dn, S, false, false, false, kNBlk, kM>);
 }
 
-template <class Density, class Source>
+template <class Density, class Source, int kMode = kAcceptMH>
 auto pick_kernel(bool seq, bool snooker, bool post, int n_blk) {
-  return n_blk > 1
-             ? pick_kernel_blocks<Density, Source, kMaxBlocks>(seq, snooker,
-                                                               post)
-             : pick_kernel_blocks<Density, Source, 1>(seq, snooker, post);
+  return n_blk > 1 ? pick_kernel_blocks<Density, Source, kMaxBlocks, kMode>(
+                         seq, snooker, post)
+                   : pick_kernel_blocks<Density, Source, 1, kMode>(
+                         seq, snooker, post);
 }
 
 // Chains one block of `kernel` holds on the current device, one thread
@@ -640,15 +669,16 @@ int block_chains(Kernel kernel, int* chains) {
 // group must fit one block (sampler.fused_supported), and a one-CTA window
 // (K > 1 of a kOneCta source) the whole population, else K = 1
 // (ops/resample_step.py::resample_super_k).
-template <class Density, class Source>
+template <class Density, class Source, int kMode = kAcceptMH>
 int window_chains(bool seq, bool snooker, int n_blk, int* chains) {
   constexpr int D = Density::D;
   int all = 0, post = 0;
   int e = block_chains<D>(
-      pick_kernel<Density, Source>(seq, snooker, false, n_blk), &all);
+      pick_kernel<Density, Source, kMode>(seq, snooker, false, n_blk), &all);
   if (e == 0)
     e = block_chains<D>(
-        pick_kernel<Density, Source>(seq, snooker, true, n_blk), &post);
+        pick_kernel<Density, Source, kMode>(seq, snooker, true, n_blk),
+        &post);
   *chains = all < post ? all : post;
   return e;
 }
@@ -657,7 +687,7 @@ int window_chains(bool seq, bool snooker, int n_blk, int* chains) {
 // a Source that needs one CTA (K3's history) for K > 1 runs the whole
 // population in one block, if the instantiation can launch that block
 // (block_chains).  Returns cudaGetLastError() after the launch.
-template <class Density, class Source>
+template <class Density, class Source, int kMode = kAcceptMH>
 int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
                  const Source& src, bool post, cudaStream_t stream) {
   constexpr int D = Density::D;
@@ -667,8 +697,8 @@ int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
     return (int)cudaErrorInvalidValue;
   // the model's integer dimensions must be the ones the density snaps
   if (a.int_mask != Density::kIntMask) return (int)cudaErrorInvalidValue;
-  auto kernel = pick_kernel<Density, Source>(a.n_members > 1, a.r_sn >= 0,
-                                             post, a.n_blk);
+  auto kernel = pick_kernel<Density, Source, kMode>(a.n_members > 1,
+                                                    a.r_sn >= 0, post, a.n_blk);
   int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;
   if (Source::kOneCta && a.K > 1) {
     int most = 0;

@@ -1,7 +1,8 @@
 """Model protocol and parameter-space description (port of
 ``demcmc_tpu.model``).
 
-The whole population lives in one flat float32 tensor ``[C, d]``; a
+The whole population lives in one flat tensor ``[C, d]`` of the
+configuration's dtype (float32 or float64); a
 :class:`ParamSpec` records how a flat vector scatters back into the
 user's parameter list, with per-dimension bounds (out-of-bounds is a hard
 reject, weight ``-inf``) and integer leaves rounded on unflatten.
@@ -192,11 +193,14 @@ class DEModel:
     batched form, ``loglike_batched(data, *params)`` and
     ``prior_loglike_batched(*params)``, is chains-last: a scalar parameter
     arrives as a ``[*cs]`` tensor.  Each density needs one of its two
-    forms; where both are given the batched one runs.
-    ``sample_prior(uniform, n)`` returns ``n`` prior draws as a parameter
-    list of ``[n, *shape]`` tensors, taking its randomness only from
-    ``uniform(k)`` — ``k`` fresh float32 uniform rows ``[k, n]`` from the
-    init Philox namespace.  ``cuda_density`` names the DE-step kernels'
+    forms; where both are given the batched one runs.  The prior is
+    optional, as in the JAX ``DEModel``: a model without one is for
+    optimization only (``evaluate_fitness='fun'`` scores the loglike
+    alone).  ``sample_prior(uniform, n)`` returns ``n`` prior draws as a
+    parameter list of ``[n, *shape]`` tensors, taking its randomness only
+    from ``uniform(k)`` — ``k`` fresh uniform rows ``[k, n]`` of the
+    configuration's dtype from the init Philox namespace.
+    ``cuda_density`` names the DE-step kernels'
     density; a model without one runs the unfused step
     (:func:`demcmc_tpu_torch.build_step`), on the card as on the CPU.
 
@@ -220,9 +224,6 @@ class DEModel:
     def __post_init__(self):
         if self.loglike_batched is None and self.loglike is None:
             raise ValueError("loglike or loglike_batched is required")
-        if self.prior_loglike_batched is None and self.prior_loglike is None:
-            raise ValueError("prior_loglike or prior_loglike_batched is "
-                             "required")
         if self.sample_prior is None:
             raise ValueError("sample_prior is required")
         self.names = tuple(self.names)
@@ -245,8 +246,15 @@ class DEModel:
         """Uniforms per chain and evaluation (0 unless stochastic)."""
         return int(np.prod(self.noise_shape)) if self.stochastic else 0
 
+    def _no_prior(self):
+        raise ValueError("this model has no prior (prior_loglike or "
+                         "prior_loglike_batched): it is for optimization "
+                         "only, with evaluate_fitness='fun'")
+
     def log_prior_flat(self, spec: ParamSpec, x: torch.Tensor):
         """Per-cell log prior of one flat ``[d]`` vector."""
+        if self.prior_loglike is None:
+            self._no_prior()
         return self.prior_loglike(*spec.unflatten(x))
 
     def log_like_flat(self, spec: ParamSpec, x: torch.Tensor):
@@ -262,44 +270,59 @@ class DEModel:
         out = torch.func.vmap(lambda v: fn(spec, v))(x)
         return out.reshape(cs)
 
-    def log_posterior_cols(self, spec: ParamSpec, x2: torch.Tensor,
-                           noise: torch.Tensor = None):
-        """Batched log posterior of ``[d, *cs]`` columns: prior + loglike
-        in that order (``fused_step.py:1523-1541``), each in its batched
-        form where the model gives one and else per cell; a stochastic
-        model's loglike gets the panel ``noise [n_noise, *cs]`` reshaped
-        to ``[*noise_shape, *cs]``."""
-        cols = spec.unflatten_cols(x2)
-        if self.prior_loglike_batched is not None:
-            prior = self.prior_loglike_batched(*cols)
-        else:
-            prior = self._vmapped(self.log_prior_flat, spec, x2)
+    def log_like_cols(self, spec: ParamSpec, x2: torch.Tensor,
+                      noise: torch.Tensor = None):
+        """Batched log likelihood (the optimization objective) of ``[d,
+        *cs]`` columns, in its batched form where the model gives one and
+        else per cell; a stochastic model's loglike gets the panel ``noise
+        [n_noise, *cs]`` reshaped to ``[*noise_shape, *cs]``."""
         if self.stochastic:
             if noise is None:
                 raise ValueError("a stochastic model's density needs its "
                                  "noise panel")
             noise = noise.reshape(self.noise_shape + tuple(x2.shape[1:]))
-            ll = self.loglike_batched(self.data, *cols, noise=noise)
-        elif self.loglike_batched is not None:
-            ll = self.loglike_batched(self.data, *cols)
+            return self.loglike_batched(self.data, *spec.unflatten_cols(x2),
+                                        noise=noise)
+        if self.loglike_batched is not None:
+            return self.loglike_batched(self.data, *spec.unflatten_cols(x2))
+        return self._vmapped(self.log_like_flat, spec, x2)
+
+    def log_posterior_cols(self, spec: ParamSpec, x2: torch.Tensor,
+                           noise: torch.Tensor = None):
+        """Batched log posterior of ``[d, *cs]`` columns: prior + loglike
+        in that order (``fused_step.py:1523-1541``), each in its batched
+        form where the model gives one and else per cell
+        (:meth:`log_like_cols`).  A model without a prior raises."""
+        if self.prior_loglike_batched is not None:
+            prior = self.prior_loglike_batched(*spec.unflatten_cols(x2))
+        elif self.prior_loglike is not None:
+            prior = self._vmapped(self.log_prior_flat, spec, x2)
         else:
-            ll = self._vmapped(self.log_like_flat, spec, x2)
-        return prior + ll
+            self._no_prior()
+        return prior + self.log_like_cols(spec, x2, noise)
 
     def init_population(self, spec: ParamSpec, key: int, n: int,
-                        device=None) -> torch.Tensor:
-        """``[n, d]`` float32 prior draws from the init Philox namespace
-        (reference ``init_particle``, ``src/utilities.jl:13-22``)."""
+                        device=None, dtype=torch.float32) -> torch.Tensor:
+        """``[n, d]`` prior draws of ``dtype`` from the init Philox namespace
+        (reference ``init_particle``, ``src/utilities.jl:13-22``): a
+        float32 uniform row from one row of words, a float64 one from two
+        (the pool's word rule, :mod:`.rng`)."""
         next_row = [0]
+        wide = dtype == torch.float64
 
         def uniform(k):
             r0 = next_row[0]
-            next_row[0] = r0 + k
-            return rng.to_uni(rng.words(key, 0, k, n, ns=rng.INIT_NS,
-                                        device=device, row0=r0))
+            rows = 2 * k if wide else k
+            next_row[0] = r0 + rows
+            w = rng.words(key, 0, rows, n, ns=rng.INIT_NS, device=device,
+                          row0=r0)
+            if wide:
+                w = w.to(torch.int64)
+                return rng._uniform53(w[:k], w[k:])
+            return rng.to_uni(w)
 
         params = self.sample_prior(uniform, n)
-        x = torch.cat([torch.as_tensor(p, dtype=torch.float32,
+        x = torch.cat([torch.as_tensor(p, dtype=dtype,
                                        device=device).reshape(n, -1)
                        for p in params], 1)
         if spec.has_int:

@@ -1,5 +1,5 @@
 from . import (abc_kde, binomial, discrete_binomial, gaussian, hierarchical,
-               lba, lnr, mvnormal)
+               lba, lnr, mvnormal, rastrigin)
 
 __all__ = ["abc_kde", "binomial", "discrete_binomial", "gaussian",
-           "hierarchical", "lba", "lnr", "mvnormal"]
+           "hierarchical", "lba", "lnr", "mvnormal", "rastrigin"]

@@ -89,8 +89,8 @@ def make_model(data) -> DEModel:
 def make(key=0, true_n=10, true_p=0.6, n_obs=50, data=None, **de_kwargs):
     """Build (model, de) as the JAX ``make``: without ``data``, ``n_obs``
     Binomial(true_n, true_p) counts from numpy seed ``key`` (the same
-    generator, so the same data).  The default ``dtype=np.float64`` raises
-    (float64 is ROADMAP A5); pass ``dtype=np.float32``."""
+    generator, so the same data).  The default ``dtype=np.float64`` runs
+    on the unfused step; ``dtype=np.float32`` on K1."""
     if data is None:
         data = np.random.default_rng(key).binomial(true_n, true_p,
                                                    size=n_obs)

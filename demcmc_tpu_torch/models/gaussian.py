@@ -6,7 +6,10 @@ Normal(μ, σ) over the data; bounds ((-Inf, Inf), (0, Inf)).  The batched
 likelihood runs through the CENTERED sufficient statistics (n, x̄,
 Σ(x − x̄)²) folded on the host in float64, with the float32 operation
 order of ``gaussian.py:66-68``; ``csrc/densities/gaussian.cuh`` is the
-same expression for the DE-step kernel.
+same expression for the DE-step kernel.  The MLE (:func:`make_mle`)
+maximizes the likelihood alone, the same ``loglike_batched``, whose
+kernel twin is the header's ``like()``: a float32 configuration runs on
+K1 with the greedy max accept.
 """
 
 from __future__ import annotations
@@ -85,6 +88,18 @@ def make(data=None, key=0, n_obs=50, true_mu=0.0, true_sigma=1.0, Np=6,
     de = DE(bounds=BOUNDS, burnin=burnin, Np=Np, n_groups=n_groups,
             **de_kwargs)
     return model, de
+
+
+def make_mle(data=None, key=0, n_obs=50, Np=16, n_groups=256, burnin=1000,
+             **de_kwargs):
+    """(model, de) of the Gaussian MLE: the bench Gaussian (without
+    ``data``, ``n_obs`` standard normals from numpy seed ``key``)
+    maximized with the objective alone (``update_particle='maximize'``,
+    ``evaluate_fitness='fun'``), at the bench width by default."""
+    kw = dict(Np=Np, n_groups=n_groups, burnin=burnin,
+              update_particle="maximize", evaluate_fitness="fun")
+    kw.update(de_kwargs)
+    return make(data=data, key=key, n_obs=n_obs, **kw)
 
 
 def posterior_grid(data, n_mu=301, n_sigma=301, mu_rng=None, sigma_rng=None):

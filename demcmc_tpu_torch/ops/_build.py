@@ -36,11 +36,17 @@ _U32P = ctypes.POINTER(ctypes.c_uint32)
 _F32P = ctypes.POINTER(ctypes.c_float)
 _I, _U, _F = ctypes.c_int, ctypes.c_uint32, ctypes.c_float
 _IP = ctypes.POINTER(ctypes.c_int)
-# the csrc/densities each step kernel is instantiated on: K1 (de_step) for
-# the models that run it, K3 (resample_step) for the DE-MCz ones
+# the csrc/densities each step kernel is instantiated on with the MH accept:
+# K1 (de_step) for the models that run it, K3 (resample_step) for the
+# DE-MCz ones
 KERNEL_DENSITIES = {"de_step": ("gaussian", "lba", "binomial_abc",
                                 "discrete_binomial"),
                     "resample_step": ("gaussian", "mvnormal30")}
+# the densities with an objective (a functor's like()) K1 is also
+# instantiated on with each greedy accept, max and min (optimization);
+# K3 runs MH only, as the JAX kernel fuses no greedy DE-MCz
+GREEDY_DENSITIES = ("gaussian", "rastrigin")
+GREEDY_MODES = ("max", "min")
 # block sweeps per iteration K1 and K3 are instantiated for besides 1 (no
 # blocks): csrc/step_body.cuh kMaxBlocks
 BLOCK_COUNTS = (2,)
@@ -51,6 +57,10 @@ SIGNATURES = {
         **{f"de_step_{d}": _K1 for d in KERNEL_DENSITIES["de_step"]},
         **{f"de_step_block_chains_{d}": [_I, _I, _I, _IP]
            for d in KERNEL_DENSITIES["de_step"]},
+        **{f"de_step_{m}_{d}": _K1 for m in GREEDY_MODES
+           for d in GREEDY_DENSITIES},
+        **{f"de_step_block_chains_{m}_{d}": [_I, _I, _I, _IP]
+           for m in GREEDY_MODES for d in GREEDY_DENSITIES},
         "philox_fill": [_P, _I, _I, _U, _U, _U, _U, _P],
     },
     "de_step_resample": {
@@ -135,18 +145,29 @@ def library(name: str) -> ctypes.CDLL:
     return lib
 
 
-def entry(kernel: str, density) -> str:
+def entry(kernel: str, density, mode: str = "mh") -> str:
     """The C entry point of ``kernel`` (``de_step`` or ``resample_step``)
-    on a model's ``CudaDensity``; raises where none is built
-    (``sampler.build_step`` gives such a model the unfused step, so only a
-    caller that builds the kernels' ``Step`` itself meets the raise)."""
+    on a model's ``CudaDensity`` with the accept ``mode`` (``'mh'``, or
+    K1's ``'max'``/``'min'``); raises where none is built
+    (``sampler.build_step`` gives such a configuration the unfused step,
+    so only a caller that builds the kernels' ``Step`` itself meets the
+    raise)."""
     if density is None:
         raise ValueError(f"{kernel} needs a CUDA density and the model "
                          f"names none (DEModel.cuda_density)")
-    if density.name not in KERNEL_DENSITIES[kernel]:
-        raise ValueError(f"{kernel} is built for the densities "
-                         f"{KERNEL_DENSITIES[kernel]}, not {density.name!r}")
-    return f"{kernel}_{density.name}"
+    if mode == "mh":
+        if density.name not in KERNEL_DENSITIES[kernel]:
+            raise ValueError(f"{kernel} is built for the densities "
+                             f"{KERNEL_DENSITIES[kernel]}, not "
+                             f"{density.name!r}")
+        return f"{kernel}_{density.name}"
+    if kernel != "de_step" or mode not in GREEDY_MODES:
+        raise ValueError(f"{kernel} has no {mode!r} accept (the greedy "
+                         f"accepts are K1's: de_step)")
+    if density.name not in GREEDY_DENSITIES:
+        raise ValueError(f"K1's greedy accept is built for the densities "
+                         f"{GREEDY_DENSITIES}, not {density.name!r}")
+    return f"{kernel}_{mode}_{density.name}"
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str):

@@ -3,13 +3,14 @@
 (:mod:`.resample_step`).
 
 K1 is the port of the TPU kernel ``demcmc_tpu/ops/fused_step.py::
-build_fused_step`` (standard layout, MH, random/fixed/variable γ, the
-snooker branch, synchronous or sequential sweep) in the flat ``[C, d]``
-layout; the name of this module is kept so the counterpart is easy to
-find.  Like the TPU kernel's grid over K (``fused_step.py:2618``), one
-launch runs a window of ``K`` iterations, storing the trajectory rows of
-its emission rule ``(emit_first, emit_stride)``: local iteration k is
-stored iff ``k >= emit_first`` and ``(k - emit_first) % emit_stride ==
+build_fused_step`` (standard layout, random/fixed/variable γ, the
+snooker branch, synchronous or sequential sweep, the MH accept or, for
+optimization, the greedy max/min accept on the objective alone,
+``:2429-2445``) in the flat ``[C, d]`` layout; the name of this module
+is kept so the counterpart is easy to find.  Like the TPU kernel's grid
+over K (``fused_step.py:2618``), one launch runs a window of ``K``
+iterations, storing the trajectory rows of its emission rule
+``(emit_first, emit_stride)``: local iteration k is stored iff ``k >= emit_first`` and ``(k - emit_first) % emit_stride ==
 0`` (``emit='all'`` is ``(0, 1)``, ``'last'`` ``(K - 1, 1)``, ``('stride',
 s)`` ``(s - 1, s)``), and with ``phase='post'`` (``:2250-2276``) past
 burn-in without the γ₂ base select.  Migration is the separate kernel K2
@@ -25,7 +26,8 @@ Np in the sequential one) holding 2 partner rows, u_b/γ₁/γ₂ (random γ),
 the snooker rows (3 member indices, γ and the snooker gate), d rows of ε,
 d rows of κ (κ < 1), the β gate (synchronous sweep), 2d Box–Muller rows,
 a stochastic model's noise panel (n_sim rows, ``fused_step.py:1824``,
-:2422-2427) and the accept row; last the next-iteration gate row — 17
+:2422-2427) and the accept row (read in every accept mode, so the layout
+does not depend on it, ``:2436``); last the next-iteration gate row — 17
 words per chain for the d = 2 Gaussian with default settings.  With
 constant blocks (``:2479-2488``) everything between the migration rows
 and the gate row repeats once per block sweep (``:1827``), and each
@@ -43,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from dataclasses import dataclass, field
 from typing import NamedTuple, Optional, Tuple
 
@@ -70,7 +73,7 @@ _block_chains: dict = {}
 
 
 def block_chains(resample: bool, density, seq: bool, snooker: bool,
-                 n_blocks: int, device) -> int:
+                 n_blocks: int, device, mode: str = "mh") -> int:
     """Chains one block of K1 (K3 where ``resample``) holds for a
     configuration: on a CUDA device the fewer that its two phases'
     instantiations hold in one block (the threads their registers allow,
@@ -78,14 +81,15 @@ def block_chains(resample: bool, density, seq: bool, snooker: bool,
     may opt in to), read from the built library once per configuration
     (``csrc/step_body.cuh`` ``block_chains``); on the CPU the launch's
     static limit, :data:`MAX_BLOCK_CHAINS`.  A group must fit one block,
-    and a K3 window of K > 1 the whole population."""
+    and a K3 window of K > 1 the whole population.  ``mode`` is the accept
+    mode (``'mh'``, or K1's greedy ``'max'``/``'min'``)."""
     device = torch.device(device)
     if device.type != "cuda":
         return MAX_BLOCK_CHAINS
     kernel = "resample_step" if resample else "de_step"
-    _build.entry(kernel, density)                   # raises if not built
-    fn = ("resample_window_chains_" if resample
-          else "de_step_block_chains_") + density.name
+    name = _build.entry(kernel, density, mode)      # raises if not built
+    fn = ("resample_window_chains_" + density.name if resample
+          else name.replace("de_step_", "de_step_block_chains_", 1))
     key = (fn, bool(seq), bool(snooker), int(n_blocks), device.index)
     if key not in _block_chains:
         lib = _build.library("de_step_resample" if resample else "de_step")
@@ -200,6 +204,15 @@ def _f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def accept_mode(de) -> str:
+    """The kernels' accept mode of a configuration (the TPU kernel's
+    ``mode``, ``fused_step.py:1450-1458``): ``'mh'``, or for optimization
+    ``'max'`` or ``'min'``."""
+    if de.is_mh:
+        return "mh"
+    return "min" if de.is_minimize else "max"
+
+
 @dataclass(frozen=True)
 class StepConfig:
     """Everything K1, K3 and their plain version need besides the state."""
@@ -222,6 +235,7 @@ class StepConfig:
     int_dims: Tuple[int, ...] = ()   # integer dimensions, snapped
     # the constant blocks' flat [d] masks, one per block sweep (none: ())
     blocks: Tuple[Tuple[bool, ...], ...] = ()
+    mode: str = "mh"            # accept: mh | max | min (accept_mode)
     _iargs: dict = field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
@@ -243,7 +257,7 @@ class StepConfig:
             density=model.cuda_density,
             theta_snooker=float(de.theta_snooker),
             resample=bool(de.uses_resample), int_dims=int_dims,
-            blocks=blocks)
+            blocks=blocks, mode=accept_mode(de))
 
     @property
     def random_gamma(self) -> bool:
@@ -365,7 +379,12 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     (``:2360-2372``), the mutation ignores it, and the last block's
     accepts are recorded.  Returns each chain's accept margin (``accept.
     mh_accept``, accepted where ≤ 0) from its own sub-sweep of the last
-    block, ``[C]``."""
+    block, ``[C]``.  In the greedy modes (``cfg.mode`` ``'max'``, ``'min'``)
+    a proposal is scored by the objective alone (out of bounds or NaN:
+    ``∓inf``), accepted by ``>`` or ``<`` with no snooker correction
+    (:func:`.accept.greedy_accept`, whose margins are negative where
+    accepted), and the min mode clamps the weights of the γ₂ base select
+    (:func:`.proposals.select_base`)."""
     G, Np, d, r = cfg.G, cfg.Np, cfg.d, cfg.rows
     th = theta.view(G, Np, d)
     wg = w.view(G, Np)
@@ -394,7 +413,8 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
                 g2 = uni(r.gamma + o + 2) * 0.5 + 0.5
                 if it <= cfg.burnin:
                     base = proposal_ops.gather_members(
-                        th, proposal_ops.select_base(wg, u_b))
+                        th, proposal_ops.select_base(wg, u_b,
+                                                     cfg.mode == "min"))
                     bterm = g2[..., None] * (base - th)
                 else:
                     bterm = torch.zeros_like(th)
@@ -444,9 +464,17 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
             if r.noise >= 0:
                 noise = uniforms[r.noise + o:r.noise + o + r.n_noise].view(
                     r.n_noise, G, Np)
-            w_prop = accept_ops.compute_posterior(model, spec, prop, noise)
-            u_acc = uni(r.accept + o)
-            acc, mg = accept_ops.mh_accept(w_prop, wg, u_acc, log_adj)
+            if cfg.mode == "mh":
+                w_prop = accept_ops.compute_posterior(model, spec, prop,
+                                                      noise)
+                acc, mg = accept_ops.mh_accept(w_prop, wg,
+                                               uni(r.accept + o), log_adj)
+            else:     # greedy: the accept row stays in the layout, unused
+                w_prop = accept_ops.objective(
+                    model, spec, prop,
+                    math.inf if cfg.mode == "min" else -math.inf, noise)
+                acc, mg = accept_ops.greedy_accept(w_prop, wg,
+                                                   cfg.mode == "min")
             if r.n_members > 1:
                 mine = slot == member
                 acc = acc & mine
@@ -570,7 +598,7 @@ def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     if check:
         check_cuda(cfg, theta, w, fire, bits, out, K=K, emit=emit)
     lib = _build.library("de_step")
-    name = _build.entry("de_step", cfg.density)
+    name = _build.entry("de_step", cfg.density, cfg.mode)
     o_t, o_w, o_a = (None, None, None) if out is None else (
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
     rc = getattr(lib, name)(
@@ -598,7 +626,7 @@ def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
     dev = theta.device
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
-    _build.entry(what, cfg.density)
+    _build.entry(what, cfg.density, cfg.mode)
     C, d = cfg.G * cfg.Np, cfg.d
     T = n_emitted(K, emit)
     want = [("theta", theta, torch.float32, [(C, d)]),

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from .. import rng
+from ..utils.dists import const
 
 TWO_PI = float(np.float32(2.0 * math.pi))
 
@@ -34,7 +35,7 @@ def kernel_mutate(theta, prop, gate, nrm, beta: float, sigma: float):
 
 def mutate(draws, theta, sigma: float):
     """θ′ = θ + N(0, σ) per scalar over the population ``[G, Np, d]``,
-    the normals from the unfused step's pool (``demcmc_tpu/ops/
-    mutation.py:16``)."""
-    return theta + float(np.float32(sigma)) * draws.normal(
-        tuple(theta.shape))
+    the normals of the state's dtype from the unfused step's pool
+    (``demcmc_tpu/ops/mutation.py:16``)."""
+    return theta + const(sigma, theta.dtype) * draws.normal(
+        tuple(theta.shape), theta.dtype)

@@ -24,9 +24,12 @@ import numpy as np
 import torch
 
 from .. import rng
-from ..utils.dists import f32
+from ..utils.dists import const, f32
 
 GAMMA_FIXED = 2.38
+# the min-mode base select clamps +inf weights to this before the softmax
+# (fused_step.py:2289-2293)
+MIN_MODE_CLAMP = f32(3.0e38)
 
 
 def partner_indices(wa, wb, Np: int):
@@ -62,12 +65,17 @@ def seg_scan(x, op):
     return x
 
 
-def select_base(weight, u_b):
+def select_base(weight, u_b, clamp: bool = False):
     """Base slot per chain ∝ softmax(weight) over its group by inverse CDF
     (reference ``crossover.jl:282-289``; ``fused_step.py:2287-2311``):
     the number of group members whose scanned CDF lies below
-    ``max(u_b, tiny) · total``, clamped to ``Np - 1``."""
+    ``max(u_b, tiny) · total``, clamped to ``Np - 1``.  ``clamp`` (min
+    mode, whose out-of-bounds weights are ``+inf``) first lowers the
+    weights to ``MIN_MODE_CLAMP`` (``:2289-2293``), so the softmax stays
+    finite."""
     Np = weight.shape[1]
+    if clamp:
+        weight = torch.clamp_max(weight, MIN_MODE_CLAMP)
     mx = seg_scan(weight, torch.maximum)[:, -1:]
     mx = torch.where(torch.isfinite(mx), mx, torch.zeros_like(mx))
     q = seg_scan(torch.exp(weight - mx), torch.add)
@@ -298,14 +306,18 @@ def resample(ctx: ProposalContext, n: int, exclude_self: bool,
 def select_base_idx(draws, weight, Np: int):
     """Base member per chain ∝ softmax(weight) over its group by inverse
     CDF (``demcmc_tpu/ops/proposals.py:300``): the count of CDF entries
-    below ``max(u, tiny) · total``, clamped to ``Np − 1``; ``-inf``
-    weights get no mass."""
+    below ``max(u, tiny) · total``, clamped to ``Np − 1``, ``u`` in the
+    weights' dtype; ``-inf`` weights get no mass.  A ``+inf`` weight (an
+    out-of-bounds score when minimizing) is not clamped, as in the JAX
+    XLA step: its group's maximum is taken as 0, so its CDF is ``inf``
+    from there on (the kernels' form, :func:`select_base`, clamps)."""
     G = weight.shape[0]
     m = torch.amax(weight, dim=1, keepdim=True)
     e = torch.exp(weight - torch.where(torch.isfinite(m), m,
                                        torch.zeros_like(m)))
     q = torch.cumsum(e, dim=1)
-    u = torch.clamp_min(draws.uniform((G, Np)), rng.TINY) * q[:, -1:]
+    u = torch.clamp_min(draws.uniform((G, Np), dtype=weight.dtype),
+                        rng.tiny(weight.dtype)) * q[:, -1:]
     idx = (q[:, None, :] < u[:, :, None]).sum(-1)
     return torch.clamp_max(idx, Np - 1)
 
@@ -319,42 +331,46 @@ def recombination(draws, theta, prop, kappa: float):
     return torch.where(keep, prop, theta)
 
 
-def _noise(draws, shape, eps: float):
-    """``U(−ε, ε)`` per scalar, or 0.0 (no draw) at ε = 0."""
+def _noise(draws, shape, eps: float, dtype):
+    """``U(−ε, ε)`` of ``dtype`` per scalar, or 0.0 (no draw) at ε = 0."""
     if eps == 0.0:
         return 0.0
-    return draws.uniform(tuple(shape), -eps, eps)
+    return draws.uniform(tuple(shape), -eps, eps, dtype)
 
 
 def random_gamma(ctx: ProposalContext):
     """θ′ = θ + γ₁(θm − θn) + γ₂(θb − θ) + b, γ₁, γ₂ ~ U(0.5, 1), γ₂ = 0
     after burn-in (``demcmc_tpu/ops/proposals.py:353``; reference
     ``crossover.jl:154-172``).  Past burn-in the base draw's columns are
-    skipped, not computed: the term is γ₂ = 0 times a finite difference."""
+    skipped, not computed: the term is γ₂ = 0 times a finite difference.
+    The base draw is in the weights' dtype, γ₁, γ₂ and the noise in the
+    state's."""
     de, theta, draws = ctx.de, ctx.theta, ctx.draws
     G, Np, d = theta.shape
+    dt = theta.dtype
     burn = ctx.iteration <= de.burnin
     if burn:
         bidx = select_base_idx(draws, ctx.weight, Np)
     else:
-        draws.skip((G, Np))
+        draws.skip((G, Np), ctx.weight.dtype)
     pm, pn = ctx.partners(2, exclude_self=True)
-    g1 = draws.uniform((G, Np, 1), 0.5, 1.0)
+    g1 = draws.uniform((G, Np, 1), 0.5, 1.0, dt)
     prop = theta + g1 * (pm - pn)
     if burn:
-        g2 = draws.uniform((G, Np, 1), 0.5, 1.0)
+        g2 = draws.uniform((G, Np, 1), 0.5, 1.0, dt)
         base = _gather_partners(theta, bidx[None])[0]
         prop = prop + g2 * (base - theta)
     else:
-        draws.skip((G, Np, 1))
-    prop = prop + _noise(draws, theta.shape, de.epsilon)
+        draws.skip((G, Np, 1), dt)
+    prop = prop + _noise(draws, theta.shape, de.epsilon, dt)
     return recombination(draws, theta, prop, de.kappa)
 
 
 def _plain_de(ctx: ProposalContext, gamma: float):
+    dt = ctx.theta.dtype
     pm, pn = ctx.partners(2, exclude_self=True)
-    prop = ctx.theta + f32(gamma) * (pm - pn) + _noise(
-        ctx.draws, ctx.theta.shape, ctx.de.epsilon)
+    prop = ctx.theta + const(gamma, dt) * (pm - pn) + _noise(
+        ctx.draws, ctx.theta.shape, ctx.de.epsilon, dt)
     return recombination(ctx.draws, ctx.theta, prop, ctx.de.kappa)
 
 
@@ -389,11 +405,11 @@ def snooker(ctx: ProposalContext):
     G, Np, d = theta.shape
     pz, pm, pn = ctx.partners(3, exclude_self=False)
     pd = theta - pz
-    degenerate = torch.sum(pd * pd, -1) <= rng.TINY
+    degenerate = torch.sum(pd * pd, -1) <= rng.tiny(theta.dtype)
     safe = torch.where(degenerate[..., None], torch.ones_like(pd), pd)
-    gamma = draws.uniform((G, Np, 1), 1.2, 2.2)
+    gamma = draws.uniform((G, Np, 1), 1.2, 2.2, theta.dtype)
     prop = (theta + gamma * (_project(pm, safe) - _project(pn, safe))
-            + _noise(draws, theta.shape, de.epsilon))
+            + _noise(draws, theta.shape, de.epsilon, theta.dtype))
     prop = recombination(draws, theta, prop, de.kappa)
     prop = torch.where(degenerate[..., None], theta, prop)
     return prop, pz, degenerate

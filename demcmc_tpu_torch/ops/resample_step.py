@@ -191,7 +191,7 @@ def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
     if check:
         check_cuda(cfg, theta, w, fire, hist, bits, idx, out, K, emit)
     lib = _build.library("de_step_resample")
-    name = _build.entry("resample_step", cfg.density)
+    name = _build.entry("resample_step", cfg.density, cfg.mode)
     o_t, o_w, o_a = (None, None, None) if out is None else (
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
     rc = getattr(lib, name)(

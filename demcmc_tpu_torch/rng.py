@@ -42,6 +42,11 @@ TINY = 1.1754943508222875e-38              # float32 smallest normal
 TWO_PI = float(np.float32(2.0 * math.pi))
 
 
+def tiny(dtype) -> float:
+    """The smallest normal number of a torch float dtype."""
+    return torch.finfo(dtype).tiny
+
+
 def seed_key(seed: int) -> tuple:
     """The two 32-bit Philox key words of an integer seed."""
     seed = int(seed)
@@ -130,6 +135,18 @@ def randint(bits: torch.Tensor, span: int) -> torch.Tensor:
 
 
 # ------------------------------------------------- the unfused step's pool
+#
+# Word rules of the unfused step, as the JAX pool's (demcmc_tpu/rng.py:
+# 133-180).  A float32 draw takes one word per element: a uniform is
+# (w >> 8) · 2⁻²⁴.  A float64 draw takes two, the high word's top 26 bits
+# and the low word's top 27: (w_hi >> 6) · 2⁻²⁶ + (w_lo >> 5) · 2⁻⁵³, the
+# two column sets one after the other; a normal, two uniforms, takes four.
+# The port models the JAX step with x64 off for a float32 configuration
+# and with x64 on for a float64 one, where every group randint also takes
+# two words (a 64-bit draw, (w_hi · 2³² + w_lo) mod span); a draw that
+# names no dtype is float32 in either, and a uint32-span draw (randuint)
+# takes one word in both.
+
 
 def _uniform24(w: torch.Tensor) -> torch.Tensor:
     """uint32 words -> float32 uniforms ``(w >> 8) · 2⁻²⁴`` (the JAX
@@ -137,13 +154,44 @@ def _uniform24(w: torch.Tensor) -> torch.Tensor:
     return (w.to(torch.int64) >> 8).to(torch.float32) * 2.0 ** -24
 
 
+def _uniform53(w_hi: torch.Tensor, w_lo: torch.Tensor) -> torch.Tensor:
+    """Two uint32 words (int64 values) -> a float64 uniform with 53 random
+    bits, ``(w_hi >> 6) · 2⁻²⁶ + (w_lo >> 5) · 2⁻⁵³`` (exact: the two
+    parts' bits do not overlap)."""
+    return ((w_hi >> 6).to(torch.float64) * 2.0 ** -26
+            + (w_lo >> 5).to(torch.float64) * 2.0 ** -53)
+
+
+def _wide(dtype) -> bool:
+    """True for a float64 draw (two words per element)."""
+    return dtype == torch.float64
+
+
+def _shift(u, lo, hi, dtype):
+    """``lo + (hi − lo) u``, in float32 with both constants rounded to
+    float32 once (JAX's weak-typed constants), in float64 as given."""
+    if (lo, hi) == (0.0, 1.0):
+        return u
+    if _wide(dtype):
+        return lo + (hi - lo) * u
+    return float(np.float32(lo)) + float(np.float32(hi - lo)) * u
+
+
+def _mod64(w_hi, w_lo, span: int):
+    """``(w_hi · 2³² + w_lo) mod span`` for uint32 words held in int64 and
+    ``0 < span < 2³¹``, without an intermediate at or above 2⁶³."""
+    return ((w_hi % span) * ((1 << 32) % span) + w_lo % span) % span
+
+
 class Scalars:
     """The :class:`Pool`'s scalar side channel (the JAX ``Pool.scalars``,
     a ``KeyDraws``): scalar draws in call order, on the host.  From
-    ``words`` (uint32 ints: uniform ``(w >> 8) · 2⁻²⁴``, randint ``lo + w
-    mod (hi − lo)``) or, in tests, from fed ``values`` taken as they are.
-    The unfused step draws two per iteration: the migration gate and, when
-    it fires, the number of groups that take part."""
+    ``words`` (uint32 ints: a float32 uniform ``(w >> 8) · 2⁻²⁴``, a
+    float64 one from two words as the pool's, randint ``lo + w mod (hi −
+    lo)``) or, in tests, from fed ``values`` taken as they are.  The
+    unfused step draws two per iteration, both one word: the migration
+    gate (float32, as the JAX step draws it whatever the state's dtype)
+    and, when it fires, the number of groups that take part."""
 
     N_DRAWS = 2
 
@@ -155,13 +203,17 @@ class Scalars:
         self.i += 1
         return i
 
-    def uniform(self, shape=(), lo=0.0, hi=1.0):
+    def uniform(self, shape=(), lo=0.0, hi=1.0, dtype=torch.float32):
         if tuple(shape) != ():
             raise ValueError(f"the scalar side channel draws scalars, not "
                              f"{shape}")
         i = self._next()
         if self.values is not None:
             u = float(self.values[i])
+        elif _wide(dtype):
+            self.i += 1
+            u = ((int(self.words[i]) >> 6) * 2.0 ** -26
+                 + (int(self.words[i + 1]) >> 5) * 2.0 ** -53)
         else:
             u = (int(self.words[i]) >> 8) * 2.0 ** -24
         return u if (lo, hi) == (0.0, 1.0) else lo + (hi - lo) * u
@@ -184,18 +236,20 @@ class Pool:
 
     A draw of shape ``(G, ...)`` takes ``prod(shape[1:])`` columns, one of
     shape ``(n, G, ...)`` takes ``n · prod(rest)`` (group-major, then moved
-    to the front).  Maps: uniform ``(w >> 8) · 2⁻²⁴`` (``lo + (hi − lo)
-    u`` with both constants rounded to float32 once), normal Box–Muller
-    from two uniforms with the first clamped to ``tiny``, gumbel
-    ``−log(−log(max(u, tiny)))``, randint ``lo + w mod (hi − lo)``.
-    ``bits`` comes from Philox namespace ``POOL_NS`` or, in tests, from the
-    JAX ``Pool``'s own ``jax.random.bits``.  The block is converted to
-    int64 and mapped to uniforms once, at its first draw, and each draw
-    slices them: on the card the step is host-bound, one torch launch a
-    draw fewer is what counts."""
+    to the front), twice as many for a float64 draw and, with ``x64`` (a
+    float64 configuration), for a randint (the word rules above).  Maps:
+    uniform (``lo + (hi − lo) u``), normal Box–Muller from two uniforms
+    with the first clamped to ``tiny``, gumbel ``−log(−log(max(u,
+    tiny)))``, randint ``lo + w mod (hi − lo)``.  ``bits`` comes from
+    Philox namespace ``POOL_NS`` or, in tests, from the JAX ``Pool``'s own
+    ``jax.random.bits``.  The block is converted to int64 and mapped to
+    float32 uniforms once, at its first draw, and each draw slices them:
+    on the card the step is host-bound, one torch launch a draw fewer is
+    what counts."""
 
-    def __init__(self, bits: torch.Tensor, scalars: Scalars):
-        self.bits, self.scalars = bits, scalars
+    def __init__(self, bits: torch.Tensor, scalars: Scalars,
+                 x64: bool = False):
+        self.bits, self.scalars, self.x64 = bits, scalars, bool(x64)
         self.n_rows = int(bits.shape[0])
         self.offset = 0
 
@@ -220,7 +274,8 @@ class Pool:
 
     @functools.cached_property
     def _uniforms(self):
-        """The block's uniforms, mapped once for the iteration's draws."""
+        """The block's float32 uniforms, mapped once for the iteration's
+        draws."""
         return _uniform24(self._words)
 
     def _take(self, shape, src=None):
@@ -240,55 +295,63 @@ class Pool:
             return w.reshape(shape)
         return w.reshape((self.n_rows, shape[0]) + shape[2:]).movedim(1, 0)
 
-    def skip(self, shape):
-        """Pass over what a draw of ``shape`` would take: the JAX pool
-        slices its columns, and numbers its scalar draws, when the step is
-        traced, so a draw inside a branch that does not run still uses
-        them up."""
+    def skip(self, shape, dtype=torch.float32):
+        """Pass over what a uniform draw of ``shape`` (and ``dtype``) would
+        take: the JAX pool slices its columns, and numbers its scalar
+        draws, when the step is traced, so a draw inside a branch that does
+        not run still uses them up."""
         cols = self._cols(shape)
         if cols is None:
             self.scalars.i += 1
         else:
-            self.offset += cols
+            self.offset += cols * (2 if _wide(dtype) else 1)
 
-    def uniform(self, shape=(), lo=0.0, hi=1.0):
+    def uniform(self, shape=(), lo=0.0, hi=1.0, dtype=torch.float32):
         if self._cols(shape) is None:
-            return self.scalars.uniform(shape, lo, hi)
-        u = self._take(shape, self._uniforms)
-        if (lo, hi) == (0.0, 1.0):
-            return u
-        return float(np.float32(lo)) + float(np.float32(hi - lo)) * u
+            return self.scalars.uniform(shape, lo, hi, dtype)
+        if _wide(dtype):
+            w_hi = self._take(shape)
+            u = _uniform53(w_hi, self._take(shape))
+        else:
+            u = self._take(shape, self._uniforms)
+        return _shift(u, lo, hi, dtype)
 
-    def gumbel(self, shape=()):
-        u = self.uniform(shape)
-        return -torch.log(-torch.log(torch.clamp_min(u, TINY)))
+    def gumbel(self, shape=(), dtype=torch.float32):
+        u = self.uniform(shape, dtype=dtype)
+        return -torch.log(-torch.log(torch.clamp_min(u, tiny(dtype))))
 
-    def normal(self, shape=()):
-        u1 = torch.clamp_min(self.uniform(shape), TINY)
-        u2 = self.uniform(shape)
-        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(TWO_PI * u2)
+    def normal(self, shape=(), dtype=torch.float32):
+        u1 = torch.clamp_min(self.uniform(shape, dtype=dtype), tiny(dtype))
+        u2 = self.uniform(shape, dtype=dtype)
+        two_pi = 2.0 * math.pi if _wide(dtype) else TWO_PI
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
 
     def randint(self, shape, lo: int, hi: int):
         if self._cols(shape) is None:
             return self.scalars.randint(shape, lo, hi)
-        idx = self._take(shape) % (hi - lo)
+        if self.x64:
+            w_hi = self._take(shape)
+            idx = _mod64(w_hi, self._take(shape), hi - lo)
+        else:
+            idx = self._take(shape) % (hi - lo)
         return idx + lo if lo else idx
 
     def randuint(self, shape, span: int):
         """Words modulo ``span``, a uint32 span held in a Python int (the
-        JAX ``Pool.randuint``, over resample's flat (row, chain) space);
-        int64 values."""
+        JAX ``Pool.randuint``, over resample's flat (row, chain) space; one
+        word in either word rule); int64 values."""
         return self._take(shape) % (int(span) & 0xFFFFFFFF)
 
 
 class CountingDraws:
     """Shape-faithful stand-in that sizes a :class:`Pool` (the JAX
     ``CountingDraws``, ``demcmc_tpu/rng.py:195``): draws return zeros and
-    ``words`` counts the columns the real pool would take (a normal takes
-    two per element; scalar draws take none)."""
+    ``words`` counts the columns the real pool would take, by the same
+    word rules (a normal takes two uniforms; scalar draws take none)."""
 
-    def __init__(self, n_rows: int, device=None):
+    def __init__(self, n_rows: int, device=None, x64: bool = False):
         self.n_rows, self.device, self.words = int(n_rows), device, 0
+        self.x64 = bool(x64)
         # the migration gate open (0.0), so its exchange's draws count too
         self.scalars = Scalars(values=[0.0, 2])
 
@@ -300,28 +363,29 @@ class CountingDraws:
             self.words += k * cols
         return torch.zeros(tuple(shape), dtype=dtype, device=self.device)
 
-    def skip(self, shape):
+    def skip(self, shape, dtype=torch.float32):
         if self._cols(shape) is None:
             self.scalars.i += 1
         else:
-            self._zeros(shape)
+            self._zeros(shape, 2 if _wide(dtype) else 1)
 
-    def uniform(self, shape=(), lo=0.0, hi=1.0):
+    def uniform(self, shape=(), lo=0.0, hi=1.0, dtype=torch.float32):
         if self._cols(shape) is None:
-            return self.scalars.uniform(shape, lo, hi)
-        return self._zeros(shape) + float(np.float32(lo))
+            return self.scalars.uniform(shape, lo, hi, dtype)
+        return _shift(self._zeros(shape, 2 if _wide(dtype) else 1, dtype),
+                      lo, hi, dtype)
 
-    def gumbel(self, shape=()):
-        return self._zeros(shape)
+    def gumbel(self, shape=(), dtype=torch.float32):
+        return self._zeros(shape, 2 if _wide(dtype) else 1, dtype)
 
-    def normal(self, shape=()):
-        return self._zeros(shape, 2)
+    def normal(self, shape=(), dtype=torch.float32):
+        return self._zeros(shape, 4 if _wide(dtype) else 2, dtype)
 
     def randint(self, shape, lo: int, hi: int):
         if self._cols(shape) is None:
             return self.scalars.randint(shape, lo, hi)
-        return self._zeros(shape, dtype=torch.int64) + lo
+        return self._zeros(shape, 2 if self.x64 else 1,
+                           dtype=torch.int64) + lo
 
     def randuint(self, shape, span: int):
         return self._zeros(shape, dtype=torch.int64)
-

@@ -55,7 +55,8 @@ from .utils import dists
 
 class SamplerState(NamedTuple):
     """The entire resumable state of a run: ``theta [C, d]`` and
-    ``weight [C]`` float32 (chain c in group c // Np), the integer
+    ``weight [C]`` of the configuration's dtype, float32 or float64
+    (chain c in group c // Np), the integer
     ``key`` (Philox seed), the next ``iteration`` (1-based), ``fire``
     ``[1]`` int32, the migration gate of that iteration, and for DE-MCz
     the ``history [H, C, d]`` of past states (row t holds iteration t+1's
@@ -144,14 +145,16 @@ def _first_gate(de: DE, key: int, iteration: int, device) -> torch.Tensor:
 
 def init_state(model: DEModel, de: DE, spec: ParamSpec, key: int = 0,
                device=None, start_iteration: int = None) -> SamplerState:
-    """Prior draws for every chain (reference ``sample_init``), their log
-    posterior, and the first migration gate.  With ``sample='resample'``
-    the history is seeded with ``n_initial`` rows of prior draws per chain
-    and the chains start from row 0 (``demcmc_tpu/sampler.py:1133-1169``).
-    The run starts at iteration ``n_initial + 1`` unless
-    ``start_iteration`` says otherwise."""
+    """Prior draws for every chain (reference ``sample_init``) in the
+    configuration's dtype, their fitness by its ``evaluate_fitness`` slot
+    (the log posterior, or the objective when optimizing; ``demcmc_tpu/
+    sampler.py:1159-1165``), and the first migration gate.  With
+    ``sample='resample'`` the history is seeded with ``n_initial`` rows of
+    prior draws per chain and the chains start from row 0
+    (``demcmc_tpu/sampler.py:1133-1169``).  The run starts at iteration
+    ``n_initial + 1`` unless ``start_iteration`` says otherwise."""
     device = resolve_device(device)
-    C = de.n_chains
+    C, dtype = de.n_chains, de.torch_dtype
     history = None
     if de.uses_resample:
         if de.n_initial < 1:
@@ -160,16 +163,17 @@ def init_state(model: DEModel, de: DE, spec: ParamSpec, key: int = 0,
                 "history rows (the reference recommends 10x the parameter "
                 "count, src/structs.jl:37)")
         history = model.init_population(spec, key, de.n_initial * C,
-                                        device=device).view(
+                                        device=device, dtype=dtype).view(
             de.n_initial, C, spec.dim).contiguous()
         theta = history[0].clone()
     else:
-        theta = model.init_population(spec, key, C, device=device)
+        theta = model.init_population(spec, key, C, device=device,
+                                      dtype=dtype)
     noise = None
     if model.stochastic:          # the initial weights' own noise panel
         noise = rng.to_uni(rng.words(key, 0, model.noise_words, C,
                                      ns=rng.INIT_NOISE_NS, device=device))
-    weight = accept_ops.compute_posterior(model, spec, theta, noise)
+    weight = accept_ops.make_fitness(model, spec, de)(theta, noise)
     it0 = (de.n_initial + 1 if start_iteration is None
            else int(start_iteration))
     return SamplerState(theta=theta.contiguous(), weight=weight.contiguous(),
@@ -217,8 +221,11 @@ def state_from_numpy(theta, weight, iteration, fire, layout: str,
     migration before the first iteration.  ``key`` seeds the port's
     Philox words (a JAX key does not carry over).  Integer parameters
     arrive as floats that are integers (the JAX state is float) and stay
-    so."""
-    theta = np.asarray(theta, dtype=np.float32)
+    so.  A float64 θ (a JAX float64 state) gives a float64 state, any
+    other a float32 one; w and the history take θ's dtype."""
+    dtype = (np.float64 if np.asarray(theta).dtype == np.float64
+             else np.float32)
+    theta = np.asarray(theta, dtype=dtype)
     if layout == "fused":
         d = theta.shape[0]
         flat = theta.reshape(d, -1).T
@@ -232,7 +239,7 @@ def state_from_numpy(theta, weight, iteration, fire, layout: str,
     else:
         raise ValueError(f"layout must be 'fused', 'flat' or 'resample'; "
                          f"got {layout!r}")
-    w = np.asarray(weight, dtype=np.float32).reshape(-1)
+    w = np.asarray(weight, dtype=dtype).reshape(-1)
     C, d = flat.shape
     if w.shape[0] != C:
         raise ValueError(f"{w.shape[0]} weights for {C} chains")
@@ -240,7 +247,7 @@ def state_from_numpy(theta, weight, iteration, fire, layout: str,
     device = resolve_device(device)
     hist = None
     if history is not None:
-        h = np.asarray(history, dtype=np.float32)
+        h = np.asarray(history, dtype=dtype)
         if h.shape[1:] != (C, d):
             h = _unpack_history(h, C)
         hist = torch.tensor(np.ascontiguousarray(h), device=device)
@@ -268,15 +275,16 @@ class Window(NamedTuple):
 
 
 def plan_windows(it0: int, n_iter: int, fire0: bool, gates, k_max: int,
-                 thin: int = 1, switch: int = None):
+                 thin: int = 1, switch: int = None, store: bool = True):
     """Cut the iterations ``it0 .. it0+n_iter-1`` of a run into windows of
     at most ``k_max``: a window ends before an iteration whose migration
     gate is open (``fire0`` for the first iteration, ``gates[i]`` — the
     gate iteration ``it0 + i`` writes — for the next, None: no migration),
     at run index ``switch`` (the first iteration of phase 2, or None) and
     at the end.  Run index i is stored where ``(i + 1) % thin == 0``, so a
-    window that ends mid-thin carries its offset into the next.  Returns
-    a list of :class:`Window`."""
+    window that ends mid-thin carries its offset into the next; with
+    ``store=False`` no window stores a row (emission rule ``(K, 1)``: a
+    run without a trajectory).  Returns a list of :class:`Window`."""
     opens = np.zeros(n_iter, dtype=bool)
     if gates is not None and n_iter:
         opens[0] = bool(fire0)
@@ -289,11 +297,11 @@ def plan_windows(it0: int, n_iter: int, fire0: bool, gates, k_max: int,
     for a, b in zip(cuts, cuts[1:]):
         for s in range(a, b, k_max):
             K = min(k_max, b - s)
-            first = (thin - 1 - s) % thin
+            first = (thin - 1 - s) % thin if store else K
             out.append(Window(
-                it0 + s, K, bool(opens[s]), (first, thin),
-                (s + first + 1) // thin - 1,
-                fused_ops.n_emitted(K, (first, thin)),
+                it0 + s, K, bool(opens[s]), (first, thin if store else 1),
+                (s + first + 1) // thin - 1 if store else 0,
+                fused_ops.n_emitted(K, (first, thin)) if store else 0,
                 switch is not None and s >= switch))
     return out
 
@@ -324,10 +332,14 @@ class Step:
             raise ValueError(f"K1 and K3 are built for {_build.BLOCK_COUNTS} "
                              f"block sweeps, not {n_blk}; such a "
                              f"configuration takes the unfused step")
+        if self.cfg.resample and self.cfg.mode != "mh":
+            raise ValueError("K3 runs the MH accept only: DE-MCz "
+                             "optimization takes the unfused step, as in "
+                             "the JAX package")
         self.device = torch.device(device)
         if self.device.type == "cuda":
             _build.entry("resample_step" if self.cfg.resample else "de_step",
-                         model.cuda_density)
+                         model.cuda_density, self.cfg.mode)
         self._blocks = {}             # CPU: namespace -> (key, it0, words)
 
     @functools.cached_property
@@ -437,11 +449,12 @@ class Step:
                               emit=w.emit, phase=phase)
 
     def plan(self, state: SamplerState, n_iter: int, thin: int = 1,
-             fire=None, switch: int = None):
+             fire=None, switch: int = None, store: bool = True):
         """The windows of ``n_iter`` iterations from ``state``
-        (:func:`plan_windows`): the gates from :func:`rng.gates`, the
-        first one ``fire`` or, when None, read from ``state.fire`` (the
-        run's one host sync)."""
+        (:func:`plan_windows`; ``store=False``: windows that store no
+        row): the gates from :func:`rng.gates`, the first one ``fire``
+        or, when None, read from ``state.fire`` (the run's one host
+        sync)."""
         cfg = self.cfg
         gates, fire0 = None, False
         if cfg.rows.mig >= 0:
@@ -449,15 +462,17 @@ class Step:
             gates = rng.gates(state.key, state.iteration, n_iter,
                               cfg.rows.fire, cfg.alpha)
         return plan_windows(state.iteration, n_iter, fire0, gates,
-                            self.superstep_k, thin, switch)
+                            self.superstep_k, thin, switch, store)
 
     def advance(self, state: SamplerState, n_iter: int, thin: int = 1,
                 traj=None, fire=None, switch: int = None) -> SamplerState:
         """Run ``n_iter`` iterations in place as planned windows
-        (:meth:`plan`), storing every ``thin``-th into ``traj``; the
-        windows from run index ``switch`` on take the post-burn-in
-        variant.  No host sync after the plan."""
-        for w in self.plan(state, n_iter, thin, fire, switch):
+        (:meth:`plan`), storing every ``thin``-th into ``traj`` (with no
+        ``traj``, windows that store nothing); the windows from run index
+        ``switch`` on take the post-burn-in variant.  No host sync after
+        the plan."""
+        for w in self.plan(state, n_iter, thin, fire, switch,
+                           store=traj is not None):
             self.window(state, w, traj)
         return state._replace(iteration=state.iteration + n_iter)
 
@@ -492,9 +507,14 @@ class UnfusedStep:
     ``[C, d]`` (the JAX state ``[G, Np, d]`` reshaped): migration with
     probability α, then the synchronous or sequential sweep, once per
     block where the blocks apply, each chain's proposal scored by the
-    model's torch density (:func:`.ops.accept.make_fitness`); partners
+    model's torch density through the configuration's fitness slot
+    (:func:`.ops.accept.make_fitness`: the posterior, or the objective
+    alone when optimizing) and accepted by its update slot (MH, or the
+    greedy ``maximize``/``minimize``, which draw nothing); partners
     come from the current group or, for DE-MCz, from the history, whose
-    row ``it − 1`` takes the new state.
+    row ``it − 1`` takes the new state.  The state is float32 or float64,
+    the configuration's dtype; a float64 one draws by the JAX step's x64
+    word rules (:mod:`.rng`).
 
     Its random numbers come as the JAX step's do, from one
     :class:`~demcmc_tpu_torch.rng.Pool` per iteration: ``[G,
@@ -508,8 +528,7 @@ class UnfusedStep:
     sweep's, and an iteration uses one set and passes over the other (a
     callable that ignores the iteration is taken as one that reads it).
     A stochastic model's fresh noise raises ``NotImplementedError`` here
-    (the custom slots, the optimization modes and float64 already do in
-    ``DE``)."""
+    (the custom slots already do in ``DE``)."""
 
     WORDS_PER_BLOCK = 1 << 21     # pool words drawn per block, at most
 
@@ -521,8 +540,9 @@ class UnfusedStep:
                 "for it")
         self.de = de
         self.device = torch.device(device)
+        self.dtype, self.x64 = de.torch_dtype, de.dtype is np.float64
         self.G, self.Np, self.d = de.n_groups, de.Np, spec.dim
-        self.fitness = accept_ops.make_fitness(model, spec)
+        self.fitness = accept_ops.make_fitness(model, spec, de)
         self.int_mask = (torch.as_tensor(spec.int_mask, device=self.device)
                          if spec.has_int else None)
         self.proposal = getattr(proposal_ops, de.generate_proposal)
@@ -532,21 +552,23 @@ class UnfusedStep:
                                                 device=self.device)
                                 for b in de.blocks]
         self.blocking = _blocking_const(de)
-        zeros = (torch.zeros((self.G, self.Np, self.d), device=self.device),
-                 torch.zeros((self.G, self.Np), device=self.device))
-        hist = (torch.zeros((1, self.G * self.Np, self.d),
+        zeros = (torch.zeros((self.G, self.Np, self.d), dtype=self.dtype,
+                             device=self.device),
+                 torch.zeros((self.G, self.Np), dtype=self.dtype,
+                             device=self.device))
+        hist = (torch.zeros((1, self.G * self.Np, self.d), dtype=self.dtype,
                             device=self.device)
                 if de.uses_resample else None)
 
         def fit0(x):
-            return torch.zeros(x.shape[:-1], device=x.device)
+            return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
         self.branch_cols = {}
         if self.block_masks is not None and self.blocking is None:
             for blocked in (True, False):
-                counter = rng.CountingDraws(self.G, self.device)
+                counter = rng.CountingDraws(self.G, self.device, self.x64)
                 self.sweeps(counter, *zeros, 1, fit0, hist, blocked)
                 self.branch_cols[blocked] = counter.words
-        counter = rng.CountingDraws(self.G, self.device)
+        counter = rng.CountingDraws(self.G, self.device, self.x64)
         self.step_core(counter, *zeros, 1, fit0, hist)
         self.pool_words = max(counter.words, 1)
         self._blocks = {}             # namespace -> (key, it0, words)
@@ -569,7 +591,8 @@ class UnfusedStep:
         ctx = proposal_ops.ProposalContext(de, theta, weight, it, draws,
                                            history)
         cross = self.proposal(ctx)
-        log_adj = torch.zeros((G, Np), device=theta.device)
+        log_adj = torch.zeros((G, Np), dtype=theta.dtype,
+                              device=theta.device)
         if de.theta_snooker > 0.0:
             sn_gate = draws.uniform((G, Np)) <= dists.f32(de.theta_snooker)
             sn_prop, z, degen = proposal_ops.snooker(ctx)
@@ -590,7 +613,7 @@ class UnfusedStep:
         if self.int_mask is not None:
             prop = torch.where(self.int_mask, torch.round(prop), prop)
         w_prop = fitness(prop)
-        acc = accept_ops.mh_update(draws, weight, w_prop, log_adj)
+        acc = accept_ops.make_update(de)(draws, weight, w_prop, log_adj)
         if member is not None:
             acc = acc & (torch.arange(Np, device=acc.device) == member)
         theta, weight = accept_ops.apply_accept(theta, weight, prop, w_prop,
@@ -670,7 +693,7 @@ class UnfusedStep:
                            self.device).T
         scal = self._block(rng.SCALAR_NS, key, it, rng.Scalars.N_DRAWS, 1,
                            torch.device("cpu"))
-        return rng.Pool(bits, rng.Scalars([w[0] for w in scal]))
+        return rng.Pool(bits, rng.Scalars([w[0] for w in scal]), self.x64)
 
     # ---- run_scan's interface, as Step's
 
@@ -683,11 +706,12 @@ class UnfusedStep:
                 or state.history.shape[0] < state.iteration):
             raise ValueError("a resample run needs state.history [H, C, d] "
                              "with a row for each iteration")
-        want = [("theta", state.theta, torch.float32, (C, d)),
-                ("weight", state.weight, torch.float32, (C,))]
+        dt = self.dtype
+        want = [("theta", state.theta, dt, (C, d)),
+                ("weight", state.weight, dt, (C,))]
         if out is not None:
-            want += [("out[0]", out[0], torch.float32, (C, d)),
-                     ("out[1]", out[1], torch.float32, (C,)),
+            want += [("out[0]", out[0], dt, (C, d)),
+                     ("out[1]", out[1], dt, (C,)),
                      ("out[2]", out[2], torch.bool, (C,))]
         for name, t, dt, shape in want:
             if (t.device != state.theta.device or t.dtype != dt
@@ -724,26 +748,42 @@ class UnfusedStep:
 
 def fused_supported(model: DEModel, de: DE, device="cpu") -> bool:
     """Static predicate: does this configuration step through the kernels
-    (:class:`Step`)?  It does where the model names a CUDA density that
-    the configuration's kernel is built for (K3 for DE-MCz, K1 else), the
-    blocks, if any, are constant and as many as the kernels are built for,
-    and a group fits one block of the kernel (``fused_step.block_chains``,
-    read from the built kernel on a CUDA device; the launch's static limit
-    of 1,024 chains on the CPU), as the JAX predicate falls back outside
-    its kernel's shapes (``demcmc_tpu/ops/fused_step.py:200-204``).  Every
-    other configuration takes the unfused step."""
+    (:class:`Step`)?  It does where the configuration is float32 and its
+    kernel is built for the model's CUDA density with its accept: MH with
+    the posterior (K3 for DE-MCz, K1 else, ``_build.KERNEL_DENSITIES``),
+    or the greedy max/min with the objective (``evaluate_fitness='fun'``;
+    K1 only, not DE-MCz, ``_build.GREEDY_DENSITIES``), as the JAX
+    predicate fuses (``demcmc_tpu/ops/fused_step.py:170-198, 287-288``);
+    where the blocks, if any, are constant and as many as the kernels are
+    built for; and where a group fits one block of the kernel
+    (``fused_step.block_chains``, read from the built kernel on a CUDA
+    device; the launch's static limit of 1,024 chains on the CPU), as the
+    JAX predicate falls back outside its kernel's shapes
+    (``demcmc_tpu/ops/fused_step.py:200-204``).  Every other
+    configuration (float64 among them) takes the unfused step."""
     dens = model.cuda_density
-    kernel = "resample_step" if de.uses_resample else "de_step"
-    if dens is None or dens.name not in _build.KERNEL_DENSITIES[kernel]:
+    if dens is None or de.dtype is not np.float32:
+        return False
+    if de.is_mh:
+        if de.fun_fitness:
+            return False
+        kernel = "resample_step" if de.uses_resample else "de_step"
+        built = _build.KERNEL_DENSITIES[kernel]
+    else:
+        if not de.fun_fitness or de.uses_resample:
+            return False
+        built = _build.GREEDY_DENSITIES
+    if dens.name not in built:
         return False
     if de.blocks is not None and _blocking_const(de) is None:
         return False
     n_blk = len(fused_ops.const_blocks(de))
     if n_blk and n_blk not in _build.BLOCK_COUNTS:
         return False
+    greedy = {} if de.is_mh else {"mode": fused_ops.accept_mode(de)}
     return de.Np <= fused_ops.block_chains(
         de.uses_resample, dens, de.sequential_sweep, de.theta_snooker > 0.0,
-        max(n_blk, 1), device)
+        max(n_blk, 1), device, **greedy)
 
 
 def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
@@ -759,17 +799,23 @@ def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
     return UnfusedStep(model, de, spec, device)
 
 
-def _trajectory_run(step, state, n_iter: int, thin: int, body):
-    """Allocate the trajectory, check once, run ``body(state, traj)`` and
-    bring the stored rows to the host."""
+def _trajectory_run(step, state, n_iter: int, thin: int, body,
+                    collect: bool = True):
+    """Allocate the trajectory (in the state's dtype), check once, run
+    ``body(state, traj)`` and bring the stored rows to the host; with
+    ``collect=False`` no trajectory at all (``traj`` None, no buffer, no
+    copy; returns ``(state, None)``)."""
     if thin < 1 or n_iter % thin:
         raise ValueError(f"n_iter ({n_iter}) must be a positive multiple "
                          f"of thin ({thin})")
+    if not collect:
+        step.check(state)
+        return body(state, None), None
     C, d = state.theta.shape
     T = n_iter // thin
-    dev = state.theta.device
-    traj = (torch.empty((T, C, d), dtype=torch.float32, device=dev),
-            torch.empty((T, C), dtype=torch.float32, device=dev),
+    dev, dt = state.theta.device, state.theta.dtype
+    traj = (torch.empty((T, C, d), dtype=dt, device=dev),
+            torch.empty((T, C), dtype=dt, device=dev),
             torch.empty((T, C), dtype=torch.bool, device=dev))
     step.check(state, tuple(x[0] for x in traj))
     state = body(state, traj)
@@ -779,26 +825,30 @@ def _trajectory_run(step, state, n_iter: int, thin: int, body):
 
 
 def run_scan(step, state: SamplerState, n_iter: int, thin: int = 1,
-             phase2: int = None):
+             phase2: int = None, collect: bool = True):
     """Run ``n_iter`` iterations, storing every ``thin``-th (iterations
     thin, 2·thin, ... of the run); returns ``(state, StepOutput)`` with the
-    trajectory on the host.  The kernels' :class:`Step` runs as planned
-    K-iteration windows (:meth:`Step.advance`: one read of ``state.fire``,
-    then launches only); ``phase2`` is the run index from which they take
-    the post-burn-in variant (the switch of the JAX ``run_scan``'s
-    ``phase2 = (post_step, switch)``; :func:`sample` wires it).  The
-    unfused step runs one iteration at a time (:func:`run_loop`), with no
-    sync."""
+    trajectory on the host, or ``(state, None)`` with ``collect=False``
+    (the JAX ``run_scan(..., collect=False)`` of optimization: no
+    trajectory is stored or copied).  The kernels' :class:`Step` runs as
+    planned K-iteration windows (:meth:`Step.advance`: one read of
+    ``state.fire``, then launches only); ``phase2`` is the run index from
+    which they take the post-burn-in variant (the switch of the JAX
+    ``run_scan``'s ``phase2 = (post_step, switch)``; :func:`sample` wires
+    it).  The unfused step runs one iteration at a time
+    (:func:`run_loop`), with no sync."""
     if not isinstance(step, Step):
         if phase2 is not None:
             raise ValueError("phase2 needs the kernels' Step")
-        return run_loop(step, state, n_iter, thin)
+        return run_loop(step, state, n_iter, thin, collect)
     return _trajectory_run(
         step, state, n_iter, thin,
-        lambda s, traj: step.advance(s, n_iter, thin, traj, switch=phase2))
+        lambda s, traj: step.advance(s, n_iter, thin, traj, switch=phase2),
+        collect)
 
 
-def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1):
+def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1,
+             collect: bool = True):
     """:func:`run_scan` one iteration at a time through ``step(state,
     out)`` (for :class:`Step`: K2, gated on the device flag, and K1 at
     every iteration, or K3): the unfused step's loop, and the kernels'
@@ -806,17 +856,17 @@ def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1):
     def body(s, traj):
         for i in range(n_iter):
             out = None
-            if (i + 1) % thin == 0:
+            if traj is not None and (i + 1) % thin == 0:
                 t = (i + 1) // thin - 1
                 out = (traj[0][t], traj[1][t], traj[2][t])
             s = step(s, out, check=False)
         return s
-    return _trajectory_run(step, state, n_iter, thin, body)
+    return _trajectory_run(step, state, n_iter, thin, body, collect)
 
 
-def _not_ported(name: str, where: str):
+def _not_ported(name: str, where: str, fn: str = "sample"):
     raise NotImplementedError(
-        f"sample(..., {name}) is not ported to demcmc_tpu_torch yet "
+        f"{fn}(..., {name}) is not ported to demcmc_tpu_torch yet "
         f"(ROADMAP.md {where}); use demcmc_tpu for it")
 
 

@@ -25,6 +25,13 @@ def f32(x: float) -> float:
     return float(np.float32(x))
 
 
+def const(x: float, dtype) -> float:
+    """A Python constant as JAX folds a weak-typed one into an array of
+    torch ``dtype``: rounded to float32 for a float32 array, kept for a
+    float64 one."""
+    return f32(x) if dtype == torch.float32 else float(x)
+
+
 def div(x, c: float):
     """``x / c`` for a Python constant ``c``, rounded as a true division on
     every device: on CUDA, PyTorch divides by a host scalar as ``x · (1/c)``,

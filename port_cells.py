@@ -1,5 +1,6 @@
-"""The cells of the PyTorch/CUDA port's third and fourth slices (LBA, ABC
-binomial, discrete binomial; abc_kde, the unfused Gaussian, LNR): their
+"""The cells of the PyTorch/CUDA port's slices from the third on (LBA,
+ABC binomial, discrete binomial; abc_kde, the unfused Gaussian, LNR; the
+DE-MCz, blocked and hierarchical cells; the optimization cells): their
 sizes and run lengths, the float64 posterior oracles and the gates that
 ``chip_smoke.py`` holds the GPU's ``sample()`` to, and that
 ``tools/port_oracles_cpu.py`` holds the JAX package and the port's plain
@@ -454,3 +455,63 @@ def hier_gate(means, b0_means, oracle):
     db0 = float(np.abs(np.asarray(b0_means) - oracle["b0"]).max())
     rows["b0"] = (db0, HIER_B0_ATOL)
     return ok and db0 <= HIER_B0_ATOL, rows
+
+
+# ---------------------------------------------------- slice 7: optimization
+#
+# opt-rastrigin: the 2-d Rastrigin (A = 10, U(−5, 5)) minimized in float32
+# through K1's greedy min accept at the width of the fused cells, G = 256 ×
+# Np = 16, burn-in 1,000, 3,000 iterations, α = 0.1, key 0.  opt-mle: the
+# bench Gaussian (50 observations from numpy seed 0) maximized with the
+# objective alone through K1's greedy max accept, the same size.  The two
+# float64 cells are the reference's own, through the unfused step:
+# examples/optimize.py (Np = 10 × 4 groups, 10,000 iterations, key 0) and
+# tests/test_optimization.py::test_gaussian_mle (100 draws of N(2, 1.5)
+# from numpy seed 3, Np = 12 × 4, 8,000 iterations, key 1).
+OPT_RASTRIGIN_CELL = dict(n_dim=2, n_groups=256, Np=16, burnin=1000,
+                          n_iter=3000, key=0)
+OPT_MLE_CELL = dict(n_groups=256, Np=16, burnin=1000, n_iter=3000, key=0,
+                    n_obs=50, seed=0)
+OPT_F64_RASTRIGIN_CELL = dict(n_dim=2, n_groups=4, Np=10, n_iter=10_000,
+                              key=0)
+OPT_F64_MLE_CELL = dict(n_groups=4, Np=12, n_iter=8000, key=1, n_obs=100,
+                        loc=2.0, scale=1.5, seed=3)
+# Gates.  float32, fixed from the port's plain path on the CPU at the
+# cells' size before the GPU's run (tools/port_oracles_cpu.py opt; PERF.md):
+# the Rastrigin's best exactly 0 at keys 0-2, its argmin within 5.1e-5 of
+# 0 (the float32 objective is exactly 0 wherever cos(2πx) rounds to 1), so
+# best within 4 ulp of A·n = 20 and argmin within 2e-4; the MLE's μ̂ and σ̂
+# within 1.7e-4 of the closed form at keys 0-2, where the float32
+# objective resolves them to about sqrt(2 ulp(|ll|) / (n / σ²)) ≈ 5e-4, the
+# gate.  float64: the reference's own, 1e-8 and 1e-5, and 1e-4.
+OPT_BEST_F32 = 4 * float(np.spacing(np.float32(20.0)))
+OPT_ARGMIN_F32 = 2e-4
+OPT_MLE_F32 = 5e-4
+OPT_BEST_F64, OPT_ARGMIN_F64, OPT_MLE_F64 = 1e-8, 1e-5, 1e-4
+
+
+def opt_mle_data(cell):
+    """The MLE cell's observations: float32 standard normals for the
+    float32 cell (the bench Gaussian's data), float64 N(loc, scale) draws
+    for the reference's float64 cell."""
+    rng = np.random.default_rng(cell["seed"])
+    if "loc" in cell:
+        return rng.normal(cell["loc"], cell["scale"], size=cell["n_obs"])
+    return rng.standard_normal(cell["n_obs"]).astype(np.float32)
+
+
+def rastrigin_gate(best, argmin, best_tol, argmin_tol):
+    """(ok, rows): the optimum's value within ``best_tol`` of 0 and its
+    location within ``argmin_tol`` of 0 in every dimension."""
+    dx = float(np.abs(np.asarray(argmin, dtype=np.float64)).max())
+    rows = {"best": (float(best), best_tol), "argmin": (dx, argmin_tol)}
+    return abs(float(best)) <= best_tol and dx <= argmin_tol, rows
+
+
+def mle_gate(mu, sigma, data, tol):
+    """(ok, rows): μ̂ and σ̂ within ``tol`` of the closed form, the mean and
+    the standard deviation with ddof = 0, in float64."""
+    x = np.asarray(data, dtype=np.float64)
+    rows = {"mu": (float(mu), float(x.mean())),
+            "sigma": (float(sigma), float(x.std()))}
+    return all(abs(a - b) <= tol for a, b in rows.values()), rows

@@ -49,6 +49,18 @@ def test_unfused_step_modules_import_neither_jax_nor_the_jax_package(rel):
     assert not roots & {"jax", "jaxlib", "demcmc_tpu"}
 
 
+@pytest.mark.parametrize("rel", ["optimize.py", "particle.py",
+                                 "models/rastrigin.py"])
+def test_optimization_modules_import_neither_jax_nor_the_jax_package(rel):
+    """The optimization slice's modules, one by one: each exists and
+    imports no JAX; ``particle.py`` is the port's own numpy copy of the
+    JAX package's."""
+    roots = set(_imported_roots(PKG / rel))
+    assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}
+    if rel == "particle.py":
+        assert "numpy" in roots and "torch" not in roots
+
+
 @pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py",
                                   "tools/k1_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
@@ -90,17 +102,32 @@ def test_kernel_wrappers_never_fall_back():
         tmig.migrate(theta, w, fire, 2, 4)
     with pytest.raises(ValueError, match="cpu or cuda"):
         tdm.sample(model, de, 10, device="meta")
+    # the greedy entries of K1 (optimization) likewise
+    from demcmc_tpu_torch.models import rastrigin
+    from demcmc_tpu_torch.ops import _build
+    for m, d in ((rastrigin.make(Np=4, n_groups=2, dtype=np.float32)),
+                 (model, de.replace(update_particle="maximize",
+                                    evaluate_fitness="fun"))):
+        gcfg = tfused.StepConfig.make(m, d, tdm.make_spec(m, d))
+        assert gcfg.mode in ("max", "min")
+        assert _build.entry("de_step", m.cuda_density, gcfg.mode) == \
+            f"de_step_{gcfg.mode}_{m.cuda_density.name}"
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            tfused.de_step(gcfg, m, None, theta, w, fire, 1)
+        with pytest.raises(ValueError, match="cpu or cuda"):
+            tdm.optimize(m, d, 10, device="meta")
+    with pytest.raises(ValueError, match="greedy"):
+        _build.entry("resample_step", model.cuda_density, "max")
+    with pytest.raises(ValueError, match="rastrigin"):
+        _build.entry("de_step", rastrigin.density(), "mh")
 
 
-# the cases keep the ids they had when migration and blocks raised too
+# the cases keep the ids they had when migration, blocks, the optimization
+# modes and float64 raised too
 @pytest.mark.parametrize("kw,what", [
     ({"generate_proposal": "snooker"}, "snooker"),
     ({"sample": "custom"}, "partner slots"),
-    ({"update_particle": "maximize"}, "optimization"),
-    ({"update_particle": "minimize"}, "optimization"),
-    ({"dtype": np.float64}, "float64"),
-], ids=["kw0-snooker", "kw4-partner slots", "kw5-optimization",
-        "kw6-optimization", "kw7-float64"])
+], ids=["kw0-snooker", "kw4-partner slots"])
 def test_unported_settings_raise(kw, what):
     """A setting the port does not carry raises, naming the ROADMAP item
     that carries it."""
@@ -113,13 +140,18 @@ def test_unported_settings_raise(kw, what):
     {"sample": "resample", "n_initial": 10, "n_groups": 4},
     {"blocking_on": True},
     {"blocks": [[True, False], [False, True]], "blocking_on": True},
-], ids=["migration", "blocking_on", "blocks"])
+    {"update_particle": "maximize", "evaluate_fitness": "fun"},
+    {"update_particle": "minimize", "evaluate_fitness": "fun"},
+    {"dtype": np.float64},
+], ids=["migration", "blocking_on", "blocks", "optimization-maximize",
+        "optimization-minimize", "float64"])
 def test_ported_settings_run(kw):
     """DE-MCz with migration as ``DE(Np=3, sample='resample',
     n_initial=...)`` gives it (the default four groups and α = 0.1), a
-    constant ``blocking_on`` and two blocks, which raised before the port
-    carried them: each builds a step, the kernels' and the unfused one,
-    and runs two iterations on the CPU."""
+    constant ``blocking_on``, two blocks, the greedy accepts with the
+    objective and float64, which raised before the port carried them:
+    each builds a step, the kernels' (where the configuration has one)
+    and the unfused one, and runs two iterations on the CPU."""
     model, _ = tgauss.make(data=DATA)
     de = tdm.DE(bounds=tgauss.BOUNDS, Np=3, burnin=1, **kw)
     assert de.alpha == 0.1 and de.n_groups == 4
@@ -133,6 +165,16 @@ def test_ported_settings_run(kw):
             state = step(state)
         assert state.iteration == de.n_initial + 3
         assert torch.isfinite(state.weight).all()
+        assert state.theta.dtype == de.torch_dtype
+
+
+def test_optimize_replicated_raises_naming_its_item():
+    """``optimize_replicated`` (R runs as one batch) is not ported yet: it
+    raises, naming ROADMAP.md A8."""
+    from demcmc_tpu_torch.models import rastrigin
+    model, de = rastrigin.make()
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
+        tdm.optimize_replicated(lambda data: model, de, 10, [None])
 
 
 def test_resample_wrapper_never_falls_back():

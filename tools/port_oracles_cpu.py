@@ -5,7 +5,7 @@ the port's cells (``port_cells.py``) on the CPU, so that the GPU's run
     JAX_PLATFORMS=cpu python tools/port_oracles_cpu.py [CELL ...]
 
 CELL is any of ``lba discrete kde gauss-unfused lnr mcz-mig blocked
-hier`` (all by default).
+hier opt`` (all by default).
 
 1. LBA (100 trials, numpy seed 0): ``port_cells.lba_oracle``, then
    ``demcmc_tpu.sample`` (the JAX package's XLA step) with 256 chains at
@@ -37,6 +37,15 @@ hier`` (all by default).
    the JAX XLA step (the JAX model on the same data) at the cell's length,
    through ``port_cells.hier_gate`` at 6,000, 10,000 and 20,000 kept
    draws, with max R̂ printed (not gated: see ``port_cells.HIER_CELL``).
+
+9. opt: the optimization cells (``port_cells.OPT_*``): the float32
+   Rastrigin and MLE cells through ``demcmc_tpu_torch.optimize(...,
+   device='cpu')`` (K1's plain version with the greedy accepts) at keys
+   0-2 and ``demcmc_tpu.optimize`` at key 0, each through
+   ``port_cells.rastrigin_gate`` / ``mle_gate`` with the float32 gates;
+   then the reference's float64 cells through both packages (the port's
+   unfused step; the JAX package with x64 on) at the cells' length, with
+   the float64 gates.
 
 Prints one line per run; exits non-zero if a run at the cell's length
 fails its gate or R̂ ≥ ``port_cells.RHAT_MAX``.  About three minutes on
@@ -289,10 +298,100 @@ def check_hier():
     return ok_all
 
 
+def _opt_models(which, dtype, pkg):
+    """(model, de) of an optimization cell in ``pkg`` (the JAX package or
+    the port) at ``dtype``: the Rastrigin or the Gaussian MLE (the bench
+    Gaussian's model in float32, the reference test's in float64)."""
+    cell = {("rastrigin", 32): pc.OPT_RASTRIGIN_CELL,
+            ("rastrigin", 64): pc.OPT_F64_RASTRIGIN_CELL,
+            ("mle", 32): pc.OPT_MLE_CELL,
+            ("mle", 64): pc.OPT_F64_MLE_CELL}[which, dtype]
+    size = dict(Np=cell["Np"], n_groups=cell["n_groups"])
+    size.update({"burnin": cell["burnin"]} if "burnin" in cell else {})
+    f = np.float32 if dtype == 32 else np.float64
+    if which == "rastrigin":
+        return pkg.models.rastrigin.make(n_dim=cell["n_dim"], dtype=f,
+                                         **size), cell
+    data = pc.opt_mle_data(cell)
+    opt = dict(update_particle="maximize", evaluate_fitness="fun")
+    if dtype == 32:
+        return pkg.models.gaussian.make(data=data, **size, **opt), cell
+    if pkg is jdm:
+        import jax
+        import jax.numpy as jnp
+
+        def loglike(data, mu, sigma):
+            return jnp.sum(jax.scipy.stats.norm.logpdf(data, mu, sigma))
+
+        def prior(key):
+            k1, k2 = jax.random.split(key)
+            return [jax.random.uniform(k1, minval=-5.0, maxval=5.0),
+                    jax.random.uniform(k2, minval=0.1, maxval=5.0)]
+        data = jnp.asarray(data)
+    else:
+        import torch
+
+        def loglike(data, mu, sigma):
+            x = torch.as_tensor(data, dtype=mu.dtype)
+            s2 = sigma * sigma
+            return torch.sum((torch.log(2.0 * np.pi * s2)
+                              + (x - mu) * (x - mu) / s2) / -2.0)
+
+        def prior(uniform, n):
+            u = uniform(2)
+            return [-5.0 + 10.0 * u[0], 0.1 + 4.9 * u[1]]
+    model = pkg.DEModel(loglike=loglike, sample_prior=prior,
+                        names=("mu", "sigma"), data=data)
+    de = pkg.DE(bounds=((-np.inf, np.inf), (1e-6, np.inf)), dtype=f,
+                **size, **opt)
+    return (model, de), cell
+
+
+def check_opt():
+    from contextlib import nullcontext
+
+    import jax
+    tols = {32: (pc.OPT_BEST_F32, pc.OPT_ARGMIN_F32, pc.OPT_MLE_F32),
+            64: (pc.OPT_BEST_F64, pc.OPT_ARGMIN_F64, pc.OPT_MLE_F64)}
+    all_ok = True
+    for dtype in (32, 64):
+        best_tol, argmin_tol, mle_tol = tols[dtype]
+        for which in ("rastrigin", "mle"):
+            for pkg, keys in ((tdm, (0, 1, 2) if dtype == 32 else (None,)),
+                              (jdm, (None,))):
+                # the JAX package runs float64 with x64 on, float32 off
+                ctx = (jax.enable_x64(dtype == 64) if pkg is jdm
+                       else nullcontext())
+                for key in keys:
+                    kw = {"device": "cpu"} if pkg is tdm else {}
+                    with ctx:
+                        (model, de), cell = _opt_models(which, dtype, pkg)
+                        key = cell["key"] if key is None else key
+                        t0 = time.perf_counter()
+                        pop = pkg.optimize(model, de, cell["n_iter"],
+                                           key=key, **kw)
+                        theta, best = pkg.get_optimal(de, model, pop)
+                    secs = time.perf_counter() - t0
+                    if which == "rastrigin":
+                        ok, rows = pc.rastrigin_gate(best, theta["x"],
+                                                     best_tol, argmin_tol)
+                    else:
+                        ok, rows = pc.mle_gate(theta["mu"], theta["sigma"],
+                                               pc.opt_mle_data(cell),
+                                               mle_tol)
+                    print(f"[opt] {pkg.__name__}.optimize, {which}, "
+                          f"float{dtype}, {de.n_chains} chains, "
+                          f"{cell['n_iter']} iterations, key {key} "
+                          f"({secs:.1f} s): {rows}; "
+                          f"{'passes' if ok else 'FAILS'}", flush=True)
+                    all_ok = all_ok and ok
+    return all_ok
+
+
 CHECKS = {"lba": check_lba, "discrete": check_discrete, "kde": check_kde,
           "gauss-unfused": check_gauss_unfused, "lnr": check_lnr,
           "mcz-mig": check_mcz_mig, "blocked": check_blocked,
-          "hier": check_hier}
+          "hier": check_hier, "opt": check_opt}
 
 if __name__ == "__main__":
     names = sys.argv[1:] or list(CHECKS)
