@@ -170,6 +170,28 @@ post variant.  Its launch checks are the counts of
 44. timing7  device ms per launch of K1 max and K1 min at 4,096 chains,
            one iteration and a window of K storing no row, beside the
            plain versions and the bounds.
+45. k1-shard  K1 with ``chain0`` on each of 4 shards of the 4,096-chain
+           Gaussian (θs = 0.25) against its plain version on the shard
+           and the shard's slice of a launch on the whole population, bit
+           for bit: 8 bits-in iterations (each shard reading its columns
+           of the population's buffer) crossing burn-in with the gate set
+           at the start, then one on Philox words;
+46. main-mesh  ``sample()`` and ``optimize()`` with ``mesh=chain_mesh(
+           devices=[cuda:0] * D)``: the 4,096-chain Gaussian and the
+           65,536-chain snooker Gaussian on D = 2 and 4 (the unsharded run
+           and each D in turns), the 4,096-chain Gaussian through the
+           unfused step and opt-mle on 2 and 4, LBA and the ABC binomial
+           at 4,096 chains (128 iterations) and abc_kde at 3,072 (32
+           iterations, K4 per shard) on 2: every sharded run bit for bit
+           the unsharded one, K1 launched once per planned window and
+           shard, K2 once per open gate on the gathered population; µs
+           and launches per iteration for each D;
+47. timing8  device ms per fired exchange under a 4-shard mesh (the
+           population gathered, K2, each shard's rows copied back) at G =
+           256 and 4,096, checked bit for bit against the plain exchange
+           and for not waiting on the card (issued behind a spin),
+           beside the plain exchange and K2's bound; K1 on one shard of
+           four beside its plain version and its bound.
 
 The last three lines of standard output are the kernels' JSON line, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -544,7 +566,7 @@ def _loop_run(model, de, n_iter, key, thin=1):
     return sampler.bundle_samples(model, de, spec, ys, n_iter, thin), state
 
 
-def _same_run(tag, a, b):
+def _same_run(tag, a, b, between="the planned windows and the loop"):
     """Raise unless two ``(chains, state)`` results are equal bit for
     bit: draws, lp, acceptance and the final θ, w, gate and history."""
     (ca, sa), (cb, sb) = a, b
@@ -552,15 +574,14 @@ def _same_run(tag, a, b):
                        (ca.acceptance, cb.acceptance, "acceptance")):
         x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
         if x.shape != y.shape or x.tobytes() != y.tobytes():
-            raise AssertionError(f"{tag}: {what} differ between the "
-                                 f"planned windows and the loop")
+            raise AssertionError(f"{tag}: {what} differ between {between}")
     if sa.iteration != sb.iteration:
         raise AssertionError(f"{tag}: final iterations differ")
     for k in ("theta", "weight", "fire", "history"):
         x, y = getattr(sa, k), getattr(sb, k)
-        if x is not None and not torch.equal(ints(x), ints(y)):
-            raise AssertionError(f"{tag}: final {k} differs between the "
-                                 f"planned windows and the loop")
+        if x is not None and not torch.equal(ints(x).cpu(), ints(y).cpu()):
+            raise AssertionError(f"{tag}: final {k} differs between "
+                                 f"{between}")
 
 
 def _windows_vs_loop(tag, model, de, n_iter, key, thin=1,
@@ -805,6 +826,17 @@ def device_ms(fn, n):
     return a.elapsed_time(b) / n, queued, issue_ms
 
 
+def _exchange_work(G_, Np_, d):
+    """(bytes, operations) of one fired K2 launch on ``G_ × Np_`` chains
+    of dimension ``d``: the gate and every w read, the victims' θ and w
+    read and written; a Philox block and the rank keys' arithmetic per
+    chain, the rank network per group."""
+    C_ = G_ * Np_
+    nbytes = 4 + C_ * 4 + 2 * G_ * (d + 1) * 4
+    ops = C_ * (PHILOX_OPS + K2_F32_OPS) + 4 * G_ * (G_.bit_length() - 1) ** 2
+    return nbytes, ops
+
+
 def phase_timing(dev, launches, errs):
     from demcmc_tpu_torch import rng
     from demcmc_tpu_torch.ops import fused_step, migration as mig
@@ -878,11 +910,7 @@ def phase_timing(dev, launches, errs):
                 + C * (D + 1) * 4 + C      # new θ, w and accept written
                 + 4)                       # next migration gate
     k1_ops = k1_blocks * PHILOX_OPS + C * K1_F32_OPS
-    k2_bytes = (4 + C * 4                  # gate, w read
-                + G * (D + 1) * 4          # victims' θ, w read
-                + G * (D + 1) * 4)         # victims' θ, w written
-    k2_ops = (C * (PHILOX_OPS + K2_F32_OPS)
-              + 4 * G * (G.bit_length() - 1) ** 2)
+    k2_bytes, k2_ops = _exchange_work(G, NP, D)
     # in burn-in K1 also selects the γ₂ base: two segmented scans, an exp
     # and Np compares per chain and the base term; an unfired K2 reads the
     # gate and returns
@@ -1492,9 +1520,7 @@ def phase_timing_slice2(dev, launches, errs):
     k1q_bytes, k1q_ops = _step_work(
         cfg_q, rng.words(0, it, cfg_q.rows.n_words, Cq, device=dev),
         GAUSS_F32_OPS)
-    k2_bytes = 4 + C_ * 4 + 2 * G65 * (d + 1) * 4
-    k2_ops = (C_ * (PHILOX_OPS + K2_F32_OPS)
-              + 4 * G65 * (G65.bit_length() - 1) ** 2)
+    k2_bytes, k2_ops = _exchange_work(G65, N65, d)
     rows = []
     specs = [("de_step/snooker-65536", "demcmc_tpu_torch/csrc/de_step.cu",
               "demcmc_tpu/ops/fused_step.py:2322", "k1sn", k1_bytes, k1_ops,
@@ -2946,9 +2972,7 @@ def phase_timing6(dev, paths, errs):
         lambda: mig.migrate(s.theta, s.weight, fired, Gm, Npm, it=2000),
         lambda: mig.migrate_plain(s.theta, s.weight, fired, rng.words(
             0, 2000, mig.N_ROWS, C_, device=dev), Gm, Npm))
-    k2_bytes = 4 + C_ * 4 + 2 * Gm * (D + 1) * 4
-    k2_ops = (C_ * (PHILOX_OPS + K2_F32_OPS)
-              + 4 * Gm * (Gm.bit_length() - 1) ** 2)
+    k2_bytes, k2_ops = _exchange_work(Gm, Npm, D)
     meta["k2-G128"] = (None, k2_bytes, k2_ops, 1)
     t = {}
     for key, (kern, plain) in calls.items():
@@ -3395,6 +3419,362 @@ def phase_timing7(dev, paths, errs):
     return rows
 
 
+# ------------------------------------------ eighth slice: the chain mesh
+
+MESH_SHARDS = (2, 4)      # shards on one card for the timed cells
+MESH_SHORT = 128          # iterations of the LBA and ABC cells on 2 shards
+MESH_KDE_ITER = 32        # of the abc_kde cell on 2 shards
+MESH_UNFUSED_ITER = 400   # of the unfused Gaussian's timed runs
+
+
+def _on_card(D, dev, cards=None):
+    """A chain mesh of ``D`` shards on the one card or, given ``cards``,
+    on the first ``D`` of them (None for D = 1)."""
+    import demcmc_tpu_torch as tdm
+    return None if D == 1 else tdm.chain_mesh(
+        devices=[dev] * D if cards is None else cards[:D])
+
+
+def _sync_cards():
+    for i in range(torch.cuda.device_count()):
+        torch.cuda.synchronize(i)
+
+
+def phase_k1_shard(dev):
+    """K1 with ``chain0`` on each of 4 shards of the 4,096-chain Gaussian
+    (θs = 0.25, so the snooker's member reads run too; α = 0.5, so the
+    gate each shard writes takes both values), against its plain
+    version on the same shard and against the shard's slice of a launch
+    on the whole population, bit for bit (θ, w, trajectory row, accept
+    flags, the gate): 8 bits-in iterations (every shard reads its columns
+    of the population's ``[n_words, 4,096]`` buffer) crossing burn-in 4
+    with the gate set at the start, then one on Philox words.  Returns
+    the largest |difference| of θ, w and the gate, here and in the
+    trajectory."""
+    from demcmc_tpu_torch.ops import fused_step
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian
+    data = np.random.default_rng(0).standard_normal(50).astype(np.float32)
+    model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=4,
+                              theta_snooker=0.25, alpha=0.5)
+    spec = tdm.make_spec(model, de)
+    cfg = fused_step.StepConfig.make(model, de, spec)
+    s = tdm.init_state(model, de, spec, 3, device=dev)
+    full = [s.theta, s.weight, torch.ones(1, dtype=torch.int32, device=dev)]
+
+    def slot(n):
+        return (torch.empty((n, D), device=dev), torch.empty(n, device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev))
+    shards = []
+    for g0, n in fused_step.shard_groups(G, 4):
+        a, b = g0 * NP, (g0 + n) * NP
+        k = [full[0][a:b].clone(), full[1][a:b].clone(), full[2].clone()]
+        shards.append((fused_step.local_config(cfg, n), a, b, k,
+                       [x.clone() for x in k]))
+    gen = np.random.default_rng(8)
+    fires, worst = set(), 0.0
+    for it in range(1, 10):
+        words = (random_words(gen, cfg.rows.n_words, C, dev) if it < 9
+                 else None)
+        of = slot(C)
+        fused_step.de_step(cfg, model, spec, *full, it, seed=77, bits=words,
+                           out=of)
+        for scfg, a, b, k, p in shards:
+            ok, op = slot(b - a), slot(b - a)
+            fused_step.de_step(scfg, model, spec, *k, it, seed=77,
+                               bits=words, out=ok, chain0=a)
+            fused_step.de_step_plain(scfg, model, spec, *p, it, words,
+                                     out=op, seed=77, chain0=a)
+            torch.cuda.synchronize()
+            for x, y, z, what in (
+                    (k[0], p[0], full[0][a:b], "theta"),
+                    (k[1], p[1], full[1][a:b], "w"),
+                    (k[2], p[2], full[2], "gate"),
+                    (ok[0], op[0], of[0][a:b], "trajectory theta"),
+                    (ok[1], op[1], of[1][a:b], "trajectory w"),
+                    (ok[2].view(torch.uint8), op[2].view(torch.uint8),
+                     of[2][a:b].view(torch.uint8), "accept flags")):
+                if x.dtype != torch.uint8:
+                    worst = max(worst, float((x - y).abs().max()),
+                                float((x - z).abs().max()))
+                x, y, z = (t if t.dtype == torch.uint8 else ints(t)
+                           for t in (x, y, z))
+                if not torch.equal(x, y):
+                    raise AssertionError(f"k1-shard: {what} of the shard "
+                                         f"from chain {a} differs from the "
+                                         f"plain version at it={it}")
+                if not torch.equal(x, z):
+                    raise AssertionError(f"k1-shard: {what} of the shard "
+                                         f"from chain {a} differs from the "
+                                         f"whole population's at it={it}")
+        fires.add(int(full[2][0]))
+        log("k1-shard", f"{'bits-in' if it < 9 else 'Philox'} it={it}: 4 "
+            f"shards of {C // 4} chains equal their plain versions and the "
+            f"whole population's launch bit for bit; gate "
+            f"{int(full[2][0])} on every shard")
+    if fires != {0, 1}:
+        raise AssertionError(f"k1-shard: the gate took only {fires}")
+    return worst
+
+
+def _same_result(tag, a, b, opt=False):
+    """Raise unless a sharded run equals the unsharded one bit for bit."""
+    if opt:
+        for x, y, what in zip(a, b, ("theta", "weight")):
+            if x.tobytes() != y.tobytes():
+                raise AssertionError(f"{tag}: final {what} differs from "
+                                     f"the unsharded run")
+        return
+    _same_run(tag, a, b, between="the sharded and the unsharded run")
+
+
+def _mesh_runs(tag, dev, model, de, n_iter, key, shards, thin=1,
+               allow_fused=True, opt=False, turns=1, kde=False, cards=None):
+    """The unsharded run (D = 1, on ``dev``) and a run on a mesh of D
+    shards of the one card (or of the first D of ``cards``) for each D in
+    ``shards``, in this call (``turns`` = 2: in
+    the order 1, ..., D, D, ..., 1): each sharded run equal to the
+    unsharded one bit for bit, its launches K1 once per planned window
+    and shard and K2 once per open gate (the kernels' step), or K4 once
+    per iteration and shard and once for the initial weights (the
+    unfused step of a model with K4, ``kde``), nothing else.  Returns µs
+    and launches per iteration for each D, and the launches of each D."""
+    import demcmc_tpu_torch as tdm
+    order = (1,) + tuple(shards)
+    if turns == 2:
+        order = order + order[::-1]
+    runs, secs, got = {}, {}, {}
+    for D in order:
+        mesh = _on_card(D, dev, cards)
+        _reset_counts()
+        _sync_cards()
+        t0 = time.perf_counter()
+        if opt:
+            pop = tdm.optimize(model, de, n_iter, key=key, mesh=mesh)
+            out = (pop.theta, pop.weight)
+        else:
+            out = tdm.sample(model, de, n_iter, key=key, thin=thin,
+                             return_state=True, allow_fused=allow_fused,
+                             mesh=mesh)
+        _sync_cards()
+        secs.setdefault(D, []).append(time.perf_counter() - t0)
+        got[D] = _counts()
+        if allow_fused:
+            plan = plan_counts(model, de, n_iter, key)
+            want = {"de_step": plan["de_step"] * D,
+                    "migrate": plan["migrate"]}
+        else:
+            want = {"kde_logpdf": D * n_iter + 1} if kde else {}
+        if got[D] != {k: want.get(k, 0) for k in got[D]}:
+            raise AssertionError(f"{tag} on {D} shards: launches {got[D]}, "
+                                 f"expected {want}")
+        if D in runs:
+            _same_result(tag, out, runs[D], opt)
+        runs[D] = out
+    for D in shards:
+        _same_result(f"{tag} on {D} shards", runs[D], runs[1], opt)
+    m = {}
+    C_, d = de.n_chains, tdm.make_spec(model, de).dim
+    for D in (1,) + tuple(shards):
+        us = float(np.mean(secs[D])) / n_iter * 1e6
+        per = sum(got[D].values()) / n_iter
+        m[f"{D}_us_per_iteration"] = us
+        m[f"{D}_launches_per_iteration"] = per
+        log(tag, f"{D} shard{'s' if D > 1 else ''}: {n_iter} iterations in "
+            + ", ".join(f"{x:.4f}" for x in secs[D])
+            + f" s = {us:.2f} us/iteration, {C_ / us * 1e6:.4g} "
+            f"chain-steps/s; launches {got[D]} = {per:.4f}/iteration")
+    log(tag, "every sharded run equals the unsharded run bit for bit"
+        + (f"; {got[1]['migrate']} exchanges, each gathering and copying "
+           f"back {C_ * (d + 1) * 4} bytes of θ and w" if allow_fused
+           else ""))
+    return m, got
+
+
+def phase_main_mesh(dev, cards=None, tag="main-mesh"):
+    """``sample()`` and ``optimize()`` under a chain mesh on the one card
+    or, given ``cards``, on the first D of them (:func:`_mesh_runs`;
+    ``tools/mesh_cards.py``): the 4,096-chain Gaussian on 1, 2 and 4 shards
+    and the 65,536-chain snooker Gaussian (thin 10) on 1, 2 and 4, in
+    turns; the 4,096-chain Gaussian through the unfused step (400
+    iterations) and opt-mle (K1 max) on 1, 2 and 4; LBA and the ABC
+    binomial at 4,096 chains (128 iterations, gates open) and the
+    3,072-chain abc_kde cell (32 iterations, K4 per shard) on 2.  The
+    short runs cross a burn-in of half their length.  Every
+    sharded run bit for bit the unsharded one, launches as planned; the
+    short runs cross open gates.  Returns each cell's launches by shard
+    count, and the metrics."""
+    from demcmc_tpu_torch.models import gaussian
+    data = _gauss_data()
+    out, launches = {}, {}
+    cells = [
+        ("4096", gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN),
+         N_ITER, 0, dict(turns=2)),
+        ("65k", gaussian.make(data=data, Np=N65, n_groups=G65,
+                              burnin=BURNIN, theta_snooker=0.1),
+         N_ITER, 1, dict(thin=10, turns=2)),
+        ("unfused", gaussian.make(data=data, Np=NP, n_groups=G,
+                                  burnin=MESH_UNFUSED_ITER // 2),
+         MESH_UNFUSED_ITER, 0, dict(allow_fused=False, turns=2)),
+        ("opt_mle", _opt_model("mle")[:2], pc.OPT_MLE_CELL["n_iter"],
+         pc.OPT_MLE_CELL["key"], dict(opt=True, turns=2)),
+        ("lba", _lba_case(MESH_SHORT // 2), MESH_SHORT, 0,
+         dict(shards=(2,))),
+        ("abc", _abc_case(MESH_SHORT // 2), MESH_SHORT, 0,
+         dict(shards=(2,))),
+        ("kde", _kde_case(MESH_KDE_ITER // 2), MESH_KDE_ITER, 0,
+         dict(shards=(2,), allow_fused=False, kde=True)),
+    ]
+    for name, (model, de), n_iter, key, kw in cells:
+        shards = tuple(D for D in kw.pop("shards", MESH_SHARDS)
+                       if cards is None or D <= len(cards))
+        m, launches[name] = _mesh_runs(f"{tag}-{name}", dev, model, de,
+                                       n_iter, key, shards, cards=cards,
+                                       **kw)
+        if name in ("lba", "abc") and not launches[name][1]["migrate"]:
+            raise AssertionError(f"{tag}-{name}: no gate opened")
+        out.update({f"mesh_{name}_" + k: v for k, v in m.items()})
+    return launches, out
+
+
+def phase_timing8(dev, launches, errs):
+    """Device ms per fired exchange under a 4-shard mesh (TPU kernel row
+    1r: the population gathered, K2, each shard's rows copied back) at G
+    = 256 (the 4,096-chain Gaussian) and G = 4,096 (the 65,536-chain
+    snooker Gaussian), beside the plain exchange (gathered, the plain K2,
+    copied back) and K2's bound; and K1 on one of those 4 shards (1,024
+    chains, one iteration past burn-in) beside its plain version and its
+    bound."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import gaussian
+    from demcmc_tpu_torch.ops import fused_step, migration as mig
+    data = _gauss_data()
+    rows, t, work, err = [], {}, {}, 0.0
+    it = 2000
+    for G_, Np_ in ((G, NP), (G65, N65)):
+        model, de = gaussian.make(data=data, Np=Np_, n_groups=G_,
+                                  burnin=BURNIN)
+        spec = tdm.make_spec(model, de)
+        step = tdm.build_step(model, de, spec, mesh=_on_card(4, dev))
+        st = step.split(tdm.init_state(model, de, spec, 5, device=dev))
+        st.shards[0].fire.fill_(1)
+        C_ = G_ * Np_
+
+        def exchange():
+            step.migrate(st, it)
+
+        def exchange_plain():
+            theta, w = step._gathered(st)
+            mig.migrate_plain(theta, w, st.shards[0].fire,
+                              rng.words(5, it, mig.N_ROWS, C_, device=dev),
+                              G_, Np_)
+            step._scatter(st, theta, w)
+
+        # the exchange against its plain version, bit for bit
+        ref = step.gather(st)
+        exchange()
+        got = step.gather(st)
+        st = step.split(ref)
+        exchange_plain()
+        plain = step.gather(st)
+        for k in ("theta", "weight"):
+            a, b = getattr(got, k), getattr(plain, k)
+            if not torch.equal(ints(a), ints(b)):
+                raise AssertionError(f"timing8: the mesh exchange's {k} "
+                                     f"differs from its plain version at "
+                                     f"G={G_}")
+            err = max(err, float((a - b).abs().max()))
+        # the exchange only issues work: behind a 50 ms spin it returns
+        # long before the spin ends (the sampler's host loop never waits)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(int(50 * cycles_per_ms()))
+        t0 = time.perf_counter()
+        exchange()
+        host = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        log("timing8", f"G={G_}: an exchange issued behind a 50 ms spin "
+            f"returns in {host:.3f} ms")
+        if host > 25.0:
+            raise AssertionError(f"timing8: the exchange waited for the "
+                                 f"card at G={G_}")
+        # 40 exchanges of 11 operations each (2 gathers, K2, 8 copies
+        # back) fit the stream's queue behind the spin: 100 filled it, and
+        # the host then waited on the queue (a host-gapped reading)
+        key = f"exchange_{G_}"
+        for name, fn, n in ((key + "_plain", exchange_plain, 2),
+                            (key, exchange, 40), (key, exchange, 40),
+                            (key + "_plain", exchange_plain, 2)):
+            t.setdefault(name, []).append(device_ms(fn, n))
+        nbytes, ops = _exchange_work(G_, Np_, 2)
+        log("timing8", f"G={G_}: the exchange moves {C_ * 3 * 4} bytes of "
+            f"θ and w into the gathered population and back; K2's own "
+            f"work {nbytes} bytes, {ops} operations")
+        work[key] = (nbytes, ops)
+
+    # K1 on one shard of four, past burn-in
+    model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN)
+    spec = tdm.make_spec(model, de)
+    cfg = fused_step.StepConfig.make(model, de, spec)
+    g0, n = fused_step.shard_groups(G, 4)[1]
+    scfg, c0 = fused_step.local_config(cfg, n), g0 * NP
+    s = tdm.init_state(model, de, spec, 5, device=dev)
+    th, w = s.theta[c0:c0 + n * NP].clone(), s.weight[c0:c0 + n * NP].clone()
+    fire = s.fire.clone()
+    out = (torch.empty((n * NP, D), device=dev), torch.empty(n * NP,
+                                                             device=dev),
+           torch.empty(n * NP, dtype=torch.bool, device=dev))
+
+    def k1():
+        fused_step.de_step(scfg, model, spec, th, w, fire, it, out=out,
+                           chain0=c0)
+
+    def k1_plain():
+        fused_step.de_step_plain(scfg, model, spec, th, w, fire, it, None,
+                                 out=out, chain0=c0)
+
+    for name, fn, nn in (("k1_shard_plain", k1_plain, 2),
+                         ("k1_shard", k1, 200), ("k1_shard", k1, 200),
+                         ("k1_shard_plain", k1_plain, 2)):
+        t.setdefault(name, []).append(device_ms(fn, nn))
+    words = rng.words(0, it, scfg.rows.n_words, n * NP, device=dev,
+                      chain0=c0)
+    work["k1_shard"] = _step_work(scfg, words, GAUSS_F32_OPS)
+
+    ms = {k: float(np.mean([x for x, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing8", f"{k}: {ms[k]:.6f} ms per call on the device ("
+            + ", ".join(f"{x:.6f}{'' if q else ' host-gapped'}"
+                        for x, q, _ in v)
+            + "); host issues a call in "
+            + ", ".join(f"{h:.6f}" for _, _, h in v) + " ms")
+    # launches: K2 on the 4-shard runs of the two cells (one per open
+    # gate), K1 on the 4-shard run of the 4,096-chain cell (all shards)
+    for name, src, repl, key, n_launch, err in (
+            ("migrate/mesh", "demcmc_tpu_torch/csrc/migration.cu",
+             "demcmc_tpu/ops/fused_step.py:1983", f"exchange_{G}",
+             launches["4096"][4]["migrate"], err),
+            (f"migrate/mesh, G={G65}", "demcmc_tpu_torch/csrc/migration.cu",
+             "demcmc_tpu/ops/fused_step.py:1983", f"exchange_{G65}",
+             launches["65k"][4]["migrate"], err),
+            ("de_step/shard", "demcmc_tpu_torch/csrc/de_step.cu",
+             "demcmc_tpu/ops/fused_step.py:1858", "k1_shard",
+             launches["4096"][4]["de_step"], errs["k1_shard"])):
+        nbytes, ops = work[key]
+        tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": repl, "launches": n_launch,
+                     "max_abs_err": err, "ms": ms[key],
+                     "plain_ms": ms[key + "_plain"],
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": None})
+        log("timing8", f"{name}: {ms[key]:.6f} ms against a bound of "
+            f"{max(tb, to):.3g} ms ({nbytes} bytes, {ops} operations); "
+            f"plain {ms[key + '_plain']:.6f} ms")
+    return rows
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3477,6 +3857,10 @@ def main():
         metrics.update(m)
     metrics.update(run(phase_main_opt_f64, dev))
     rows += run(phase_timing7, dev, paths, errs)
+    errs["k1_shard"] = run(phase_k1_shard, dev)
+    mesh_launches, m = run(phase_main_mesh, dev)
+    metrics.update(m)
+    rows += run(phase_timing8, dev, mesh_launches, errs)
     log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s "
         f"(seconds per phase: {json.dumps(took)}); {json.dumps(metrics)}")
     print(json.dumps({"kernels": rows}))

@@ -11,11 +11,12 @@ kernels
 for models that name a CUDA density, and through the unfused step (the
 JAX XLA step's twin, plain torch around the model's own torch density)
 for every other model, whose density may launch a kernel of its own
-(``csrc/kde.cu``).  Each kernel has a plain PyTorch version beside it for
+(``csrc/kde.cu``); ``mesh=chain_mesh(...)`` splits a run's groups over
+devices (:mod:`.parallel`).  Each kernel has a plain PyTorch version beside it for
 CPU tensors.  Exports keep the JAX package's names.
 """
 
-from . import diagnostics, models, ops, utils
+from . import diagnostics, models, ops, parallel, utils
 from .chains import Chains
 from .config import DE, MCMCThreads
 from .diagnostics import (ess, ess_bulk, ess_tail, rank_normalized_rhat,
@@ -27,19 +28,23 @@ from .ops.proposals import fixed_gamma, random_gamma, variable_gamma
 from .optimize import (Population, get_optimal, optimize,
                        optimize_replicated)
 from .particle import Particle
-from .sampler import (SamplerState, UnfusedStep, build_step, init_state,
-                      make_spec, run_scan, sample, state_from_numpy)
+from .parallel import chain_mesh
+from .sampler import (SamplerState, ShardedStep, UnfusedStep, build_step,
+                      init_state, make_spec, run_scan, sample,
+                      state_from_numpy)
 
 __version__ = "0.1.0"
 
 __all__ = [
     "DE", "DEModel", "MCMCThreads", "Chains", "ParamSpec", "CudaDensity",
     "Particle", "Population",
-    "SamplerState", "UnfusedStep", "sample", "init_state", "make_spec",
+    "SamplerState", "UnfusedStep", "ShardedStep", "chain_mesh", "sample",
+    "init_state", "make_spec",
     "build_step", "optimize", "optimize_replicated", "get_optimal",
     "mh_update", "maximize", "minimize", "greedy_update",
     "compute_posterior", "evaluate_fun",
     "run_scan", "state_from_numpy", "random_gamma", "fixed_gamma",
     "variable_gamma", "split_rhat", "rank_normalized_rhat", "ess",
-    "ess_bulk", "ess_tail", "diagnostics", "models", "ops", "utils",
+    "ess_bulk", "ess_tail", "diagnostics", "models", "ops", "parallel",
+    "utils",
 ]

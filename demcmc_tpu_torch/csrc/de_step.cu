@@ -64,11 +64,12 @@ template <class Density, int kMode = kAcceptMH>
 int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
                    uint8_t* out_acc, int* fire, const uint32_t* bits,
                    const uint32_t* ia, const float* fa, const uint32_t* sa,
-                   float theta_sn, const float* dens_data,
+                   float theta_sn, const float* dens_data, int chain0,
                    cudaStream_t stream) {
   constexpr int D = Density::D;
-  const StepArgs<D> a = read_args<Density>(theta, w, out_theta, out_w, out_acc,
-                                           fire, bits, ia, fa, sa, theta_sn);
+  const StepArgs<D> a =
+      read_args<Density>(theta, w, out_theta, out_w, out_acc, fire, bits, ia,
+                         fa, sa, theta_sn, (uint32_t)chain0);
   const Density dens = Density::from(fa + 7 + 2 * D, dens_data);
   return launch_sweep<Density, GroupPartners<D>, kMode>(
       a, dens, GroupPartners<D>{}, ia[19] != 0, stream);
@@ -77,8 +78,8 @@ int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
 }  // namespace demcmc
 
 // One window of K iterations of K1 on the model's density (argument
-// arrays: see step_body.cuh read_args; dens_data: the density's device
-// buffer, or nullptr).  Returns cudaGetLastError() after the launch.
+// arrays and chain0: see step_body.cuh read_args; dens_data: the density's
+// device buffer, or nullptr).  Returns cudaGetLastError() after the launch.
 // de_step_block_chains_NAME writes the chains one block of the
 // configuration's kernel (sequential sweep, snooker, block sweeps) holds on
 // the current device -- a group must fit one block -- and returns a CUDA
@@ -89,11 +90,10 @@ int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
                                 const uint32_t* bits, const uint32_t* iargs, \
                                 const float* fargs, const uint32_t* sargs,   \
                                 float theta_sn, const float* dens_data,      \
-                                void* stream) {                              \
-    return demcmc::launch_de_step<DENSITY>(theta, w, out_theta, out_w,       \
-                                           out_acc, fire, bits, iargs,       \
-                                           fargs, sargs, theta_sn,           \
-                                           dens_data, (cudaStream_t)stream); \
+                                int chain0, void* stream) {                  \
+    return demcmc::launch_de_step<DENSITY>(                                  \
+        theta, w, out_theta, out_w, out_acc, fire, bits, iargs, fargs, sargs, \
+        theta_sn, dens_data, chain0, (cudaStream_t)stream);                  \
   }                                                                          \
   extern "C" int de_step_block_chains_##NAME(int seq, int snooker, int n_blk, \
                                              int* chains) {                  \
@@ -114,10 +114,10 @@ DE_STEP_ENTRY(discrete_binomial, demcmc::DiscreteBinomialDensity)
       float* theta, float* w, float* out_theta, float* out_w,                \
       uint8_t* out_acc, int* fire, const uint32_t* bits,                     \
       const uint32_t* iargs, const float* fargs, const uint32_t* sargs,      \
-      float theta_sn, const float* dens_data, void* stream) {                \
+      float theta_sn, const float* dens_data, int chain0, void* stream) {    \
     return demcmc::launch_de_step<DENSITY, KMODE>(                           \
         theta, w, out_theta, out_w, out_acc, fire, bits, iargs, fargs, sargs, \
-        theta_sn, dens_data, (cudaStream_t)stream);                          \
+        theta_sn, dens_data, chain0, (cudaStream_t)stream);                  \
   }                                                                          \
   extern "C" int de_step_block_chains_##MODE##_##NAME(int seq, int snooker,  \
                                                       int n_blk,             \

@@ -53,7 +53,7 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
                          cudaStream_t stream) {
   constexpr int D = Density::D;
   const StepArgs<D> a = read_args<Density>(theta, w, out_theta, out_w, out_acc,
-                                           fire, bits, ia, fa, sa, theta_sn);
+                                           fire, bits, ia, fa, sa, theta_sn, 0);
   const Density dens = Density::from(fa + 7 + 2 * D, nullptr);
   const int C = a.G * a.Np;
   if (a.it0 < 2 || a.K < 1 || a.it0 + a.K - 1 > H)

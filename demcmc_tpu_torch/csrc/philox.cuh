@@ -8,6 +8,14 @@
 // per iteration instead, so kernel and plain version can be fed identical
 // words;
 // ChainWords reads one chain's rows and generates each block only once.
+//
+// The chain of a word is its index in the whole population.  A launch on
+// one shard of a population split over a chain mesh holds chains chain0 ..
+// of it in its own memory at 0 ..: WordSource adds chain0 to a chain of
+// the launch (operator(), ChainWords), so each shard draws the columns of
+// the unsharded draw; global() reads a chain by its population index (the
+// migration gate, drawn from chain 0's word by every shard).  In bits-in
+// mode the buffer holds the whole population's columns, C of them.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -64,13 +72,20 @@ __device__ __forceinline__ float to_uni(uint32_t b) {
 
 struct WordSource {
   const uint32_t* bits;  // [n_words, C] in bits-in mode, else nullptr
-  int C;
+  int C;                 // the population's chains (a row of bits)
   uint32_t k0, k1, it;
   uint32_t ns = kStepNs;  // Philox namespace
+  uint32_t chain0 = 0;    // the launch's first chain in the population
 
-  __device__ __forceinline__ uint32_t operator()(int row, int chain) const {
+  // word (row, chain) of the population's chain
+  __device__ __forceinline__ uint32_t global(int row, uint32_t chain) const {
     if (bits != nullptr) return bits[(size_t)row * C + chain];
-    return philox_word(k0, k1, it, (uint32_t)row, (uint32_t)chain, ns);
+    return philox_word(k0, k1, it, (uint32_t)row, chain, ns);
+  }
+
+  // word (row, chain) of the launch's chain
+  __device__ __forceinline__ uint32_t operator()(int row, int chain) const {
+    return global(row, chain0 + (uint32_t)chain);
   }
 
   // The words of iteration it_k, the k-th of a window: Philox counter it_k,
@@ -89,19 +104,20 @@ struct WordSource {
 // block of four rows is generated once and its lanes are reused.
 struct ChainWords {
   const WordSource& src;
-  int chain;
+  uint32_t chain;  // in the population
   uint32_t blk = 0xFFFFFFFFu;
   uint4 cur;
 
+  // chain c of the launch
   __device__ __forceinline__ ChainWords(const WordSource& s, int c)
-      : src(s), chain(c) {}
+      : src(s), chain(s.chain0 + (uint32_t)c) {}
 
   __device__ __forceinline__ uint32_t operator()(int row) {
     if (src.bits != nullptr) return src.bits[(size_t)row * src.C + chain];
     const uint32_t b = (uint32_t)row >> 2;
     if (b != blk) {
       blk = b;
-      cur = philox_block(src.k0, src.k1, src.it, b, (uint32_t)chain, src.ns);
+      cur = philox_block(src.k0, src.k1, src.it, b, chain, src.ns);
     }
     return lane(cur, (uint32_t)row);
   }

@@ -113,7 +113,11 @@ struct StepArgs {
 // iargs: G, Np, it0, burnin, random_gamma, seed_lo, seed_hi, then the row of
 //   the partner, gamma, eps, kappa, gate, normal, accept and fire draws
 //   (0xffffffff where absent), then the window: K, emit_first, emit_stride,
-//   words per iteration and the phase (1: post).
+//   words per iteration and the phase (1: post), then the chains of the
+//   population (a row of the bits-in buffer).
+// chain0: the launch's first chain in the population (a shard of a chain
+//   mesh; 0 for the whole population): G, Np and the state are the
+//   launch's, the words those of chains chain0 .. (philox.cuh).
 // fargs: fixed_g1, eps, 2 eps, 1 - kappa, beta, sigma, alpha, lo[D], hi[D],
 //   then the density's constants.
 // sargs: sub-sweeps, rows per sub-sweep block, the snooker member-index row,
@@ -125,7 +129,7 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
                                float* out_w, uint8_t* out_acc, int* fire,
                                const uint32_t* bits, const uint32_t* ia,
                                const float* fa, const uint32_t* sa,
-                               float theta_sn) {
+                               float theta_sn, uint32_t chain0) {
   constexpr int D = Density::D;
   StepArgs<D> a;
   a.theta = theta;
@@ -139,7 +143,8 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
   a.it0 = (int)ia[2];
   a.burnin = (int)ia[3];
   a.random_gamma = (int)ia[4];
-  a.words = WordSource{bits, a.G * a.Np, ia[5], ia[6], ia[2]};
+  a.words =
+      WordSource{bits, (int)ia[20], ia[5], ia[6], ia[2], kStepNs, chain0};
   a.r_part = (int)ia[7];
   a.r_gamma = (int)ia[8];
   a.r_eps = (int)ia[9];
@@ -383,7 +388,8 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
 
     for (int b = 0; b < kNBlk; ++b) {
       const int bo = b * a.blk_stride;  // the block sweep's first row
-      // beta mutation: one gate per group and sweep, from the leader's word.
+      // beta mutation: one gate per group and sweep, from the leader's word
+      // (W adds chain0: the leader's index in the population).
       // The sequential sweep reads it before its sub-sweeps, the synchronous
       // one next to its use, where it overlaps the proposal (K1 measured
       // faster on an H100 than with the gate read here).
@@ -614,7 +620,7 @@ __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
   if (c == 0) {
     const int last = a.K - 1;
     const WordSource W = a.words.at(last, (uint32_t)(a.it0 + last), a.n_words);
-    const float uf = to_uni(W(a.r_fire, 0));
+    const float uf = to_uni(W.global(a.r_fire, 0));  // every shard: chain 0
     *a.fire = (a.alpha > 0.0f && uf <= a.alpha) ? 1 : 0;
   }
 }

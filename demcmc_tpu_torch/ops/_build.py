@@ -19,6 +19,8 @@ import shutil
 import subprocess
 from pathlib import Path
 
+import torch
+
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
@@ -50,7 +52,7 @@ GREEDY_MODES = ("max", "min")
 # block sweeps per iteration K1 and K3 are instantiated for besides 1 (no
 # blocks): csrc/step_body.cuh kMaxBlocks
 BLOCK_COUNTS = (2,)
-_K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P, _P]
+_K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P, _I, _P]
 _K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _P]
 SIGNATURES = {
     "de_step": {
@@ -168,6 +170,19 @@ def entry(kernel: str, density, mode: str = "mh") -> str:
         raise ValueError(f"K1's greedy accept is built for the densities "
                          f"{GREEDY_DENSITIES}, not {density.name!r}")
     return f"{kernel}_{mode}_{density.name}"
+
+
+def launch(lib: ctypes.CDLL, fn: str, device, *args):
+    """Call entry point ``fn`` of ``lib`` with ``args`` and, last, the
+    current stream of ``device``, with ``device`` made the current CUDA
+    device for the call; raise on the CUDA error it returns.  A kernel
+    launches only on a stream of the current device, so a tensor on
+    another card than the current one (a shard of a chain mesh) needs its
+    card made current first."""
+    with torch.cuda.device(device):
+        rc = getattr(lib, fn)(*args,
+                              torch.cuda.current_stream(device).cuda_stream)
+    check(lib, rc, fn)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str):

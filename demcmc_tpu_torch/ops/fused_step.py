@@ -39,6 +39,18 @@ static.  In normal runs word (row, chain) is Philox(seed, iteration, row,
 chain); in bits-in mode (tests) a window reads iteration k's words from
 rows ``k·n_words ..`` of a ``[K·n_words, C]`` uint32 tensor — the same
 tensor the JAX interpret-mode kernel is fed (``fused_step.py:2717-2735``).
+
+Under a chain mesh (``sampler.ShardedStep``) each shard holds a contiguous
+run of whole groups (:func:`shard_groups`) and K1 runs on it alone
+(:func:`local_config`, ``de_step(..., chain0=)``): groups do not interact
+within a window, and chain ``c`` of a shard draws the words of chain
+``chain0 + c`` of the population, the migration gate those of chain 0, so
+the shards together are the unsharded launch bit for bit.  The JAX
+package's ``sharded_supported`` (``demcmc_tpu/ops/fused_step.py:399-
+418``) asks for ``Gr % D == 0``, a rule of the TPU's lane-packed layout,
+which the port does not use; here a configuration runs sharded where it
+runs unsharded (``sampler.fused_supported`` depends on the group, not on
+how many groups a launch holds).
 """
 
 from __future__ import annotations
@@ -46,7 +58,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -276,11 +288,12 @@ class StepConfig:
         return self.rows.n_blocks * self.rows.n_members
 
     def iargs(self, it: int, seed: int, K: int = 1, emit=(0, 1),
-              post: bool = False):
+              post: bool = False, n_all: int = None):
         """K1's and K3's integer arguments (``csrc/step_body.cuh``) as a
         ctypes array, built once per seed; a launch rewrites only the
-        window: its first iteration, K, the emission rule and the
-        phase."""
+        window: its first iteration, K, the emission rule and the phase,
+        and the chains of the whole population, ``n_all`` (the width of a
+        bits-in buffer; default this launch's ``G·Np``)."""
         a = self._iargs.get(seed)
         if a is None:
             k0, k1 = rng.seed_key(seed)
@@ -289,9 +302,10 @@ class StepConfig:
                 [self.G, self.Np, it, self.burnin, int(self.random_gamma),
                  k0, k1, r.partners, r.gamma, r.eps, r.kappa, r.gate,
                  r.normal, r.accept, r.fire, K, *emit, r.n_words,
-                 int(post)])
+                 int(post), 0])
         a[2] = it & 0xFFFFFFFF
         a[15], a[16], a[17], a[19] = K, emit[0], emit[1], int(post)
+        a[20] = self.G * self.Np if n_all is None else n_all
         return a
 
     @functools.cached_property
@@ -335,6 +349,33 @@ class StepConfig:
         return ctypes.c_float(_f32(self.theta_snooker))
 
 
+def shard_groups(G: int, n_shards: int):
+    """The groups of each shard of a ``G``-group population split over
+    ``n_shards`` devices of a chain mesh: ``[(g0, n), ...]``, contiguous
+    runs of whole groups in mesh order, as even as ``torch.tensor_split``
+    makes them (the first ``G % n_shards`` one group larger).  Raises
+    where a shard would hold no group."""
+    if n_shards < 1 or G < n_shards:
+        raise ValueError(f"{G} groups cannot be split over {n_shards} "
+                         f"devices: every shard needs a group")
+    out, g0 = [], 0
+    for i in range(n_shards):
+        n = G // n_shards + (i < G % n_shards)
+        out.append((g0, n))
+        g0 += n
+    return out
+
+
+def local_config(cfg: StepConfig, n_groups: int) -> StepConfig:
+    """The configuration K1 runs on one shard of ``n_groups`` groups (the
+    JAX ``local_de``, ``demcmc_tpu/ops/fused_step.py:392``): the shard's
+    groups, every other field the population's — its row layout (the
+    migration rows stay where the population migrates, even on a shard of
+    one group) and α, with which each shard writes the population's
+    gate."""
+    return replace(cfg, G=int(n_groups), _iargs={})
+
+
 def group_partners(cfg: StepConfig, words):
     """K1's partner source: the DE pair, and the snooker triple, drawn
     from the words of sub-sweep block ``off`` and read from the current
@@ -361,13 +402,15 @@ def group_partners(cfg: StepConfig, words):
 
 
 def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
-                words, partners, out=None):
+                words, partners, out=None, gate_word=None):
     """The plain sweep of K1 and K3, in place: ``theta [C, d]``, ``w [C]``,
     ``fire [1]`` int32 (overwritten with the next gate), ``words
     [n_words, C]`` uint32, ``partners(th, slot_set, row_offset) -> (pm,
     pn, triple or None)`` the partner source, ``out`` an optional
-    ``(theta_row, w_row, acc_row)`` trajectory slot.  Same operations,
-    same order as the kernels.
+    ``(theta_row, w_row, acc_row)`` trajectory slot, ``gate_word [1]``
+    the fire row's word of the population's chain 0 (default: of
+    ``words``' first column; a shard past the first passes it).  Same
+    operations, same order as the kernels.
 
     The sequential sweep runs Np sub-sweeps that each compute every
     chain's proposal from the partly updated group and commit only group
@@ -486,7 +529,8 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
             wg = torch.where(acc, w_prop, wg)
             acc_all = acc if acc_all is None else acc_all | acc
     new_t, new_w = th.reshape(-1, d), wg.reshape(-1)
-    uf = uniforms[r.fire, :1]
+    uf = (uniforms[r.fire, :1] if gate_word is None
+          else rng.to_uni(gate_word))
     nfire = ((uf <= _f32(cfg.alpha)) & (cfg.alpha > 0.0)).to(torch.int32)
     theta.copy_(new_t)
     w.copy_(new_w)
@@ -552,28 +596,41 @@ def window_plain(cfg: StepConfig, fire, it: int, K: int, emit, out, one):
 
 def de_step_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
                   words, out=None, K: int = 1, emit=(0, 1),
-                  phase: str = "all", seed: int = 0):
+                  phase: str = "all", seed: int = 0, chain0: int = 0):
     """Plain version of K1 for a window of ``K`` iterations from ``it``,
     in place: :func:`sweep_plain` with partners from the current group,
-    iteration by iteration.  ``words [K·n_words, C]`` (None: Philox(seed,
-    it + k)); ``out`` the window's trajectory slice (:func:`trajectory`).
-    Returns the accept margins (:func:`window_plain`)."""
+    iteration by iteration, on chains ``chain0 ..`` of the population
+    (``theta [C, d]`` holds them).  ``words [K·n_words, n]`` with the
+    population's ``n >= chain0 + C`` columns (None: Philox(seed, it + k));
+    ``out`` the window's trajectory slice (:func:`trajectory`).  Returns
+    the accept margins (:func:`window_plain`)."""
     check_window(cfg, it, K, emit, phase)
     out = trajectory(cfg, out, K, emit)
-    n, C = cfg.rows.n_words, cfg.G * cfg.Np
+    n, C, r = cfg.rows.n_words, cfg.G * cfg.Np, cfg.rows
+    if words is not None and words.shape[1] < chain0 + C:
+        raise ValueError(f"words: {words.shape[1]} columns, need the "
+                         f"population's {chain0 + C} or more")
 
     def one(k, it_k, slot):
-        wk = (rng.words(seed, it_k, n, C, device=theta.device)
-              if words is None else words[k * n:(k + 1) * n])
+        gate = None
+        if words is None:
+            wk = rng.words(seed, it_k, n, C, device=theta.device,
+                           chain0=chain0)
+            if chain0:
+                gate = rng.words(seed, it_k, 1, 1, device=theta.device,
+                                 row0=r.fire)[0]
+        else:
+            wk = words[k * n:(k + 1) * n, chain0:chain0 + C]
+            gate = words[k * n + r.fire, :1]
         return sweep_plain(cfg, model, spec, theta, w, fire, it_k, wk,
-                           group_partners(cfg, wk), slot)
+                           group_partners(cfg, wk), slot, gate)
 
     return window_plain(cfg, fire, it, K, emit, out, one)
 
 
 def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
             seed: int = 0, out=None, bits=None, check: bool = True,
-            K: int = 1, emit=(0, 1), phase: str = "all"):
+            K: int = 1, emit=(0, 1), phase: str = "all", chain0: int = 0):
     """A window of ``K`` DE iterations from ``it`` in place on ``theta [C,
     d]`` / ``w [C]``; writes the gate the last iteration draws into ``fire
     [1]`` and, with ``out = (θ [T, C, d], w [T, C], acc [T, C] bool)``
@@ -582,34 +639,38 @@ def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     ``phase='post'`` (past burn-in only) drops the γ₂ base select.  The
     window must hold no open migration gate before its last iteration.
 
-    Words are Philox(seed, it + k) or, in bits-in mode, ``bits
-    [K·n_words, C]`` uint32.  CPU tensors take the plain version; CUDA
-    tensors launch K1 once (``de_step.launches`` counts the launches).
-    ``check=False`` skips the tensor checks, for a caller that made them
-    once for a run (:func:`check_cuda`)."""
+    ``theta`` may be one shard of the population (``cfg`` its
+    :func:`local_config`): chains ``chain0 ..`` of it, whose words it
+    draws, the gate from chain 0's.  Words are Philox(seed, it + k) or, in
+    bits-in mode, ``bits [K·n_words, n]`` uint32 of the population's ``n``
+    chains.  CPU tensors take the plain version; CUDA tensors launch K1
+    once (``de_step.launches`` counts the launches).  ``check=False`` skips
+    the tensor checks, for a caller that made them once for a run
+    (:func:`check_cuda`)."""
     if cfg.resample:
         raise ValueError("a resample configuration steps with "
                          "resample_step (K3), not de_step")
     if theta.device.type == "cpu":
         de_step_plain(cfg, model, spec, theta, w, fire, it, bits, out, K,
-                      emit, phase, seed)
+                      emit, phase, seed, chain0)
         return
     check_window(cfg, it, K, emit, phase)
     if check:
-        check_cuda(cfg, theta, w, fire, bits, out, K=K, emit=emit)
+        check_cuda(cfg, theta, w, fire, bits, out, K=K, emit=emit,
+                   chain0=chain0)
     lib = _build.library("de_step")
     name = _build.entry("de_step", cfg.density, cfg.mode)
     o_t, o_w, o_a = (None, None, None) if out is None else (
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
-    rc = getattr(lib, name)(
+    _build.launch(
+        lib, name, theta.device,
         theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
         None if bits is None else bits.data_ptr(),
-        cfg.iargs(it, seed, K, emit, phase == "post"), cfg.fargs,
-        cfg.sweep_args, cfg.theta_snooker_arg,
-        _ptr(cfg.density_data(theta.device)),
-        torch.cuda.current_stream(theta.device).cuda_stream)
+        cfg.iargs(it, seed, K, emit, phase == "post",
+                  None if bits is None else bits.shape[1]),
+        cfg.fargs, cfg.sweep_args, cfg.theta_snooker_arg,
+        _ptr(cfg.density_data(theta.device)), int(chain0))
     de_step.launches += 1
-    _build.check(lib, rc, name)
 
 
 de_step.launches = 0
@@ -620,9 +681,11 @@ def _ptr(t):
 
 
 def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
-               K: int = 1, emit=(0, 1)):
+               K: int = 1, emit=(0, 1), chain0: int = 0):
     """Raise unless the tensors are what K1 (or K3) takes on a CUDA
-    device for a window of ``K`` iterations storing by ``emit``."""
+    device for a window of ``K`` iterations storing by ``emit``, on
+    chains ``chain0 ..`` of the population (a bits-in buffer holds its
+    columns)."""
     dev = theta.device
     if dev.type != "cuda":
         raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
@@ -632,9 +695,12 @@ def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
     want = [("theta", theta, torch.float32, [(C, d)]),
             ("w", w, torch.float32, [(C,)]),
             ("fire", fire, torch.int32, [(1,)])]
+    if chain0 < 0:
+        raise ValueError(f"chain0 must be >= 0, not {chain0}")
     if bits is not None:
-        want.append(("bits", bits, torch.uint32, [(K * cfg.rows.n_words,
-                                                   C)]))
+        n_all = bits.shape[-1] if what == "de_step" else C   # K3: whole
+        want.append(("bits", bits, torch.uint32, [(
+            K * cfg.rows.n_words, max(n_all, chain0 + C))]))
     if out is not None:
         one = T == 1
         want += [("out[0]", out[0], torch.float32,
@@ -658,7 +724,5 @@ def philox_words_cuda(out, seed: int, it: int, ns: int = rng.STEP_NS):
         raise ValueError("out: need a contiguous 2-D uint32 CUDA tensor")
     lib = _build.library("de_step")
     k0, k1 = rng.seed_key(seed)
-    rc = lib.philox_fill(out.data_ptr(), out.shape[0], out.shape[1], k0, k1,
-                         int(it), int(ns),
-                         torch.cuda.current_stream(out.device).cuda_stream)
-    _build.check(lib, rc, "philox_fill")
+    _build.launch(lib, "philox_fill", out.device, out.data_ptr(),
+                  out.shape[0], out.shape[1], k0, k1, int(it), int(ns))

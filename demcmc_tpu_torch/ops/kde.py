@@ -56,12 +56,10 @@ def kde_logpdf(x, sims, h, floor: float = 1e-10):
     E = x.shape[0]
     out = torch.empty((C, E), dtype=torch.float32, device=sims.device)
     lib = _build.library("kde")
-    rc = lib.kde_logpdf_f32(x.data_ptr(), sims.data_ptr(), h.data_ptr(),
-                            out.data_ptr(), C, E, S, sim_tile(S), floor,
-                            torch.cuda.current_stream(sims.device)
-                            .cuda_stream)
+    _build.launch(lib, "kde_logpdf_f32", sims.device, x.data_ptr(),
+                  sims.data_ptr(), h.data_ptr(), out.data_ptr(), C, E, S,
+                  sim_tile(S), floor)
     kde_logpdf.launches += 1
-    _build.check(lib, rc, "kde_logpdf_f32")
     return out
 
 

@@ -112,11 +112,10 @@ def migrate(theta, w, fire, G: int, Np: int, seed: int = 0, it: int = 0,
     lib = _build.library("migration")
     k0, k1 = rng.seed_key(seed)
     bits_ptr = None if bits is None else bits.data_ptr()
-    rc = lib.migrate_f32(theta.data_ptr(), w.data_ptr(), fire.data_ptr(),
-                         bits_ptr, k0, k1, int(it), G, Np, d,
-                         torch.cuda.current_stream(theta.device).cuda_stream)
+    _build.launch(lib, "migrate_f32", theta.device, theta.data_ptr(),
+                  w.data_ptr(), fire.data_ptr(), bits_ptr, k0, k1, int(it),
+                  G, Np, d)
     migrate.launches += 1
-    _build.check(lib, rc, "migrate_f32")
 
 
 migrate.launches = 0
@@ -172,6 +171,22 @@ def maybe_migrate(draws, theta, weight, alpha: float, n_groups: int):
     if draws.uniform(()) <= float(np.float32(alpha)):
         return _apply(theta, weight, *_migrate_values(draws, theta, weight,
                                                       n_groups))
+    _skip_exchange(draws, G, Np)
+    return theta, weight
+
+
+def _skip_exchange(draws, G: int, Np: int):
+    """Pass over the exchange's draws (N, the rank keys, the Gumbels)."""
     for shape in ((), (G,), (G, Np)):
         draws.skip(shape)
-    return theta, weight
+
+
+def skip_migration(draws, alpha: float, n_groups: int, G: int, Np: int):
+    """Pass over what :func:`maybe_migrate` draws, gate included, in a
+    pool of ``G`` of the population's ``n_groups`` groups: the pool of one
+    shard of a run split over a chain mesh, whose migration the sharded
+    step runs on the whole population (``sampler.ShardedStep``)."""
+    if alpha <= 0.0 or n_groups < 2:
+        return
+    draws.skip(())
+    _skip_exchange(draws, G, Np)

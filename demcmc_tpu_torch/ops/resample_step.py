@@ -194,16 +194,15 @@ def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
     name = _build.entry("resample_step", cfg.density, cfg.mode)
     o_t, o_w, o_a = (None, None, None) if out is None else (
         out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
-    rc = getattr(lib, name)(
+    _build.launch(
+        lib, name, theta.device,
         theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
         hist.data_ptr(), hist.shape[0],
         None if bits is None else bits.data_ptr(),
         None if idx is None else idx.data_ptr(),
         cfg.iargs(it, seed, K, emit, phase == "post"), cfg.fargs,
-        cfg.sweep_args, cfg.theta_snooker_arg,
-        torch.cuda.current_stream(theta.device).cuda_stream)
+        cfg.sweep_args, cfg.theta_snooker_arg)
     resample_step.launches += 1
-    _build.check(lib, rc, name)
 
 
 resample_step.launches = 0

@@ -7,7 +7,8 @@ The sampling loop configured with a greedy accept (``update_particle=
 population.  A float32 configuration of a model whose CUDA objective K1
 is built for with the greedy accept (``_build.GREEDY_DENSITIES``) runs
 on K1 (and K2 between its windows); every other one, float64 and DE-MCz
-among them, on the unfused step (:func:`.sampler.build_step`).
+among them, on the unfused step (:func:`.sampler.build_step`); under a
+chain mesh, one of them per shard (:class:`.sampler.ShardedStep`).
 """
 
 from __future__ import annotations
@@ -19,8 +20,8 @@ import torch
 
 from .config import DE, MCMCThreads
 from .model import DEModel
-from .sampler import (Step, _grow_history, _not_ported, build_step,
-                      init_state, make_spec, resolve_device, run_scan)
+from .sampler import (_grow_history, _not_ported, _on_mesh, _phase2,
+                      build_step, init_state, make_spec, run_scan)
 
 
 class Population(NamedTuple):
@@ -53,34 +54,33 @@ def optimize(model: DEModel, de: DE, *args, key: int = 0,
     ``update_particle='maximize'`` (or ``'minimize'``).  The iteration
     starts at 1 (at ``n_initial + 1`` for DE-MCz, whose history needs
     it); no trajectory is stored.  ``key`` is the integer Philox seed;
-    ``device`` is ``cuda`` unless the caller asks for the CPU.
-    ``progress=True`` and
-    ``mesh`` belong to later slices of the port (ROADMAP.md A9, A10) and
-    raise ``NotImplementedError``.  Returns the final :class:`Population`
-    (:func:`get_optimal` picks its best particle)."""
+    ``device`` is ``cuda`` unless the caller asks for the CPU; ``mesh``
+    (a :func:`~demcmc_tpu_torch.parallel.chain_mesh`) splits the groups
+    over its devices, as :func:`~demcmc_tpu_torch.sample` does.
+    ``progress=True`` belongs to a later slice of the port (ROADMAP.md A9)
+    and raises ``NotImplementedError``.  Returns the final
+    :class:`Population` (:func:`get_optimal` picks its best particle)."""
     args = [a for a in args if not isinstance(a, MCMCThreads)]
     if len(args) != 1:
         raise TypeError("expected optimize(model, de, n_iter)")
     n_iter = int(args[0])
     if progress:
         _not_ported("progress=True", "A9, API surface", "optimize")
-    if mesh is not None:
-        _not_ported("mesh=", "A10, multi-GPU", "optimize")
     _check_opt_config(de)
-    device = resolve_device(device)
+    devices, device = _on_mesh(mesh, device)
     spec = make_spec(model, de)
     start = None if de.uses_resample else 1   # reference: de.iter = iter
     state = _grow_history(init_state(model, de, spec, key, device=device,
                                      start_iteration=start), n_iter)
-    step = build_step(model, de, spec, device=device)
-    # past burn-in the kernels' post variant (no γ₂ base select), bitwise
-    # equal to the step it replaces
-    phase2 = None
-    if isinstance(step, Step) and step.get_post_burnin() is not None:
-        remaining = max(de.burnin - (state.iteration - 1), 0)
-        if remaining < n_iter:
-            phase2 = remaining
-    state, _ = run_scan(step, state, n_iter, phase2=phase2, collect=False)
+    step = build_step(model, de, spec,
+                      device=device if mesh is None else None, mesh=mesh)
+    if devices is not None:
+        state = step.split(state)
+    state, _ = run_scan(step, state, n_iter,
+                        phase2=_phase2(step, de, state, n_iter),
+                        collect=False)
+    if devices is not None:
+        state = step.gather(state)
     return Population(theta=state.theta.cpu().numpy(),
                       weight=state.weight.cpu().numpy(), spec=spec)
 

@@ -1,0 +1,7 @@
+"""Device meshes of the port (the JAX package's ``demcmc_tpu.parallel``):
+``chain_mesh`` splits a run's groups over devices; ``data_mesh`` and
+``shard_data`` raise until a later slice carries them."""
+
+from .mesh import Mesh, chain_mesh, data_mesh, shard_data
+
+__all__ = ["Mesh", "chain_mesh", "data_mesh", "shard_data"]

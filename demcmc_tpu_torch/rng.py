@@ -17,6 +17,11 @@ partner slot of the iteration), ``INIT_NOISE_NS`` the noise panel that
 scores a stochastic model's initial population, ``POOL_NS`` and
 ``SCALAR_NS`` the unfused step's :class:`Pool` (row = pool column, chain
 = group) and its scalar side channel (chain 0).
+
+The chain word is the chain's index in the whole population, so a shard
+of a run split over a chain mesh (``chain0``: its first chain, or for the
+pool its first group) draws the columns of the unsharded draw, and a
+sharded run is the unsharded run bit for bit.
 """
 
 from __future__ import annotations
@@ -82,16 +87,17 @@ def philox4x32(ctr, key):
 
 
 def words(seed: int, iteration: int, n_rows: int, n: int, ns: int = STEP_NS,
-          device=None, row0: int = 0) -> torch.Tensor:
+          device=None, row0: int = 0, chain0: int = 0) -> torch.Tensor:
     """Word ``(seed, iteration, row, chain)`` for rows ``row0 ..
-    row0+n_rows-1`` and chains ``0..n-1``, as a ``[n_rows, n]``
-    torch.uint32 tensor."""
-    return words_block(seed, iteration, 1, n_rows, n, ns, device, row0)[0]
+    row0+n_rows-1`` and chains ``chain0 .. chain0+n-1``, as a ``[n_rows,
+    n]`` torch.uint32 tensor."""
+    return words_block(seed, iteration, 1, n_rows, n, ns, device, row0,
+                       chain0)[0]
 
 
 def words_block(seed: int, iteration: int, n_iter: int, n_rows: int, n: int,
-                ns: int = STEP_NS, device=None,
-                row0: int = 0) -> torch.Tensor:
+                ns: int = STEP_NS, device=None, row0: int = 0,
+                chain0: int = 0) -> torch.Tensor:
     """:func:`words` for the ``n_iter`` iterations from ``iteration`` on,
     as one ``[n_iter, n_rows, n]`` torch.uint32 tensor."""
     shape = (n_iter, n_rows, n)
@@ -99,7 +105,8 @@ def words_block(seed: int, iteration: int, n_iter: int, n_rows: int, n: int,
                         device=device)
     its = torch.arange(iteration, iteration + n_iter, dtype=torch.int64,
                        device=device) & _MASK
-    c0 = torch.arange(n, dtype=torch.int64, device=device).expand(shape)
+    c0 = torch.arange(chain0, chain0 + n, dtype=torch.int64,
+                      device=device).expand(shape)
     c1 = (rows >> 2)[None, :, None].expand(shape)
     c2 = its[:, None, None].expand(shape)
     c3 = torch.full(shape, int(ns) & _MASK, dtype=torch.int64, device=device)

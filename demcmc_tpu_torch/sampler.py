@@ -23,6 +23,11 @@ JAX package's ``build_step`` does (``demcmc_tpu/sampler.py:100-171``):
   model's torch density, which may itself launch a kernel (the KDE kernel
   K4 of ``models/abc_kde.py``).
 
+Under a chain mesh of more than one device (``mesh=``, :mod:`.parallel`)
+:class:`ShardedStep` splits the groups over the devices, one of the
+above per shard, and runs migration on the whole population; a sharded
+run is the unsharded run bit for bit.
+
 The host loop reads the device once, the first gate before the loop, so
 it runs ahead of the card; the trajectory comes back once, at the end.
 
@@ -50,6 +55,7 @@ from .ops import migration as migration_ops
 from .ops import mutation as mutation_ops
 from .ops import proposals as proposal_ops
 from .ops import resample_step as resample_ops
+from .parallel.mesh import mesh_devices
 from .utils import dists
 
 
@@ -316,11 +322,18 @@ class Step:
     ``demcmc_tpu/sampler.py:464-595``).
 
     On the CPU the plain versions read their words from blocks drawn for
-    many iterations at once (the same words, with fewer torch calls)."""
+    many iterations at once (the same words, with fewer torch calls).
+
+    With ``groups = (g0, n)`` the step runs groups ``g0 .. g0+n-1`` of the
+    population, one shard of a chain mesh (:class:`ShardedStep`): K1 on
+    the shard's state with the words of its chains (``chain0``) and
+    without migration, which the sharded step runs on the whole
+    population."""
 
     WORDS_PER_BLOCK = 1 << 20     # CPU: words drawn per block, at most
 
-    def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device):
+    def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device,
+                 groups=None):
         self.model, self.spec = model, spec
         if de.blocks is not None and _blocking_const(de) is None:
             raise ValueError("the kernels' step sweeps constant blocks "
@@ -336,6 +349,12 @@ class Step:
             raise ValueError("K3 runs the MH accept only: DE-MCz "
                              "optimization takes the unfused step, as in "
                              "the JAX package")
+        self.n_all = self.cfg.G * self.cfg.Np     # the population's chains
+        self.chain0, self.migrates = 0, self.cfg.rows.mig >= 0
+        if groups is not None:
+            self.chain0 = groups[0] * self.cfg.Np
+            self.cfg = fused_ops.local_config(self.cfg, groups[1])
+            self.migrates = False
         self.device = torch.device(device)
         if self.device.type == "cuda":
             _build.entry("resample_step" if self.cfg.resample else "de_step",
@@ -354,7 +373,7 @@ class Step:
     def _words(self, key: int, it: int, ns: int, n_rows: int):
         blk_key, it0, block = self._blocks.get(ns, (None, 0, None))
         if blk_key != key or not it0 <= it < it0 + len(block):
-            C = self.cfg.G * self.cfg.Np
+            C = self.n_all
             block = rng.words_block(
                 key, it, max(1, min(64, self.WORDS_PER_BLOCK // (C * n_rows))),
                 n_rows, C, ns=ns, device=self.device)
@@ -369,7 +388,7 @@ class Step:
             raise ValueError("a resample run needs state.history")
         if self.device.type != "cuda":
             return
-        if cfg.rows.mig >= 0:
+        if self.migrates:
             migration_ops.check_cuda(state.theta, state.weight, state.fire,
                                      cfg.G, cfg.Np)
         if cfg.resample:
@@ -388,7 +407,7 @@ class Step:
         cpu = self.device.type == "cpu"
         bits = (self._words(state.key, it, rng.STEP_NS, cfg.rows.n_words)
                 if cpu else None)
-        if cfg.rows.mig >= 0:
+        if self.migrates:
             migration_ops.migrate(state.theta, state.weight, state.fire,
                                   cfg.G, cfg.Np, seed=state.key, it=it,
                                   bits=bits, check=check)
@@ -405,7 +424,8 @@ class Step:
         else:
             fused_ops.de_step(cfg, self.model, self.spec, state.theta,
                               state.weight, state.fire, it, seed=state.key,
-                              out=out, bits=bits, check=check, phase=phase)
+                              out=out, bits=bits, check=check, phase=phase,
+                              chain0=self.chain0)
         return state._replace(iteration=it + 1)
 
     def window(self, state: SamplerState, w: Window, traj=None):
@@ -414,10 +434,10 @@ class Step:
         iterations writing its rows of ``traj = (θ [T, C, d], w [T, C],
         acc [T, C])``, unchecked (:meth:`check` checks a run once), through
         the post-burn-in variant where ``w.post``.  The state's
-        ``iteration`` is not advanced."""
+        ``iteration`` is not advanced; a shard's step does not migrate."""
         cfg, key = self.cfg, state.key
         phase = "post" if w.post else "all"
-        C = cfg.G * cfg.Np
+        C = self.n_all
         out = None
         if traj is not None and w.n_emit:
             out = tuple(x[w.t0:w.t0 + w.n_emit] for x in traj)
@@ -432,7 +452,7 @@ class Step:
                                         device=self.device)
                 idx = torch.cat([resample_ops.indices_from_words(
                     cfg, words[k], w.it0 + k) for k in range(w.K)])
-        if w.migrate:
+        if w.migrate and self.migrates:
             migration_ops.migrate(state.theta, state.weight, state.fire,
                                   cfg.G, cfg.Np, seed=key, it=w.it0,
                                   bits=bits, check=False)
@@ -446,7 +466,7 @@ class Step:
             fused_ops.de_step(cfg, self.model, self.spec, state.theta,
                               state.weight, state.fire, w.it0, seed=key,
                               out=out, bits=bits, check=False, K=w.K,
-                              emit=w.emit, phase=phase)
+                              emit=w.emit, phase=phase, chain0=self.chain0)
 
     def plan(self, state: SamplerState, n_iter: int, thin: int = 1,
              fire=None, switch: int = None, store: bool = True):
@@ -528,11 +548,18 @@ class UnfusedStep:
     sweep's, and an iteration uses one set and passes over the other (a
     callable that ignores the iteration is taken as one that reads it).
     A stochastic model's fresh noise raises ``NotImplementedError`` here
-    (the custom slots already do in ``DE``)."""
+    (the custom slots already do in ``DE``).
+
+    With ``groups = (g0, n)`` the step runs groups ``g0 .. g0+n-1``, one
+    shard of a chain mesh (:class:`ShardedStep`): its pool holds those
+    groups' rows of the population's pool, and it passes over the
+    migration's columns, which the sharded step draws for the whole
+    population."""
 
     WORDS_PER_BLOCK = 1 << 21     # pool words drawn per block, at most
 
-    def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device):
+    def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device,
+                 groups=None):
         if model.stochastic:
             raise NotImplementedError(
                 "a stochastic model's fresh noise panel in the unfused step "
@@ -542,6 +569,9 @@ class UnfusedStep:
         self.device = torch.device(device)
         self.dtype, self.x64 = de.torch_dtype, de.dtype is np.float64
         self.G, self.Np, self.d = de.n_groups, de.Np, spec.dim
+        self.g0 = None                # None: the whole population
+        if groups is not None:
+            self.g0, self.G = groups
         self.fitness = accept_ops.make_fitness(model, spec, de)
         self.int_mask = (torch.as_tensor(spec.int_mask, device=self.device)
                          if spec.has_int else None)
@@ -657,9 +687,14 @@ class UnfusedStep:
     def step_core(self, draws, theta, weight, it: int, fitness,
                   history=None):
         """Migration, then the sweeps (``sampler.py:1055``); returns
-        ``(theta [G, Np, d], weight [G, Np], accept [G, Np])``."""
-        theta, weight = migration_ops.maybe_migrate(
-            draws, theta, weight, self.de.alpha, self.G)
+        ``(theta [G, Np, d], weight [G, Np], accept [G, Np])``.  A shard
+        passes over the migration's draws."""
+        if self.g0 is None:
+            theta, weight = migration_ops.maybe_migrate(
+                draws, theta, weight, self.de.alpha, self.G)
+        else:
+            migration_ops.skip_migration(draws, self.de.alpha,
+                                         self.de.n_groups, self.G, self.Np)
         if self.block_masks is None or self.blocking is not None:
             return self.sweeps(draws, theta, weight, it, fitness, history,
                                self.block_masks is not None
@@ -675,25 +710,31 @@ class UnfusedStep:
     # ---- random numbers
 
     def _block(self, ns: int, key: int, it: int, n_rows: int, n: int,
-               device):
+               device, chain0: int = 0):
         blk_key, it0, block = self._blocks.get(ns, (None, 0, None))
         if blk_key != key or not it0 <= it < it0 + len(block):
             n_it = max(1, min(64, self.WORDS_PER_BLOCK // (n * n_rows)))
             block = rng.words_block(key, it, n_it, n_rows, n, ns=ns,
-                                    device=device)
+                                    device=device, chain0=chain0)
             if ns == rng.SCALAR_NS:
                 block = block.to(torch.int64).tolist()
             self._blocks[ns], it0 = (key, it, block), it
         return block[it - it0]
 
     def draws(self, key: int, it: int) -> rng.Pool:
-        """Iteration ``it``'s pool: its ``[G, pool_words]`` words and its
-        scalar side channel."""
+        """Iteration ``it``'s pool: its ``[G, pool_words]`` words (a
+        shard's: its groups' rows) and its scalar side channel."""
         bits = self._block(rng.POOL_NS, key, it, self.pool_words, self.G,
-                           self.device).T
+                           self.device, self.g0 or 0).T
+        return rng.Pool(bits, rng.Scalars(self.scalar_words(key, it)),
+                        self.x64)
+
+    def scalar_words(self, key: int, it: int) -> list:
+        """Iteration ``it``'s scalar side channel (host ints), the same
+        for every shard."""
         scal = self._block(rng.SCALAR_NS, key, it, rng.Scalars.N_DRAWS, 1,
                            torch.device("cpu"))
-        return rng.Pool(bits, rng.Scalars([w[0] for w in scal]), self.x64)
+        return [w[0] for w in scal]
 
     # ---- run_scan's interface, as Step's
 
@@ -786,14 +827,228 @@ def fused_supported(model: DEModel, de: DE, device="cpu") -> bool:
         max(n_blk, 1), device, **greedy)
 
 
+class ShardedState(NamedTuple):
+    """A run's state split over a chain mesh: one :class:`SamplerState`
+    per shard in mesh order, each on its shard's device with its groups'
+    chains; the key, the iteration and the gate are the same in all
+    (:meth:`ShardedStep.split`, :meth:`ShardedStep.gather`)."""
+
+    shards: tuple
+
+    @property
+    def key(self) -> int:
+        return self.shards[0].key
+
+    @property
+    def iteration(self) -> int:
+        return self.shards[0].iteration
+
+    def at(self, iteration: int) -> "ShardedState":
+        return ShardedState(tuple(s._replace(iteration=iteration)
+                                  for s in self.shards))
+
+
+class ShardedStep:
+    """The step of a run whose groups are split over a chain mesh (the
+    JAX package's ``shard_map`` and GSPMD steps, ``demcmc_tpu/sampler.py:
+    100-171, 255-297``): one :class:`Step` or :class:`UnfusedStep` per
+    shard on its device, each holding a contiguous run of whole groups
+    (``fused_step.shard_groups``); groups do not interact within an
+    iteration, so each shard steps alone.  Migration, the only operation
+    across groups (``demcmc_tpu/parallel/mesh.py:1-12``), runs on the
+    whole population: every shard's θ and w are gathered in chain order on
+    the mesh's first device, the exchange runs once there (K2 with the
+    first shard's gate; for the unfused step, from the migration columns
+    of a pool of every group), and each shard's rows are copied back.
+
+    Every word is keyed by the population's chain (or group), so a sharded
+    run is the unsharded run bit for bit.  The JAX package coalesces a
+    window's migration events to its start (``mig_replay``, TPU kernel
+    row 1r; ``mig_multi``, ``demcmc_tpu/sampler.py:366-408``) because its
+    gate is data-dependent between launches; here the host knows every
+    gate before the first launch (:func:`rng.gates`), windows end where a
+    gate opens, and each event runs at its own iteration.
+
+    :meth:`split` and :meth:`gather` convert a :class:`SamplerState` to a
+    :class:`ShardedState` and back; the other methods are :class:`Step`'s
+    on a :class:`ShardedState`, with a trajectory slot per shard.
+    DE-MCz (its history is read across shards) raises."""
+
+    def __init__(self, model: DEModel, de: DE, spec: ParamSpec, devices,
+                 allow_fused: bool = True):
+        if de.uses_resample:
+            raise NotImplementedError(
+                "sample='resample' (DE-MCz) under a chain mesh is not ported "
+                "to demcmc_tpu_torch yet (ROADMAP.md A10 rest); run it on "
+                "one device, or use demcmc_tpu")
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
+        self.groups = fused_ops.shard_groups(de.n_groups, len(self.devices))
+        self.fused = allow_fused and all(
+            fused_supported(model, de, d) for d in set(self.devices))
+        make = Step if self.fused else UnfusedStep
+        self.steps = [make(model, de, spec, dev, groups=g)
+                      for dev, g in zip(self.devices, self.groups)]
+        self.G, self.Np, self.d = de.n_groups, de.Np, spec.dim
+        self.alpha = float(de.alpha) if de.n_groups > 1 else 0.0
+        self.spans = [(g0 * de.Np, (g0 + n) * de.Np)    # each shard's chains
+                      for g0, n in self.groups]
+
+    # ---- the state across the mesh
+
+    def split(self, state: SamplerState) -> ShardedState:
+        """The state's chains, shard by shard, copied to their devices."""
+        return ShardedState(tuple(state._replace(
+            theta=state.theta[a:b].to(dev, copy=True).contiguous(),
+            weight=state.weight[a:b].to(dev, copy=True).contiguous(),
+            fire=state.fire.to(dev, copy=True), history=None)
+            for (a, b), dev in zip(self.spans, self.devices)))
+
+    def gather(self, state: ShardedState) -> SamplerState:
+        """The whole population on the mesh's first device."""
+        theta, weight = self._gathered(state)
+        s0 = state.shards[0]
+        return s0._replace(theta=theta, weight=weight,
+                           fire=s0.fire.to(self.device, copy=True))
+
+    def _gathered(self, state: ShardedState):
+        return (torch.cat([s.theta.to(self.device) for s in state.shards]),
+                torch.cat([s.weight.to(self.device) for s in state.shards]))
+
+    def _scatter(self, state: ShardedState, theta, weight):
+        for (a, b), s in zip(self.spans, state.shards):
+            s.theta.copy_(theta[a:b])
+            s.weight.copy_(weight[a:b])
+
+    def migrate(self, state: ShardedState, it: int):
+        """Migration before iteration ``it`` on the whole population: K2
+        (or its plain version) gated on the first shard's device-side
+        flag; for the unfused step, where the host's gate opens, the
+        exchange from the migration columns of iteration ``it``'s pool of
+        every group (the shards' pools pass over them)."""
+        if self.alpha <= 0.0:
+            return
+        if self.fused:
+            theta, weight = self._gathered(state)
+            migration_ops.migrate(theta, weight, state.shards[0].fire,
+                                  self.G, self.Np, seed=state.key, it=it,
+                                  check=False)
+        else:
+            scal = self.steps[0].scalar_words(state.key, it)
+            if rng.Scalars(scal).uniform() > float(np.float32(self.alpha)):
+                return
+            theta, weight = self._gathered(state)
+            bits = rng.words(state.key, it, 1 + self.Np, self.G,
+                             ns=rng.POOL_NS, device=self.device).T
+            th, w = migration_ops.maybe_migrate(
+                rng.Pool(bits, rng.Scalars(scal), self.steps[0].x64),
+                theta.view(self.G, self.Np, self.d),
+                weight.view(self.G, self.Np), self.alpha, self.G)
+            theta, weight = th.reshape(-1, self.d), w.reshape(-1)
+        self._scatter(state, theta, weight)
+
+    # ---- Step's interface
+
+    def check(self, state: ShardedState, out=None):
+        """Raise unless every shard's state (and trajectory slot) suits
+        its step."""
+        outs = out if out is not None else [None] * len(self.steps)
+        for step, s, o in zip(self.steps, state.shards, outs):
+            step.check(s, o)
+
+    def __call__(self, state: ShardedState, out=None, check: bool = True,
+                 phase: str = "all") -> ShardedState:
+        """One iteration: migration (:meth:`migrate`), then each shard's
+        step; ``out`` a trajectory slot per shard, or None."""
+        self.migrate(state, state.iteration)
+        outs = out if out is not None else [None] * len(self.steps)
+        kw = {"phase": phase} if self.fused else {}
+        return ShardedState(tuple(
+            step(s, o, check=check, **kw)
+            for step, s, o in zip(self.steps, state.shards, outs)))
+
+    def window(self, state: ShardedState, w: Window, traj=None):
+        """Window ``w`` (:meth:`Step.window`): migration on the whole
+        population where ``w.migrate``, then one K1 launch per shard;
+        ``traj`` a trajectory per shard, or None."""
+        if w.migrate:
+            self.migrate(state, w.it0)
+        trajs = traj if traj is not None else [None] * len(self.steps)
+        for step, s, t in zip(self.steps, state.shards, trajs):
+            step.window(s, w, t)
+
+    @property
+    def superstep_k(self) -> int:
+        return self.steps[0].superstep_k
+
+    def plan(self, state: ShardedState, n_iter: int, thin: int = 1,
+             fire=None, switch: int = None, store: bool = True):
+        """The run's windows (:meth:`Step.plan`): the gates are the
+        population's, the same for every shard."""
+        return self.steps[0].plan(state.shards[0], n_iter, thin, fire,
+                                  switch, store)
+
+    def advance(self, state: ShardedState, n_iter: int, thin: int = 1,
+                traj=None, fire=None, switch: int = None) -> ShardedState:
+        """:meth:`Step.advance` over the mesh."""
+        for w in self.plan(state, n_iter, thin, fire, switch,
+                           store=traj is not None):
+            self.window(state, w, traj)
+        return state.at(state.iteration + n_iter)
+
+    def get_superstep(self):
+        return lambda state, out=None: self.advance(
+            state, self.superstep_k, 1, out)
+
+    def get_thin_step(self, thin: int):
+        return lambda state, out=None: self.advance(state, thin, thin, out)
+
+    def get_post_burnin(self):
+        if not self.fused or self.steps[0].get_post_burnin() is None:
+            return None
+        return functools.partial(self, phase="post")
+
+
+def _kernels(step) -> bool:
+    """True for the kernels' step, on one device or over a mesh."""
+    return isinstance(step, Step) or (isinstance(step, ShardedStep)
+                                      and step.fused)
+
+
+def _on_mesh(mesh, device):
+    """``(devices, device)`` of a call with ``mesh=`` and ``device=``:
+    the mesh's devices, or None without a mesh or with a mesh of one
+    device (the plain path on it), and the device the state starts on.
+    Raises for a non-mesh and for a ``device=`` that differs from the
+    mesh's devices."""
+    if mesh is None:
+        return None, resolve_device(device)
+    devices = mesh_devices(mesh)
+    if device is not None:
+        want = torch.device(device)
+        if want.type == "cuda" and want.index is None:
+            want = torch.device("cuda", torch.cuda.current_device()
+                                if torch.cuda.is_available() else 0)
+        if any(d != want for d in devices):
+            raise ValueError(f"device={device} with a mesh of "
+                             f"{[str(d) for d in devices]}: pass one or "
+                             f"the other")
+    devices = [resolve_device(d) for d in devices]
+    return (devices if len(devices) > 1 else None), devices[0]
+
+
 def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
-               allow_fused: bool = True):
+               allow_fused: bool = True, mesh=None):
     """The one-iteration step for this configuration on ``device``: the
     kernels' :class:`Step` where :func:`fused_supported`, else (or with
-    ``allow_fused=False``) the :class:`UnfusedStep`.  The choice depends on
-    the model and the configuration only; a kernel that fails to build or
-    launch raises."""
-    device = resolve_device(device)
+    ``allow_fused=False``) the :class:`UnfusedStep`; over a chain mesh of
+    more than one device, a :class:`ShardedStep` of them (a mesh of one
+    device is the plain path on it).  The choice depends on the model and
+    the configuration only; a kernel that fails to build or launch
+    raises."""
+    devices, device = _on_mesh(mesh, device)
+    if devices is not None:
+        return ShardedStep(model, de, spec, devices, allow_fused)
     if allow_fused and fused_supported(model, de, device):
         return Step(model, de, spec, device)
     return UnfusedStep(model, de, spec, device)
@@ -801,27 +1056,43 @@ def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
 
 def _trajectory_run(step, state, n_iter: int, thin: int, body,
                     collect: bool = True):
-    """Allocate the trajectory (in the state's dtype), check once, run
-    ``body(state, traj)`` and bring the stored rows to the host; with
-    ``collect=False`` no trajectory at all (``traj`` None, no buffer, no
-    copy; returns ``(state, None)``)."""
+    """Allocate the trajectory (in the state's dtype; for a
+    :class:`ShardedState` a list of one per shard, on its device), check
+    once, run ``body(state, traj)`` and bring the stored rows to the host
+    (the shards' chains side by side); with ``collect=False`` no trajectory
+    at all (``traj`` None, no buffer, no copy; returns ``(state,
+    None)``)."""
     if thin < 1 or n_iter % thin:
         raise ValueError(f"n_iter ({n_iter}) must be a positive multiple "
                          f"of thin ({thin})")
     if not collect:
         step.check(state)
         return body(state, None), None
-    C, d = state.theta.shape
+    sharded = isinstance(state, ShardedState)
     T = n_iter // thin
-    dev, dt = state.theta.device, state.theta.dtype
-    traj = (torch.empty((T, C, d), dtype=dt, device=dev),
-            torch.empty((T, C), dtype=dt, device=dev),
-            torch.empty((T, C), dtype=torch.bool, device=dev))
-    step.check(state, tuple(x[0] for x in traj))
+    trajs = []
+    for s in (state.shards if sharded else (state,)):
+        (C, d), dev, dt = s.theta.shape, s.theta.device, s.theta.dtype
+        trajs.append((torch.empty((T, C, d), dtype=dt, device=dev),
+                      torch.empty((T, C), dtype=dt, device=dev),
+                      torch.empty((T, C), dtype=torch.bool, device=dev)))
+    traj = trajs if sharded else trajs[0]
+    step.check(state, _row(traj, 0))
     state = body(state, traj)
-    ys = StepOutput(theta=traj[0].cpu().numpy(), accept=traj[2].cpu().numpy(),
-                    lp=traj[1].cpu().numpy())
-    return state, ys
+    # one trajectory is returned as it comes (a copy of the whole of it
+    # costs a fused cell tens of µs per iteration)
+    theta, lp, acc = (
+        np.concatenate(x, 1) if sharded else x[0]
+        for x in ([t[i].cpu().numpy() for t in trajs] for i in range(3)))
+    return state, StepOutput(theta=theta, accept=acc, lp=lp)
+
+
+def _row(traj, t: int):
+    """Trajectory row ``t`` as a slot: ``(θ, w, acc)``, or a list of one
+    per shard."""
+    if isinstance(traj, list):
+        return [_row(x, t) for x in traj]
+    return tuple(x[t] for x in traj)
 
 
 def run_scan(step, state: SamplerState, n_iter: int, thin: int = 1,
@@ -836,8 +1107,9 @@ def run_scan(step, state: SamplerState, n_iter: int, thin: int = 1,
     which they take the post-burn-in variant (the switch of the JAX
     ``run_scan``'s ``phase2 = (post_step, switch)``; :func:`sample` wires
     it).  The unfused step runs one iteration at a time
-    (:func:`run_loop`), with no sync."""
-    if not isinstance(step, Step):
+    (:func:`run_loop`), with no sync.  A :class:`ShardedStep` runs a
+    :class:`ShardedState` the same way."""
+    if not _kernels(step):
         if phase2 is not None:
             raise ValueError("phase2 needs the kernels' Step")
         return run_loop(step, state, n_iter, thin, collect)
@@ -857,8 +1129,7 @@ def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1,
         for i in range(n_iter):
             out = None
             if traj is not None and (i + 1) % thin == 0:
-                t = (i + 1) // thin - 1
-                out = (traj[0][t], traj[1][t], traj[2][t])
+                out = _row(traj, (i + 1) // thin - 1)
             s = step(s, out, check=False)
         return s
     return _trajectory_run(step, state, n_iter, thin, body, collect)
@@ -883,7 +1154,11 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
     (``n_iter`` and, with ``discard_burnin``, ``burnin`` divisible by it),
     ``state`` resumes from a returned state (it is not modified),
     ``return_state`` also returns the final state, ``allow_fused=False``
-    takes the unfused step (:func:`build_step`).  ``mesh``,
+    takes the unfused step (:func:`build_step`).  ``mesh`` (a
+    :func:`~demcmc_tpu_torch.parallel.chain_mesh`) splits the groups over
+    its devices (:class:`ShardedStep`; the state starts on, and a returned
+    state is gathered to, its first device; bitwise the unsharded run);
+    ``device=`` with a mesh must name the mesh's devices.
     ``checkpoint_every``, ``monitor`` and ``stop_rhat`` belong to later
     slices of the port and raise ``NotImplementedError``.
     Returns a :class:`Chains`."""
@@ -892,8 +1167,6 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
         raise TypeError("expected sample(model, de, n_iter) or "
                         "sample(model, de, MCMCThreads(), n_iter)")
     n_iter = int(args[0])
-    if mesh is not None:
-        _not_ported("mesh=", "A10, multi-GPU")
     if checkpoint_every or checkpoint_path:
         _not_ported("checkpoint_every=", "A9, checkpointing")
     if monitor:
@@ -903,7 +1176,7 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
     if thin > 1 and de.discard_burnin and de.burnin % thin:
         raise ValueError(f"burnin ({de.burnin}) must be divisible by "
                          f"thin ({thin})")
-    device = resolve_device(device)
+    devices, device = _on_mesh(mesh, device)
     spec = make_spec(model, de)
     if state is None:
         state = init_state(model, de, spec, key, device=device)
@@ -913,21 +1186,30 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
             for k in ("theta", "weight", "fire", "history")
             if getattr(state, k) is not None})
     state = _grow_history(state, n_iter)
-    step = build_step(model, de, spec, device=device,
-                      allow_fused=allow_fused)
-    # past burn-in the kernels' post variant (demcmc_tpu/sampler.py:
-    # 1537-1556), bitwise equal; windows store by thin on either side of
-    # the switch, so it needs no alignment to thin
-    phase2 = None
-    if isinstance(step, Step) and step.get_post_burnin() is not None:
-        remaining = max(de.burnin - (state.iteration - 1), 0)
-        if remaining < n_iter:
-            phase2 = remaining
-    state, ys = run_scan(step, state, n_iter, thin=thin, phase2=phase2)
+    step = build_step(model, de, spec,
+                      device=device if mesh is None else None,
+                      allow_fused=allow_fused, mesh=mesh)
+    if devices is not None:
+        state = step.split(state)
+    state, ys = run_scan(step, state, n_iter, thin=thin,
+                         phase2=_phase2(step, de, state, n_iter))
+    if devices is not None:
+        state = step.gather(state)
     chains = bundle_samples(model, de, spec, ys, n_iter, thin=thin)
     if return_state:
         return chains, state
     return chains
+
+
+def _phase2(step, de: DE, state, n_iter: int):
+    """The run index from which the kernels' step takes its post-burn-in
+    variant (``demcmc_tpu/sampler.py:1537-1556``), bitwise equal; windows
+    store by thin on either side of the switch, so it needs no alignment
+    to thin.  None where there is no switch in the run."""
+    if not _kernels(step) or step.get_post_burnin() is None:
+        return None
+    remaining = max(de.burnin - (state.iteration - 1), 0)
+    return remaining if remaining < n_iter else None
 
 
 def bundle_samples(model: DEModel, de: DE, spec: ParamSpec, ys: StepOutput,

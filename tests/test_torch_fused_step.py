@@ -148,8 +148,9 @@ def test_wrapper_takes_plain_version_on_cpu():
 def test_kernel_arguments():
     """K1's ctypes argument arrays: the integer array is kept per seed and
     carries the window of the latest launch (its first iteration, K, the
-    emission rule and the phase); the float array is built once, in the
-    layout ``csrc/de_step.cu`` reads."""
+    emission rule and the phase) and the population's chains (a bits-in
+    buffer's width, the launch's own unless given); the float array is
+    built once, in the layout ``csrc/de_step.cu`` reads."""
     model, de = tgauss.make(data=DATA, Np=NP, n_groups=G, burnin=BURNIN)
     cfg = tfused.StepConfig.make(model, de, tdm.make_spec(model, de))
     a = cfg.iargs(3, seed=(7 << 32) | 5)
@@ -157,10 +158,11 @@ def test_kernel_arguments():
     r = cfg.rows
     assert list(a[7:15]) == [r.partners, r.gamma, r.eps, 0xFFFFFFFF,
                              r.gate, r.normal, r.accept, r.fire]
-    assert list(a[15:]) == [1, 0, 1, r.n_words, 0]
+    assert list(a[15:]) == [1, 0, 1, r.n_words, 0, G * NP]
     assert cfg.iargs(4, seed=(7 << 32) | 5) is a and a[2] == 4
     assert cfg.iargs(9, (7 << 32) | 5, K=16, emit=(3, 4), post=True) is a
-    assert a[2] == 9 and list(a[15:]) == [16, 3, 4, r.n_words, 1]
+    assert a[2] == 9 and list(a[15:]) == [16, 3, 4, r.n_words, 1, G * NP]
+    assert cfg.iargs(9, (7 << 32) | 5, n_all=4 * G * NP)[20] == 4 * G * NP
     b = cfg.iargs(4, seed=9)
     assert b is not a and list(b[5:7]) == [9, 0]
     assert cfg.fargs is cfg.fargs

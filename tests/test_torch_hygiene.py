@@ -61,6 +61,17 @@ def test_optimization_modules_import_neither_jax_nor_the_jax_package(rel):
         assert "numpy" in roots and "torch" not in roots
 
 
+@pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/mesh.py"])
+def test_mesh_modules_import_neither_jax_nor_the_jax_package(rel):
+    """The chain-mesh modules, one by one: each exists and imports no JAX
+    and nothing of the JAX package (its ``parallel`` included); the mesh
+    module imports torch."""
+    roots = set(_imported_roots(PKG / rel))
+    assert not roots & {"jax", "jaxlib", "demcmc_tpu"}
+    if rel == "parallel/mesh.py":
+        assert "torch" in roots
+
+
 @pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py",
                                   "tools/k1_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):

@@ -104,13 +104,19 @@ def test_state_from_numpy_round_trips_jax_state(monkeypatch):
                              None, "packed", device="cpu")
 
 
-@pytest.mark.parametrize("kw", [{"mesh": object()},
-                                {"checkpoint_every": 10},
-                                {"monitor": True},
-                                {"stop_rhat": 1.01}])
-def test_later_slice_options_raise(kw):
+@pytest.mark.parametrize("kw,exc", [({"mesh": object()}, TypeError),
+                                    ({"checkpoint_every": 10},
+                                     NotImplementedError),
+                                    ({"monitor": True}, NotImplementedError),
+                                    ({"stop_rhat": 1.01},
+                                     NotImplementedError)],
+                         ids=["kw0", "kw1", "kw2", "kw3"])
+def test_later_slice_options_raise(kw, exc):
+    """Options of later slices raise ``NotImplementedError``; ``mesh=``
+    is carried (``tests/test_torch_mesh.py``) and refuses what is not a
+    chain mesh."""
     model, de = tgauss.make(data=DATA)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(exc):
         tdm.sample(model, de, 10, device="cpu", **kw)
 
 
