@@ -76,9 +76,12 @@ post variant.  Its launch checks are the counts of
            the bounds;
 19. K1-zoo  K1 against its plain version, bit for bit, on the LBA (256 ×
            16, 100 trials), pseudo-marginal ABC binomial (512 × 8, n_sim =
-           10,000) and discrete binomial (256 × 12) densities: 8 bits-in
-           iterations crossing burn-in 4 with the gate set at the start,
-           then one on Philox words; every discrete N integral;
+           10,000) and discrete binomial (256 × 12) densities, and on the
+           ABC binomial at 4 × 64 and 2 × 64 sequential (16 lanes a
+           chain) and at 2 groups of its ``block_chains`` limit (one
+           lane a chain; the limit logged): 8 bits-in iterations crossing
+           burn-in 4 with the gate set at the start, then one on Philox
+           words; every discrete N integral;
 20. main-lba  ``sample()`` on the 4,096-chain LBA cell (burn-in 1,000,
            5,000 iterations; the cells, oracles and gates of phases 20-22
            are in ``port_cells.py``) and its loop twin, bit for bit: each
@@ -94,8 +97,11 @@ post variant.  Its launch checks are the counts of
 24. timing3  device ms per launch of K1 on each new density beside its
            plain version and its bound;
 25. k4     the KDE kernel K4 against its plain version at the abc_kde
-           cell's shape (3,072 chains × 50 points × 10,000 simulations)
-           and at (5, 37, 1,537): |K4 − plain| ≤ 2e-5·(1 + |plain|);
+           cell's shape (3,072 chains × 50 points × 10,000 simulations),
+           at (5, 37, 1,537) and at (64, 1, 10,000), (40, 33, 4,173) and
+           (8, 300, 2,500) with subnormal, tiny and huge bandwidths on the
+           first chains (the true division forced on two): |K4 − plain| ≤
+           2e-5·(1 + |plain|), every output finite;
 26. main-kde  ``sample()`` on the 3,072-chain abc_kde cell through the
            unfused step (the cells, oracles and gates of phases 26-28 are
            in ``port_cells.py``): K4 launched once per iteration and once
@@ -722,7 +728,8 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
 
 
 # kernel names in the device trace: K1 and K3 are instantiations of
-# step_body.cuh's sweep_kernel over their partner sources
+# step_body.cuh's sweep_kernel (sweep_kernel_lanes on the ABC binomial)
+# over their partner sources
 K1_NAME, K2_NAME, K3_NAME = "GroupPartners", "migrate_kernel", \
     "HistoryPartners"
 
@@ -1304,7 +1311,7 @@ def phase_trace_slice2(dev):
     return out
 
 
-def _step_work(cfg, words, dens_ops):
+def _step_work(cfg, words, dens_ops, evaluated=None):
     """(bytes, operations) that one K1 or K3 iteration needs for this run's
     words.  Each chain makes one of three proposals in each block sweep,
     and only its words, history rows and arithmetic count: the DE pair
@@ -1313,9 +1320,12 @@ def _step_work(cfg, words, dens_ops):
     other two and ε, κ).  Philox words count as whole 4-word blocks, each
     chain's in its own sub-sweep block, plus the group leader's β gate and
     chain 0's gate of the next iteration; K3's history indices come from
-    RESAMPLE_NS blocks.  Bytes: θ and w read once, the new θ, w, accept
-    flags and gate written once; for K3 also the history rows read and
-    the row written."""
+    RESAMPLE_NS blocks.  ``evaluated`` (bool ``[C]``, one synchronous
+    sweep of one block): the chains whose density K1 evaluates, the
+    others' noise panel and ``dens_ops`` not counted (K1 evaluates a noise
+    density only in bounds, :func:`_proposals`); default every chain.
+    Bytes: θ and w read once, the new θ, w, accept flags and gate written
+    once; for K3 also the history rows read and the row written."""
     from demcmc_tpu_torch import rng
     r, d = cfg.rows, cfg.d
     G_, Np_ = cfg.G, cfg.Np
@@ -1324,16 +1334,21 @@ def _step_work(cfg, words, dens_ops):
     cols = torch.arange(C_, device=words.device)
     member = cols % Np_ if r.n_members > 1 else torch.zeros_like(cols)
     lead = (cols % Np_ == 0).to(torch.int64)
+    if evaluated is None:
+        evaluated = torch.ones(C_, dtype=torch.bool, device=words.device)
+    elif r.n_blocks != 1 or r.n_members != 1:
+        raise ValueError("evaluated: one synchronous sweep of one block")
+    ev = evaluated.to(torch.int64)
 
     def span(start, n):
         return list(range(start, start + n)) if start >= 0 else []
 
     sn_gate = span(r.snooker + 1, 1) if r.snooker >= 0 else []
     ek = span(r.eps, d) + span(r.kappa, d)
-    noise = span(r.noise, r.n_noise)        # every chain's noise panel
-    rows = {0: span(r.partners, 2) + span(r.gamma, 3) + sn_gate + ek + noise,
-            1: span(r.triple, 3) + span(r.snooker, 2) + ek + noise,
-            2: span(r.normal, 2 * d) + noise}
+    noise = span(r.noise, r.n_noise)        # an evaluated chain's panel
+    rows = {0: span(r.partners, 2) + span(r.gamma, 3) + sn_gate + ek,
+            1: span(r.triple, 3) + span(r.snooker, 2) + ek,
+            2: span(r.normal, 2 * d)}
     slots = {0: [0, 1], 1: [2, 3, 4], 2: []} if cfg.resample else {}
     f32 = {0: DE_F32_OPS_PER_DIM * d + DE_F32_OPS,
            1: SN_F32_OPS_PER_DIM * d + SN_F32_OPS,
@@ -1349,32 +1364,65 @@ def _step_work(cfg, words, dens_ops):
             u = rng.to_uni(w64[bo + r.gate].view(G_, Np_)[:, 0])
             kind[(u <= np.float32(cfg.beta)).repeat_interleave(Np_)] = 2
 
-        def own(m, k, ld):
+        def own(m, k, ld, e):
             blk = {(x + bo + m * r.stride) >> 2
-                   for x in rows[k] + span(r.accept, 1)}
+                   for x in rows[k] + noise * e + span(r.accept, 1)}
             if ld and r.gate >= 0:
                 blk.add((bo + r.gate) >> 2)     # the group's β gate
             return blk
 
-        n = torch.bincount((member * 3 + kind) * 2 + lead,
-                           minlength=r.n_members * 6).tolist()
+        n = torch.bincount(((member * 3 + kind) * 2 + lead) * 2 + ev,
+                           minlength=r.n_members * 12).tolist()
         for m in range(r.n_members):
             for k in range(3):
                 for ld in (0, 1):
-                    sset = b * r.n_members + m
-                    idx = {(sset * cfg.n_slots + x) >> 2
-                           for x in slots.get(k, [])}
-                    cnt = n[(m * 3 + k) * 2 + ld]
-                    blocks += cnt * (len(own(m, k, ld)) + len(idx))
-                    n_hist += cnt * len(slots.get(k, []))
-                    ops += cnt * f32[k]
-        ops += C_ * (F32_OPS_PER_DIM * d + F32_OPS + dens_ops)
+                    for e in (0, 1):
+                        sset = b * r.n_members + m
+                        idx = {(sset * cfg.n_slots + x) >> 2
+                               for x in slots.get(k, [])}
+                        cnt = n[((m * 3 + k) * 2 + ld) * 2 + e]
+                        blocks += cnt * (len(own(m, k, ld, e)) + len(idx))
+                        n_hist += cnt * len(slots.get(k, []))
+                        ops += cnt * f32[k]
+        ops += (C_ * (F32_OPS_PER_DIM * d + F32_OPS)
+                + int(evaluated.sum()) * dens_ops)
     # chain 0 also reads the next iteration's migration gate
-    blocks += int(r.fire >> 2 not in own(0, int(kind[0]), 1))
+    blocks += int(r.fire >> 2 not in own(0, int(kind[0]), 1, int(ev[0])))
     ops += blocks * PHILOX_OPS
     nbytes = (_state_bytes(C_, d)           # θ, w in; θ, w, acc, gate out
               + (n_hist + C_ * cfg.resample) * d * 4)  # history in, row out
     return nbytes, ops
+
+
+class _Seen:
+    """A model that records the points its density is asked for (the
+    plain step asks once per sub-sweep, ``[d, G, Np]`` columns)."""
+
+    def __init__(self, model):
+        self._model, self.points = model, []
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    def log_posterior_cols(self, spec, cols, noise=None):
+        self.points.append(cols)
+        return self._model.log_posterior_cols(spec, cols, noise)
+
+
+def _proposals(cfg, model, spec, state, it, words, migrate=False):
+    """``[C, d]`` proposals of one synchronous one-block K1 iteration from
+    ``state`` (θ, w, gate) on ``words``, by the plain version, after the
+    migration K2 makes where the gate is open (``migrate``); the state is
+    left as it was."""
+    from demcmc_tpu_torch.ops import fused_step, migration
+    seen = _Seen(model)
+    p = [x.clone() for x in state]
+    if migrate and cfg.rows.mig >= 0:
+        migration.migrate_plain(*p, words, cfg.G, cfg.Np)
+    fused_step.de_step_plain(cfg, seen, spec, *p, it, words)
+    if len(seen.points) != 1:
+        raise ValueError("_proposals: one synchronous sweep of one block")
+    return torch.movedim(seen.points[0], 0, -1).reshape(-1, cfg.d)
 
 
 def _state_bytes(C_, d):
@@ -1568,10 +1616,12 @@ def phase_timing_slice2(dev, launches, errs):
 # float32 operations of the densities, for the bounds (_step_work): LBA per
 # trial and accumulator (two Φ/φ pairs of ~20, the pdf or cdf, clip, log)
 # and per trial (t, the guard, 1/ts, the sum), plus the prior; the ABC
-# binomial per simulation (the bit map, N compares and adds, the hit) and
-# per CDF entry; the discrete binomial per lgamma32 (~40) and the rest
+# binomial for θ in [0, 1] per simulation (the bit map's shift, or and
+# subtract, the two compares, the and, the add) and per CDF entry it sums
+# (j ≤ k), plus the log; the discrete binomial per lgamma32 (~40) and the
+# rest
 LBA_OPS_PER_ACC, LBA_OPS_PER_TRIAL, LBA_OPS = 58, 6, 40
-ABC_OPS_PER_SIM_AND_N, ABC_OPS_PER_SIM, ABC_OPS_PER_N = 2, 4, 12
+ABC_OPS_PER_SIM, ABC_OPS_PER_N, ABC_OPS = 7, 12, 20
 LGAMMA_OPS, DISC_OPS = 40, 20
 
 
@@ -1602,21 +1652,57 @@ def _disc_case(burnin):
 
 ZOO = {"lba": (_lba_case, pc.LBA_CELL), "abc": (_abc_case, pc.ABC_CELL),
        "discrete": (_disc_case, pc.DISC_CELL)}
+ABC_WIDE_BOUNDS = ((-0.5, 1.5),)    # θ outside [0, 1] in bounds: the count
+
+
+def _abc_lane_cases(dev, burnin):
+    """(name, model, de) of the ABC binomial's lane checks (n_sim =
+    10,000): G = 4 × Np = 64, where a chain gets 16 lanes, and G = 2 × Np
+    = 64 with the sequential sweep (a warp holds chains that propose and
+    chains that do not), G = 2 groups at the density's ``block_chains``
+    limit (one lane a chain), and the cell's 512 × 8 with bounds (−0.5,
+    1.5), where proposals outside [0, 1] take the density's count (the
+    CDF recomputed a simulation); logs that limit."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import binomial
+    from demcmc_tpu_torch.ops import fused_step
+    dens = binomial.density(10, 6, pc.N_SIM)
+    most = fused_step.block_chains(False, dens, False, False, 1, dev)
+    log("K1-abc", f"fused_step.block_chains for the ABC density "
+        f"(synchronous, no snooker, no blocks): {most}")
+
+    def case(G_, Np_, **kw):
+        return binomial.make(N=10, k=6, abc=True, fresh_noise=True,
+                             n_sim=pc.N_SIM, Np=Np_, n_groups=G_,
+                             burnin=burnin, **kw)
+    c = pc.ABC_CELL
+    wide = (binomial.make_model(10, 6, abc=True, fresh_noise=True,
+                                n_sim=pc.N_SIM),
+            tdm.DE(bounds=ABC_WIDE_BOUNDS, burnin=burnin, Np=c["Np"],
+                   n_groups=c["n_groups"]))
+    return [("abc-4x64", *case(4, 64)),
+            ("abc-2x64-seq", *case(2, 64, sweep="sequential")),
+            (f"abc-2x{most}", *case(2, most)),
+            ("abc-wide", *wide)]
 
 
 def phase_k1_zoo(dev):
     """K1 against its plain version on the LBA (256 × 16, 100 trials), ABC
     binomial (512 × 8, n_sim = 10,000) and discrete binomial (256 × 12)
-    densities: 8 bits-in iterations crossing burn-in 4 with the migration
-    gate set at the start, then one on Philox words; θ, w and the accept
-    flags equal bit for bit, and every discrete N integral.  Returns the
-    largest |kernel − plain| of θ and w measured (0 when bitwise)."""
+    densities, and on the ABC binomial's lane checks
+    (:func:`_abc_lane_cases`): 8 bits-in iterations crossing burn-in 4
+    with the migration gate set at the start, then one on Philox words; θ,
+    w and the accept flags equal bit for bit, every discrete N integral,
+    and proposals in the wide-bounds case's count branch (in bounds,
+    outside [0, 1]) in every iteration.  Returns the largest |kernel −
+    plain| of θ and w measured (0 when bitwise)."""
     import demcmc_tpu_torch as tdm
-    from demcmc_tpu_torch.ops import fused_step
+    from demcmc_tpu_torch import rng as trng
+    from demcmc_tpu_torch.ops import accept, fused_step
     rng = np.random.default_rng(12)
     worst = 0.0
-    for name, (case, _) in ZOO.items():
-        model, de = case(burnin=4)
+    cases = [(name, *case(burnin=4)) for name, (case, _) in ZOO.items()]
+    for name, model, de in cases + _abc_lane_cases(dev, burnin=4):
         spec = tdm.make_spec(model, de)
         cfg = fused_step.StepConfig.make(model, de, spec)
         s = tdm.init_state(model, de, spec, 11, device=dev)
@@ -1627,6 +1713,18 @@ def phase_k1_zoo(dev):
         for it in range(1, 10):
             words = (random_words(rng, cfg.rows.n_words, C_, dev)
                      if it < 9 else None)
+            counted = ""
+            if name == "abc-wide":
+                x = _proposals(cfg, model, spec, state, it, words
+                               if it < 9 else trng.words(
+                                   79, it, cfg.rows.n_words, C_, device=dev),
+                               migrate=True)
+                n_count = int((accept.in_bounds(spec, x)
+                               & ((x[:, 0] < 0) | (x[:, 0] > 1))).sum())
+                if not n_count:
+                    raise AssertionError(f"K1 {name}: no proposal took the "
+                                         f"count branch at it={it}")
+                counted = f", {n_count} proposals by the count"
             state, e, _, n_acc = _compare_iteration(
                 cfg, model, spec, state, it, words=words, seed=79,
                 exact=True)
@@ -1638,7 +1736,7 @@ def phase_k1_zoo(dev):
                                          f"is not integral at it={it}")
             log("K1-" + name, f"{'bits-in' if it < 9 else 'Philox'} it={it}"
                 f" ({'burn-in' if it <= 4 else 'sampling'}): {n_acc} "
-                f"accepted, equal bit for bit")
+                f"accepted{counted}, equal bit for bit")
         log("K1-" + name, f"G={de.n_groups} Np={de.Np} d={cfg.d} words per "
             f"chain {cfg.rows.n_words}: max |diff| {err:.3g} over 9 "
             f"iterations")
@@ -1765,22 +1863,24 @@ def _zoo_dens_ops(name, cfg, model):
     if name == "lba":
         return int(dens.params[11]) * (2 * LBA_OPS_PER_ACC
                                        + LBA_OPS_PER_TRIAL) + LBA_OPS
-    if name == "abc":
-        n_sim, N = cfg.rows.n_noise, int(dens.params[0])
-        return (n_sim * (ABC_OPS_PER_SIM_AND_N * N + ABC_OPS_PER_SIM)
-                + ABC_OPS_PER_N * N)
+    if name == "abc":       # the cell's bounds are [0, 1]: two thresholds
+        n_sim, N, k = cfg.rows.n_noise, int(dens.params[0]), int(
+            dens.params[1])
+        return (n_sim * ABC_OPS_PER_SIM + ABC_OPS_PER_N * min(N, k + 1)
+                + ABC_OPS)
     return (int(dens.params[4]) + 1) * LGAMMA_OPS + DISC_OPS
 
 
 def phase_timing3(dev, launches, err):
     """Device ms per launch of K1 on each new density at its path's shape
     (spin-queued; plain, kernel, kernel, plain), its bound (_step_work:
-    the proposal each chain's words pick, the noise panel's Philox blocks,
-    the density's operations and its data buffer read once) and its
-    launches over the path."""
+    the proposal each chain's words pick, the noise panel's Philox blocks
+    and the density's operations of the chains whose density K1 evaluates
+    (a noise density's: the proposals in bounds), its data buffer read
+    once) and its launches over the path."""
     import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch import rng
-    from demcmc_tpu_torch.ops import fused_step
+    from demcmc_tpu_torch.ops import accept, fused_step
     it = 2000
     cases, seq = {}, []
     for name, (case, cell) in ZOO.items():
@@ -1804,7 +1904,7 @@ def phase_timing3(dev, launches, err):
             fused_step.de_step_plain(c, mm, sp, *x, it, words, out=o)
 
         n = 20 if name == "abc" else 200
-        cases[name] = (cfg, model)
+        cases[name] = (cfg, model, spec, st)
         seq += [(f"{name}_plain", k1_plain, 2), (name, k1, n), (name, k1, n),
                 (f"{name}_plain", k1_plain, 2)]
     t = {}
@@ -1821,11 +1921,17 @@ def phase_timing3(dev, launches, err):
     repl = {"lba": "demcmc_tpu/ops/fused_step.py:1539",
             "abc": "demcmc_tpu/ops/fused_step.py:2422",
             "discrete": "demcmc_tpu/ops/fused_step.py:2402"}
-    for name, (cfg, model) in cases.items():
+    for name, (cfg, model, spec, st) in cases.items():
         C_ = cfg.G * cfg.Np
-        nbytes, nops = _step_work(
-            cfg, rng.words(0, it, cfg.rows.n_words, C_, device=dev),
-            _zoo_dens_ops(name, cfg, model))
+        words = rng.words(0, it, cfg.rows.n_words, C_, device=dev)
+        evaluated = None
+        if cfg.rows.noise >= 0:     # K1 evaluates a noise density in bounds
+            evaluated = accept.in_bounds(spec, _proposals(
+                cfg, model, spec, st, it, words))
+            log("timing3", f"de_step/{name}-{C_}: {int(evaluated.sum())} "
+                f"of {C_} proposals in bounds, their density evaluated")
+        nbytes, nops = _step_work(cfg, words, _zoo_dens_ops(name, cfg, model),
+                                  evaluated)
         data = model.cuda_density.data
         nbytes += 0 if data is None else data.nbytes
         tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
@@ -1878,17 +1984,43 @@ def _kde_args(C_, E, S, dev, seed):
     return x, sims, kde_utils.silverman_bandwidth(sims)
 
 
+# K4's bandwidths outside the normal range, set on the first chains of
+# the stress shapes: a subnormal h and a huge one (the true division) and
+# the fast quotient's edges 2^-59.5 and 2^59; on the two tiny ones every
+# hundredth simulation is set to x[0], so their sums are not all zero
+K4_EDGE_H = (1e-39, 1e30, 2.0 ** -59.5, 2.0 ** 59)
+
+
+def _kde_stress_args(C_, E, S, dev, seed):
+    """:func:`_kde_args` with the bandwidths of K4_EDGE_H on the first
+    chains."""
+    x, sims, h = _kde_args(C_, E, S, dev, seed)
+    for c, hc in enumerate(K4_EDGE_H):
+        h[c] = hc
+        if c in (0, 2):
+            sims[c, ::100] = x[0]
+    return x, sims, h
+
+
 def phase_k4(dev):
     """K4 against its plain version on the card, at the cell's shape
-    (3,072 chains × 50 points × 10,000 simulations) and at an unaligned
-    one (5 × 37 × 1,537): |K4 − plain| ≤ 2e-5·(1 + |plain|) (the plain
-    version takes the mean, then divides by h, and sums in torch's order).
-    Returns the largest |K4 − plain|."""
+    (3,072 chains × 50 points × 10,000 simulations), at an unaligned one
+    (5 × 37 × 1,537) and at shapes that stress its (chain, point) mapping
+    and its quotient: E = 1, E = 33 with n_sim not a multiple of the tile
+    nor of 4, E = 300, each with the bandwidths of K4_EDGE_H on its first
+    chains (the true division forced on two): |K4 − plain| ≤ 2e-5·(1 +
+    |plain|) (the plain version takes the mean, then divides by h, and
+    sums in torch's order), every output finite.  Returns the largest
+    |K4 − plain|."""
     from demcmc_tpu_torch.ops import kde
     C_ = pc.KDE_CELL["n_groups"] * pc.KDE_CELL["Np"]
     worst = 0.0
-    for shape in ((C_, pc.KDE_N_OBS, pc.KDE_N_SIM), (5, 37, 1537)):
-        x, sims, h = _kde_args(*shape, dev, seed=shape[2])
+    for shape, args in (((C_, pc.KDE_N_OBS, pc.KDE_N_SIM), _kde_args),
+                        ((5, 37, 1537), _kde_args),
+                        ((64, 1, 10_000), _kde_stress_args),
+                        ((40, 33, 4173), _kde_stress_args),
+                        ((8, 300, 2500), _kde_stress_args)):
+        x, sims, h = args(*shape, dev, seed=shape[2])
         out = kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR)
         torch.cuda.synchronize()
         ref = kde.kde_logpdf_plain(x, sims, h, pc.KDE_FLOOR)

@@ -11,7 +11,7 @@
 // accept, synchronous or sequential sweep; and, for optimization, the
 // greedy max/min accept on the objective alone (:2429-2445, with the
 // min-mode clamp of the base select, :2289-2293).  The body is
-// step_body.cuh's sweep_kernel with the GroupPartners source; K3
+// step_body.cuh's sweep kernel with the GroupPartners source; K3
 // (de_step_resample.cu) is the same body over the history.  Migration is
 // the separate kernel K2 (migration.cu), launched before a window whose
 // first iteration's gate is open.
@@ -32,12 +32,14 @@
 //
 // The densities other than the Gaussian (densities/*.cuh) run the whole
 // density in the chain's thread: LBA loops over its trials (two
-// accumulators, four Phi/phi pairs and two logs per trial), the ABC binomial
-// over its n_sim simulations (a Philox block per four of them), the discrete
+// accumulators, four Phi/phi pairs and two logs per trial), the discrete
 // binomial over its unique counts (an lgamma each).  There the kernel is
 // bound by that serial loop on one thread per chain (4,096 threads, about
-// one warp per SM quadrant), not by bytes; spreading trials or simulations
-// over a warp's lanes is later work.
+// one warp per SM quadrant), not by bytes.  The ABC binomial's loop over
+// its n_sim simulations (a Philox block per four of them, two compares
+// each) is split over up to 32 lanes per chain (kLanes, step_body.cuh):
+// at the ABC cell's 512 groups of 8 chains, 512 blocks of 8 warps instead
+// of 64 blocks of 2, so the Philox and compare work fills every SM.
 #include <cuda_runtime.h>
 
 #include <cstdint>

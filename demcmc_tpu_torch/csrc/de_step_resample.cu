@@ -7,7 +7,7 @@
 // fetch_hist_narrow :2178, the streamed pre-gather _resample_pre :2688,
 // the wide one-hot permute fetch_hist_wide :2130), the partner index draws
 // _resample_idx (:2637) and the history write store_samples! (:2494-2517).
-// The body is step_body.cuh's sweep_kernel with the HistoryPartners source:
+// The body is step_body.cuh's sweep kernel with the HistoryPartners source:
 // the same proposal, snooker, epsilon, kappa, beta, bounds, density and MH
 // tail as K1, with the DE pair and the snooker triple read from the history
 // and the gamma_2 base select kept group-local.

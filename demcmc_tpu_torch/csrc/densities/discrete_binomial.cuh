@@ -24,6 +24,7 @@ struct DiscreteBinomialDensity {
   static constexpr int D = 2;
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 1u;  // N snapped
+  static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
   float n, cst, sk, kmax;
   int n_unique;
   float log_prior;

@@ -20,6 +20,7 @@ struct GaussianDensity {
   static constexpr int kParams = 7;
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 0u;
+  static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
   float n, xbar, ss, c0, log_2pi, log_pi, log2;
 
   static GaussianDensity from(const float* p, const float*) {

@@ -30,6 +30,7 @@ struct LbaDensity {
   static constexpr int D = 5;
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 0u;
+  static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
   static constexpr float kClip = 0x1.4484cp-100f;  // float32(1e-30)
   // (mu, sigma^2, log 2 pi sigma^2) of the nu, A and k priors
   float mu_nu, ss_nu, ln_nu, mu_a, ss_a, ln_a, mu_k, ss_k, ln_k;

@@ -22,6 +22,7 @@ struct MvNormalDensity {
   static constexpr int kParams = 7 + K;
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 0u;
+  static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
   float n, nd, ss, c0, log_2pi, log_pi, log2;
   float xbar[K];
 

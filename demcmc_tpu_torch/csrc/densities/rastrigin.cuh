@@ -21,6 +21,7 @@ struct RastriginDensity {
   static constexpr int kParams = 3;
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 0u;
+  static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
   float an, a, two_pi;
 
   static RastriginDensity from(const float* p, const float*) {

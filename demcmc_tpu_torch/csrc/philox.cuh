@@ -7,7 +7,9 @@
 // which in bits-in mode (a test mode) reads a [n_words, C] uint32 buffer
 // per iteration instead, so kernel and plain version can be fed identical
 // words;
-// ChainWords reads one chain's rows and generates each block only once.
+// ChainWords reads one chain's rows and generates each block only once;
+// several threads that share a chain (ChainLanes) each read their own
+// blocks of it.
 //
 // The chain of a word is its index in the whole population.  A launch on
 // one shard of a population split over a chain mesh holds chains chain0 ..
@@ -120,6 +122,30 @@ struct ChainWords {
       cur = philox_block(src.k0, src.k1, src.it, b, chain, src.ns);
     }
     return lane(cur, (uint32_t)row);
+  }
+
+  // rows 4 b .. 4 b + 3 at once (all four must lie in the buffer in
+  // bits-in mode); the row cache is left as it is
+  __device__ __forceinline__ uint4 block(uint32_t b) const {
+    if (src.bits != nullptr) {
+      const uint32_t* p = src.bits + (size_t)(4u * b) * src.C + chain;
+      return make_uint4(p[0], p[src.C], p[2 * (size_t)src.C],
+                        p[3 * (size_t)src.C]);
+    }
+    return philox_block(src.k0, src.k1, src.it, b, chain, src.ns);
+  }
+};
+
+// The n adjacent threads of one warp that share a chain (n a power of two,
+// at most 32): this thread's lane, n, and the warp mask of the n threads.
+struct ChainLanes {
+  int lane, n;
+  unsigned mask;
+
+  // the sum of v over the n lanes, in every lane
+  __device__ __forceinline__ int sum(int v) const {
+    for (int o = n >> 1; o > 0; o >>= 1) v += __shfl_xor_sync(mask, v, o, n);
+    return v;
   }
 };
 

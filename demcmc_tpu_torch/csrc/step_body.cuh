@@ -1,4 +1,5 @@
-// The DE sweep body shared by K1 (de_step.cu) and K3 (de_step_resample.cu).
+// The DE sweep shared by K1 (de_step.cu) and K3 (de_step_resample.cu): its
+// arguments, partner sources and launch here, its body in sweep_body.cuh.
 //
 // Port of the sweep of the TPU kernel demcmc_tpu/ops/fused_step.py
 // build_fused_step (kernel closure :1858): run_sweeps (:2453-2475) around
@@ -43,7 +44,13 @@
 // history row it - 1.  K1 and K3 are two instantiations of this body.
 //
 // Layout: theta [C, D] and w [C] float32, chain c in group c / Np.  One
-// thread per chain; a block holds whole groups.  The group is staged in
+// thread per chain, or, for a density with kLanes > 1 (the ABC binomial's
+// noise panel), L adjacent threads of one warp per chain (its lanes; L a
+// power of two <= kLanes, chosen at launch from Np); a block holds whole
+// groups.  Every lane runs the chain's proposal, bounds and accept on the
+// same words, so to the same bits; only the density's inner loop is split
+// over the lanes (ChainLanes), and lane 0 writes the chain's stage, scan
+// entry and outputs.  The group is staged in
 // shared memory, and every read of another chain (partners, softmax base)
 // goes to the staged copy.  The synchronous sweep (one sub-sweep) reads
 // iteration-start values and updates the state in place.  The sequential
@@ -76,6 +83,12 @@
 namespace demcmc {
 
 constexpr int kThreadsTarget = 64;
+// threads a block for a density with lanes: 8 warps a block, so the ABC
+// cell's 512 groups of 8 chains fill every SM
+constexpr int kLaneThreadsTarget = 256;
+// threads a block of a kernel with lanes may have: its launch bound, which
+// holds it to the registers that allow them (so no attribute query at launch)
+constexpr int kLaneBlockThreads = 1024;
 // accept modes (ops/fused_step.py accept_mode: 'mh', 'max', 'min')
 constexpr int kAcceptMH = 0, kAcceptMax = 1, kAcceptMin = 2;
 // min mode's clamp of +inf weights in the base select (fused_step.py:2292)
@@ -83,7 +96,7 @@ constexpr float kMinModeClamp = 3.0e38f;
 constexpr int kMaxBlocks = 2;  // block counts built: 1 (none) and 2
 constexpr float kTwoPi = 6.283185307179586f;
 // Draw the mutation's normals only in groups whose beta gate fired: chosen
-// at compile time from the width (see the mutation in sweep_kernel).
+// at compile time from the width (see the mutation in sweep_body.cuh).
 template <int D>
 constexpr bool kNormalsIfGated = D >= 8;
 
@@ -108,7 +121,14 @@ struct StepArgs {
   uint32_t blk_mask[kMaxBlocks];  // each block's dimensions (bit i: dim i)
   float fixed_g1, eps, eps2, kappa_keep, beta, sigma, alpha, theta_sn;
   float lo[D], hi[D];
+  int lanes;  // threads a chain (set at launch; 1 unless the density has
+              // kLanes > 1)
 };
+
+// Threads a chain at most in a kernel of this density and partner source:
+// the density's kLanes, 1 for a one-CTA source (K3's history).
+template <class Density, class Source>
+constexpr int kMaxLanes = Source::kOneCta ? 1 : Density::kLanes;
 
 // iargs: G, Np, it0, burnin, random_gamma, seed_lo, seed_hi, then the row of
 //   the partner, gamma, eps, kappa, gate, normal, accept and fire draws
@@ -179,12 +199,13 @@ StepArgs<Density::D> read_args(float* theta, float* w, float* out_theta,
     a.lo[i] = fa[7 + i];
     a.hi[i] = fa[7 + D + i];
   }
+  a.lanes = 1;
   return a;
 }
 
 // The chain being updated in a sub-sweep.
 struct Slot {
-  int c, p, lead, member, off;  // chain, group slot, group's first thread,
+  int c, p, lead, member, off;  // chain, group slot, group's first slot,
                                 // sub-sweep, its row offset
   int set;                      // partner slot set: block * n_members + member
 };
@@ -194,14 +215,17 @@ __device__ __forceinline__ float nan_max(float a, float b) {
   return (isnan(a) || a > b) ? a : b;
 }
 
-// Inclusive Hillis-Steele scan within Np-thread segments of s (the TPU
-// kernel's _seg_scan: x[p] = op(x[p], x[p-k]) for p >= k, k = 1, 2, 4...).
+// Inclusive Hillis-Steele scan within Np-slot segments of s (the TPU
+// kernel's _seg_scan: x[p] = op(x[p], x[p-k]) for p >= k, k = 1, 2, 4...);
+// slot is the thread's chain slot, and only a writer stores (one lane a
+// chain; every thread reaches the barriers).
 template <bool kAdd>
-__device__ __forceinline__ void seg_scan(float* s, int tid, int p, int Np) {
+__device__ __forceinline__ void seg_scan(float* s, int slot, int p, int Np,
+                                         bool writer) {
   for (int k = 1; k < Np; k <<= 1) {
-    const float v = (p >= k) ? s[tid - k] : 0.0f;
+    const float v = (p >= k) ? s[slot - k] : 0.0f;
     __syncthreads();
-    if (p >= k) s[tid] = kAdd ? s[tid] + v : nan_max(s[tid], v);
+    if (writer && p >= k) s[slot] = kAdd ? s[slot] + v : nan_max(s[slot], v);
     __syncthreads();
   }
 }
@@ -350,295 +374,49 @@ struct HistoryPartners {
 // kSeq (the sequential sweep), kSnooker, kPost, kNBlk and kMode (the
 // accept) are compile-time, so a configuration without them runs none of
 // their code: as run-time flags they made K1 measurably slower on an H100
-// (PERF.md).
+// (PERF.md).  The two kernels share their body, sweep_body.cuh, included
+// as text: a device function called from both changed the code of every
+// one-thread-a-chain instantiation (their SASS, compared on an H100).
+//
+// One thread a chain (kMaxLanes == 1).
 template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost,
           int kNBlk, int kMode = kAcceptMH>
 __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
                              Source src) {
-  constexpr int D = Density::D;
-  extern __shared__ float sh[];
-  const int T = blockDim.x, tid = threadIdx.x, Np = a.Np;
-  float* s_th = sh;         // [T, D] the block's groups
-  float* s_q = sh + T * D;  // [T] scan scratch
-  const int p = tid % Np;
-  const int lead = tid - p;
-  const int g = blockIdx.x * (T / Np) + tid / Np;
-  const bool valid = g < a.G;
-  const int c = valid ? g * Np + p : 0;
-  const size_t C = (size_t)a.G * Np;
+#include "sweep_body.cuh"
+}
 
-  float th[D], prop[D];
-  float w = 0.0f;
-  for (int i = 0; i < D; ++i) th[i] = valid ? a.theta[(size_t)c * D + i] : 0.0f;
-  if (valid) w = a.w[c];
-  for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
-  __syncthreads();
+// Lanes (kMaxLanes > 1): held to 64 registers by the launch bound, so a
+// block of 1,024 threads launches and a group fits one block up to 1,024
+// chains (one lane each), as with one thread a chain.
+template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost,
+          int kNBlk, int kMode = kAcceptMH>
+__global__ void __launch_bounds__(kLaneBlockThreads)
+    sweep_kernel_lanes(StepArgs<Density::D> a, Density dens, Source src) {
+#include "sweep_body.cuh"
+}
 
-  const float half_dm1 = 0.5f * (float)(D - 1);
-  int t_out = 0;  // trajectory rows written so far
-  for (int k = 0; k < a.K; ++k) {
-    const int it = a.it0 + k;
-    const WordSource W = a.words.at(k, (uint32_t)it, a.n_words);
-    ChainWords Wc(W, c);  // this chain's words, rising rows
-    const Source sk = src.at(k, it);
-    typename Source::Thread st = sk.thread(c);
-
-    const bool base_phase = !kPost && a.random_gamma && it <= a.burnin;
-    bool acc_any = false;
-
-    for (int b = 0; b < kNBlk; ++b) {
-      const int bo = b * a.blk_stride;  // the block sweep's first row
-      // beta mutation: one gate per group and sweep, from the leader's word
-      // (W adds chain0: the leader's index in the population).
-      // The sequential sweep reads it before its sub-sweeps, the synchronous
-      // one next to its use, where it overlaps the proposal (K1 measured
-      // faster on an H100 than with the gate read here).
-      auto beta_gate = [&]() {
-        return a.r_gate >= 0 &&
-               to_uni(W(a.r_gate + bo, valid ? g * Np : 0)) <= a.beta;
-      };
-      const bool mut_sweep = kSeq && beta_gate();
-      acc_any = false;  // the last block's accepts are recorded
-
-      for (int m = 0; m < (kSeq ? a.n_members : 1); ++m) {
-        if (base_phase) {
-          // softmax(w) CDF over each group (every thread takes part); min
-          // mode's +inf weights (out-of-bounds scores) clamped, so the
-          // exponentials stay finite
-          const float wb = kMode == kAcceptMin ? fminf(w, kMinModeClamp) : w;
-          s_q[tid] = wb;
-          __syncthreads();
-          seg_scan<false>(s_q, tid, p, Np);
-          const float mx = s_q[lead + Np - 1];
-          __syncthreads();
-          s_q[tid] = expf(wb - (isfinite(mx) ? mx : 0.0f));
-          __syncthreads();
-          seg_scan<true>(s_q, tid, p, Np);
-        }
-        // The synchronous sweep runs every thread through the body (chain 0's
-        // words and a zero group for the threads past the last group, whose
-        // results are never written): K1 measured faster on an H100 than
-        // with the test.  The sequential sweep keeps it: its few proposing
-        // threads would wait on diverging idle ones.
-        if (kSeq ? valid && p == m : true) {
-          const Slot s{c, p, lead, m, bo + m * a.stride, b * a.n_members + m};
-          const float *pm, *pn;
-          sk.pair(st, Wc, s, a, s_th, pm, pn);
-          if (a.random_gamma) {
-            const float ub = to_uni(Wc(a.r_gamma + s.off));
-            const float g1 = to_uni(Wc(a.r_gamma + s.off + 1)) * 0.5f + 0.5f;
-            const float g2 = to_uni(Wc(a.r_gamma + s.off + 2)) * 0.5f + 0.5f;
-            // past burn-in the base term is +0.0 and is still added: the add
-            // turns -0.0 into +0.0, as in the TPU kernel's post variant
-            // (fused_step.py:2262-2275), so kPost changes no bit
-            float bterm[D];
-            for (int i = 0; i < D; ++i) bterm[i] = 0.0f;
-            if (base_phase) {
-              // base chain drawn from softmax(w) over the group by inverse CDF
-              const float ubs = fmaxf(ub, FLT_MIN) * s_q[lead + Np - 1];
-              int cnt = 0;
-              for (int o = 0; o < Np; ++o) cnt += s_q[lead + o] < ubs;
-              const float* base = s_th + (lead + min(cnt, Np - 1)) * D;
-              for (int i = 0; i < D; ++i) bterm[i] = g2 * (base[i] - th[i]);
-            }
-            for (int i = 0; i < D; ++i)
-              prop[i] = (th[i] + g1 * (pm[i] - pn[i])) + bterm[i];
-          } else {
-            for (int i = 0; i < D; ++i)
-              prop[i] = th[i] + a.fixed_g1 * (pm[i] - pn[i]);
-          }
-
-          // snooker, per chain with probability theta_sn (fused_step.py:
-          // 2322-2351): project the triple's pm, pn onto theta - z
-          const float* pz = nullptr;
-          bool sn = false, degen = false;
-          float den0 = 0.0f;
-          if (kSnooker) {
-            const float *pm2, *pn2;
-            sk.triple(st, Wc, s, a, s_th, pz, pm2, pn2);
-            float sp[D];
-            for (int i = 0; i < D; ++i) sp[i] = th[i] - pz[i];
-            den0 = dot<D>(sp, sp);
-            degen = den0 <= FLT_MIN;
-            if (degen)
-              for (int i = 0; i < D; ++i) sp[i] = 1.0f;
-            const float dens2 = dot<D>(sp, sp);
-            const float q1 = dot<D>(pm2, sp) / dens2;
-            const float q2 = dot<D>(pn2, sp) / dens2;
-            const float gsn = to_uni(Wc(a.r_sn + s.off)) + 1.2f;
-            sn = to_uni(Wc(a.r_sn + s.off + 1)) <= a.theta_sn;
-            if (sn)
-              for (int i = 0; i < D; ++i)
-                prop[i] = th[i] + gsn * (q1 * sp[i] - q2 * sp[i]);
-          }
-
-          if (a.r_eps >= 0)
-            for (int i = 0; i < D; ++i)
-              prop[i] = prop[i] +
-                        (to_uni(Wc(a.r_eps + s.off + i)) * a.eps2 - a.eps);
-          if (a.r_kappa >= 0)
-            for (int i = 0; i < D; ++i)
-              if (!(to_uni(Wc(a.r_kappa + s.off + i)) > a.kappa_keep))
-                prop[i] = th[i];
-          // the block's dimensions only (reset!, crossover.jl:336-352); a
-          // static index into the masks (b is 0 or 1)
-          if constexpr (kNBlk > 1) {
-            const uint32_t keep = b == 0 ? a.blk_mask[0] : a.blk_mask[1];
-            for (int i = 0; i < D; ++i)
-              if (!((keep >> i) & 1u)) prop[i] = th[i];
-          }
-
-          // snooker MH correction 0.5 (d - 1) (log|theta' - z|^2 - log|theta -
-          // z|^2) on the final proposal; a degenerate draw z == theta
-          // proposes theta and is rejected with -inf (:2374-2384)
-          float adj = 0.0f;
-          if (sn) {
-            if (degen)
-              for (int i = 0; i < D; ++i) prop[i] = th[i];
-            float a1[D];
-            for (int i = 0; i < D; ++i) a1[i] = prop[i] - pz[i];
-            const float a1sq = dot<D>(a1, a1);
-            adj = degen ? -INFINITY : half_dm1 * (logf(a1sq) - logf(den0));
-          }
-
-          // Box-Muller normals.  Narrow densities draw them in every chain
-          // and let the gate select; wide ones only where the group's gate
-          // fired (kNormalsIfGated: on an H100 the branch slows K1 at d = 2
-          // and saves K3 at d = 31 more than half its time).  The radii come
-          // from the first d rows and then the angles, so the words are read
-          // in rising rows; only the narrow synchronous sweep takes u1, u2
-          // per dimension, which K1 runs faster.
-          const bool mut = kSeq ? mut_sweep : beta_gate();
-          if constexpr (!kSeq && !kNormalsIfGated<D>) {
-            if (a.r_gate >= 0)
-              for (int i = 0; i < D; ++i) {
-                const float u1 =
-                    fmaxf(to_uni(Wc(a.r_norm + s.off + i)), FLT_MIN);
-                const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
-                const float nrm = sqrtf(-2.0f * logf(u1)) * cosf(kTwoPi * u2);
-                if (mut) prop[i] = th[i] + a.sigma * nrm;
-              }
-          } else if (kNormalsIfGated<D> ? mut : a.r_gate >= 0) {
-            float rad[D];
-            for (int i = 0; i < D; ++i)
-              rad[i] = sqrtf(-2.0f *
-                             logf(fmaxf(to_uni(Wc(a.r_norm + s.off + i)),
-                                        FLT_MIN)));
-            for (int i = 0; i < D; ++i) {
-              const float u2 = to_uni(Wc(a.r_norm + s.off + D + i));
-              const float nrm = rad[i] * cosf(kTwoPi * u2);
-              if (mut) prop[i] = th[i] + a.sigma * nrm;
-            }
-          }
-          if (mut) adj = 0.0f;  // a mutation carries no snooker correction
-
-          // integer snap (fused_step.py:2402-2410) on the density's
-          // compile-time mask: rintf rounds half to even, as jnp.round and
-          // torch.round do
-          if constexpr (Density::kIntMask != 0u)
-            for (int i = 0; i < D; ++i)
-              if ((Density::kIntMask >> i) & 1u) prop[i] = rintf(prop[i]);
-
-          bool inb = true;
-          for (int i = 0; i < D; ++i) {
-            if (isfinite(a.lo[i])) inb = inb && prop[i] >= a.lo[i];
-            if (isfinite(a.hi[i])) inb = inb && prop[i] <= a.hi[i];
-          }
-          // a density that draws noise streams its panel from the chain's
-          // words (rows r_noise.. of the sub-sweep block, before the accept
-          // row); the greedy modes score the objective alone
-          float lp;
-          if constexpr (kMode != kAcceptMH)
-            lp = dens.like(prop);
-          else if constexpr (Density::kNoise)
-            lp = dens(prop, Wc, a.r_noise + s.off);
-          else
-            lp = dens(prop);
-          const float bad = kMode == kAcceptMin ? INFINITY : -INFINITY;
-          const float wp = (inb && !isnan(lp)) ? lp : bad;
-          // the accept word, read in every mode (the layout is the same)
-          const float u = fmaxf(to_uni(Wc(a.r_acc + s.off)), FLT_MIN);
-          bool acc;
-          if constexpr (kMode == kAcceptMH) {
-            float delta = wp - w;
-            if (kSnooker) delta = delta + adj;
-            acc = logf(u) <= delta;
-          } else if constexpr (kMode == kAcceptMax) {
-            acc = wp > w;
-          } else {
-            acc = wp < w;
-          }
-          if (acc) {
-            for (int i = 0; i < D; ++i) th[i] = prop[i];
-            w = wp;
-          }
-          acc_any = acc_any || acc;
-          if (kSeq)
-            for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
-        }
-        if (kSeq) __syncthreads();  // the commit, before the next sub-sweep
-      }
-      if constexpr (kNBlk > 1 && !kSeq) {
-        // the next block reads this one's state: the synchronous sweep's
-        // stage is refreshed between two barriers, as between iterations
-        if (b + 1 < kNBlk) {
-          __syncthreads();
-          for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
-          __syncthreads();
-        }
-      }
-    }  // block sweeps
-
-    const bool emit =
-        k >= a.emit_first && (k - a.emit_first) % a.emit_stride == 0;
-    if (valid) {
-      if (emit) {
-        const size_t row = (size_t)t_out * C + c;
-        if (a.out_theta)
-          for (int i = 0; i < D; ++i) a.out_theta[row * D + i] = th[i];
-        if (a.out_w) a.out_w[row] = w;
-        if (a.out_acc) a.out_acc[row] = acc_any ? 1 : 0;
-      }
-      sk.commit(it, c, th);
-    }
-    t_out += emit;
-    if (k + 1 < a.K) {
-      // the next iteration reads this one's state: every read of the stage
-      // (and, in K3, the history row just written) is done before the
-      // synchronous sweep refreshes the stage, and the refresh is seen
-      // before the next reads.  The sequential sweep's stage is current.
-      __syncthreads();
-      if (!kSeq)
-        for (int i = 0; i < D; ++i) s_th[tid * D + i] = th[i];
-      __syncthreads();
-    }
-  }
-
-  if (!valid) return;
-  for (int i = 0; i < D; ++i) a.theta[(size_t)c * D + i] = th[i];
-  a.w[c] = w;
-  if (c == 0) {
-    const int last = a.K - 1;
-    const WordSource W = a.words.at(last, (uint32_t)(a.it0 + last), a.n_words);
-    const float uf = to_uni(W.global(a.r_fire, 0));  // every shard: chain 0
-    *a.fire = (a.alpha > 0.0f && uf <= a.alpha) ? 1 : 0;
-  }
+template <class Dn, class S, bool kSeq, bool kSnooker, bool kPost, int kNBlk,
+          int kM>
+auto kernel_of() {
+  if constexpr (kMaxLanes<Dn, S> > 1)
+    return sweep_kernel_lanes<Dn, S, kSeq, kSnooker, kPost, kNBlk, kM>;
+  else
+    return sweep_kernel<Dn, S, kSeq, kSnooker, kPost, kNBlk, kM>;
 }
 
 // The instantiation a configuration launches.
 template <class Dn, class S, int kNBlk, int kM>
 auto pick_kernel_blocks(bool seq, bool snooker, bool post) {
   if (seq)
-    return snooker
-               ? (post ? sweep_kernel<Dn, S, true, true, true, kNBlk, kM>
-                       : sweep_kernel<Dn, S, true, true, false, kNBlk, kM>)
-               : (post ? sweep_kernel<Dn, S, true, false, true, kNBlk, kM>
-                       : sweep_kernel<Dn, S, true, false, false, kNBlk, kM>);
-  return snooker
-             ? (post ? sweep_kernel<Dn, S, false, true, true, kNBlk, kM>
-                     : sweep_kernel<Dn, S, false, true, false, kNBlk, kM>)
-             : (post ? sweep_kernel<Dn, S, false, false, true, kNBlk, kM>
-                     : sweep_kernel<Dn, S, false, false, false, kNBlk, kM>);
+    return snooker ? (post ? kernel_of<Dn, S, true, true, true, kNBlk, kM>()
+                           : kernel_of<Dn, S, true, true, false, kNBlk, kM>())
+                   : (post ? kernel_of<Dn, S, true, false, true, kNBlk, kM>()
+                           : kernel_of<Dn, S, true, false, false, kNBlk, kM>());
+  return snooker ? (post ? kernel_of<Dn, S, false, true, true, kNBlk, kM>()
+                         : kernel_of<Dn, S, false, true, false, kNBlk, kM>())
+                 : (post ? kernel_of<Dn, S, false, false, true, kNBlk, kM>()
+                         : kernel_of<Dn, S, false, false, false, kNBlk, kM>());
 }
 
 template <class Density, class Source, int kMode = kAcceptMH>
@@ -692,11 +470,18 @@ int window_chains(bool seq, bool snooker, int n_blk, int* chains) {
 // Launch one window: whole groups per block, about kThreadsTarget threads;
 // a Source that needs one CTA (K3's history) for K > 1 runs the whole
 // population in one block, if the instantiation can launch that block
-// (block_chains).  Returns cudaGetLastError() after the launch.
+// (block_chains).  A density with lanes (kMaxLanes > 1) gets L threads a
+// chain: the largest power of two <= kLanes with Np L within the threads
+// one block of the kernel may have, kLaneBlockThreads (L = 1 for the
+// largest groups, so a group fits one block whenever it fits with one
+// thread a chain), and about kLaneThreadsTarget threads a block.  Returns cudaGetLastError()
+// after the launch.
 template <class Density, class Source, int kMode = kAcceptMH>
-int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
+int launch_sweep(const StepArgs<Density::D>& args, const Density& dens,
                  const Source& src, bool post, cudaStream_t stream) {
   constexpr int D = Density::D;
+  constexpr int kL = kMaxLanes<Density, Source>;
+  StepArgs<D> a = args;
   if (a.Np < 3 || a.Np > 1024 || a.G < 1 || a.n_members < 1 || a.K < 1 ||
       a.emit_first < 0 || a.emit_stride < 1 ||
       (a.n_blk != 1 && a.n_blk != kMaxBlocks))
@@ -706,6 +491,15 @@ int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
   auto kernel = pick_kernel<Density, Source, kMode>(a.n_members > 1,
                                                     a.r_sn >= 0, post, a.n_blk);
   int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;
+  a.lanes = 1;
+  if constexpr (kL > 1) {
+    int L = kL;
+    while (L > 1 && a.Np * L > kLaneBlockThreads) L >>= 1;
+    gpb = a.Np * L >= kLaneThreadsTarget ? 1
+                                         : kLaneThreadsTarget / (a.Np * L);
+    if (gpb > a.G) gpb = a.G;
+    a.lanes = L;
+  }
   if (Source::kOneCta && a.K > 1) {
     int most = 0;
     const int e = block_chains<D>(kernel, &most);
@@ -713,9 +507,9 @@ int launch_sweep(const StepArgs<Density::D>& a, const Density& dens,
     if (a.G * a.Np > most) return (int)cudaErrorInvalidValue;
     gpb = a.G;
   }
-  const int threads = gpb * a.Np;
+  const int threads = gpb * a.Np * a.lanes;
   const int blocks = (a.G + gpb - 1) / gpb;
-  const size_t smem = (size_t)threads * (D + 1) * sizeof(float);
+  const size_t smem = (size_t)gpb * a.Np * (D + 1) * sizeof(float);
   if (smem > 48 * 1024) {  // above the default: opt in (one-CTA K3 windows)
     const cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);

@@ -28,7 +28,7 @@ from ..utils import dists
 
 BOUNDS = ((0.0, 1.0),)
 NAMES = ("theta",)
-MAX_N = 64          # CDF table size of csrc/densities/binomial_abc.cuh
+MAX_N = 64          # largest N of csrc/densities/binomial_abc.cuh
 
 
 def comb_f32(N: int):

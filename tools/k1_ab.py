@@ -1,27 +1,48 @@
-"""Same-call A/B of the K1 and K3 kernels between source trees, on one
+"""Same-call A/B of the K1, K3 and K4 kernels between source trees, on one
 GPU.
 
     python3 tools/k1_ab.py [--sass DENSITY] LABEL=DIR [LABEL=DIR ...]
 
 Each DIR is the root of a checkout (for example ``git archive`` of two
 commits unpacked under ``_verify/``).  For each tree, in turns (the trees in
-order, then in reverse), a process started in that tree builds its K1
-library from its own sources and times one-iteration K1 launches on the
-ABC binomial (4,096 chains, n_sim = 10,000), discrete binomial (3,072) and
-4,096-chain Gaussian cells past burn-in, and one-iteration K3 launches
-at the 30-dim MVN flagship's shapes (C = 3, θs = 0.1), with
+order, then in reverse), a process started in that tree builds its
+libraries from its own sources and times one-iteration K1 launches on the
+ABC binomial (4,096 chains, n_sim = 10,000; from the prior's draws and
+from θ drawn from the posterior Beta(7, 5), with the proposals in bounds
+of each where the tree's ``chip_smoke`` can say), discrete binomial
+(3,072) and 4,096-chain Gaussian cells past burn-in, one-iteration K3
+launches at the 30-dim MVN flagship's shapes (C = 3, θs = 0.1) and K4 at
+the abc_kde cell's shape (3,072 chains × 50 points × 10,000 simulations),
+with
 ``chip_smoke.device_ms`` (launches queued behind a spin kernel, CUDA
 events).  A tree whose ``de_step`` takes ``K`` also times windows of 64
 iterations (no gate open before the last, the post variant), per
-iteration.  The first turn of
-each tree writes its library's per-function register and stack use
-(``cuobjdump -res-usage``) and the SASS of the instantiations on one
-density or more (``--sass``: the starts of their C++ class names, comma
-separated, ``BinomialAbc`` by default) to ``chiprun_out/ab_<label>.res`` / ``ab_<label>_<density>.sass``.
-Prints one line per tree and measurement, then the card's name and power
-limit.
+iteration.
+
+Each turn also writes digests (SHA-256 of the bytes) of the kernels'
+results on fixed inputs: K1's θ, w, accept flags and gate after one
+iteration in burn-in, one past it and a window of 64 on the LBA, ABC,
+discrete and Gaussian cells and on the ABC binomial at 4 × 64, 2 × 64
+(sequential), 2 × 1,024 and the cell's shape with bounds (−0.5, 1.5);
+K3's on the MVN flagship; K4's ``[C, E]``
+output at the cell's shape and at (64, 1, 10,000), (40, 33, 4,173) and
+(8, 300, 2,500) with subnormal, tiny and huge bandwidths on the first
+chains.  The digests of every tree and turn must agree: the script prints
+each one's verdict and exits 1 where they differ.  It also prints each
+tree's ``fused_step.block_chains`` for the ABC density.  The first turn of
+each tree writes its K1 and K4 libraries' per-function register and stack
+use (``cuobjdump -res-usage``) to ``chiprun_out/ab_<label>.res`` and
+``ab_<label>_kde.res``, and the SASS of K4 and of the K1 instantiations on
+one density or more (``--sass``: the starts of their C++ class names,
+comma separated, ``BinomialAbc`` by default) to ``ab_<label>_kde.sass`` and
+``ab_<label>_<density>.sass``, and hashes every K1 and K3 function's SASS
+(addresses, encodings and constants stripped): the script prints how
+many of the functions off the ABC binomial are identical between the
+trees.  Prints one line per tree and measurement, then the card's name
+and power limit.
 """
 
+import hashlib
 import inspect
 import json
 import re
@@ -32,15 +53,61 @@ from pathlib import Path
 OUT = Path(__file__).resolve().parent.parent / "chiprun_out"
 WINDOW_K = 64
 IT = 2000
+# K4's bandwidths on the first chains of its digest shapes: subnormal and
+# huge (the true division), 2^-59.5 and 2^59 (the fast quotient's edges);
+# chip_smoke.K4_EDGE_H, written out here for trees whose chip_smoke.py
+# lacks it
+EDGE_H = (1e-39, 1e30, 2.0 ** -59.5, 2.0 ** 59)
+KDE_SHAPES = ((64, 1, 10_000), (40, 33, 4173), (8, 300, 2500))
+# the ABC cell with bounds wider than [0, 1] (the density's count branch);
+# chip_smoke.ABC_WIDE_BOUNDS, written out for trees that lack it
+ABC_WIDE_BOUNDS = ((-0.5, 1.5),)
+
+
+def digest(*tensors) -> str:
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def k1_digests(cs, fused_step, tdm, name, model, de, windows, dev):
+    """Digests of one K1 iteration in burn-in, one past it and a window of
+    WINDOW_K from the same initial state."""
+    import torch
+    spec = tdm.make_spec(model, de)
+    cfg = fused_step.StepConfig.make(model, de, spec)
+    s = tdm.init_state(model, de, spec, 5, device=dev)
+    C = de.n_chains
+    res = {}
+    runs = [("burnin", de.burnin // 2, 1), ("post", IT, 1)]
+    if windows:
+        runs.append(("window", IT, WINDOW_K))
+    for tag, it, K in runs:
+        st = (s.theta.clone(), s.weight.clone(), s.fire.clone())
+        shape = (C,) if K == 1 else (K, C)
+        out = (torch.empty(shape + (cfg.d,), device=dev),
+               torch.empty(shape, device=dev),
+               torch.empty(shape, dtype=torch.bool, device=dev))
+        kw = dict(K=K, phase="post") if K > 1 else {}
+        if K > 1:
+            seed, it = cs.quiet_start(0, cfg, it, 1 << 16, K)
+            kw["seed"] = seed
+        fused_step.de_step(cfg, model, spec, *st, it, out=out, **kw)
+        res[f"digest_k1_{name}_{tag}"] = digest(*st, *out)
+    return res
 
 
 def worker(label: str, dump: str):
+    import numpy as np
     import torch
     sys.path.insert(0, str(Path.cwd()))
     import chip_smoke as cs
     import demcmc_tpu_torch as tdm
-    from demcmc_tpu_torch.models import gaussian
-    from demcmc_tpu_torch.ops import _build, fused_step
+    import port_cells as pc
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import binomial, gaussian
+    from demcmc_tpu_torch.ops import _build, accept, fused_step, kde
 
     dev = torch.device("cuda")
     windows = "K" in inspect.signature(fused_step.de_step).parameters
@@ -57,9 +124,23 @@ def worker(label: str, dump: str):
         out = (torch.empty((C, cfg.d), device=dev),
                torch.empty(C, device=dev),
                torch.empty(C, dtype=torch.bool, device=dev))
-        n = 20 if name == "abc" else 200
         res[name] = cs.device_ms(lambda: fused_step.de_step(
-            cfg, model, spec, *st, IT, out=out), n)[0]
+            cfg, model, spec, *st, IT, out=out), 20 if name == "abc"
+            else 200)[0]
+        if name == "abc":
+            # θ drawn from the posterior Beta(7, 5) instead of the prior:
+            # K1 evaluates the density of the proposals in bounds only
+            post = (torch.from_numpy(np.random.default_rng(0).beta(
+                7, 5, (C, 1)).astype(np.float32)).to(dev), *st[1:])
+            res["abc_posterior_state"] = cs.device_ms(
+                lambda: fused_step.de_step(cfg, model, spec, *post, IT,
+                                           out=out), 20)[0]
+            if hasattr(cs, "_proposals"):
+                words = rng.words(0, IT, cfg.rows.n_words, C, device=dev)
+                for tag, x in (("prior", st), ("posterior", post)):
+                    res[f"abc_in_bounds_{tag}_state"] = int(
+                        accept.in_bounds(spec, cs._proposals(
+                            cfg, model, spec, x, IT, words)).sum())
         if windows:
             seed, it0 = cs.quiet_start(0, cfg, IT, 1 << 16, WINDOW_K)
             wout = (torch.empty((WINDOW_K, C, cfg.d), device=dev),
@@ -86,19 +167,82 @@ def worker(label: str, dump: str):
             cfg, model, spec, *st, IT + 500, out=wout, K=WINDOW_K,
             phase="post"), 20)[0]
         res["mvn_k3_window_per_iteration"] = ms / WINDOW_K
-    print("RESULT " + json.dumps(res), flush=True)
+    st = [t.clone() for t in st]
+    resample_step.resample_step(cfg, model, spec, *st, IT + 500, out=out)
+    res["digest_k3_mvn"] = digest(*st, *out)
+
+    # K4 at the abc_kde cell's shape, timed and digested
+    C4 = pc.KDE_CELL["n_groups"] * pc.KDE_CELL["Np"]
+    x, sims, h = cs._kde_args(C4, pc.KDE_N_OBS, pc.KDE_N_SIM, dev,
+                              seed=pc.KDE_N_SIM)
+    res["k4"] = cs.device_ms(lambda: kde.kde_logpdf(x, sims, h,
+                                                    pc.KDE_FLOOR), 20)[0]
+    res["digest_k4_cell"] = digest(kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR))
+    for C_, E, S in KDE_SHAPES:
+        x, sims, h = cs._kde_args(C_, E, S, dev, seed=S)
+        for c, hc in enumerate(EDGE_H):
+            h[c] = hc
+            if c in (0, 2):
+                sims[c, ::100] = x[0]
+        res[f"digest_k4_{C_}x{E}x{S}"] = digest(
+            kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR))
+
+    # K1 digests, the ABC binomial's lane shapes included
+    dens = binomial.density(10, 6, pc.N_SIM)
+    res["abc_block_chains"] = fused_step.block_chains(False, dens, False,
+                                                      False, 1, dev)
+
+    def abc(G_, Np_, **kw):
+        return binomial.make(N=10, k=6, abc=True, fresh_noise=True,
+                             n_sim=pc.N_SIM, Np=Np_, n_groups=G_,
+                             burnin=1000, **kw)
+    c = pc.ABC_CELL
+    wide = (binomial.make_model(10, 6, abc=True, fresh_noise=True,
+                                n_sim=pc.N_SIM),
+            tdm.DE(bounds=ABC_WIDE_BOUNDS, burnin=1000, Np=c["Np"],
+                   n_groups=c["n_groups"]))
+    cases = dict(cells, lba=cs._lba_case(1000), abc_4x64=abc(4, 64),
+                 abc_2x64_seq=abc(2, 64, sweep="sequential"),
+                 abc_2x1024=abc(2, 1024), abc_wide=wide)
+    for name, (model, de) in cases.items():
+        res.update(k1_digests(cs, fused_step, tdm, name, model, de, windows,
+                              dev))
     if dump:
-        lib = _build.build_all(("de_step",))["de_step"]
-        run = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-res-usage",
-                              str(lib)], capture_output=True, text=True)
-        (OUT / f"ab_{label}.res").write_text(run.stdout + run.stderr)
-        sass = subprocess.run(["/usr/local/cuda/bin/cuobjdump", "-sass",
-                               str(lib)], capture_output=True,
-                              text=True).stdout
+        cuobjdump = "/usr/local/cuda/bin/cuobjdump"
+        libs = _build.build_all(("de_step", "de_step_resample", "kde"))
+        res["sass"] = {}
+        for name in ("de_step", "de_step_resample"):
+            res["sass"].update(sass_hashes(cuobjdump, libs[name]))
+        for name, suffix in (("de_step", ""), ("kde", "_kde")):
+            run = subprocess.run([cuobjdump, "-res-usage", str(libs[name])],
+                                 capture_output=True, text=True)
+            (OUT / f"ab_{label}{suffix}.res").write_text(run.stdout
+                                                         + run.stderr)
+        (OUT / f"ab_{label}_kde.sass").write_text(subprocess.run(
+            [cuobjdump, "-sass", str(libs["kde"])], capture_output=True,
+            text=True).stdout)
+        sass = subprocess.run([cuobjdump, "-sass", str(libs["de_step"])],
+                              capture_output=True, text=True).stdout
         parts = re.split(r"(?=\n\s*Function : )", sass)
         for name in dump.split(","):
             (OUT / f"ab_{label}_{name}.sass").write_text(
                 "".join(p for p in parts if name in p.split("\n", 2)[1]))
+    print("RESULT " + json.dumps(res), flush=True)
+
+
+def sass_hashes(cuobjdump, lib):
+    """{function: hash of its SASS with addresses, encodings and constants
+    stripped} for every function of a library."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    out = {}
+    for part in re.split(r"\n\s*Function : ", sass)[1:]:
+        name, body = part.split("\n", 1)
+        ins = [re.sub(r"0x[0-9a-f]+", "X", m.group(1)) for m in
+               re.finditer(r"/\*[0-9a-f]{4,}\*/\s*(.*?);", body)]
+        out[name.strip()] = hashlib.sha256(
+            "\n".join(ins).encode()).hexdigest()[:16]
+    return out
 
 
 def main():
@@ -124,13 +268,38 @@ def main():
                 sys.exit(f"{label}: worker failed\n{run.stdout}\n{run.stderr}")
             for k, v in json.loads(line[0][7:]).items():
                 results.setdefault((label, k), []).append(v)
+    digests, differ, sass = {}, [], {}
     for (label, k), v in results.items():
-        print(f"{label} {k}: {sum(v) / len(v):.6f} ms on the device ("
-              + ", ".join(f"{x:.6f}" for x in v) + ")")
+        if k == "sass":
+            sass[label] = v[0]
+        elif k.startswith("digest_"):
+            digests.setdefault(k, set()).update(v)
+        elif isinstance(v[0], float):
+            print(f"{label} {k}: {sum(v) / len(v):.6f} ms on the device ("
+                  + ", ".join(f"{x:.6f}" for x in v) + ")")
+        else:
+            print(f"{label} {k}: " + ", ".join(str(x) for x in v))
+    for k, v in digests.items():
+        print(f"{k}: " + ("equal in every tree and turn " if len(v) == 1
+                          else "DIFFERS ") + ", ".join(sorted(v)))
+        if len(v) > 1:
+            differ.append(k)
+    # the instantiations off the ABC binomial compile to the same code in
+    # every tree (constants and addresses aside)
+    labels = list(sass)
+    for other in labels[1:]:
+        a, b = sass[labels[0]], sass[other]
+        common = [f for f in a if f in b and "BinomialAbc" not in f]
+        same = sum(a[f] == b[f] for f in common)
+        print(f"SASS {labels[0]} vs {other}: {same} of {len(common)} "
+              f"functions off the ABC binomial identical; "
+              f"{len(a) - len(common)} / {len(b) - len(common)} others")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip())
+    if differ:
+        sys.exit(f"digests differ between trees: {differ}")
 
 
 if __name__ == "__main__":
