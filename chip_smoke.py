@@ -26,12 +26,14 @@ post variant.  Its launch checks are the counts of
            emission rule across burn-in and the post variant past it, on
            the 4,096-chain Gaussian, snooker at G = 4,096, the sequential
            sweep, LBA, the ABC noise panel and the discrete binomial;
-6. k3-super  K3 windows (one CTA) at the MVN flagship's shapes and at C =
-           512 against single launches and the plain window, history
-           included; then the one-CTA rule at its edge (the Gaussian with
-           snooker at 1,024 chains, the 30-dim MVN at 512): the chains one
-           CTA of the kernel holds, a window at that many, ``sample()``
-           at the full population against its loop;
+6. k3-super  K3 windows (one CTA) at the MVN flagship's shapes (32
+           lanes a chain over the dimensions; K = 64 asserted), at the
+           MVN's C = 64 (8 lanes) and at C = 512 against single launches
+           and the plain window, history included; then the one-CTA rule
+           at its edge (the Gaussian with snooker at 1,024 chains, the
+           30-dim MVN at 512): the chains one CTA of the kernel holds, a
+           window at that many, ``sample()`` at the full population
+           against its loop;
 7. main    ``demcmc_tpu_torch.sample`` on the Gaussian (50 observations
            from numpy seed 0, G=256 groups of Np=16, burn-in 1,000, 3,000
            iterations) on ``cuda``: launches as planned, posterior means
@@ -51,10 +53,13 @@ post variant.  Its launch checks are the counts of
            gate set at the start, then one on Philox words; degenerate
            snooker draws (z = θ) must occur;
 12. K3     the DE-MCz kernel against its plain version at the MVN shapes
-           (C = 3, d = 30, n_initial = 124, sequential) and at C = 512 (G =
-           128, Np = 4, synchronous), θs = 0.5: 8 iterations with random
-           history indices and words crossing burn-in, then one on Philox
-           words and indices; the history row written must agree too;
+           (C = 3, d = 30, n_initial = 124, sequential), at the MVN's C =
+           32 and 64 (16 and 8 lanes a chain), C = 16 synchronous and C =
+           3 without snooker, and
+           at C = 512 (G = 128, Np = 4, synchronous), θs = 0.5: 8
+           iterations with random history indices and words crossing
+           burn-in, then one on Philox words and indices; the history row
+           written must agree too, on the MVN bit for bit;
 13. main-65k  path A, ``sample()`` on the 65,536-chain snooker Gaussian
            (G = 4,096, Np = 16, α = 0.1, θs = 0.1; burn-in 1,000, 3,000
            iterations, thin 10): launches as planned, posterior within
@@ -79,9 +84,12 @@ post variant.  Its launch checks are the counts of
            10,000) and discrete binomial (256 × 12) densities, and on the
            ABC binomial at 4 × 64 and 2 × 64 sequential (16 lanes a
            chain) and at 2 groups of its ``block_chains`` limit (one
-           lane a chain; the limit logged): 8 bits-in iterations crossing
-           burn-in 4 with the gate set at the start, then one on Philox
-           words; every discrete N integral;
+           lane a chain; the limit logged), and LBA at 256 × 16, 4 × 64
+           and 2 groups of its limit (32, 16 and 1 lanes a chain over the
+           trials), each on 100 and 37 trials with proposals putting
+           trials at rt ≤ τ: 8 bits-in iterations crossing burn-in 4 with
+           the gate set at the start, then one on Philox words; every
+           discrete N integral;
 20. main-lba  ``sample()`` on the 4,096-chain LBA cell (burn-in 1,000,
            5,000 iterations; the cells, oracles and gates of phases 20-22
            are in ``port_cells.py``) and its loop twin, bit for bit: each
@@ -728,8 +736,8 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
 
 
 # kernel names in the device trace: K1 and K3 are instantiations of
-# step_body.cuh's sweep_kernel (sweep_kernel_lanes on the ABC binomial)
-# over their partner sources
+# step_body.cuh's sweep_kernel (sweep_kernel_lanes on the ABC binomial and
+# LBA, sweep_kernel_dims on the MVN) over their partner sources
 K1_NAME, K2_NAME, K3_NAME = "GroupPartners", "migrate_kernel", \
     "HistoryPartners"
 
@@ -970,6 +978,15 @@ BM_F32_OPS_PER_DIM = 13                   # Box–Muller normal + mutation
 MVN_F32_OPS_PER_DIM, MVN_F32_OPS = 6, 20  # the MVN density
 GAUSS_F32_OPS = 16                        # the Gaussian density
 N_INITIAL = {"mvn": 124, "C512": 50}      # history seed rows of K3's cases
+# the 30-dim MVN at populations where K3's lanes over the dimensions fall
+# below 32 (C = 32: 16 lanes a chain; C = 64: 8), synchronous (C = 16, 32
+# lanes), and at the flagship's population without snooker: (n_groups, Np,
+# sweep, θs; None: the caller's)
+MVN_LANE_CASES = {"mvn-l16": (8, 4, "auto", None),
+                  "mvn-l8": (16, 4, "auto", None),
+                  "mvn-sync": (2, 8, "sync", None),
+                  "mvn-nosn": (1, 3, "auto", 0.0)}
+N_INITIAL.update({k: N_INITIAL["mvn"] for k in MVN_LANE_CASES})
 
 
 def _gauss_data():
@@ -1034,7 +1051,8 @@ def phase_k1_variants(dev):
 
 def _resample_case(dev, which, burnin, theta_sn, key=3, extra_rows=10):
     """(model, spec, cfg, state) of a K3 configuration: the MVN flagship
-    (C = 3, d = 30, n_initial = 124) or the C = 512 Gaussian DE-MCz of
+    (C = 3, d = 30, n_initial = 124), the MVN at a population of
+    :data:`MVN_LANE_CASES`, or the C = 512 Gaussian DE-MCz of
     bench.py:216-219 (G = 128, Np = 4, synchronous, n_initial = 50), with
     ``extra_rows`` history rows to write."""
     import demcmc_tpu_torch as tdm
@@ -1043,6 +1061,11 @@ def _resample_case(dev, which, burnin, theta_sn, key=3, extra_rows=10):
     if which == "mvn":
         model, de = mvnormal.make(d=30, n_obs=100, key=1, burnin=burnin,
                                   theta_snooker=theta_sn)
+    elif which in MVN_LANE_CASES:
+        G_, Np_, sweep, sn = MVN_LANE_CASES[which]
+        model, de = mvnormal.make(d=30, n_obs=100, key=1, burnin=burnin,
+                                  theta_snooker=theta_sn if sn is None
+                                  else sn, n_groups=G_, Np=Np_, sweep=sweep)
     else:
         model, de = gaussian.make(data=_gauss_data(), n_groups=128, Np=4,
                                   alpha=0.0, sample="resample",
@@ -1118,13 +1141,16 @@ def _compare_resample(cfg, model, spec, state, it, words=None, idx=None,
 
 
 def phase_k3(dev):
-    """K3 against its plain version at the MVN shapes and at C = 512,
-    θs = 0.5: 8 iterations with random indices and words (indices-in +
-    bits-in) crossing burn-in, then one on Philox words and indices."""
+    """K3 against its plain version at the MVN shapes, at the MVN's lane
+    cases (:data:`MVN_LANE_CASES`) and at C = 512, θs = 0.5 (the cases
+    without snooker: 0): 8 iterations
+    with random indices and words (indices-in + bits-in) crossing
+    burn-in, then one on Philox words and indices; on the MVN bit for
+    bit."""
     from demcmc_tpu_torch.ops import resample_step as tres
     worst = 0.0
     rng = np.random.default_rng(8)
-    for which in ("mvn", "C512"):
+    for which in ("mvn", *MVN_LANE_CASES, "C512"):
         it0 = N_INITIAL[which] + 1
         model, spec, cfg, s = _resample_case(dev, which, burnin=it0 + 3,
                                              theta_sn=0.5)
@@ -1138,14 +1164,16 @@ def phase_k3(dev):
                 idx = tres.indices_from_words(cfg, random_words(
                     rng, tres.index_rows(cfg), C_, dev), it)
             state, err, ties, n_acc = _compare_resample(
-                cfg, model, spec, state, it, words=words, idx=idx, seed=91)
+                cfg, model, spec, state, it, words=words, idx=idx, seed=91,
+                exact=which != "C512")
             worst = max(worst, err)
             log("K3-" + which, f"{'indices-in + bits-in' if k < 8 else 'Philox'}"
                 f" it={it} ({'burn-in' if it <= it0 + 3 else 'sampling'}): "
                 f"{n_acc} accepted, max |diff| {err:.3g}, {ties} near-ties "
                 f"excluded")
         log("K3-" + which, f"C={C_} d={cfg.d} n_members={cfg.rows.n_members}"
-            f" history {tuple(s.history.shape)}: equal to the plain version")
+            f" history {tuple(s.history.shape)}: equal to the plain "
+            f"version{' bit for bit' if which != 'C512' else ''}")
     return worst
 
 
@@ -1625,13 +1653,33 @@ ABC_OPS_PER_SIM, ABC_OPS_PER_N, ABC_OPS = 7, 12, 20
 LGAMMA_OPS, DISC_OPS = 40, 20
 
 
-def _lba_case(burnin):
+def _lba_case(burnin, n_trials=100, Np=None, n_groups=None):
     """(model, de) of the LBA cell: 100 trials simulated with numpy seed 0
-    at ν = (3, 2), A = 0.8, k = 0.2, τ = 0.3, G = 256 × Np = 16."""
+    at ν = (3, 2), A = 0.8, k = 0.2, τ = 0.3, G = 256 × Np = 16 (or the
+    trials and groups given)."""
     from demcmc_tpu_torch.models import lba
     c = pc.LBA_CELL
-    return lba.make(key=0, n_trials=100, Np=c["Np"], n_groups=c["n_groups"],
-                    burnin=burnin)
+    return lba.make(key=0, n_trials=n_trials, Np=Np or c["Np"],
+                    n_groups=n_groups or c["n_groups"], burnin=burnin)
+
+
+def _lba_lane_cases(dev, burnin):
+    """(name, model, de) of LBA's lane checks, on 100 trials and on 37 (a
+    count no L divides): the cell's Np = 16 (32 lanes a chain), Np = 64
+    (16) and G = 2 groups of the density's ``block_chains`` limit (one
+    lane a chain; the limit logged)."""
+    from demcmc_tpu_torch.ops import fused_step
+    model, _ = _lba_case(burnin)
+    most = fused_step.block_chains(False, model.cuda_density, False, False,
+                                   1, dev)
+    log("K1-lba", f"fused_step.block_chains for the LBA density "
+        f"(synchronous, no snooker, no blocks): {most}")
+    out = [("lba-37", *_lba_case(burnin, 37))]
+    for G_, Np_ in ((4, 64), (2, most)):
+        for n in (100, 37):
+            out.append((f"lba-{G_}x{Np_}" + ("-37" if n == 37 else ""),
+                        *_lba_case(burnin, n, Np_, G_)))
+    return out
 
 
 def _abc_case(burnin):
@@ -1689,31 +1737,42 @@ def _abc_lane_cases(dev, burnin):
 def phase_k1_zoo(dev):
     """K1 against its plain version on the LBA (256 × 16, 100 trials), ABC
     binomial (512 × 8, n_sim = 10,000) and discrete binomial (256 × 12)
-    densities, and on the ABC binomial's lane checks
-    (:func:`_abc_lane_cases`): 8 bits-in iterations crossing burn-in 4
-    with the migration gate set at the start, then one on Philox words; θ,
-    w and the accept flags equal bit for bit, every discrete N integral,
-    and proposals in the wide-bounds case's count branch (in bounds,
-    outside [0, 1]) in every iteration.  Returns the largest |kernel −
-    plain| of θ and w measured (0 when bitwise)."""
+    densities, and on the ABC binomial's and LBA's lane checks
+    (:func:`_abc_lane_cases`, :func:`_lba_lane_cases`): 8 bits-in
+    iterations crossing burn-in 4 with the migration gate set at the
+    start, then one on Philox words; θ, w and the accept flags equal bit
+    for bit, every discrete N integral, proposals in the wide-bounds
+    case's count branch (in bounds, outside [0, 1]) in every iteration,
+    and in each LBA case proposals with τ at or past the fastest trial's
+    rt (trials at rt ≤ τ, their −inf in the fold).  Returns the largest
+    |kernel − plain| of θ and w measured (0 when bitwise)."""
     import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch import rng as trng
     from demcmc_tpu_torch.ops import accept, fused_step
     rng = np.random.default_rng(12)
     worst = 0.0
     cases = [(name, *case(burnin=4)) for name, (case, _) in ZOO.items()]
-    for name, model, de in cases + _abc_lane_cases(dev, burnin=4):
+    for name, model, de in (cases + _abc_lane_cases(dev, burnin=4)
+                            + _lba_lane_cases(dev, burnin=4)):
         spec = tdm.make_spec(model, de)
         cfg = fused_step.StepConfig.make(model, de, spec)
         s = tdm.init_state(model, de, spec, 11, device=dev)
         state = [s.theta, s.weight, torch.ones(1, dtype=torch.int32,
                                                device=dev)]
         C_ = de.n_chains
-        err = 0.0
+        err, n_late = 0.0, 0
         for it in range(1, 10):
             words = (random_words(rng, cfg.rows.n_words, C_, dev)
                      if it < 9 else None)
             counted = ""
+            if name.startswith("lba"):
+                x = _proposals(cfg, model, spec, state, it, words
+                               if it < 9 else trng.words(
+                                   79, it, cfg.rows.n_words, C_, device=dev),
+                               migrate=True)
+                late = int((x[:, 4] >= float(model.data[1].min())).sum())
+                n_late += late
+                counted = f", {late} proposals with trials at rt ≤ τ"
             if name == "abc-wide":
                 x = _proposals(cfg, model, spec, state, it, words
                                if it < 9 else trng.words(
@@ -1737,8 +1796,14 @@ def phase_k1_zoo(dev):
             log("K1-" + name, f"{'bits-in' if it < 9 else 'Philox'} it={it}"
                 f" ({'burn-in' if it <= 4 else 'sampling'}): {n_acc} "
                 f"accepted{counted}, equal bit for bit")
+        trials = ""
+        if name.startswith("lba"):
+            if not n_late:
+                raise AssertionError(f"K1 {name}: no proposal put a trial "
+                                     f"at rt ≤ τ")
+            trials = f", {len(model.data[1])} trials"
         log("K1-" + name, f"G={de.n_groups} Np={de.Np} d={cfg.d} words per "
-            f"chain {cfg.rows.n_words}: max |diff| {err:.3g} over 9 "
+            f"chain {cfg.rows.n_words}{trials}: max |diff| {err:.3g} over 9 "
             f"iterations")
         worst = max(worst, err)
     return worst
@@ -2472,7 +2537,7 @@ def phase_k3_super(dev):
     from demcmc_tpu_torch.ops import resample_step as tres
     rng_np = np.random.default_rng(15)
     worst = 0.0
-    for which in ("mvn", "C512"):
+    for which in ("mvn", "mvn-l8", "C512"):
         tag = "k3-super-" + which
         it0 = N_INITIAL[which] + 1
         model, spec, cfg, s = _resample_case(dev, which, burnin=it0 + 5,
@@ -2480,6 +2545,8 @@ def phase_k3_super(dev):
                                              extra_rows=3 * 256)
         K = tres.resample_super_k(cfg, dev)
         C_ = cfg.G * cfg.Np
+        if K != tres.RESAMPLE_SUPER_K:
+            raise AssertionError(f"{tag}: K = {K} at C = {C_}")
         state = [s.theta, s.weight, s.fire, s.history]
         bits = random_words(rng_np, K * cfg.rows.n_words, C_, dev)
         idx = torch.cat([tres.indices_from_words(cfg, random_words(
@@ -2490,14 +2557,16 @@ def phase_k3_super(dev):
         state, a2, e2 = _window_check(tag, cfg, model, spec, state, it0 + K,
                                       K, _rules(K)["stride4"], "post",
                                       seed=22)
-        state, a3, e3 = _window_check(tag, cfg, model, spec, state,
-                                      it0 + 2 * K, 16, _rules(16)["last"],
-                                      "post", seed=22)
+        a3, e3 = "not run", 0.0
+        if which != "mvn-l8":   # its plain windows take seconds each
+            state, a3, e3 = _window_check(tag, cfg, model, spec, state,
+                                          it0 + 2 * K, 16, _rules(16)["last"],
+                                          "post", seed=22)
         worst = max(worst, e1, e2, e3)
-        log(tag, f"C={C_} d={cfg.d} K={K} (one CTA): window = its single "
-            f"launches = plain window, bit for bit, history included: "
-            f"indices-in + bits-in across burn-in ({a1} accepts), Philox "
-            f"post stride 4 ({a2}), Philox post last of 16 ({a3})")
+        log(tag, f"C={C_} d={cfg.d} K={K} (one CTA): window = its "
+            f"single launches = plain window, bit for bit, history "
+            f"included: indices-in + bits-in across burn-in ({a1} accepts),"
+            f" Philox post stride 4 ({a2}), Philox post last of 16 ({a3})")
     for name, model, de in _k3_edge_cases(burnin=10):
         tag = "k3-edge-" + name
         cfg = fused_step.StepConfig.make(model, de, tdm.make_spec(model, de))

@@ -30,16 +30,16 @@
 // instead of reading a pre-drawn buffer, and keeps every group-level
 // reduction in shared memory.
 //
-// The densities other than the Gaussian (densities/*.cuh) run the whole
-// density in the chain's thread: LBA loops over its trials (two
-// accumulators, four Phi/phi pairs and two logs per trial), the discrete
-// binomial over its unique counts (an lgamma each).  There the kernel is
-// bound by that serial loop on one thread per chain (4,096 threads, about
-// one warp per SM quadrant), not by bytes.  The ABC binomial's loop over
-// its n_sim simulations (a Philox block per four of them, two compares
-// each) is split over up to 32 lanes per chain (kLanes, step_body.cuh):
-// at the ABC cell's 512 groups of 8 chains, 512 blocks of 8 warps instead
-// of 64 blocks of 2, so the Philox and compare work fills every SM.
+// The discrete binomial runs its density in the chain's thread, a loop over
+// its unique counts (an lgamma each): bound by that serial loop on one
+// thread per chain, not by bytes.  LBA's loop over its trials (two
+// accumulators, four Phi/phi pairs and two logs per trial) and the ABC
+// binomial's over its n_sim simulations (a Philox block per four of them,
+// two compares each) are split over up to 32 lanes per chain (kLanes,
+// step_body.cuh): at the LBA cell's 256 groups of 16 chains, 256 blocks of
+// 16 warps instead of 64 blocks of 2 warps, each lane a trial a round and
+// the terms folded in index order; at the ABC cell's 512 groups of 8,
+// 512 blocks of 8 warps, so the Philox and compare work fills every SM.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -16,7 +16,9 @@
 // the iterations of the run; a partner is a direct global load at flat
 // index row * C + chain, so one engine covers every population size (the
 // TPU kernel's C <= 1,024 cap has no reason here).  The K1 thread layout is
-// kept: one thread per chain, whole groups per block.  A window of K > 1
+// kept: one thread per chain, whole groups per block; on the 30-dim MVN a
+// population of 64 chains or fewer runs L = 8 to 32 lanes a chain over the
+// dimensions instead (step_body.cuh, sweep_dims.cuh).  A window of K > 1
 // iterations needs every chain's history row it - 1 before iteration
 // it + 1, so it runs the population in one CTA with a barrier between
 // iterations, for as many chains as one block of the instantiation holds
@@ -27,12 +29,15 @@
 // What bounds it on an H100: at the DE-MCz flagship (C = 3, D = 31) a
 // chain reads 2 history rows of 124 bytes for the DE pair or 3 for a
 // snooker triple and needs ~2,000 operations -- nanoseconds of bandwidth
-// or arithmetic -- but runs
-// in one CTA with 3 useful threads, and the sequential sweep runs its three
-// sub-sweeps one after another, each a serial chain of d = 31 loops,
-// Philox blocks and transcendentals on one thread: ~28 us measured
-// (PERF.md), bound by that chain's latency.  At C = 512 it moves ~25 KB and
-// is bound by the launch.
+// or arithmetic -- so it is bound by the latency of one iteration's
+// dependent chain.  With one thread a chain that chain was the whole
+// sub-sweep: d = 31 loops over arrays in local memory, 8 Philox blocks of
+// epsilon words in turn, sub-sweeps one after another (~26 us an
+// iteration, PERF.md).  With a warp a chain a lane draws its own words and
+// does its dimension's arithmetic, the sums over the dimensions are folds
+// of broadcasts (~31 dependent adds each, several at once), and past
+// burn-in the three sub-sweeps run at once (sweep_dims.cuh).  At C = 512 it
+// moves ~25 KB and is bound by the launch.
 #include <cuda_runtime.h>
 
 #include <cstdint>

@@ -45,12 +45,16 @@
 //
 // Layout: theta [C, D] and w [C] float32, chain c in group c / Np.  One
 // thread per chain, or, for a density with kLanes > 1 (the ABC binomial's
-// noise panel), L adjacent threads of one warp per chain (its lanes; L a
-// power of two <= kLanes, chosen at launch from Np); a block holds whole
-// groups.  Every lane runs the chain's proposal, bounds and accept on the
-// same words, so to the same bits; only the density's inner loop is split
-// over the lanes (ChainLanes), and lane 0 writes the chain's stage, scan
-// entry and outputs.  The group is staged in
+// noise panel, LBA's trials), L adjacent threads of one warp per chain
+// (its lanes; L a power of two <= kLanes, chosen at launch from Np); a
+// block holds whole groups.  Every lane runs the chain's proposal, bounds
+// and accept on the same words, so to the same bits; only the density's
+// inner loop is split over the lanes (ChainLanes), and lane 0 writes the
+// chain's stage, scan entry and outputs.  A density with kDimLanes (the
+// 30-dim MVN, in K3) runs sweep_kernel_dims (sweep_dims.cuh) instead
+// wherever its population fits one block with 8 lanes a chain or more and
+// the configuration is one that kernel has (launch_sweep): lanes over the
+// dimensions of the whole sweep.  The group is staged in
 // shared memory, and every read of another chain (partners, softmax base)
 // goes to the staged copy.  The synchronous sweep (one sub-sweep) reads
 // iteration-start values and updates the state in place.  The sequential
@@ -77,6 +81,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <type_traits>
 
 #include "philox.cuh"
 
@@ -129,6 +134,15 @@ struct StepArgs {
 // the density's kLanes, 1 for a one-CTA source (K3's history).
 template <class Density, class Source>
 constexpr int kMaxLanes = Source::kOneCta ? 1 : Density::kLanes;
+
+// Lanes over the dimensions in K3 (sweep_kernel_dims): a density's
+// kDimLanes, false for a density that declares none.
+template <class Density, class = void>
+constexpr bool kDimLanesOf = false;
+template <class Density>
+constexpr bool
+    kDimLanesOf<Density, std::void_t<decltype(Density::kDimLanes)>> =
+        Density::kDimLanes;
 
 // iargs: G, Np, it0, burnin, random_gamma, seed_lo, seed_hi, then the row of
 //   the partner, gamma, eps, kappa, gate, normal, accept and fire draws
@@ -369,7 +383,41 @@ struct HistoryPartners {
     float* row = hist + ((size_t)(it - 1) * C + c) * D;
     for (int i = 0; i < D; ++i) row[i] = th[i];
   }
+
+  // Lanes over the dimensions (sweep_kernel_dims): the pair and the
+  // triple from their index words already reduced modulo their spans (in
+  // the indices-in mode, the indices), and dimension i of the new state.
+  __device__ __forceinline__ void pair_from(uint32_t f0, uint32_t f1,
+                                            const float*& pm,
+                                            const float*& pn) const {
+    if (!idx) f1 += f1 >= f0;
+    pm = at(f0);
+    pn = at(f1);
+  }
+
+  __device__ __forceinline__ void triple_from(uint32_t f0, uint32_t f1,
+                                              uint32_t f2, const float*& pz,
+                                              const float*& pm,
+                                              const float*& pn) const {
+    if (!idx) {
+      f1 += f1 >= f0;
+      const uint32_t lo = min(f0, f1), hi = max(f0, f1);
+      f2 += f2 >= lo;
+      f2 += f2 >= hi;
+    }
+    pz = at(f0);
+    pm = at(f1);
+    pn = at(f2);
+  }
+
+  __device__ __forceinline__ void commit_dim(int it, int c, int i,
+                                             float v) const {
+    hist[((size_t)(it - 1) * C + c) * D + i] = v;
+  }
 };
+
+// sweep_kernel_dims, lanes over the dimensions
+#include "sweep_dims.cuh"
 
 // kSeq (the sequential sweep), kSnooker, kPost, kNBlk and kMode (the
 // accept) are compile-time, so a configuration without them runs none of
@@ -396,27 +444,36 @@ __global__ void __launch_bounds__(kLaneBlockThreads)
 #include "sweep_body.cuh"
 }
 
+// (kDims > 0: sweep_kernel_dims with kDims register slots a lane; one
+// block sweep, the MH accept)
 template <class Dn, class S, bool kSeq, bool kSnooker, bool kPost, int kNBlk,
-          int kM>
+          int kM, int kDims>
 auto kernel_of() {
-  if constexpr (kMaxLanes<Dn, S> > 1)
+  if constexpr (kDims > 0) {
+    static_assert(kNBlk == 1 && kM == kAcceptMH, "sweep_kernel_dims");
+    return sweep_kernel_dims<Dn, S, kDims, kSeq, kSnooker, kPost>;
+  } else if constexpr (kMaxLanes<Dn, S> > 1) {
     return sweep_kernel_lanes<Dn, S, kSeq, kSnooker, kPost, kNBlk, kM>;
-  else
+  } else {
     return sweep_kernel<Dn, S, kSeq, kSnooker, kPost, kNBlk, kM>;
+  }
 }
 
-// The instantiation a configuration launches.
-template <class Dn, class S, int kNBlk, int kM>
+// The instantiation a configuration launches (kDims > 0: lanes over the
+// dimensions, kDims register slots a lane).
+template <class Dn, class S, int kNBlk, int kM, int kD = 0>
 auto pick_kernel_blocks(bool seq, bool snooker, bool post) {
   if (seq)
-    return snooker ? (post ? kernel_of<Dn, S, true, true, true, kNBlk, kM>()
-                           : kernel_of<Dn, S, true, true, false, kNBlk, kM>())
-                   : (post ? kernel_of<Dn, S, true, false, true, kNBlk, kM>()
-                           : kernel_of<Dn, S, true, false, false, kNBlk, kM>());
-  return snooker ? (post ? kernel_of<Dn, S, false, true, true, kNBlk, kM>()
-                         : kernel_of<Dn, S, false, true, false, kNBlk, kM>())
-                 : (post ? kernel_of<Dn, S, false, false, true, kNBlk, kM>()
-                         : kernel_of<Dn, S, false, false, false, kNBlk, kM>());
+    return snooker
+               ? (post ? kernel_of<Dn, S, true, true, true, kNBlk, kM, kD>()
+                       : kernel_of<Dn, S, true, true, false, kNBlk, kM, kD>())
+               : (post ? kernel_of<Dn, S, true, false, true, kNBlk, kM, kD>()
+                       : kernel_of<Dn, S, true, false, false, kNBlk, kM, kD>());
+  return snooker
+             ? (post ? kernel_of<Dn, S, false, true, true, kNBlk, kM, kD>()
+                     : kernel_of<Dn, S, false, true, false, kNBlk, kM, kD>())
+             : (post ? kernel_of<Dn, S, false, false, true, kNBlk, kM, kD>()
+                     : kernel_of<Dn, S, false, false, false, kNBlk, kM, kD>());
 }
 
 template <class Density, class Source, int kMode = kAcceptMH>
@@ -467,7 +524,14 @@ int window_chains(bool seq, bool snooker, int n_blk, int* chains) {
   return e;
 }
 
-// Launch one window: whole groups per block, about kThreadsTarget threads;
+// Launch one window.  K3 on a density with lanes over the dimensions
+// (kDimLanes) runs sweep_kernel_dims, in one block, where its population
+// fits that block with at least kDimMinLanes lanes a chain and the
+// configuration is one that kernel has (random gamma, kappa = 1, no
+// constant blocks): L the largest power of two <= 32 with
+// C L <= kDimBlockThreads (the instantiation with ceil(D / 32) slots a
+// lane at L = 32, ceil(D / kDimMinLanes) below).
+// Otherwise: whole groups per block, about kThreadsTarget threads;
 // a Source that needs one CTA (K3's history) for K > 1 runs the whole
 // population in one block, if the instantiation can launch that block
 // (block_chains).  A density with lanes (kMaxLanes > 1) gets L threads a
@@ -488,6 +552,25 @@ int launch_sweep(const StepArgs<Density::D>& args, const Density& dens,
     return (int)cudaErrorInvalidValue;
   // the model's integer dimensions must be the ones the density snaps
   if (a.int_mask != Density::kIntMask) return (int)cudaErrorInvalidValue;
+  if constexpr (kDimLanesOf<Density> && Source::kOneCta &&
+                kMode == kAcceptMH) {
+    const int n = a.G * a.Np;
+    int L = 32;
+    while (L > kDimMinLanes && n * L > kDimBlockThreads) L >>= 1;
+    if (n * L <= kDimBlockThreads && a.random_gamma && a.r_kappa < 0 &&
+        a.n_blk == 1) {
+      constexpr int kS32 = (D + 31) / 32, kSMin =
+          (D + kDimMinLanes - 1) / kDimMinLanes;
+      a.lanes = L;
+      const bool seq = a.n_members > 1, sn = a.r_sn >= 0;
+      auto kd = L == 32 ? pick_kernel_blocks<Density, Source, 1, kMode, kS32>(
+                              seq, sn, post)
+                        : pick_kernel_blocks<Density, Source, 1, kMode, kSMin>(
+                              seq, sn, post);
+      kd<<<1, n * L, dim_smem_bytes<D>(n), stream>>>(a, dens, src);
+      return (int)cudaGetLastError();
+    }
+  }
   auto kernel = pick_kernel<Density, Source, kMode>(a.n_members > 1,
                                                     a.r_sn >= 0, post, a.n_blk);
   int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;

@@ -213,6 +213,8 @@
             lp = dens.like(prop);
           else if constexpr (Density::kNoise)
             lp = inb ? dens(prop, Wc, a.r_noise + s.off, ln) : 0.0f;
+          else if constexpr (Density::kLanes > 1)
+            lp = dens(prop, ln);  // its data split over the lanes (LBA)
           else
             lp = dens(prop);
           const float bad = kMode == kAcceptMin ? INFINITY : -INFINITY;

@@ -10,36 +10,46 @@ libraries from its own sources and times one-iteration K1 launches on the
 ABC binomial (4,096 chains, n_sim = 10,000; from the prior's draws and
 from θ drawn from the posterior Beta(7, 5), with the proposals in bounds
 of each where the tree's ``chip_smoke`` can say), discrete binomial
-(3,072) and 4,096-chain Gaussian cells past burn-in, one-iteration K3
+(3,072), LBA (4,096 chains, 100 trials; and 2 × 1,024, where a chain gets
+one lane), 4,096-chain Gaussian and
+65,536-chain snooker Gaussian cells past burn-in, one-iteration K3
 launches at the 30-dim MVN flagship's shapes (C = 3, θs = 0.1) and K4 at
 the abc_kde cell's shape (3,072 chains × 50 points × 10,000 simulations),
 with
 ``chip_smoke.device_ms`` (launches queued behind a spin kernel, CUDA
 events).  A tree whose ``de_step`` takes ``K`` also times windows of 64
 iterations (no gate open before the last, the post variant), per
-iteration.
+iteration, and K3 windows of 64 at the MVN flagship past burn-in and in
+it, and at the MVN's C = 64.
 
 Each turn also writes digests (SHA-256 of the bytes) of the kernels'
 results on fixed inputs: K1's θ, w, accept flags and gate after one
 iteration in burn-in, one past it and a window of 64 on the LBA, ABC,
-discrete and Gaussian cells and on the ABC binomial at 4 × 64, 2 × 64
-(sequential), 2 × 1,024 and the cell's shape with bounds (−0.5, 1.5);
-K3's on the MVN flagship; K4's ``[C, E]``
+discrete and Gaussian cells, on LBA at 4 × 64 and 2 × 1,024 on 100 and 37
+trials, and on the ABC binomial at 4 × 64, 2 × 64 (sequential), 2 × 1,024
+and the cell's shape with bounds (−0.5, 1.5); K3's after one iteration on
+the MVN flagship, and after windows of 64 in burn-in and past it on the
+MVN at C = 3 and at the populations of ``chip_smoke.MVN_LANE_CASES`` in
+this script's own tree (C = 32, 64, 16 synchronous, 3 without snooker);
+K4's ``[C, E]``
 output at the cell's shape and at (64, 1, 10,000), (40, 33, 4,173) and
 (8, 300, 2,500) with subnormal, tiny and huge bandwidths on the first
 chains.  The digests of every tree and turn must agree: the script prints
 each one's verdict and exits 1 where they differ.  It also prints each
-tree's ``fused_step.block_chains`` for the ABC density.  The first turn of
-each tree writes its K1 and K4 libraries' per-function register and stack
-use (``cuobjdump -res-usage``) to ``chiprun_out/ab_<label>.res`` and
-``ab_<label>_kde.res``, and the SASS of K4 and of the K1 instantiations on
-one density or more (``--sass``: the starts of their C++ class names,
-comma separated, ``BinomialAbc`` by default) to ``ab_<label>_kde.sass`` and
+tree's ``fused_step.block_chains`` for the ABC and LBA densities and
+``resample_step.window_chains`` for the MVN flagship.  The first turn of
+each tree writes its K1, K3 and K4 libraries' per-function register and
+stack use (``cuobjdump -res-usage``) to ``chiprun_out/ab_<label>.res``,
+``ab_<label>_k3.res`` and ``ab_<label>_kde.res``, and prints the range
+of registers and stack over the functions on LBA and on the MVN by
+kernel, and writes the SASS of K4 and of the K1 instantiations on one
+density or more (``--sass``: the starts of their C++ class names, comma
+separated, ``Lba`` by default) to ``ab_<label>_kde.sass`` and
 ``ab_<label>_<density>.sass``, and hashes every K1 and K3 function's SASS
 (addresses, encodings and constants stripped): the script prints how
-many of the functions off the ABC binomial are identical between the
-trees.  Prints one line per tree and measurement, then the card's name
-and power limit.
+many of the functions off LBA and off the MVN (K3's) are identical
+between the trees.  Prints one line per tree and measurement, then the
+card's name and power limit.
 """
 
 import hashlib
@@ -62,6 +72,75 @@ KDE_SHAPES = ((64, 1, 10_000), (40, 33, 4173), (8, 300, 2500))
 # the ABC cell with bounds wider than [0, 1] (the density's count branch);
 # chip_smoke.ABC_WIDE_BOUNDS, written out for trees that lack it
 ABC_WIDE_BOUNDS = ((-0.5, 1.5),)
+# the kernels whose SASS this change may alter (class names in the
+# mangled function names): K1 on LBA, K3 on the MVN
+CHANGED = ("LbaDensity", "MvNormalDensity")
+# the MVN flagship's population, (n_groups, Np, sweep, θs; None: 0.1)
+MVN_FLAGSHIP = (1, 3, "auto", None)
+
+
+def mvn_pops():
+    """The MVN DE-MCz populations of the K3 digests: the flagship and
+    ``chip_smoke.MVN_LANE_CASES`` of this script's own tree (passed to the
+    workers of every tree)."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+    import chip_smoke
+    return {"mvn": MVN_FLAGSHIP, **chip_smoke.MVN_LANE_CASES}
+
+
+def mvn_case(dev, pop, burnin=2000, key=4, extra_rows=3000):
+    """(model, spec, cfg, state) of the 30-dim MVN DE-MCz at population
+    ``pop`` = (n_groups, Np, sweep, θs), with ``extra_rows`` history rows
+    to write."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import mvnormal
+    from demcmc_tpu_torch.ops import fused_step
+    G_, Np_, sweep, sn = pop
+    model, de = mvnormal.make(d=30, n_obs=100, key=1, burnin=burnin,
+                              theta_snooker=0.1 if sn is None else sn,
+                              n_groups=G_, Np=Np_, sweep=sweep)
+    spec = tdm.make_spec(model, de)
+    cfg = fused_step.StepConfig.make(model, de, spec)
+    s = tdm.sampler._grow_history(
+        tdm.init_state(model, de, spec, key, device=dev), extra_rows)
+    return model, spec, cfg, s
+
+
+def k3_window(resample_step, case, it0, phase, dev):
+    """A function launching one K3 window of WINDOW_K from a copy of the
+    case's state (fresh on each call: the same window every time), and
+    that state and its outputs."""
+    import torch
+    model, spec, cfg, s = case
+    C = cfg.G * cfg.Np
+    st = [s.theta.clone(), s.weight.clone(), s.fire.clone(),
+          s.history.clone()]
+    out = (torch.empty((WINDOW_K, C, cfg.d), device=dev),
+           torch.empty((WINDOW_K, C), device=dev),
+           torch.empty((WINDOW_K, C), dtype=torch.bool, device=dev))
+
+    def run():
+        resample_step.resample_step(cfg, model, spec, *st, it0, out=out,
+                                    K=WINDOW_K, phase=phase)
+    return run, st, out
+
+
+def res_summary(text, keep):
+    """{kernel: (registers low-high, stack low-high)} over the functions
+    of ``cuobjdump -res-usage`` output whose names hold ``keep``."""
+    lines = text.splitlines()
+    out = {}
+    for i, line in enumerate(lines[:-1]):
+        if "Function" not in line or keep not in line:
+            continue
+        m = re.search(r"REG:(\d+) STACK:(\d+)", lines[i + 1])
+        kind = re.search(r"demcmc\d+(sweep_kernel\w*?)I", line)
+        if m and kind:
+            out.setdefault(kind.group(1), []).append(
+                (int(m.group(1)), int(m.group(2))))
+    return {k: (f"REG {min(r for r, _ in v)}-{max(r for r, _ in v)}",
+                f"STACK {min(t for _, t in v)}-{max(t for _, t in v)}",
+                f"{len(v)} functions") for k, v in out.items()}
 
 
 def digest(*tensors) -> str:
@@ -98,7 +177,7 @@ def k1_digests(cs, fused_step, tdm, name, model, de, windows, dev):
     return res
 
 
-def worker(label: str, dump: str):
+def worker(label: str, dump: str, pops: dict):
     import numpy as np
     import torch
     sys.path.insert(0, str(Path.cwd()))
@@ -107,15 +186,26 @@ def worker(label: str, dump: str):
     import port_cells as pc
     from demcmc_tpu_torch import rng
     from demcmc_tpu_torch.models import binomial, gaussian
+    from demcmc_tpu_torch.models import lba as lba_model
     from demcmc_tpu_torch.ops import _build, accept, fused_step, kde
 
     dev = torch.device("cuda")
     windows = "K" in inspect.signature(fused_step.de_step).parameters
+
+    def lba(G_, Np_, n):
+        return lba_model.make(key=0, n_trials=n, Np=Np_, n_groups=G_,
+                              burnin=1000)
+
     cells = {"abc": cs._abc_case(1000), "discrete": cs._disc_case(1000),
              "gauss": gaussian.make(data=cs._gauss_data(), Np=cs.NP,
                                     n_groups=cs.G, burnin=1000)}
+    timed = dict(cells, lba=cs._lba_case(1000),
+                 lba_2x1024=lba(2, 1024, 100),
+                 snooker65k=gaussian.make(data=cs._gauss_data(), Np=16,
+                                          n_groups=4096, burnin=1000,
+                                          alpha=0.1, theta_snooker=0.1))
     res = {}
-    for name, (model, de) in cells.items():
+    for name, (model, de) in timed.items():
         spec = tdm.make_spec(model, de)
         cfg = fused_step.StepConfig.make(model, de, spec)
         s = tdm.init_state(model, de, spec, 5, device=dev)
@@ -151,25 +241,33 @@ def worker(label: str, dump: str):
                 phase="post"), 2 if name == "abc" else 20)[0]
             res[name + "_window_per_iteration"] = ms / WINDOW_K
     from demcmc_tpu_torch.ops import resample_step
-    model, spec, cfg, s = cs._resample_case(dev, "mvn", burnin=2000,
-                                            theta_sn=0.1, key=4,
-                                            extra_rows=3000)
+    model, spec, cfg, s = mvn_case(dev, pops["mvn"])
+    res["mvn_window_chains"] = resample_step.window_chains(cfg, dev)
     st = (s.theta, s.weight, s.fire, s.history)
     out = (torch.empty((3, cfg.d), device=dev), torch.empty(3, device=dev),
            torch.empty(3, dtype=torch.bool, device=dev))
     res["mvn_k3"] = cs.device_ms(lambda: resample_step.resample_step(
         cfg, model, spec, *st, IT + 500, out=out), 200)[0]
-    if windows:
-        wout = (torch.empty((WINDOW_K, 3, cfg.d), device=dev),
-                torch.empty((WINDOW_K, 3), device=dev),
-                torch.empty((WINDOW_K, 3), dtype=torch.bool, device=dev))
-        ms = cs.device_ms(lambda: resample_step.resample_step(
-            cfg, model, spec, *st, IT + 500, out=wout, K=WINDOW_K,
-            phase="post"), 20)[0]
-        res["mvn_k3_window_per_iteration"] = ms / WINDOW_K
     st = [t.clone() for t in st]
     resample_step.resample_step(cfg, model, spec, *st, IT + 500, out=out)
     res["digest_k3_mvn"] = digest(*st, *out)
+    if windows:
+        # K3 windows of 64: timed at C = 3 (past burn-in and in it) and
+        # C = 64, digested at every population of mvn_pops()
+        for pop in pops:
+            case = mvn_case(dev, pops[pop])
+            for tag, it0, phase in (("post", IT + 500, "post"),
+                                    ("burnin", 300, "all")):
+                run, st, out = k3_window(resample_step, case, it0, phase,
+                                         dev)
+                if pop in ("mvn", "mvn-l8"):
+                    ms = cs.device_ms(run, 20)[0]
+                    res[f"{pop}_k3_window_{tag}_per_iteration"] = \
+                        ms / WINDOW_K
+                run, st, out = k3_window(resample_step, case, it0, phase,
+                                         dev)
+                run()
+                res[f"digest_k3_{pop}_window_{tag}"] = digest(*st, *out)
 
     # K4 at the abc_kde cell's shape, timed and digested
     C4 = pc.KDE_CELL["n_groups"] * pc.KDE_CELL["Np"]
@@ -191,6 +289,9 @@ def worker(label: str, dump: str):
     dens = binomial.density(10, 6, pc.N_SIM)
     res["abc_block_chains"] = fused_step.block_chains(False, dens, False,
                                                       False, 1, dev)
+    lba_dens = cs._lba_case(1000)[0].cuda_density
+    res["lba_block_chains"] = fused_step.block_chains(False, lba_dens, False,
+                                                      False, 1, dev)
 
     def abc(G_, Np_, **kw):
         return binomial.make(N=10, k=6, abc=True, fresh_noise=True,
@@ -203,7 +304,9 @@ def worker(label: str, dump: str):
                    n_groups=c["n_groups"]))
     cases = dict(cells, lba=cs._lba_case(1000), abc_4x64=abc(4, 64),
                  abc_2x64_seq=abc(2, 64, sweep="sequential"),
-                 abc_2x1024=abc(2, 1024), abc_wide=wide)
+                 abc_2x1024=abc(2, 1024), abc_wide=wide,
+                 lba_4x64=lba(4, 64, 100), lba_4x64_37=lba(4, 64, 37),
+                 lba_2x1024=lba(2, 1024, 100), lba_2x1024_37=lba(2, 1024, 37))
     for name, (model, de) in cases.items():
         res.update(k1_digests(cs, fused_step, tdm, name, model, de, windows,
                               dev))
@@ -213,11 +316,15 @@ def worker(label: str, dump: str):
         res["sass"] = {}
         for name in ("de_step", "de_step_resample"):
             res["sass"].update(sass_hashes(cuobjdump, libs[name]))
-        for name, suffix in (("de_step", ""), ("kde", "_kde")):
+        for name, suffix in (("de_step", ""), ("de_step_resample", "_k3"),
+                             ("kde", "_kde")):
             run = subprocess.run([cuobjdump, "-res-usage", str(libs[name])],
                                  capture_output=True, text=True)
             (OUT / f"ab_{label}{suffix}.res").write_text(run.stdout
                                                          + run.stderr)
+            for keep in CHANGED:
+                for kind, v in res_summary(run.stdout, keep).items():
+                    res[f"res_{name}_{keep}_{kind}"] = ", ".join(v)
         (OUT / f"ab_{label}_kde.sass").write_text(subprocess.run(
             [cuobjdump, "-sass", str(libs["kde"])], capture_output=True,
             text=True).stdout)
@@ -247,20 +354,21 @@ def sass_hashes(cuobjdump, lib):
 
 def main():
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2], sys.argv[3])
+        worker(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]))
         return
-    args, dump = sys.argv[1:], "BinomialAbc"
+    args, dump = sys.argv[1:], "Lba"
     if args[:1] == ["--sass"]:
         dump, args = args[1], args[2:]
     trees = [a.split("=", 1) for a in args]
     OUT.mkdir(exist_ok=True)
     me = Path(__file__).resolve()
+    pops = json.dumps(mvn_pops())
     results = {}
     for turn, order in enumerate((trees, trees[::-1])):
         for label, d in order:
             run = subprocess.run(
                 [sys.executable, str(me), "--worker", label,
-                 dump if turn == 0 else ""],
+                 dump if turn == 0 else "", pops],
                 cwd=d, capture_output=True, text=True, timeout=900)
             line = [x for x in run.stdout.splitlines()
                     if x.startswith("RESULT ")]
@@ -284,16 +392,19 @@ def main():
                           else "DIFFERS ") + ", ".join(sorted(v)))
         if len(v) > 1:
             differ.append(k)
-    # the instantiations off the ABC binomial compile to the same code in
+    # the instantiations off LBA and the MVN compile to the same code in
     # every tree (constants and addresses aside)
     labels = list(sass)
     for other in labels[1:]:
         a, b = sass[labels[0]], sass[other]
-        common = [f for f in a if f in b and "BinomialAbc" not in f]
+        common = [f for f in a if f in b
+                  and not any(c in f for c in CHANGED)]
         same = sum(a[f] == b[f] for f in common)
         print(f"SASS {labels[0]} vs {other}: {same} of {len(common)} "
-              f"functions off the ABC binomial identical; "
+              f"functions off LBA and the MVN identical; "
               f"{len(a) - len(common)} / {len(b) - len(common)} others")
+        if same < len(common):
+            differ.append("SASS off LBA and the MVN")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
