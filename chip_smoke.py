@@ -15,9 +15,13 @@ post variant.  Its launch checks are the counts of
 1. build   the CUDA kernels from ``demcmc_tpu_torch/csrc`` (one ``nvcc``
            per source, all started together);
 2. philox  device Philox words equal the plain torch words bit for bit;
-3. K2      the migration kernel equals its plain version bit for bit, in
-           bits-in mode, at (G, Np, d) = (8, 4, 2), (256, 16, 2) and
-           (4096, 16, 2), with ±inf weights, -0.0 and tied uniforms;
+3. K2      the migration kernel, in both its forms (one CTA; spread over
+           the card: victims, ranks by counting, scatter), equals its
+           plain version bit for bit, in bits-in mode, at (G, Np, d) =
+           (8, 4, 2), (256, 16, 2), (4096, 16, 2), (4096, 4, 2) and
+           (8192, 16, 2) with tied uniforms in pairs, and at G = 256 and
+           4,096 with every leader's uniform tied; ±inf weights and -0.0
+           victim values in every case;
 4. K1      the DE-step kernel against its plain version at 4,096 chains:
            8 bits-in iterations crossing burn-in 4 with the migration gate
            set at the start, then one iteration on Philox words;
@@ -87,9 +91,12 @@ post variant.  Its launch checks are the counts of
            lane a chain; the limit logged), and LBA at 256 × 16, 4 × 64
            and 2 groups of its limit (32, 16 and 1 lanes a chain over the
            trials), each on 100 and 37 trials with proposals putting
-           trials at rt ≤ τ: 8 bits-in iterations crossing burn-in 4 with
-           the gate set at the start, then one on Philox words; every
-           discrete N integral;
+           trials at rt ≤ τ, and the discrete binomial at 2 × 256, 2 ×
+           512 and 2 groups of its limit (4, 2 and 1 lanes a chain over
+           the unique counts; the cell's 8) and on 20 unique counts: 8
+           bits-in
+           iterations crossing burn-in 4 with the gate set at the start,
+           then one on Philox words; every discrete N integral and moved;
 20. main-lba  ``sample()`` on the 4,096-chain LBA cell (burn-in 1,000,
            5,000 iterations; the cells, oracles and gates of phases 20-22
            are in ``port_cells.py``) and its loop twin, bit for bit: each
@@ -207,10 +214,13 @@ post variant.  Its launch checks are the counts of
            beside the plain exchange and K2's bound; K1 on one shard of
            four beside its plain version and its bound.
 
-The last three lines of standard output are the kernels' JSON line, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Before them, the host seconds of each cell's ``Chains.rhat()`` and the
+script's total, each beside the card's name and power limit.  The last
+three lines of standard output are the kernels' JSON line, the card's
+name and power limit, and ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import functools
 import json
 import subprocess
@@ -344,54 +354,105 @@ def phase_philox(dev):
     log("philox", f"[17, {C}] device words equal the plain words bit for bit")
 
 
-def _mig_case(rng, G_, Np_, dev):
-    """θ with -0.0, w with ±inf, words whose odd groups' leader words tie
-    with the previous group's (same top 23 bits)."""
+def _mig_case(rng, G_, Np_, dev, ties="pairs"):
+    """θ with -0.0, w with ±inf and -0.0 (victims whose values the
+    exchange turns to +0.0), words whose odd groups' leader words tie with
+    the previous group's (same top 23 bits; ``ties="all"``: every leader's,
+    so the ranks follow the group index alone)."""
     C_ = G_ * Np_
     theta = (rng.standard_normal((C_, D)) * 1e3
              + rng.random((C_, D)) * 1e-4).astype(np.float32)
     theta[rng.random((C_, D)) < 0.05] = -0.0
+    theta[:Np_] = -0.0                   # group 0's victim: all -0.0
     w = rng.standard_normal(C_).astype(np.float32)
     w[rng.random(C_) < 0.1] = -np.inf
     w[rng.random(C_) < 0.05] = np.inf
+    w[rng.random(C_) < 0.05] = -0.0
     words = rng.integers(0, 2 ** 32, (3, C_), dtype=np.uint64)
-    lead = np.arange(Np_, C_, 2 * Np_)
-    words[0, lead] = ((words[0, lead - Np_] & ~np.uint64(0x1FF))
-                      | rng.integers(0, 0x200, lead.size).astype(np.uint64))
+    if ties == "all":
+        lead = np.arange(0, C_, Np_)
+        words[0, lead] = ((words[0, 0] & ~np.uint64(0x1FF))
+                          | rng.integers(0, 0x200, lead.size).astype(
+                              np.uint64))
+    else:
+        lead = np.arange(Np_, C_, 2 * Np_)
+        words[0, lead] = ((words[0, lead - Np_] & ~np.uint64(0x1FF))
+                          | rng.integers(0, 0x200, lead.size).astype(
+                              np.uint64))
     return (torch.tensor(theta, device=dev), torch.tensor(w, device=dev),
             torch.from_numpy(words.astype(np.uint32)).to(dev))
 
 
+# K2's checked shapes (G, Np): the bench, the 65,536-chain cell, main-seq's
+# 4,096 × 4 and the group limit, each in both forms of the kernel
+K2_SHAPES = ((8, 4), (256, 16), (4096, 16), (4096, 4), (8192, 16))
+
+
+@contextlib.contextmanager
+def k2_form(mig, spread):
+    """K2 held to one form inside the block: its chain threshold
+    (``migration.ONE_CTA_MAX_CHAINS``) set to 0 (the spread form) or past
+    every shape (one CTA), then restored."""
+    keep = mig.ONE_CTA_MAX_CHAINS
+    mig.ONE_CTA_MAX_CHAINS = 0 if spread else 1 << 30
+    try:
+        yield
+    finally:
+        mig.ONE_CTA_MAX_CHAINS = keep
+
+
 def phase_k2(dev):
+    """K2 in both forms (one CTA and spread) against its plain version,
+    bit for bit, in bits-in mode at every shape of ``K2_SHAPES`` with tied
+    leader words in pairs, and at G = 256 and 4,096 with every leader word
+    tied; -0.0 victim values (turned to +0.0) in every case; fire = 0
+    leaves the state as it was."""
     from demcmc_tpu_torch.ops import migration as mig
     rng = np.random.default_rng(2)
     worst = 0.0
-    for G_, Np_ in ((8, 4), (256, 16), (4096, 16)):
-        theta, w, words = _mig_case(rng, G_, Np_, dev)
+    cases = [(G_, Np_, "pairs") for G_, Np_ in K2_SHAPES]
+    cases += [(256, 16, "all"), (4096, 16, "all")]
+    for G_, Np_, ties in cases:
+        theta, w, words = _mig_case(rng, G_, Np_, dev, ties)
         one = torch.ones(1, dtype=torch.int32, device=dev)
-        tk, wk = theta.clone(), w.clone()
-        tp, wp = theta.clone(), w.clone()
-        mig.migrate(tk, wk, one, G_, Np_, bits=words)
-        mig.migrate_plain(tp, wp, one, words, G_, Np_)
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
-        tz, wz = theta.clone(), w.clone()
-        mig.migrate(tz, wz, zero, G_, Np_, bits=words)
-        torch.cuda.synchronize()
+        tp, wp = theta.clone(), w.clone()
+        mig.migrate_plain(tp, wp, one, words, G_, Np_)
         moved = int((ints(tp) != ints(theta)).any(1).sum())
-        if not (torch.equal(ints(tk), ints(tp)) and torch.equal(ints(wk),
-                                                                ints(wp))):
-            raise AssertionError(f"K2 differs from its plain version at "
-                                 f"G={G_}, Np={Np_}")
-        if not (torch.equal(ints(tz), ints(theta))
-                and torch.equal(ints(wz), ints(w))):
-            raise AssertionError("K2 changed the state with fire = 0")
-        if moved == 0:
-            raise AssertionError("K2 comparison moved no chain")
-        fin = torch.isfinite(wp)
-        worst = max(worst, float((tk - tp).abs().max()),
-                    float((wk[fin] - wp[fin]).abs().max()))
-        log("K2", f"G={G_} Np={Np_}: bitwise equal ({moved} chains moved); "
-            f"fire=0 leaves the state unchanged")
+        # the victims' values with -0.0, which the exchange writes as +0.0
+        _, _, gum = mig.draws(words, G_, Np_)
+        vid = torch.argmax(gum - w.view(G_, Np_), dim=1)
+        gi = torch.arange(G_, device=dev)
+        zeros = int((ints(theta.view(G_, Np_, D)[gi, vid]) == -2 ** 31).sum()
+                    + (ints(w.view(G_, Np_)[gi, vid]) == -2 ** 31).sum())
+        for spread in (False, True):
+            tk, wk = theta.clone(), w.clone()
+            tz, wz = theta.clone(), w.clone()
+            with k2_form(mig, spread):
+                mig.migrate(tk, wk, one, G_, Np_, bits=words)
+                mig.migrate(tz, wz, zero, G_, Np_, bits=words)
+            torch.cuda.synchronize()
+            form = "spread" if spread else "one-CTA"
+            if not (torch.equal(ints(tk), ints(tp))
+                    and torch.equal(ints(wk), ints(wp))):
+                raise AssertionError(f"K2 ({form}) differs from its plain "
+                                     f"version at G={G_}, Np={Np_}, "
+                                     f"ties={ties}")
+            if not (torch.equal(ints(tz), ints(theta))
+                    and torch.equal(ints(wz), ints(w))):
+                raise AssertionError(f"K2 ({form}) changed the state with "
+                                     f"fire = 0")
+            fin = torch.isfinite(wp)
+            worst = max(worst, float((tk - tp).abs().max()),
+                        float((wk[fin] - wp[fin]).abs().max()))
+        if moved == 0 or zeros == 0:
+            raise AssertionError(f"K2 comparison at G={G_}, Np={Np_} moved "
+                                 f"{moved} chains, {zeros} -0.0 victim "
+                                 f"values")
+        log("K2", f"G={G_} Np={Np_} ties={ties}: one-CTA and spread forms "
+            f"bitwise equal to the plain version ({moved} chains moved, "
+            f"{zeros} -0.0 victim values made +0.0); fire=0 leaves the "
+            f"state unchanged")
     return worst
 
 
@@ -668,12 +729,15 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
                   loop=False):
     """``sample()`` (``loop``: its one-launch-per-iteration twin,
     :func:`_loop_run`) under ``torch.profiler`` (CUPTI): the device trace
-    must hold each kernel of ``names`` (key -> substring of the kernel's
-    name) as often as the plan (:func:`plan_counts`) or the loop says.
+    must hold each kernel of ``names`` (key -> a substring of the name of
+    the one kernel a call launches, or a tuple of them where a call
+    launches several: K2's, :func:`k2_kernels`) as often as the plan
+    (:func:`plan_counts`) or the loop says calls, and no other K2 kernel.
     Returns the device's busy time and idle share over the iteration loop
     (first to last launch of these kernels) and over the whole call (first
-    to last device event), launches per iteration and the time of the
-    trajectory's copy to the host."""
+    to last device event), kernel launches per iteration and the time of
+    the trajectory's copy to the host; the mean traced time of a call
+    (of its kernels summed) is logged."""
     import demcmc_tpu_torch as tdm
     from torch.profiler import ProfilerActivity, profile
     want = ({k: n_iter if k != "migrate" or de.alpha > 0.0 else 0
@@ -700,14 +764,27 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
         return [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
                 for e in dev_ev if pred(e)]
 
-    ours = {k: spans(lambda e, n=n: e["cat"] == "kernel" and n in e["name"])
+    def named(e, x):
+        return e["cat"] == "kernel" and x in e["name"]
+
+    subs = {k: (n,) if isinstance(n, str) else tuple(n)
             for k, n in names.items()}
-    counts = {k: len(v) for k, v in ours.items()}
+    each = {x: spans(lambda e, x=x: named(e, x))
+            for xs in subs.values() for x in xs}
+    counts = {x: len(v) for x, v in each.items()}
+    calls = {k: want.get(k, 0) for k in names}
     log(tag, f"kernels in the device trace: {counts} "
-        f"({'the loop' if loop else 'the plan'}: {want})")
-    if counts != {k: want.get(k, 0) for k in names}:
+        f"({'the loop' if loop else 'the plan'}: {want} calls)")
+    if counts != {x: calls[k] for k, xs in subs.items() for x in xs}:
         raise AssertionError(f"{tag}: traced launches {counts}, expected "
-                             f"{want}")
+                             f"{want} calls of {subs}")
+    if "migrate" in names:      # no kernel of K2's other form
+        k2 = sum(named(e, x) for e in dev_ev for x in K2_ONE_CTA + K2_SPREAD)
+        if k2 != calls["migrate"] * len(subs["migrate"]):
+            raise AssertionError(f"{tag}: {k2} K2 kernels traced, expected "
+                                 f"{calls['migrate']} calls of "
+                                 f"{subs['migrate']}")
+    ours = {k: [sp for x in xs for sp in each[x]] for k, xs in subs.items()}
     every = spans(lambda e: True)
     lo = min(a for v in ours.values() for a, _ in v)
     hi = max(b for v in ours.values() for _, b in v)
@@ -715,7 +792,8 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
     call = max(b for _, b in every) - min(a for a, _ in every)
     call_busy = _busy(every)
     copy = _busy(spans(lambda e: e["cat"] == "gpu_memcpy"), hi)
-    mean = {k: float(np.mean([b - a for a, b in v])) for k, v in ours.items()}
+    mean = {k: sum(b - a for a, b in v) / calls[k]
+            for k, v in ours.items() if calls[k]}
     out = {"traced_us_per_iteration": wall / n_iter * 1e6,
            "launches_per_iteration": sum(counts.values()) / n_iter,
            "span_us_per_iteration": (hi - lo) / n_iter,
@@ -729,7 +807,9 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
         f"clock, busy {out['span_busy_us_per_iteration']:.3f}, idle share "
         f"{out['span_idle_share']:.4f}; whole call {call / 1e3:.3f} ms, idle "
         f"share {out['call_idle_share']:.4f}; trajectory copy to the host "
-        f"{out['trajectory_copy_ms']:.3f} ms; mean traced kernel time "
+        f"{out['trajectory_copy_ms']:.3f} ms; "
+        f"{out['launches_per_iteration']:.4f} kernel launches/iteration; "
+        "mean traced time a call "
         + ", ".join(f"{k} {v:.3f} us" for k, v in mean.items())
         + f"; {len(every)} device events (trace in {path.name})")
     return out
@@ -737,9 +817,19 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
 
 # kernel names in the device trace: K1 and K3 are instantiations of
 # step_body.cuh's sweep_kernel (sweep_kernel_lanes on the ABC binomial and
-# LBA, sweep_kernel_dims on the MVN) over their partner sources
-K1_NAME, K2_NAME, K3_NAME = "GroupPartners", "migrate_kernel", \
-    "HistoryPartners"
+# LBA, sweep_kernel_dims on the MVN) over their partner sources; a K2 call
+# is one kernel in its one-CTA form, three in its spread form
+K1_NAME, K3_NAME = "GroupPartners", "HistoryPartners"
+K2_ONE_CTA = ("migrate_kernel",)
+K2_SPREAD = ("migrate_victims_kernel", "migrate_rank_kernel",
+             "migrate_scatter_kernel")
+
+
+def k2_kernels(de):
+    """The kernels one K2 call launches on ``de``'s population."""
+    from demcmc_tpu_torch.ops import migration as mig
+    return (K2_SPREAD if de.n_groups * de.Np > mig.ONE_CTA_MAX_CHAINS
+            else K2_ONE_CTA)
 
 
 def phase_trace(dev):
@@ -750,7 +840,7 @@ def phase_trace(dev):
     from demcmc_tpu_torch.models import gaussian
     data = np.random.default_rng(0).standard_normal(50).astype(np.float32)
     model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN)
-    names = {"de_step": K1_NAME, "migrate": K2_NAME}
+    names = {"de_step": K1_NAME, "migrate": k2_kernels(de)}
     out = {"trace_" + k: v for k, v in _trace_sample(
         "trace", model, de, N_ITER, names, "trace_main.json").items()}
     out.update({"trace_loop_" + k: v for k, v in _trace_sample(
@@ -1327,7 +1417,7 @@ def phase_trace_slice2(dev):
                               burnin=1000, alpha=0.1, theta_snooker=0.1)
     out = {"trace_65k_" + k: v for k, v in _trace_sample(
         "trace-65k", model, de, 1500, {"de_step": K1_NAME,
-                                       "migrate": K2_NAME},
+                                       "migrate": k2_kernels(de)},
         "trace_65k.json", thin=10).items()}
     model, de = mvnormal.make(d=30, n_obs=100, key=1, burnin=MVN_BURNIN)
     names = {"resample_step": K3_NAME}
@@ -1700,6 +1790,39 @@ def _disc_case(burnin):
 
 ZOO = {"lba": (_lba_case, pc.LBA_CELL), "abc": (_abc_case, pc.ABC_CELL),
        "discrete": (_disc_case, pc.DISC_CELL)}
+# unique counts of the discrete binomial's wider lane check: three rounds
+# of 8 lanes, the last partial
+DISC_WIDE_UNIQUE = 20
+
+
+def _disc_lane_cases(dev, burnin):
+    """(name, model, de) of the discrete binomial's lane checks besides the
+    cell (256 × 12: 8 lanes a chain): G = 2 × Np = 256 (4 lanes), 2 × 512
+    (2 lanes), G = 2 groups of the density's ``block_chains`` limit (one
+    lane a chain; the limit logged), and the cell's shape on 50
+    observations with DISC_WIDE_UNIQUE unique counts (0 .. 19, each at
+    least once: three rounds of 8 lanes, the last partial)."""
+    from demcmc_tpu_torch.models import discrete_binomial
+    from demcmc_tpu_torch.ops import fused_step
+    model, _ = _disc_case(burnin)
+    most = fused_step.block_chains(False, model.cuda_density, False, False,
+                                   1, dev)
+    log("K1-discrete", f"fused_step.block_chains for the discrete density "
+        f"(synchronous, no snooker, no blocks): {most}")
+
+    def case(G_, Np_, data=None):
+        return discrete_binomial.make(key=0, n_obs=50, data=data,
+                                      dtype=np.float32, Np=Np_, n_groups=G_,
+                                      burnin=burnin)
+    g = np.random.default_rng(DISC_WIDE_UNIQUE)
+    data = np.concatenate([np.arange(DISC_WIDE_UNIQUE), g.integers(
+        0, DISC_WIDE_UNIQUE, 50 - DISC_WIDE_UNIQUE)])
+    c = pc.DISC_CELL
+    return [("discrete-2x256", *case(2, 256)),
+            ("discrete-2x512", *case(2, 512)),
+            (f"discrete-2x{most}", *case(2, most)),
+            (f"discrete-{DISC_WIDE_UNIQUE}u",
+             *case(c["n_groups"], c["Np"], data))]
 ABC_WIDE_BOUNDS = ((-0.5, 1.5),)    # θ outside [0, 1] in bounds: the count
 
 
@@ -1753,14 +1876,15 @@ def phase_k1_zoo(dev):
     worst = 0.0
     cases = [(name, *case(burnin=4)) for name, (case, _) in ZOO.items()]
     for name, model, de in (cases + _abc_lane_cases(dev, burnin=4)
-                            + _lba_lane_cases(dev, burnin=4)):
+                            + _lba_lane_cases(dev, burnin=4)
+                            + _disc_lane_cases(dev, burnin=4)):
         spec = tdm.make_spec(model, de)
         cfg = fused_step.StepConfig.make(model, de, spec)
         s = tdm.init_state(model, de, spec, 11, device=dev)
         state = [s.theta, s.weight, torch.ones(1, dtype=torch.int32,
                                                device=dev)]
         C_ = de.n_chains
-        err, n_late = 0.0, 0
+        err, n_late, n_moved = 0.0, 0, 0
         for it in range(1, 10):
             words = (random_words(rng, cfg.rows.n_words, C_, dev)
                      if it < 9 else None)
@@ -1784,6 +1908,7 @@ def phase_k1_zoo(dev):
                     raise AssertionError(f"K1 {name}: no proposal took the "
                                          f"count branch at it={it}")
                 counted = f", {n_count} proposals by the count"
+            before = state[0][:, list(cfg.int_dims)].clone()
             state, e, _, n_acc = _compare_iteration(
                 cfg, model, spec, state, it, words=words, seed=79,
                 exact=True)
@@ -1793,6 +1918,9 @@ def phase_k1_zoo(dev):
                 if not torch.equal(th, torch.round(th)):
                     raise AssertionError(f"K1 {name}: an integer dimension "
                                          f"is not integral at it={it}")
+                moved = int((th != before).any(1).sum())
+                n_moved += moved
+                counted = f", N moved (snapped) in {moved} chains"
             log("K1-" + name, f"{'bits-in' if it < 9 else 'Philox'} it={it}"
                 f" ({'burn-in' if it <= 4 else 'sampling'}): {n_acc} "
                 f"accepted{counted}, equal bit for bit")
@@ -1802,6 +1930,12 @@ def phase_k1_zoo(dev):
                 raise AssertionError(f"K1 {name}: no proposal put a trial "
                                      f"at rt ≤ τ")
             trials = f", {len(model.data[1])} trials"
+        if cfg.int_dims:
+            if not n_moved:
+                raise AssertionError(f"K1 {name}: no chain moved its "
+                                     f"integer dimension")
+            trials = (f", {len(model.cuda_density.data)} unique counts, "
+                      f"{n_moved} integral moves of N")
         log("K1-" + name, f"G={de.n_groups} Np={de.Np} d={cfg.d} words per "
             f"chain {cfg.rows.n_words}{trials}: max |diff| {err:.3g} over 9 "
             f"iterations")
@@ -1832,12 +1966,52 @@ def _zoo_sample(tag, name, key=0):
     return model, chains, launches, m
 
 
-def _rhat_gate(tag, chains):
+RHAT_SECONDS = {}     # host seconds of each cell's Chains.rhat(), by tag
+_RHAT_JOBS = []       # the R̂ gates under way (see _rhat_gate)
+
+
+def _rhat_gate(tag, chains, key):
+    """Start the cell's gate, max R̂ < RHAT_MAX of ``Chains.rhat()``, in a
+    forked process: numpy on the draws, no CUDA, on a core of its own while
+    the next phases drive the card.  :func:`_rhat_results` waits for it,
+    writes the value under ``key`` and applies the gate."""
+    import multiprocessing as mp
+    ctx = mp.get_context("fork")
+    recv, send = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_rhat_child, args=(chains, send), daemon=True)
+    proc.start()
+    send.close()
+    _RHAT_JOBS.append((tag, key, proc, recv, chains.data.shape))
+
+
+def _rhat_child(chains, send):
+    t0 = time.perf_counter()
     rhat = float(np.max(chains.rhat()))
-    log(tag, f"max R-hat {rhat:.5f}")
-    if not rhat < pc.RHAT_MAX:
-        raise AssertionError(f"{tag}: max R-hat >= {pc.RHAT_MAX}")
-    return rhat
+    send.send((rhat, time.perf_counter() - t0))
+
+
+def _rhat_results(metrics):
+    """Wait for every R̂ gate started by :func:`_rhat_gate`: log each value
+    and its host seconds, write it into ``metrics``; raise if one fails or
+    its process died."""
+    jobs, failed = list(_RHAT_JOBS), []
+    _RHAT_JOBS.clear()
+    for tag, key, proc, recv, shape in jobs:
+        try:
+            rhat, secs = recv.recv()
+        except EOFError:
+            raise AssertionError(f"{tag}: the R-hat process died (exit "
+                                 f"code {proc.exitcode})") from None
+        proc.join()
+        RHAT_SECONDS[tag] = secs
+        metrics[key] = rhat
+        log(tag, f"max R-hat {rhat:.5f} (Chains.rhat() of {shape} draws: "
+            f"{secs:.2f} s on the host, in a process of its own)")
+        if not rhat < pc.RHAT_MAX:
+            failed.append(tag)
+    if failed:
+        raise AssertionError(f"{', '.join(failed)}: max R-hat >= "
+                             f"{pc.RHAT_MAX}")
 
 
 def phase_main_lba(dev):
@@ -1861,8 +2035,8 @@ def phase_main_lba(dev):
             f"{sd[i]:.5f}, {100 * ds[i]:.2f}% off)")
     if not ok:
         raise AssertionError("main-lba: posterior off the oracle")
-    rhat = _rhat_gate("main-lba", chains)
-    m.update({"lba_rhat_max": rhat, "lba_max_mean_dev_sd": float(dm.max()),
+    _rhat_gate("main-lba", chains, "lba_rhat_max")
+    m.update({"lba_max_mean_dev_sd": float(dm.max()),
               "lba_max_sd_dev": float(ds.max())})
     return launches, m
 
@@ -1878,8 +2052,8 @@ def phase_main_abc(dev):
         f"{truth['mean']:.5f}), sd {sd:.5f} ({truth['std']:.5f})")
     if abs(mean - truth["mean"]) >= 0.01 or abs(sd - truth["std"]) >= 0.01:
         raise AssertionError("main-abc: posterior off the conjugate")
-    rhat = _rhat_gate("main-abc", chains)
-    m.update({"abc_rhat_max": rhat, "abc_mean": mean, "abc_sd": sd})
+    _rhat_gate("main-abc", chains, "abc_rhat_max")
+    m.update({"abc_mean": mean, "abc_sd": sd})
     return launches, m
 
 
@@ -1901,9 +2075,8 @@ def phase_main_discrete(dev):
             f"(oracle {truth[name][1]:.5f}, {100 * ds:.2f}% off)")
     if not ok:
         raise AssertionError("main-discrete: posterior off the oracle")
-    rhat = _rhat_gate("main-discrete", chains)
-    m.update({"discrete_rhat_max": rhat,
-              "discrete_max_mean_dev_sd": max(r[2] for r in rows.values()),
+    _rhat_gate("main-discrete", chains, "discrete_rhat_max")
+    m.update({"discrete_max_mean_dev_sd": max(r[2] for r in rows.values()),
               "discrete_max_sd_dev": max(r[3] for r in rows.values())})
     return launches, m
 
@@ -1917,7 +2090,7 @@ def phase_trace3(dev):
         model, de = case(burnin=500)
         out.update({f"trace_{name}_" + k: v for k, v in _trace_sample(
             "trace-" + name, model, de, 1000,
-            {"de_step": K1_NAME, "migrate": K2_NAME},
+            {"de_step": K1_NAME, "migrate": k2_kernels(de)},
             f"trace_{name}.json").items()})
     return out
 
@@ -2103,14 +2276,17 @@ def phase_k4(dev):
 
 def _unfused_sample(tag, model, de, n_iter, want, key=0):
     """``sample()`` of a cell through the unfused step (the first call,
-    kernels already built): the launch counts must be ``want`` (0 for a
-    kernel not named).
+    kernels already built), under ``torch.inference_mode()``: the step is
+    a few thousand small torch operations an iteration, and the mode skips
+    autograd's dispatch on each (the draws are the same bits either way);
+    the launch counts must be ``want`` (0 for a kernel not named).
     Returns the chains, the counts and the wall time."""
     import demcmc_tpu_torch as tdm
     _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    chains = tdm.sample(model, de, n_iter, key=key, allow_fused=False)
+    with torch.inference_mode():
+        chains = tdm.sample(model, de, n_iter, key=key, allow_fused=False)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = _counts()
@@ -2149,10 +2325,9 @@ def phase_main_kde(dev):
             f"{oracle[name][1]:.5f})")
     if not ok:
         raise AssertionError("main-kde: posterior off the oracle")
-    rhat = _rhat_gate("main-kde", chains)
+    _rhat_gate("main-kde", chains, "kde_rhat_max")
     C_ = de.n_chains
-    return launches, {"kde_rhat_max": rhat,
-                      "kde_us_per_iteration": dt / n_iter * 1e6,
+    return launches, {"kde_us_per_iteration": dt / n_iter * 1e6,
                       "kde_chain_steps_per_s": C_ * n_iter / dt,
                       "kde_acceptance": float(chains.acceptance.mean())}
 
@@ -2205,10 +2380,9 @@ def phase_main_lnr(dev):
             f"{100 * ds[i]:.2f}% off)")
     if not ok:
         raise AssertionError("main-lnr: posterior off the oracle")
-    rhat = _rhat_gate("main-lnr", chains)
+    _rhat_gate("main-lnr", chains, "lnr_rhat_max")
     C_ = de.n_chains
-    return launches, {"lnr_rhat_max": rhat,
-                      "lnr_us_per_iteration": dt / n_iter * 1e6,
+    return launches, {"lnr_us_per_iteration": dt / n_iter * 1e6,
                       "lnr_chain_steps_per_s": C_ * n_iter / dt,
                       "lnr_max_mean_dev": float(dm.max()),
                       "lnr_max_sd_dev": float(ds.max())}
@@ -3073,7 +3247,7 @@ def phase_trace5(dev):
         sweep="sync")
     out = {"trace_mcz_mig_" + k: v for k, v in _trace_sample(
         "trace-mcz-mig", model, de, 2000, {"resample_step": K3_NAME,
-                                           "migrate": K2_NAME},
+                                           "migrate": k2_kernels(de)},
         "trace_mcz_mig.json").items()}
     cell = pc.BLOCKED_CELL
     model, de = gaussian.make(data=_gauss_data(), Np=cell["Np"],
@@ -3082,7 +3256,7 @@ def phase_trace5(dev):
                               blocking_on=True)
     out.update({"trace_blocked_" + k: v for k, v in _trace_sample(
         "trace-blocked", model, de, cell["n_iter"],
-        {"de_step": K1_NAME, "migrate": K2_NAME},
+        {"de_step": K1_NAME, "migrate": k2_kernels(de)},
         "trace_blocked.json").items()})
     return out
 
@@ -4062,10 +4236,16 @@ def main():
     mesh_launches, m = run(phase_main_mesh, dev)
     metrics.update(m)
     rows += run(phase_timing8, dev, mesh_launches, errs)
+    _rhat_results(metrics)
+    card = gpu_line()
+    log("end", "host seconds of Chains.rhat() by cell: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in RHAT_SECONDS.items())
+        + f" (card: {card})")
     log("end", f"all phases passed in {time.perf_counter() - t_start:.1f} s "
-        f"(seconds per phase: {json.dumps(took)}); {json.dumps(metrics)}")
+        f"on {card} (seconds per phase: {json.dumps(took)}); "
+        f"{json.dumps(metrics)}")
     print(json.dumps({"kernels": rows}))
-    print(gpu_line())
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -106,13 +106,16 @@ class Chains:
         """Rank-normalized split-R̂ (the MCMCChains default)."""
         if name is not None:
             return diagnostics.rank_normalized_rhat(self[name])
-        return np.array([diagnostics.rank_normalized_rhat(self.data[:, i, :])
+        tables = {}     # every parameter's draws are of one size
+        return np.array([diagnostics.rank_normalized_rhat(self.data[:, i, :],
+                                                          tables)
                          for i in range(self.n_params)])
 
     def ess(self, name: Optional[str] = None):
         if name is not None:
             return diagnostics.ess_bulk(self[name])
-        return np.array([diagnostics.ess_bulk(self.data[:, i, :])
+        tables = {}
+        return np.array([diagnostics.ess_bulk(self.data[:, i, :], tables)
                          for i in range(self.n_params)])
 
     def ess_tail(self, name: Optional[str] = None):

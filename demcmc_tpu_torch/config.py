@@ -14,7 +14,7 @@ unfused step.
 
 from __future__ import annotations
 
-from dataclasses import dataclass, replace
+from dataclasses import dataclass, fields, replace
 from typing import Any
 
 import numpy as np
@@ -197,6 +197,11 @@ class DE:
         return self.sample == "resample"
 
     @property
+    def uses_snooker(self) -> bool:
+        """Snooker proposals are drawn (``theta_snooker > 0``)."""
+        return self.theta_snooker > 0.0
+
+    @property
     def is_mh(self) -> bool:
         """Metropolis–Hastings accept (sampling), the default."""
         return self.update_particle == "mh"
@@ -232,6 +237,27 @@ class DE:
 
     def replace(self, **kw) -> "DE":
         return replace(self, **kw)
+
+    def _static_key(self):
+        """Every field, arrays (``bounds``) frozen to nested tuples, so a
+        configuration compares and hashes by content (JAX
+        ``DE._static_key``): the dataclass's own ``__eq__`` would compare
+        an array ``bounds`` elementwise and raise."""
+        def freeze(x):
+            if isinstance(x, np.ndarray):
+                return ("nd", x.shape, tuple(x.reshape(-1).tolist()))
+            if isinstance(x, (list, tuple)):
+                return tuple(freeze(e) for e in x)
+            return x
+        return tuple(freeze(getattr(self, f.name)) for f in fields(self))
+
+    def __hash__(self):
+        return hash(self._static_key())
+
+    def __eq__(self, other):
+        if not isinstance(other, DE):
+            return NotImplemented
+        return self._static_key() == other._static_key()
 
 
 class MCMCThreads:

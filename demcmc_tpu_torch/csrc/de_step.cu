@@ -30,10 +30,10 @@
 // instead of reading a pre-drawn buffer, and keeps every group-level
 // reduction in shared memory.
 //
-// The discrete binomial runs its density in the chain's thread, a loop over
-// its unique counts (an lgamma each): bound by that serial loop on one
-// thread per chain, not by bytes.  LBA's loop over its trials (two
-// accumulators, four Phi/phi pairs and two logs per trial) and the ABC
+// The discrete binomial's loop over its unique counts (an lgamma each) is
+// split over up to 8 lanes per chain: at the cell's 256 groups of 12, 128
+// blocks of 6 warps instead of 52 blocks of 2.  LBA's loop over its trials
+// (two accumulators, four Phi/phi pairs and two logs per trial) and the ABC
 // binomial's over its n_sim simulations (a Philox block per four of them,
 // two compares each) are split over up to 32 lanes per chain (kLanes,
 // step_body.cuh): at the LBA cell's 256 groups of 16 chains, 256 blocks of

@@ -9,13 +9,24 @@
 // order of np.unique, then log(1/41) + that.  const = -sum_u c_u lgamma(k_u +
 // 1) is folded on the host in float64.  The (k_u, c_u) table is a [n_unique,
 // 2] float32 buffer in device memory (CudaDensity.data).  N = x[0] arrives
-// already snapped to an integer by the sweep body; p = x[1].
+// already snapped to an integer by the sweep body (every lane of a chain
+// snaps the same words); p = x[1].
+//
+// The unique counts are split over the chain's lanes (ChainLanes, up to
+// kLanes threads of one warp, step_body.cuh): in round r lane l forms
+// t_u = c_u lgamma32(N - k_u + 1) for u = r L + l, then every lane
+// subtracts the round's terms in index order, reading lane l's with a
+// __shfl_sync broadcast.  Built with -fmad=false, the serial loop also
+// rounds the product and the difference apart, so every lane holds its
+// bits.  With one lane a chain (the largest groups) the chain's thread
+// walks the counts in turn, as the one-thread kernel did.
 #pragma once
 
 #include <math.h>
 
 #include <cstdint>
 
+#include "../philox.cuh"
 #include "../special.cuh"
 
 namespace demcmc {
@@ -24,7 +35,10 @@ struct DiscreteBinomialDensity {
   static constexpr int D = 2;
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 1u;  // N snapped
-  static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
+  // threads a chain at most: at the cell's 256 x 12 K1's window ran 0.84x
+  // the one-thread kernel's time with 8, 0.88x with 16, 0.96x with 4
+  // (tools/k1_ab.py on an H100, PERF.md)
+  static constexpr int kLanes = 8;
   float n, cst, sk, kmax;
   int n_unique;
   float log_prior;
@@ -35,12 +49,27 @@ struct DiscreteBinomialDensity {
                                    data};
   }
 
-  __device__ __forceinline__ float operator()(const float* x) const {
+  __device__ __forceinline__ float operator()(const float* x,
+                                              const ChainLanes& ln) const {
     const float N = rintf(x[0]), p = x[1];
     float lp = n * lgamma32(N + 1.0f) + cst + sk * logf(p) +
                (n * N - sk) * log1pf(-p);
-    for (int u = 0; u < n_unique; ++u)
-      lp = lp - table[2 * u + 1] * lgamma32(N - table[2 * u] + 1.0f);
+    const float2* tab = reinterpret_cast<const float2*>(table);
+    if (ln.n == 1) {  // one lane a chain: the counts in turn
+      for (int u = 0; u < n_unique; ++u) {
+        const float2 kc = tab[u];
+        lp = lp - kc.y * lgamma32(N - kc.x + 1.0f);
+      }
+    } else {
+      for (int r0 = 0; r0 < n_unique; r0 += ln.n) {
+        const int u = r0 + ln.lane;
+        const float2 kc = u < n_unique ? tab[u] : make_float2(0.0f, 0.0f);
+        const float t = kc.y * lgamma32(N - kc.x + 1.0f);
+        const int m = min(ln.n, n_unique - r0);  // the same on every lane
+        for (int l = 0; l < m; ++l)
+          lp = lp - __shfl_sync(ln.mask, t, l, ln.n);
+      }
+    }
     const float ll = (N >= kmax) ? lp : -INFINITY;
     return log_prior + ll;
   }

@@ -62,7 +62,8 @@ def _p1evl(x, coef):
 def _libm_log(x: np.ndarray) -> np.ndarray:
     # math.log is the C library's log, which scipy's compiled ndtri calls;
     # numpy's vectorized log differs from it in the last bit on some inputs
-    return np.array([math.log(v) for v in x.tolist()], dtype=np.float64)
+    return np.fromiter(map(math.log, x.tolist()), dtype=np.float64,
+                       count=x.size)
 
 
 def ndtri(p) -> np.ndarray:
@@ -97,19 +98,50 @@ def ndtri(p) -> np.ndarray:
     return out.reshape(shape)
 
 
+def _f32_keys(a: np.ndarray):
+    """Order keys ``[n]`` uint32 of float64 ``a`` where every value is a
+    float32 (a sampler's draws are) and none is NaN, else None: the bits
+    of ``v + 0`` (−0.0 made +0.0), sign bit set on positives and every
+    bit flipped on negatives, so the keys order as the values and tie
+    exactly where they do."""
+    if a.dtype != np.float64 or a.size >= 2 ** 32:
+        return None
+    f = a.astype(np.float32)
+    if not np.array_equal(f, a):        # inexact, out of range, or NaN
+        return None
+    b = (f + np.float32(0.0)).view(np.uint32)
+    return b ^ ((np.uint32(0) - (b >> np.uint32(31)))
+                | np.uint32(0x80000000))
+
+
+def _tie_runs(a: np.ndarray):
+    """``a``'s sort order and its runs of equal values: the permutation
+    ``sorter`` and, for each run of ties in sorted order, its first
+    position and the position past its end (0-based)."""
+    # ties are averaged, so the order among them (an unstable sort's, or
+    # the index's) does not matter
+    key = _f32_keys(a)
+    if key is None:
+        sorter = np.argsort(a)
+        arr = a[sorter]
+    else:           # each key above its index: one sort of 64-bit words
+        packed = np.sort((key.astype(np.uint64) << np.uint64(32))
+                         | np.arange(a.size, dtype=np.uint64))
+        sorter = (packed & np.uint64(0xFFFFFFFF)).astype(np.intp)
+        arr = packed >> np.uint64(32)
+    start = np.flatnonzero(np.r_[True, arr[1:] != arr[:-1]])
+    end = np.r_[start[1:], a.size]
+    return sorter, start, end
+
+
 def rankdata_average(a) -> np.ndarray:
     """Average (fractional) ranks, 1-based — ``scipy.stats.rankdata``'s
-    ``method="average"`` algorithm."""
+    ``method="average"`` algorithm: a run of ties at sorted positions
+    [start, end) gets (start + end + 1) / 2."""
     a = np.asarray(a).reshape(-1)
-    # ties are averaged, so the order among them (an unstable sort's) does
-    # not matter; ranks are formed in sorted order and scattered once
-    sorter = np.argsort(a)
-    arr = a[sorter]
-    obs = np.r_[True, arr[1:] != arr[:-1]]
-    dense = obs.cumsum()
-    count = np.r_[np.nonzero(obs)[0], len(obs)]
+    sorter, start, end = _tie_runs(a)
     out = np.empty(a.size)
-    out[sorter] = 0.5 * (count[dense] + count[dense - 1] + 1)
+    out[sorter] = np.repeat(0.5 * (start + end + 1), end - start)
     return out
 
 
@@ -145,19 +177,49 @@ def split_rhat(x) -> float:
     return _rhat_from_splits(_split(_as2d(x)))
 
 
-def _rank_normalize(x: np.ndarray) -> np.ndarray:
-    """Fractional ranks (ties averaged) -> inverse-normal scores."""
-    ranks = rankdata_average(x)
-    z = ndtri((ranks - 3.0 / 8.0) / (x.size - 2.0 * 3.0 / 8.0 + 1.0))
+def _rank_normalize(x: np.ndarray, tables: dict = None) -> np.ndarray:
+    """Fractional ranks (ties averaged) -> inverse-normal scores:
+    ``ndtri((rankdata_average(x) - 3/8) / (x.size - 3/4 + 1))`` bit for
+    bit.  ``tables`` (size S -> table) lets calls on draws of one size
+    share their ndtri values: slot k of S's table holds ndtri of the
+    quantile of the average rank r = 1 + k/2 (a multiple of 1/2 in [1, S]),
+    NaN until a call needs it, so ndtri runs once per distinct rank and not
+    once per draw and call; ndtri is elementwise, so a slot holds the
+    direct call's value.  None: a table for this call alone."""
+    flat = x.reshape(-1)
+    size = flat.size
+    if size == 0:
+        return np.empty(x.shape)
+    if tables is None:
+        tables = {}
+    table = tables.get(size)
+    if table is None:
+        table = tables[size] = np.full(2 * size - 1, np.nan)
+    sorter, start, end = _tie_runs(flat)
+    slot = start + end - 1              # 2·rank − 2 of each run
+    score = table[slot]
+    todo = np.isnan(score)
+    if todo.any():
+        new = slot[todo]
+        r = 1.0 + 0.5 * new
+        score[todo] = table[new] = ndtri(
+            (r - 3.0 / 8.0) / (size - 2.0 * 3.0 / 8.0 + 1.0))
+    z = np.empty(size)
+    z[sorter] = score if score.size == size else np.repeat(score,
+                                                           end - start)
     return z.reshape(x.shape)
 
 
-def rank_normalized_rhat(x) -> float:
-    """max(bulk R̂, tail R̂) — the MCMCChains/Stan default ``rhat``."""
+def rank_normalized_rhat(x, tables: dict = None) -> float:
+    """max(bulk R̂, tail R̂) — the MCMCChains/Stan default ``rhat``.
+    ``tables``: a dict that calls on draws of one size may share, so that
+    each rank's inverse-normal score is computed once (:func:`_rank_normalize`;
+    None: this call's own)."""
+    tables = {} if tables is None else tables
     s = _split(_as2d(x))
-    bulk = _rhat_from_splits(_rank_normalize(s))
+    bulk = _rhat_from_splits(_rank_normalize(s, tables))
     folded = np.abs(s - np.median(s))
-    tail = _rhat_from_splits(_rank_normalize(folded))
+    tail = _rhat_from_splits(_rank_normalize(folded, tables))
     return float(max(bulk, tail))
 
 
@@ -200,9 +262,10 @@ def ess(x) -> float:
     return _ess_from_splits(_split(_as2d(x)))
 
 
-def ess_bulk(x) -> float:
-    """Rank-normalized bulk ESS (Stan / MCMCChains ``ess_bulk``)."""
-    return _ess_from_splits(_rank_normalize(_split(_as2d(x))))
+def ess_bulk(x, tables: dict = None) -> float:
+    """Rank-normalized bulk ESS (Stan / MCMCChains ``ess_bulk``);
+    ``tables`` as in :func:`rank_normalized_rhat`."""
+    return _ess_from_splits(_rank_normalize(_split(_as2d(x)), tables))
 
 
 def ess_tail(x) -> float:

@@ -72,7 +72,9 @@ SIGNATURES = {
            for d in KERNEL_DENSITIES["resample_step"]},
     },
     "migration": {
-        "migrate_f32": [_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P],
+        "migrate_f32": [_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P, _I,
+                        _P],
+        "migrate_scratch_bytes": [_I, _I],
     },
     "kde": {
         "kde_logpdf_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -1,6 +1,10 @@
 """Migration between groups: the wrapper of CUDA kernel K2
 (``csrc/migration.cu``), its plain PyTorch version, and the unfused step's
 exchange (:func:`maybe_migrate`), which shares the exchange's arithmetic.
+K2 has two forms, bit for bit the same exchange: one CTA (a bitonic sort
+of the keys) up to ``ONE_CTA_MAX_CHAINS`` chains, and above it the spread
+form (victims on every SM, ranks by counting, then a scatter) on a scratch
+buffer this module keeps per (G, d, device).
 
 Reference exchange ``src/migration.jl:11-91`` as the TPU kernel computes
 it (``demcmc_tpu/ops/fused_step.py::_mig_apply_sorted``): groups rank by
@@ -22,6 +26,12 @@ from .. import rng
 from . import _build
 
 N_ROWS = 3        # rows 0-2 of an iteration's words: ranks, N, gumbels
+# the most chains (G·Np) K2 runs in one CTA, above it the spread form: on
+# an H100 the one-CTA form was the faster below 1,024 chains (G = 128 × 4
+# included), the two even at 1,024 (64 × 16, 256 × 4) and the spread form
+# the faster from 2,048 on (tools/k2_phases.py, PERF.md)
+ONE_CTA_MAX_CHAINS = 1024
+_scratch: dict = {}
 
 
 def _rank_and_perm(u):
@@ -99,7 +109,8 @@ def migrate(theta, w, fire, G: int, Np: int, seed: int = 0, it: int = 0,
 
     Words are Philox(seed, it) rows 0-2, or rows 0-2 of ``bits [n_words,
     C]`` (uint32, bits-in test mode).  CPU tensors take the plain version;
-    CUDA tensors launch K2 (``migrate.launches`` counts the launches).
+    CUDA tensors launch K2 (``migrate.launches`` counts the calls), in its
+    spread form where ``G·Np > ONE_CTA_MAX_CHAINS``.
     ``check=False`` skips the tensor checks, for a caller that made them
     once for a run (:func:`check_cuda`)."""
     C, d = theta.shape
@@ -112,13 +123,26 @@ def migrate(theta, w, fire, G: int, Np: int, seed: int = 0, it: int = 0,
     lib = _build.library("migration")
     k0, k1 = rng.seed_key(seed)
     bits_ptr = None if bits is None else bits.data_ptr()
+    spread = C > ONE_CTA_MAX_CHAINS
+    scratch = _scratch_of(lib, G, d, theta.device) if spread else None
     _build.launch(lib, "migrate_f32", theta.device, theta.data_ptr(),
                   w.data_ptr(), fire.data_ptr(), bits_ptr, k0, k1, int(it),
-                  G, Np, d)
+                  G, Np, d, scratch, int(spread))
     migrate.launches += 1
 
 
 migrate.launches = 0
+
+
+def _scratch_of(lib, G: int, d: int, device) -> int:
+    """The address of the spread form's scratch for (G, d) on ``device``,
+    allocated at its first use (the staged victim rows, keys, ranks)."""
+    buf = _scratch.get((G, d, device))
+    if buf is None:
+        n = lib.migrate_scratch_bytes(G, d)
+        buf = _scratch[(G, d, device)] = torch.empty(
+            (n + 7) // 8, dtype=torch.int64, device=device)
+    return buf.data_ptr()
 
 
 def check_cuda(theta, w, fire, G: int, Np: int, bits=None):

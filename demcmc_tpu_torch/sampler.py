@@ -1141,7 +1141,8 @@ def _not_ported(name: str, where: str, fn: str = "sample"):
         f"(ROADMAP.md {where}); use demcmc_tpu for it")
 
 
-def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
+def sample(model: DEModel, de: DE, *args, key: int = 0,
+           progress: bool = False, thin: int = 1,
            return_state: bool = False, state: SamplerState = None,
            device=None, mesh=None, checkpoint_every: int = 0,
            checkpoint_path: str = None, monitor: bool = False,
@@ -1159,14 +1160,17 @@ def sample(model: DEModel, de: DE, *args, key: int = 0, thin: int = 1,
     its devices (:class:`ShardedStep`; the state starts on, and a returned
     state is gathered to, its first device; bitwise the unsharded run);
     ``device=`` with a mesh must name the mesh's devices.
-    ``checkpoint_every``, ``monitor`` and ``stop_rhat`` belong to later
-    slices of the port and raise ``NotImplementedError``.
+    ``progress=True``, ``checkpoint_every``, ``monitor`` and ``stop_rhat``
+    belong to later slices of the port (ROADMAP.md A9) and raise
+    ``NotImplementedError``.
     Returns a :class:`Chains`."""
     args = [a for a in args if not isinstance(a, MCMCThreads)]
     if len(args) != 1:
         raise TypeError("expected sample(model, de, n_iter) or "
                         "sample(model, de, MCMCThreads(), n_iter)")
     n_iter = int(args[0])
+    if progress:
+        _not_ported("progress=True", "A9, API surface")
     if checkpoint_every or checkpoint_path:
         _not_ported("checkpoint_every=", "A9, checkpointing")
     if monitor:

@@ -1,4 +1,4 @@
-"""The lane schedules of two CUDA kernels, restated in torch and held to
+"""The lane schedules of three CUDA kernels, restated in torch and held to
 the plain versions bit for bit.
 
 K1 on LBA (``csrc/densities/lba.cuh``) splits the trials over L lanes of
@@ -21,6 +21,15 @@ densities to the JAX models (``demcmc_tpu/models/lba.py``,
 ``mvnormal.py``) at the tolerances the port's other tests use: rtol 1e-5
 for LBA (XLA sums the trials in its own order), 1e-6 for the MVN.
 
+K1 on the discrete binomial (``csrc/densities/discrete_binomial.cuh``)
+splits the unique counts over L lanes: in round r lane l forms
+t_u = c_u·lgamma32(N − k_u + 1) for u = r·L + l (a (0, 0) pad past the
+last), and every lane subtracts the round's first m terms in index order,
+m the counts left; at L = 1 one lane walks them in turn.  Held to the
+plain density for L ∈ {1, 2, 4, 8, 16} on 1 to 40 unique counts, and to
+the JAX model's ``loglike_batched`` at ``test_torch_zoo.py``'s tolerance
+(rtol 1e-6, atol 2e-3: XLA's lgamma against ``lgamma32``).
+
 What binds the CUDA loops themselves to these schedules is
 ``chip_smoke.py``: ``phase_k1_zoo`` holds K1 on LBA bit for bit against
 its plain version at every L the launch rule picks (Np = 16, 64 and a
@@ -38,8 +47,10 @@ import pytest
 import torch
 
 import demcmc_tpu_torch as tdm
+from demcmc_tpu.models import discrete_binomial as jdisc
 from demcmc_tpu.models import lba as jlba
 from demcmc_tpu.models import mvnormal as jmvn
+from demcmc_tpu_torch.models import discrete_binomial as tdisc
 from demcmc_tpu_torch.models import lba as tlba
 from demcmc_tpu_torch.models import mvnormal as tmvn
 from demcmc_tpu_torch.ops import proposals as tprop
@@ -49,6 +60,8 @@ torch.set_num_threads(1)
 
 WARP = 32
 LBA_LANES = (1, 2, 4, 8, 16, 32)
+DISC_LANES = (1, 2, 4, 8, 16)      # the kernel takes 8 at most; 16 held too
+DISC_UNIQUE = (1, 7, 16, 17, 33, 40)
 MVN_LANES = (1, 8, 32)
 D_MVN = 30
 
@@ -259,3 +272,78 @@ def test_snooker_lane_folds_equal_the_plain_proposal(L):
     adj = torch.where(degen, torch.full_like(adj, -math.inf), adj)
     assert torch.equal(bits(adj), bits(adj_w))
     assert int(degen.sum()) == 5
+
+
+# ------------------------------------------------------ discrete binomial
+
+
+def _disc(n_unique, seed=0):
+    """The discrete model on 50 observations with ``n_unique`` unique
+    counts (0 .. n_unique − 1, each at least once) and ``[2, C]`` columns:
+    N over the support (−inf below the largest count) and p in (0, 1)."""
+    g = np.random.default_rng(seed + n_unique)
+    data = np.concatenate([np.arange(n_unique), g.integers(
+        0, n_unique, 50 - n_unique)])
+    model, de = tdisc.make(data=data, dtype=np.float32)
+    N = np.arange(0, 41, dtype=np.float32).repeat(2)
+    p = g.uniform(0.05, 0.95, N.size).astype(np.float32)
+    return model, de, data, torch.from_numpy(np.stack([N, p]))
+
+
+def disc_lanes(model, x, L):
+    """K1's discrete density over L lanes (:func:`disc_rounds` folds the
+    terms), its head and the −inf of N < max k as the serial kernel."""
+    p = model.cuda_density.params
+    n, cst, sk, kmax = (dists.f32(v) for v in p[:4])
+    log_prior = dists.f32(p[5])
+    tab = torch.from_numpy(model.cuda_density.data)
+    N, pr = x[0], x[1]
+    lp = (n * dists.lgamma32(N + 1.0) + cst + sk * torch.log(pr)
+          + (n * N - sk) * torch.log1p(-pr))
+    U = tab.shape[0]
+    pad = -U % L
+    k = torch.cat([tab[:, 0], torch.zeros(pad)])
+    c = torch.cat([tab[:, 1], torch.zeros(pad)])
+    terms = [c[u] * dists.lgamma32(N - k[u] + 1.0) for u in range(U + pad)]
+    lp = disc_rounds(lp, terms, U, L)
+    return log_prior + torch.where(N >= kmax, lp,
+                                   torch.full_like(lp, -math.inf))
+
+
+def disc_rounds(lp, terms, cnt, L):
+    """Round r: lane l holds term r·L + l; every lane subtracts the
+    round's first min(L, cnt − r·L) broadcasts in lane order (L = 1: the
+    terms in turn)."""
+    for r0 in range(0, cnt, L):
+        lanes = terms[r0:r0 + L]
+        for l in range(min(L, cnt - r0)):
+            lp = lp - lanes[l]
+    return lp
+
+
+@pytest.mark.parametrize("n_unique", DISC_UNIQUE)
+@pytest.mark.parametrize("L", DISC_LANES)
+def test_discrete_lane_rounds_equal_the_plain_density(L, n_unique):
+    model, de, _, x = _disc(n_unique)
+    spec = tdm.make_spec(model, de)
+    plain = model.log_posterior_cols(spec, x)
+    lanes = disc_lanes(model, x, L)
+    assert torch.equal(bits(lanes), bits(plain))
+    assert bool(torch.isneginf(plain[: 2 * (n_unique - 1)]).all())
+    assert bool(torch.isfinite(plain[2 * max(n_unique - 1, 0):]).all())
+
+
+@pytest.mark.parametrize("n_unique", DISC_UNIQUE)
+def test_discrete_lane_rounds_match_jax(n_unique):
+    model, _, data, x = _disc(n_unique, seed=5)
+    got = disc_lanes(model, x, 8).numpy()
+    N, p = x[0].numpy().astype(np.int32), x[1].numpy()
+    with jax.enable_x64(False):
+        jm, _ = jdisc.make(data=data, dtype=np.float32)
+        want = np.asarray(jm.prior_loglike_batched(jnp.asarray(N),
+                                                   jnp.asarray(p))
+                          + jm.loglike_batched(jm.data, jnp.asarray(N),
+                                               jnp.asarray(p)))
+    np.testing.assert_array_equal(np.isfinite(got), np.isfinite(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(got[fin], want[fin], rtol=1e-6, atol=2e-3)

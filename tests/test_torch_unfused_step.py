@@ -261,3 +261,21 @@ def test_pool_maps_match_jax_pool():
     tc = trng.CountingDraws(G)
     tc.uniform((G, 3)), tc.normal((G, 4, 2)), tc.randint((G, 4), 0, 5)
     assert tc.words == jc.words
+
+
+@pytest.mark.parametrize("cell", ["gaussian", "hierarchical"])
+def test_unfused_sample_same_bits_under_inference_mode(cell):
+    """``chip_smoke.py`` runs its unfused cells under
+    ``torch.inference_mode()``: the draws are the plain call's bits."""
+    from demcmc_tpu_torch.models import hierarchical as thier
+    if cell == "gaussian":
+        model, de = tgauss.make(Np=6, n_groups=4, burnin=10)
+    else:
+        model, de = thier.make(n_subj=4, n_data=10, key=0, burnin=10)
+    a = tdm.sample(model, de, 40, key=3, device="cpu", allow_fused=False)
+    with torch.inference_mode():
+        b = tdm.sample(model, de, 40, key=3, device="cpu",
+                       allow_fused=False)
+    for x, y in ((a.data, b.data), (a.acceptance, b.acceptance),
+                 (a.lp, b.lp)):
+        np.testing.assert_array_equal(x, y)

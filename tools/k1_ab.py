@@ -1,5 +1,5 @@
-"""Same-call A/B of the K1, K3 and K4 kernels between source trees, on one
-GPU.
+"""Same-call A/B of the K1, K2, K3 and K4 kernels between source trees, on
+one GPU.
 
     python3 tools/k1_ab.py [--sass DENSITY] LABEL=DIR [LABEL=DIR ...]
 
@@ -10,9 +10,13 @@ libraries from its own sources and times one-iteration K1 launches on the
 ABC binomial (4,096 chains, n_sim = 10,000; from the prior's draws and
 from θ drawn from the posterior Beta(7, 5), with the proposals in bounds
 of each where the tree's ``chip_smoke`` can say), discrete binomial
-(3,072), LBA (4,096 chains, 100 trials; and 2 × 1,024, where a chain gets
-one lane), 4,096-chain Gaussian and
-65,536-chain snooker Gaussian cells past burn-in, one-iteration K3
+(3,072; and 2 × 1,024, where a chain gets one lane), LBA (4,096 chains,
+100 trials; and 2 × 1,024), 4,096-chain Gaussian,
+65,536-chain snooker Gaussian and 16,384-chain sequential-sweep Gaussian
+(``main-seq``'s 4,096 × 4) cells past burn-in, fired K2 launches on Philox
+words at (G, Np) = (8, 16), (32, 16), (64, 16), (128, 16), (64, 4), (128,
+4), (256, 4), (512, 4), (256, 16), (4,096, 16), (4,096, 4) and (8,192, 16)
+(in a tree whose K2 has two forms, also each form forced), one-iteration K3
 launches at the 30-dim MVN flagship's shapes (C = 3, θs = 0.1) and K4 at
 the abc_kde cell's shape (3,072 chains × 50 points × 10,000 simulations),
 with
@@ -26,12 +30,19 @@ Each turn also writes digests (SHA-256 of the bytes) of the kernels'
 results on fixed inputs: K1's θ, w, accept flags and gate after one
 iteration in burn-in, one past it and a window of 64 on the LBA, ABC,
 discrete and Gaussian cells, on LBA at 4 × 64 and 2 × 1,024 on 100 and 37
-trials, and on the ABC binomial at 4 × 64, 2 × 64 (sequential), 2 × 1,024
+trials, on the discrete binomial at 2 × 256, 2 × 512 and 2 × 1,024 (4, 2
+and 1 lanes a chain beside the cell's 8) and at the cell's shape on 20
+unique counts,
+and on the ABC binomial at 4 × 64, 2 × 64 (sequential), 2 × 1,024
 and the cell's shape with bounds (−0.5, 1.5); K3's after one iteration on
 the MVN flagship, and after windows of 64 in burn-in and past it on the
 MVN at C = 3 and at the populations of ``chip_smoke.MVN_LANE_CASES`` in
 this script's own tree (C = 32, 64, 16 synchronous, 3 without snooker);
-K4's ``[C, E]``
+K2's θ and w after a fired exchange in bits-in mode at K2's shapes with
+pairs of tied leader words and at G = 256 and 4,096 with every leader's
+tied (inputs from this script's own tree's ``chip_smoke._mig_case``; a
+tree with two forms digests both, so forms that disagree differ); K4's
+``[C, E]``
 output at the cell's shape and at (64, 1, 10,000), (40, 33, 4,173) and
 (8, 300, 2,500) with subnormal, tiny and huge bandwidths on the first
 chains.  The digests of every tree and turn must agree: the script prints
@@ -41,15 +52,16 @@ tree's ``fused_step.block_chains`` for the ABC and LBA densities and
 each tree writes its K1, K3 and K4 libraries' per-function register and
 stack use (``cuobjdump -res-usage``) to ``chiprun_out/ab_<label>.res``,
 ``ab_<label>_k3.res`` and ``ab_<label>_kde.res``, and prints the range
-of registers and stack over the functions on LBA and on the MVN by
-kernel, and writes the SASS of K4 and of the K1 instantiations on one
-density or more (``--sass``: the starts of their C++ class names, comma
-separated, ``Lba`` by default) to ``ab_<label>_kde.sass`` and
-``ab_<label>_<density>.sass``, and hashes every K1 and K3 function's SASS
-(addresses, encodings and constants stripped): the script prints how
-many of the functions off LBA and off the MVN (K3's) are identical
-between the trees.  Prints one line per tree and measurement, then the
-card's name and power limit.
+of registers and stack over the functions on ``CHANGED`` by kernel, and
+writes the SASS of K4 and of the K1 instantiations on one density or
+more (``--sass``: the starts of their C++ class names, comma separated,
+``DiscreteBinomial`` by default) to ``ab_<label>_kde.sass`` and
+``ab_<label>_<density>.sass``, and hashes
+every K1 and K3 function's SASS (addresses, encodings and constants
+stripped): the script prints how many of the functions off the discrete
+binomial (``CHANGED``) are identical between the trees, and names each
+that is not.  Prints one line per tree and measurement, then the card's
+name and power limit.
 """
 
 import hashlib
@@ -73,8 +85,13 @@ KDE_SHAPES = ((64, 1, 10_000), (40, 33, 4173), (8, 300, 2500))
 # chip_smoke.ABC_WIDE_BOUNDS, written out for trees that lack it
 ABC_WIDE_BOUNDS = ((-0.5, 1.5),)
 # the kernels whose SASS this change may alter (class names in the
-# mangled function names): K1 on LBA, K3 on the MVN
-CHANGED = ("LbaDensity", "MvNormalDensity")
+# mangled function names): K1 on the discrete binomial
+CHANGED = ("DiscreteBinomialDensity",)
+# K2's digested shapes (G, Np), d = 2, and the timed ones (the small G
+# between 8 and 256 place the one-CTA form's threshold)
+K2_SHAPES = ((8, 16), (256, 16), (4096, 16), (4096, 4), (8192, 16))
+K2_TIMED = ((8, 16), (32, 16), (64, 16), (128, 16), (64, 4), (128, 4),
+            (256, 4), (512, 4)) + K2_SHAPES[1:]
 # the MVN flagship's population, (n_groups, Np, sweep, θs; None: 0.1)
 MVN_FLAGSHIP = (1, 3, "auto", None)
 
@@ -177,6 +194,17 @@ def k1_digests(cs, fused_step, tdm, name, model, de, windows, dev):
     return res
 
 
+def own_smoke():
+    """This script's own tree's ``chip_smoke`` (K2's digest inputs are made
+    by its ``_mig_case`` in every tree)."""
+    import importlib.util
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_own", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def worker(label: str, dump: str, pops: dict):
     import numpy as np
     import torch
@@ -186,6 +214,7 @@ def worker(label: str, dump: str, pops: dict):
     import port_cells as pc
     from demcmc_tpu_torch import rng
     from demcmc_tpu_torch.models import binomial, gaussian
+    from demcmc_tpu_torch.models import discrete_binomial as disc
     from demcmc_tpu_torch.models import lba as lba_model
     from demcmc_tpu_torch.ops import _build, accept, fused_step, kde
 
@@ -196,12 +225,25 @@ def worker(label: str, dump: str, pops: dict):
         return lba_model.make(key=0, n_trials=n, Np=Np_, n_groups=G_,
                               burnin=1000)
 
+    def discrete(G_, Np_, n_unique=None):
+        data = None
+        if n_unique:
+            g = np.random.default_rng(n_unique)
+            data = np.concatenate([np.arange(n_unique), g.integers(
+                0, n_unique, 50 - n_unique)])
+        return disc.make(key=0, n_obs=50, data=data, dtype=np.float32,
+                         Np=Np_, n_groups=G_, burnin=1000)
+
     cells = {"abc": cs._abc_case(1000), "discrete": cs._disc_case(1000),
              "gauss": gaussian.make(data=cs._gauss_data(), Np=cs.NP,
                                     n_groups=cs.G, burnin=1000)}
     timed = dict(cells, lba=cs._lba_case(1000),
                  lba_2x1024=lba(2, 1024, 100),
+                 discrete_2x1024=discrete(2, 1024),
                  snooker65k=gaussian.make(data=cs._gauss_data(), Np=16,
+                                          n_groups=4096, burnin=1000,
+                                          alpha=0.1, theta_snooker=0.1),
+                 seq_4096x4=gaussian.make(data=cs._gauss_data(), Np=4,
                                           n_groups=4096, burnin=1000,
                                           alpha=0.1, theta_snooker=0.1))
     res = {}
@@ -285,6 +327,52 @@ def worker(label: str, dump: str, pops: dict):
         res[f"digest_k4_{C_}x{E}x{S}"] = digest(
             kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR))
 
+    # K2 fired on Philox words, timed at each shape (both forms where the
+    # tree has two), and digested on fixed words: pairs of tied leader
+    # words, and every leader's tied at 256 and 4,096
+    from demcmc_tpu_torch.ops import migration as mig
+    # a form is forced by K2's chain threshold (None: the tree's choice)
+    forms = {"": None}
+    if hasattr(mig, "ONE_CTA_MAX_CHAINS"):
+        forms.update({"_one_cta": 1 << 30, "_spread": 0})
+
+    def in_form(cap, fn):
+        keep = getattr(mig, "ONE_CTA_MAX_CHAINS", None)
+        if cap is not None:
+            mig.ONE_CTA_MAX_CHAINS = cap
+        try:
+            return fn()
+        finally:
+            if cap is not None:
+                mig.ONE_CTA_MAX_CHAINS = keep
+
+    fired = torch.ones(1, dtype=torch.int32, device=dev)
+    for G_, Np_ in K2_TIMED:
+        C_ = G_ * Np_
+        g = np.random.default_rng(G_ + Np_)
+        theta = torch.tensor(g.standard_normal((C_, 2)), dtype=torch.float32,
+                             device=dev)
+        w = torch.tensor(g.standard_normal(C_), dtype=torch.float32,
+                         device=dev)
+        for tag, cap in forms.items():
+            res[f"k2_{G_}x{Np_}{tag}"] = in_form(cap, lambda: cs.device_ms(
+                lambda: mig.migrate(theta, w, fired, G_, Np_, it=IT),
+                200)[0])
+    mig_case = own_smoke()._mig_case
+    rng_ = np.random.default_rng(5)
+    k2_cases = [(G_, Np_, "pairs") for G_, Np_ in K2_SHAPES]
+    k2_cases += [(256, 16, "all"), (4096, 16, "all")]
+    for G_, Np_, ties in k2_cases:
+        theta, w, words = mig_case(rng_, G_, Np_, dev, ties)
+        ds = set()
+        for cap in forms.values():
+            t, ww = theta.clone(), w.clone()
+            in_form(cap, lambda: mig.migrate(t, ww, fired, G_, Np_,
+                                             bits=words))
+            ds.add(digest(t, ww))
+        # every form's digest, so forms that disagree differ from a tree
+        res[f"digest_k2_{G_}x{Np_}_{ties}"] = "|".join(sorted(ds))
+
     # K1 digests, the ABC binomial's lane shapes included
     dens = binomial.density(10, 6, pc.N_SIM)
     res["abc_block_chains"] = fused_step.block_chains(False, dens, False,
@@ -302,11 +390,16 @@ def worker(label: str, dump: str, pops: dict):
                                 n_sim=pc.N_SIM),
             tdm.DE(bounds=ABC_WIDE_BOUNDS, burnin=1000, Np=c["Np"],
                    n_groups=c["n_groups"]))
+    dcell = pc.DISC_CELL
     cases = dict(cells, lba=cs._lba_case(1000), abc_4x64=abc(4, 64),
                  abc_2x64_seq=abc(2, 64, sweep="sequential"),
                  abc_2x1024=abc(2, 1024), abc_wide=wide,
                  lba_4x64=lba(4, 64, 100), lba_4x64_37=lba(4, 64, 37),
-                 lba_2x1024=lba(2, 1024, 100), lba_2x1024_37=lba(2, 1024, 37))
+                 lba_2x1024=lba(2, 1024, 100), lba_2x1024_37=lba(2, 1024, 37),
+                 discrete_2x256=discrete(2, 256),
+                 discrete_2x512=discrete(2, 512),
+                 discrete_2x1024=discrete(2, 1024),
+                 discrete_20u=discrete(dcell["n_groups"], dcell["Np"], 20))
     for name, (model, de) in cases.items():
         res.update(k1_digests(cs, fused_step, tdm, name, model, de, windows,
                               dev))
@@ -356,7 +449,7 @@ def main():
     if sys.argv[1:2] == ["--worker"]:
         worker(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]))
         return
-    args, dump = sys.argv[1:], "Lba"
+    args, dump = sys.argv[1:], "DiscreteBinomial"
     if args[:1] == ["--sass"]:
         dump, args = args[1], args[2:]
     trees = [a.split("=", 1) for a in args]
@@ -392,8 +485,8 @@ def main():
                           else "DIFFERS ") + ", ".join(sorted(v)))
         if len(v) > 1:
             differ.append(k)
-    # the instantiations off LBA and the MVN compile to the same code in
-    # every tree (constants and addresses aside)
+    # the instantiations off CHANGED compile to the same code in every tree
+    # (constants and addresses aside)
     labels = list(sass)
     for other in labels[1:]:
         a, b = sass[labels[0]], sass[other]
@@ -401,10 +494,13 @@ def main():
                   and not any(c in f for c in CHANGED)]
         same = sum(a[f] == b[f] for f in common)
         print(f"SASS {labels[0]} vs {other}: {same} of {len(common)} "
-              f"functions off LBA and the MVN identical; "
+              f"functions off {', '.join(CHANGED)} identical; "
               f"{len(a) - len(common)} / {len(b) - len(common)} others")
+        for f in common:
+            if a[f] != b[f]:
+                print(f"SASS differs: {f}")
         if same < len(common):
-            differ.append("SASS off LBA and the MVN")
+            differ.append(f"SASS off {', '.join(CHANGED)}")
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
