@@ -30,14 +30,15 @@ post variant.  Its launch checks are the counts of
            emission rule across burn-in and the post variant past it, on
            the 4,096-chain Gaussian, snooker at G = 4,096, the sequential
            sweep, LBA, the ABC noise panel and the discrete binomial;
-6. k3-super  K3 windows (one CTA) at the MVN flagship's shapes (32
-           lanes a chain over the dimensions; K = 64 asserted), at the
-           MVN's C = 64 (8 lanes) and at C = 512 against single launches
-           and the plain window, history included; then the one-CTA rule
-           at its edge (the Gaussian with snooker at 1,024 chains, the
-           30-dim MVN at 512): the chains one CTA of the kernel holds, a
-           window at that many, ``sample()`` at the full population
-           against its loop;
+6. k3-super  K3 windows (one CTA; on the Gaussian one thread block
+           cluster) at the MVN flagship's shapes (32 lanes a chain over
+           the dimensions; K = 64 asserted), at the MVN's C = 64 (8
+           lanes) and on the Gaussian at C = 512 and 2,048 against single
+           launches and the plain window, history included; then the
+           window rule at its edge (the Gaussian with snooker at 1,024
+           chains, the 30-dim MVN at 512): the chains a window of the
+           kernel holds, a window at that many, ``sample()`` at the full
+           population against its loop;
 7. main    ``demcmc_tpu_torch.sample`` on the Gaussian (50 observations
            from numpy seed 0, G=256 groups of Np=16, burn-in 1,000, 3,000
            iterations) on ``cuda``: launches as planned, posterior means
@@ -55,12 +56,14 @@ post variant.  Its launch checks are the counts of
            version at (G, Np, d) = (4096, 16, 2) synchronous and (4096, 4,
            2) sequential: 8 bits-in iterations crossing burn-in 4 with the
            gate set at the start, then one on Philox words; degenerate
-           snooker draws (z = θ) must occur;
+           snooker draws (z = θ) must occur; then a window of 16 against
+           its single launches and the plain window, bit for bit;
 12. K3     the DE-MCz kernel against its plain version at the MVN shapes
            (C = 3, d = 30, n_initial = 124, sequential), at the MVN's C =
            32 and 64 (16 and 8 lanes a chain), C = 16 synchronous and C =
            3 without snooker, and
-           at C = 512 (G = 128, Np = 4, synchronous), θs = 0.5: 8
+           at C = 512 and 2,048 (G = 128 and 512, Np = 4, synchronous),
+           θs = 0.5: 8
            iterations with random history indices and words crossing
            burn-in, then one on Philox words and indices; the history row
            written must agree too, on the MVN bit for bit;
@@ -1067,7 +1070,8 @@ SN_F32_OPS_PER_DIM, SN_F32_OPS = 24, 20   # snooker projection, correction,
 BM_F32_OPS_PER_DIM = 13                   # Box–Muller normal + mutation
 MVN_F32_OPS_PER_DIM, MVN_F32_OPS = 6, 20  # the MVN density
 GAUSS_F32_OPS = 16                        # the Gaussian density
-N_INITIAL = {"mvn": 124, "C512": 50}      # history seed rows of K3's cases
+N_INITIAL = {"mvn": 124, "C512": 50,      # history seed rows of K3's cases
+             "C2048": 50}
 # the 30-dim MVN at populations where K3's lanes over the dimensions fall
 # below 32 (C = 32: 16 lanes a chain; C = 64: 8), synchronous (C = 16, 32
 # lanes), and at the flagship's population without snooker: (n_groups, Np,
@@ -1103,7 +1107,9 @@ def phase_k1_variants(dev):
     """K1 with snooker (θs = 0.5, synchronous, 4,096 × 16) and with the
     sequential sweep (θs = 0.5, 4,096 × 4) against the plain version: 8
     bits-in iterations crossing burn-in 4 with the gate set at the start,
-    then one Philox iteration.  Returns the largest difference."""
+    then one Philox iteration; then a bits-in window of 16 past burn-in
+    (its inner gates shut) against its single launches and the plain
+    window, bit for bit.  Returns the largest difference."""
     import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch import rng as trng
     from demcmc_tpu_torch.models import gaussian
@@ -1133,17 +1139,26 @@ def phase_k1_variants(dev):
                 f"accepted, max |diff| {err:.3g}, {ties} near-ties excluded")
         if degen == 0:
             raise AssertionError(f"K1 {sweep}: no degenerate snooker draw")
+        K = 16
+        bits = _closed_inner_gates(random_words(
+            rng, K * cfg.rows.n_words, G65 * Np_, dev), cfg, K)
+        _, acc, err = _window_check("K1-" + sweep, cfg, model, spec, state,
+                                    10, K, (0, 1), "post", bits)
+        worst = max(worst, err)
         log("K1-" + sweep, f"G={G65} Np={Np_} θs=0.5 n_members="
             f"{cfg.rows.n_members}: {degen} degenerate snooker draws (z = "
-            f"θ) over 9 iterations, all equal to the plain version")
+            f"θ) over 9 iterations, all equal to the plain version; a "
+            f"window of {K} = its single launches = plain window, bit for "
+            f"bit ({acc} stored accepts)")
     return worst
 
 
 def _resample_case(dev, which, burnin, theta_sn, key=3, extra_rows=10):
     """(model, spec, cfg, state) of a K3 configuration: the MVN flagship
     (C = 3, d = 30, n_initial = 124), the MVN at a population of
-    :data:`MVN_LANE_CASES`, or the C = 512 Gaussian DE-MCz of
-    bench.py:216-219 (G = 128, Np = 4, synchronous, n_initial = 50), with
+    :data:`MVN_LANE_CASES`, the C = 512 Gaussian DE-MCz of
+    bench.py:216-219 (G = 128, Np = 4, synchronous, n_initial = 50) or its
+    twin at C = 2,048 (G = 512, a K3 window over a cluster of CTAs), with
     ``extra_rows`` history rows to write."""
     import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch.models import gaussian, mvnormal
@@ -1157,8 +1172,9 @@ def _resample_case(dev, which, burnin, theta_sn, key=3, extra_rows=10):
                                   theta_snooker=theta_sn if sn is None
                                   else sn, n_groups=G_, Np=Np_, sweep=sweep)
     else:
-        model, de = gaussian.make(data=_gauss_data(), n_groups=128, Np=4,
-                                  alpha=0.0, sample="resample",
+        model, de = gaussian.make(data=_gauss_data(),
+                                  n_groups=512 if which == "C2048" else 128,
+                                  Np=4, alpha=0.0, sample="resample",
                                   n_initial=N_INITIAL[which], burnin=burnin,
                                   theta_snooker=theta_sn, sweep="sync")
     assert de.n_initial == N_INITIAL[which]
@@ -1232,7 +1248,8 @@ def _compare_resample(cfg, model, spec, state, it, words=None, idx=None,
 
 def phase_k3(dev):
     """K3 against its plain version at the MVN shapes, at the MVN's lane
-    cases (:data:`MVN_LANE_CASES`) and at C = 512, θs = 0.5 (the cases
+    cases (:data:`MVN_LANE_CASES`) and at C = 512 and 2,048, θs = 0.5 (the
+    cases
     without snooker: 0): 8 iterations
     with random indices and words (indices-in + bits-in) crossing
     burn-in, then one on Philox words and indices; on the MVN bit for
@@ -1240,7 +1257,7 @@ def phase_k3(dev):
     from demcmc_tpu_torch.ops import resample_step as tres
     worst = 0.0
     rng = np.random.default_rng(8)
-    for which in ("mvn", *MVN_LANE_CASES, "C512"):
+    for which in ("mvn", *MVN_LANE_CASES, "C512", "C2048"):
         it0 = N_INITIAL[which] + 1
         model, spec, cfg, s = _resample_case(dev, which, burnin=it0 + 3,
                                              theta_sn=0.5)
@@ -1255,7 +1272,7 @@ def phase_k3(dev):
                     rng, tres.index_rows(cfg), C_, dev), it)
             state, err, ties, n_acc = _compare_resample(
                 cfg, model, spec, state, it, words=words, idx=idx, seed=91,
-                exact=which != "C512")
+                exact=which not in ("C512", "C2048"))
             worst = max(worst, err)
             log("K3-" + which, f"{'indices-in + bits-in' if k < 8 else 'Philox'}"
                 f" it={it} ({'burn-in' if it <= it0 + 3 else 'sampling'}): "
@@ -1263,7 +1280,7 @@ def phase_k3(dev):
                 f"excluded")
         log("K3-" + which, f"C={C_} d={cfg.d} n_members={cfg.rows.n_members}"
             f" history {tuple(s.history.shape)}: equal to the plain "
-            f"version{' bit for bit' if which != 'C512' else ''}")
+            f"version{'' if which in ('C512', 'C2048') else ' bit for bit'}")
     return worst
 
 
@@ -2693,14 +2710,16 @@ def _k3_edge_cases(burnin):
 
 
 def phase_k3_super(dev):
-    """K3 windows of K = resample_super_k() iterations (one CTA) at the MVN
-    flagship's shapes (C = 3, d = 30, sequential) and at C = 512, θs = 0.5,
+    """K3 windows of K = resample_super_k() iterations (one CTA; on the
+    Gaussian one cluster of CTAs) at the MVN flagship's shapes (C = 3, d =
+    30, sequential), at the MVN's C = 64 and on the Gaussian at C = 512
+    and at C = 2,048 (above one CTA's 1,024), θs = 0.5,
     against K one-iteration launches and the plain window version, bit for
     bit, history included: indices-in + bits-in across burn-in, then two
     windows on Philox words past burn-in through the post variant
     (every fourth iteration stored; then a window of 16, the last).  Then
-    the one-CTA rule at its edge (:func:`_k3_edge_cases`): the chains one
-    CTA of the configuration's kernel holds (``window_chains``), a window
+    the window rule at its edge (:func:`_k3_edge_cases`): the chains a
+    window of the configuration's kernel holds (``window_chains``), a window
     of 16 at the largest population of whole groups it holds against its
     single launches and plain window, and ``sample()`` at the full
     population (K = 1 where it is above the rule) against the loop, bit for
@@ -2711,7 +2730,7 @@ def phase_k3_super(dev):
     from demcmc_tpu_torch.ops import resample_step as tres
     rng_np = np.random.default_rng(15)
     worst = 0.0
-    for which in ("mvn", "mvn-l8", "C512"):
+    for which in ("mvn", "mvn-l8", "C512", "C2048"):
         tag = "k3-super-" + which
         it0 = N_INITIAL[which] + 1
         model, spec, cfg, s = _resample_case(dev, which, burnin=it0 + 5,
@@ -2737,7 +2756,8 @@ def phase_k3_super(dev):
                                           it0 + 2 * K, 16, _rules(16)["last"],
                                           "post", seed=22)
         worst = max(worst, e1, e2, e3)
-        log(tag, f"C={C_} d={cfg.d} K={K} (one CTA): window = its "
+        log(tag, f"C={C_} d={cfg.d} K={K} (window_chains "
+            f"{tres.window_chains(cfg, dev)}): window = its "
             f"single launches = plain window, bit for bit, history "
             f"included: indices-in + bits-in across burn-in ({a1} accepts),"
             f" Philox post stride 4 ({a2}), Philox post last of 16 ({a3})")
@@ -2760,8 +2780,9 @@ def phase_k3_super(dev):
             edge.n_initial + 1, 16, (0, 1), "post", seed=23)
         worst = max(worst, err)
         _windows_vs_loop(tag, model, de, 40, key=7)
-        log(tag, f"d={cfg.d} sequential={de.sequential_sweep}: one CTA holds "
-            f"{most} chains (the kernel's registers and shared memory); a "
+        log(tag, f"d={cfg.d} sequential={de.sequential_sweep}: a window holds "
+            f"{most} chains (one CTA, or on the Gaussian one cluster of CTAs:"
+            f" the kernel's registers and shared memory); a "
             f"window of 16 at {edge.n_chains} chains = its single launches "
             f"= plain window ({acc} accepts); sample() at {de.n_chains} "
             f"chains with K = {K} = the loop, bit for bit")

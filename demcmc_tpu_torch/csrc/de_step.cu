@@ -99,7 +99,8 @@ int launch_de_step(float* theta, float* w, float* out_theta, float* out_w,
   }                                                                          \
   extern "C" int de_step_block_chains_##NAME(int seq, int snooker, int n_blk, \
                                              int* chains) {                  \
-    return demcmc::window_chains<DENSITY, demcmc::GroupPartners<DENSITY::D>>( \
+    return demcmc::block_chains_of<DENSITY,                                  \
+                                   demcmc::GroupPartners<DENSITY::D>>(       \
         seq != 0, snooker != 0, n_blk, chains);                              \
   }
 
@@ -124,8 +125,8 @@ DE_STEP_ENTRY(discrete_binomial, demcmc::DiscreteBinomialDensity)
   extern "C" int de_step_block_chains_##MODE##_##NAME(int seq, int snooker,  \
                                                       int n_blk,             \
                                                       int* chains) {         \
-    return demcmc::window_chains<DENSITY,                                    \
-                                 demcmc::GroupPartners<DENSITY::D>, KMODE>(  \
+    return demcmc::block_chains_of<DENSITY,                                  \
+                                   demcmc::GroupPartners<DENSITY::D>, KMODE>( \
         seq != 0, snooker != 0, n_blk, chains);                              \
   }
 

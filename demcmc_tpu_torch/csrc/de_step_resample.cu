@@ -24,7 +24,11 @@
 // iterations, for as many chains as one block of the instantiation holds
 // (its registers and the stage's shared memory: window_chains; 1,024 at
 // most), and the sampler keeps K = 1 above that
-// (ops/resample_step.py::resample_super_k).
+// (ops/resample_step.py::resample_super_k).  On the Gaussian
+// (sweep_hoist.cuh) the window runs over a thread block cluster instead:
+// blocks of about one warp, whole groups each, up to 16 of them (then
+// larger blocks), with the cluster barrier between iterations; one CTA of
+// 512 chains held 16 warps on one SM of 132 (5.4 us an iteration, PERF.md).
 //
 // What bounds it on an H100: at the DE-MCz flagship (C = 3, D = 31) a
 // chain reads 2 history rows of 124 bytes for the DE pair or 3 for a
@@ -80,11 +84,13 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
 // arguments (see step_body.cuh read_args) plus the history [H, C, D] and,
 // in the indices-in test mode, idx [K n_blk n_members n_slots, C] int64
 // flat history indices (nullptr: drawn from Philox words).  A window of K > 1
-// runs in one CTA (resample_window_chains_NAME).  Returns
-// cudaGetLastError() after the launch.  resample_window_chains_NAME writes
-// the chains a one-CTA window of the configuration (sequential sweep,
-// snooker, block sweeps) holds on the current device and returns a CUDA
-// error code.
+// runs in one CTA, or on the Gaussian in one cluster
+// (resample_window_chains_NAME).  Returns the launch's CUDA error code.
+// resample_block_chains_NAME writes the chains one block of the
+// configuration's kernel (sequential sweep, snooker, block sweeps) holds
+// -- a group must fit one block -- and resample_window_chains_NAME those a
+// window of the configuration with groups of Np holds, on the current
+// device; each returns a CUDA error code.
 #define RESAMPLE_STEP_ENTRY(NAME, DENSITY)                                    \
   extern "C" int resample_step_##NAME(                                       \
       float* theta, float* w, float* out_theta, float* out_w,                \
@@ -95,11 +101,18 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
         theta, w, out_theta, out_w, out_acc, fire, hist, H, bits, idx,       \
         iargs, fargs, sargs, theta_sn, (cudaStream_t)stream);                \
   }                                                                          \
+  extern "C" int resample_block_chains_##NAME(int seq, int snooker,          \
+                                              int n_blk, int* chains) {      \
+    return demcmc::block_chains_of<DENSITY,                                  \
+                                   demcmc::HistoryPartners<DENSITY::D>>(     \
+        seq != 0, snooker != 0, n_blk, chains);                              \
+  }                                                                          \
   extern "C" int resample_window_chains_##NAME(int seq, int snooker,         \
-                                               int n_blk, int* chains) {     \
+                                               int n_blk, int Np,            \
+                                               int* chains) {                \
     return demcmc::window_chains<DENSITY,                                    \
                                  demcmc::HistoryPartners<DENSITY::D>>(       \
-        seq != 0, snooker != 0, n_blk, chains);                              \
+        seq != 0, snooker != 0, n_blk, Np, chains);                          \
   }
 
 // one entry per density of ops/_build.py KERNEL_DENSITIES["resample_step"]

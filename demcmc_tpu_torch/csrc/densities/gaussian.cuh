@@ -21,6 +21,9 @@ struct GaussianDensity {
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 0u;
   static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
+  // its draws taken before the state (sweep_hoist.cuh); K3 windows over a
+  // thread block cluster
+  static constexpr bool kHoist = true;
   float n, xbar, ss, c0, log_2pi, log_pi, log2;
 
   static GaussianDensity from(const float* p, const float*) {

@@ -22,6 +22,9 @@ struct RastriginDensity {
   static constexpr bool kNoise = false;
   static constexpr uint32_t kIntMask = 0u;
   static constexpr int kLanes = 1;  // one thread a chain (step_body.cuh)
+  // its draws taken before the state (sweep_hoist.cuh); K3 windows over a
+  // thread block cluster
+  static constexpr bool kHoist = true;
   float an, a, two_pi;
 
   static RastriginDensity from(const float* p, const float*) {

@@ -46,15 +46,19 @@
 // Layout: theta [C, D] and w [C] float32, chain c in group c / Np.  One
 // thread per chain, or, for a density with kLanes > 1 (the ABC binomial's
 // noise panel, LBA's trials), L adjacent threads of one warp per chain
-// (its lanes; L a power of two <= kLanes, chosen at launch from Np); a
-// block holds whole groups.  Every lane runs the chain's proposal, bounds
+// (its lanes; L a power of two <= kLanes, chosen at launch from Np; at
+// L = 1 the one-thread kernel runs, the body at one lane); a block holds
+// whole groups.  Every lane runs the chain's proposal, bounds
 // and accept on the same words, so to the same bits; only the density's
 // inner loop is split over the lanes (ChainLanes), and lane 0 writes the
 // chain's stage, scan entry and outputs.  A density with kDimLanes (the
 // 30-dim MVN, in K3) runs sweep_kernel_dims (sweep_dims.cuh) instead
 // wherever its population fits one block with 8 lanes a chain or more and
 // the configuration is one that kernel has (launch_sweep): lanes over the
-// dimensions of the whole sweep.  The group is staged in
+// dimensions of the whole sweep.  A density with kHoist (the d = 2
+// Gaussian and Rastrigin) runs sweep_kernel_hoist (sweep_hoist.cuh): one
+// thread a chain, its draws taken before the state, and a K3 window over a
+// thread block cluster.  The group is staged in
 // shared memory, and every read of another chain (partners, softmax base)
 // goes to the staged copy.  The synchronous sweep (one sub-sweep) reads
 // iteration-start values and updates the state in place.  The sequential
@@ -81,6 +85,7 @@
 
 #include <cfloat>
 #include <cstdint>
+#include <mutex>
 #include <type_traits>
 
 #include "philox.cuh"
@@ -88,6 +93,10 @@
 namespace demcmc {
 
 constexpr int kThreadsTarget = 64;
+// threads a block of sweep_kernel_hoist (K3's window: a cluster's CTAs):
+// one warp, the chains spread over the most SMs (on an H100 1-3% faster
+// than 64 threads, 128 slower, PERF.md)
+constexpr int kHoistThreadsTarget = 32;
 // threads a block for a density with lanes: 8 warps a block, so the ABC
 // cell's 512 groups of 8 chains fill every SM
 constexpr int kLaneThreadsTarget = 256;
@@ -143,6 +152,25 @@ template <class Density>
 constexpr bool
     kDimLanesOf<Density, std::void_t<decltype(Density::kDimLanes)>> =
         Density::kDimLanes;
+
+// Draws before the state (sweep_kernel_hoist): a density's kHoist, false
+// for a density that declares none.
+template <class Density, class = void>
+constexpr bool kHoistOf = false;
+template <class Density>
+constexpr bool kHoistOf<Density, std::void_t<decltype(Density::kHoist)>> =
+    Density::kHoist;
+// rows of a sub-sweep block at most (2 partners, 3 gammas, 3 snooker
+// members, snooker gamma and gate, d eps, d kappa, the beta gate, 2d
+// normals, the accept), and the Philox blocks that hold them at any
+// alignment
+template <int D>
+constexpr int kHoistRows = 12 + 4 * D;
+template <int D>
+constexpr int kHoistBlocks = (kHoistRows<D> + 6) / 4;
+// CTAs of a K3 window's cluster at most: 16, the non-portable size, where
+// the card co-schedules it (cluster_size)
+constexpr int kMaxClusterCtas = 16;
 
 // iargs: G, Np, it0, burnin, random_gamma, seed_lo, seed_hi, then the row of
 //   the partner, gamma, eps, kappa, gate, normal, accept and fire draws
@@ -242,6 +270,79 @@ __device__ __forceinline__ void seg_scan(float* s, int slot, int p, int Np,
     if (writer && p >= k) s[slot] = kAdd ? s[slot] + v : nan_max(s[slot], v);
     __syncthreads();
   }
+}
+
+// Words 4 b0 .. 4 b0 + 4 N - 1 of chain c (of the launch) into t[j * T],
+// and returned (kX), the word at row rx of chain cx: the Philox blocks in
+// straight-line code, computed together.
+template <int N, bool kX>
+__device__ __forceinline__ uint32_t philox_rows(uint32_t* t, int T,
+                                                const WordSource& W,
+                                                uint32_t chain, int b0,
+                                                int rx, uint32_t cx) {
+  uint4 v[N];
+#pragma unroll
+  for (int q = 0; q < N; ++q)
+    v[q] = philox_block(W.k0, W.k1, W.it, (uint32_t)(b0 + q), chain, W.ns);
+  uint4 x = make_uint4(0u, 0u, 0u, 0u);
+  if constexpr (kX)
+    x = philox_block(W.k0, W.k1, W.it, (uint32_t)rx >> 2, cx, W.ns);
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    t[(4 * q) * T] = v[q].x;
+    t[(4 * q + 1) * T] = v[q].y;
+    t[(4 * q + 2) * T] = v[q].z;
+    t[(4 * q + 3) * T] = v[q].w;
+  }
+  return kX ? lane(x, (uint32_t)rx) : 0u;
+}
+
+template <int kNB, bool kX>
+__device__ __forceinline__ uint32_t philox_rows_n(uint32_t* t, int T,
+                                                  const WordSource& W,
+                                                  uint32_t chain, int b0,
+                                                  int nb, int rx,
+                                                  uint32_t cx) {
+  static_assert(kNB <= 6, "draw_words: up to 6 blocks");
+  switch (nb) {
+    case 1: return philox_rows<1, kX>(t, T, W, chain, b0, rx, cx);
+    case 2: return philox_rows<2, kX>(t, T, W, chain, b0, rx, cx);
+    case 3: return philox_rows<3, kX>(t, T, W, chain, b0, rx, cx);
+    case 4: return philox_rows<4, kX>(t, T, W, chain, b0, rx, cx);
+    case 5: return philox_rows<5, kX>(t, T, W, chain, b0, rx, cx);
+    default: return philox_rows<kNB, kX>(t, T, W, chain, b0, rx, cx);
+  }
+}
+
+// Words 4 b0 .. 4 b0 + 4 nb - 1 of chain c (of the launch) into t[j * T]
+// (nb <= kNB), and returned (x), the word at row rx of chain cx: the
+// Philox blocks computed together, with no branch between them (one code
+// path for each nb), or in bits-in mode the buffer's rows (those at
+// n_words and past, which the iteration does not have, left 0).
+template <int kNB>
+__device__ __forceinline__ uint32_t draw_words(uint32_t* t, int T,
+                                               const WordSource& W, int c,
+                                               int b0, int nb, int n_words,
+                                               bool x, int rx, int cx) {
+  const uint32_t chain = W.chain0 + (uint32_t)c;
+  if (W.bits != nullptr) {
+    for (int j = 0; j < 4 * nb; ++j) {
+      const int row = 4 * b0 + j;
+      t[j * T] = row < n_words ? W.bits[(size_t)row * W.C + chain] : 0u;
+    }
+    return x ? W(rx, cx) : 0u;
+  }
+  const uint32_t xc = W.chain0 + (uint32_t)cx;
+  return x ? philox_rows_n<kNB, true>(t, T, W, chain, b0, nb, rx, xc)
+           : philox_rows_n<kNB, false>(t, T, W, chain, b0, nb, rx, xc);
+}
+
+// The barrier of every thread of the cluster (barrier.cluster.arrive,
+// release, then wait, acquire): the writes before it, to shared or device
+// memory, are seen by every thread of the cluster after it.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive;\n\tbarrier.cluster.wait;" :::
+               "memory");
 }
 
 // sum_i x[i] y[i] in index order
@@ -426,11 +527,13 @@ struct HistoryPartners {
 // as text: a device function called from both changed the code of every
 // one-thread-a-chain instantiation (their SASS, compared on an H100).
 //
-// One thread a chain (kMaxLanes == 1).
+// One thread a chain (kMaxLanes == 1, and a density with lanes where it
+// gets one lane a chain).
 template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost,
           int kNBlk, int kMode = kAcceptMH>
 __global__ void sweep_kernel(StepArgs<Density::D> a, Density dens,
                              Source src) {
+  constexpr int kBodyLanes = 1;
 #include "sweep_body.cuh"
 }
 
@@ -441,18 +544,32 @@ template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost,
           int kNBlk, int kMode = kAcceptMH>
 __global__ void __launch_bounds__(kLaneBlockThreads)
     sweep_kernel_lanes(StepArgs<Density::D> a, Density dens, Source src) {
+  constexpr int kBodyLanes = kMaxLanes<Density, Source>;
 #include "sweep_body.cuh"
 }
 
+// One thread a chain, the draws before the state (kHoist): held to 64
+// registers by the launch bound, so a group fits one block up to 1,024
+// chains, as in the one-thread kernel.
+template <class Density, class Source, bool kSeq, bool kSnooker, bool kPost,
+          int kNBlk, int kMode = kAcceptMH>
+__global__ void __launch_bounds__(kLaneBlockThreads)
+    sweep_kernel_hoist(StepArgs<Density::D> a, Density dens, Source src) {
+#include "sweep_hoist.cuh"
+}
+
 // (kDims > 0: sweep_kernel_dims with kDims register slots a lane; one
-// block sweep, the MH accept)
+// block sweep, the MH accept; kOne: a density with lanes at one lane a
+// chain, the one-thread kernel)
 template <class Dn, class S, bool kSeq, bool kSnooker, bool kPost, int kNBlk,
-          int kM, int kDims>
+          int kM, int kDims, bool kOne>
 auto kernel_of() {
   if constexpr (kDims > 0) {
     static_assert(kNBlk == 1 && kM == kAcceptMH, "sweep_kernel_dims");
     return sweep_kernel_dims<Dn, S, kDims, kSeq, kSnooker, kPost>;
-  } else if constexpr (kMaxLanes<Dn, S> > 1) {
+  } else if constexpr (kHoistOf<Dn>) {
+    return sweep_kernel_hoist<Dn, S, kSeq, kSnooker, kPost, kNBlk, kM>;
+  } else if constexpr (kMaxLanes<Dn, S> > 1 && !kOne) {
     return sweep_kernel_lanes<Dn, S, kSeq, kSnooker, kPost, kNBlk, kM>;
   } else {
     return sweep_kernel<Dn, S, kSeq, kSnooker, kPost, kNBlk, kM>;
@@ -460,35 +577,56 @@ auto kernel_of() {
 }
 
 // The instantiation a configuration launches (kDims > 0: lanes over the
-// dimensions, kDims register slots a lane).
-template <class Dn, class S, int kNBlk, int kM, int kD = 0>
+// dimensions, kDims register slots a lane; kOne: one lane a chain).
+template <class Dn, class S, int kNBlk, int kM, int kD = 0, bool kO = false>
 auto pick_kernel_blocks(bool seq, bool snooker, bool post) {
   if (seq)
     return snooker
-               ? (post ? kernel_of<Dn, S, true, true, true, kNBlk, kM, kD>()
-                       : kernel_of<Dn, S, true, true, false, kNBlk, kM, kD>())
-               : (post ? kernel_of<Dn, S, true, false, true, kNBlk, kM, kD>()
-                       : kernel_of<Dn, S, true, false, false, kNBlk, kM, kD>());
+               ? (post ? kernel_of<Dn, S, true, true, true, kNBlk, kM, kD, kO>()
+                       : kernel_of<Dn, S, true, true, false, kNBlk, kM, kD,
+                                   kO>())
+               : (post ? kernel_of<Dn, S, true, false, true, kNBlk, kM, kD,
+                                   kO>()
+                       : kernel_of<Dn, S, true, false, false, kNBlk, kM, kD,
+                                   kO>());
   return snooker
-             ? (post ? kernel_of<Dn, S, false, true, true, kNBlk, kM, kD>()
-                     : kernel_of<Dn, S, false, true, false, kNBlk, kM, kD>())
-             : (post ? kernel_of<Dn, S, false, false, true, kNBlk, kM, kD>()
-                     : kernel_of<Dn, S, false, false, false, kNBlk, kM, kD>());
+             ? (post ? kernel_of<Dn, S, false, true, true, kNBlk, kM, kD, kO>()
+                     : kernel_of<Dn, S, false, true, false, kNBlk, kM, kD,
+                                 kO>())
+             : (post ? kernel_of<Dn, S, false, false, true, kNBlk, kM, kD,
+                                 kO>()
+                     : kernel_of<Dn, S, false, false, false, kNBlk, kM, kD,
+                                 kO>());
 }
 
-template <class Density, class Source, int kMode = kAcceptMH>
+template <class Density, class Source, int kMode = kAcceptMH,
+          bool kOne = false>
 auto pick_kernel(bool seq, bool snooker, bool post, int n_blk) {
-  return n_blk > 1 ? pick_kernel_blocks<Density, Source, kMaxBlocks, kMode>(
-                         seq, snooker, post)
-                   : pick_kernel_blocks<Density, Source, 1, kMode>(
-                         seq, snooker, post);
+  return n_blk > 1
+             ? pick_kernel_blocks<Density, Source, kMaxBlocks, kMode, 0, kOne>(
+                   seq, snooker, post)
+             : pick_kernel_blocks<Density, Source, 1, kMode, 0, kOne>(
+                   seq, snooker, post);
 }
+
+// The kernel a configuration launches at one lane a chain: the one-thread
+// kernel, also for a density with lanes (the body at kL = 1).
+template <class Density, class Source, int kMode = kAcceptMH>
+auto pick_kernel_one(bool seq, bool snooker, bool post, int n_blk) {
+  return pick_kernel<Density, Source, kMode, true>(seq, snooker, post, n_blk);
+}
+
+// Shared memory a chain of a kernel on Density holds, in floats: the
+// stage, D + 1, and in sweep_kernel_hoist its words (sweep_hoist.cuh).
+template <class Density>
+constexpr int kStageFloats =
+    Density::D + 1 + (kHoistOf<Density> ? 4 * kHoistBlocks<Density::D> : 0);
 
 // Chains one block of `kernel` holds on the current device, one thread
 // each: the threads its registers allow (cudaFuncGetAttributes'
-// maxThreadsPerBlock) and the stage, D + 1 floats a chain, within the
+// maxThreadsPerBlock) and the stage, kStageFloats a chain, within the
 // shared memory a block may opt in to.  Returns a CUDA error code.
-template <int D, class Kernel>
+template <class Density, class Kernel>
 int block_chains(Kernel kernel, int* chains) {
   cudaFuncAttributes fa;
   cudaError_t e = cudaFuncGetAttributes(&fa, kernel);
@@ -500,28 +638,140 @@ int block_chains(Kernel kernel, int* chains) {
                                cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (e != cudaSuccess) return (int)e;
   const int by_smem =
-      (optin - (int)fa.sharedSizeBytes) / ((D + 1) * (int)sizeof(float));
+      (optin - (int)fa.sharedSizeBytes) /
+      (kStageFloats<Density> * (int)sizeof(float));
   *chains = fa.maxThreadsPerBlock < by_smem ? fa.maxThreadsPerBlock : by_smem;
   return (int)cudaSuccess;
 }
 
+// The stage's shared memory of `chains` chains, opted in to above the
+// default 48 KB.
+template <class Density, class Kernel>
+int stage_smem(Kernel kernel, int chains, size_t* smem) {
+  *smem = (size_t)chains * kStageFloats<Density> * sizeof(float);
+  if (*smem <= 48 * 1024) return (int)cudaSuccess;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)*smem);
+}
+
+// The launch configuration of `blocks` blocks of `threads` threads and
+// `smem` bytes in clusters of `ctas` blocks (cfg points at the attribute:
+// not to be copied).
+struct ClusterLaunch {
+  cudaLaunchAttribute at[1];
+  cudaLaunchConfig_t cfg;
+  ClusterLaunch(int blocks, int threads, size_t smem, cudaStream_t stream,
+                int ctas)
+      : cfg{} {
+    at[0].id = cudaLaunchAttributeClusterDimension;
+    at[0].val.clusterDim.x = (unsigned)ctas;
+    at[0].val.clusterDim.y = 1;
+    at[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3((unsigned)blocks);
+    cfg.blockDim = dim3((unsigned)threads);
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = stream;
+    cfg.attrs = at;
+    cfg.numAttrs = 1;
+  }
+  ClusterLaunch(const ClusterLaunch&) = delete;
+};
+
+// The cluster of `kernel` (a K3 window of a kHoist density) on the current
+// device: *chains, the chains one of its blocks holds (block_chains), and
+// *ctas, the most blocks of that many threads one cluster co-schedules
+// (cudaOccupancyMaxActiveClusters): kMaxClusterCtas, the non-portable
+// size, where the card has room for one such cluster, else the next power
+// of two down.  Read once per kernel and device.  Returns a CUDA error
+// code.
+template <class Density, class Kernel>
+int cluster_size(Kernel kernel, int* chains, int* ctas) {
+  struct Entry {
+    const void* fn;
+    int dev, chains, ctas;
+  };
+  static Entry seen[64];
+  static int n_seen = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  std::lock_guard<std::mutex> hold(mu);
+  for (int i = 0; i < n_seen; ++i)
+    if (seen[i].fn == (const void*)kernel && seen[i].dev == dev) {
+      *chains = seen[i].chains;
+      *ctas = seen[i].ctas;
+      return (int)cudaSuccess;
+    }
+  int most = 0;
+  size_t smem = 0;
+  int rc = block_chains<Density>(kernel, &most);
+  if (rc == 0) rc = stage_smem<Density>(kernel, most, &smem);
+  if (rc == 0)
+    rc = (int)cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (rc != 0) return rc;
+  int n = 1;
+  for (int s = kMaxClusterCtas; s > 1; s >>= 1) {
+    const ClusterLaunch l(s, most, smem, nullptr, s);
+    int active = 0;
+    e = cudaOccupancyMaxActiveClusters(&active, kernel, &l.cfg);
+    if (e != cudaSuccess) return (int)e;
+    if (active > 0) {
+      n = s;
+      break;
+    }
+  }
+  if (n_seen < 64) seen[n_seen++] = Entry{(const void*)kernel, dev, most, n};
+  *chains = most;
+  *ctas = n;
+  return (int)cudaSuccess;
+}
+
 // Chains one block of a configuration's kernel holds: the fewer of its two
-// phases' instantiations.  The sampler reads it once per configuration: a
-// group must fit one block (sampler.fused_supported), and a one-CTA window
-// (K > 1 of a kOneCta source) the whole population, else K = 1
-// (ops/resample_step.py::resample_super_k).
+// phases' instantiations (for a density with lanes, of the one-thread
+// kernel, which takes the largest groups at one lane a chain).  The
+// sampler reads it once per configuration: a group must fit one block
+// (sampler.fused_supported).
 template <class Density, class Source, int kMode = kAcceptMH>
-int window_chains(bool seq, bool snooker, int n_blk, int* chains) {
-  constexpr int D = Density::D;
+int block_chains_of(bool seq, bool snooker, int n_blk, int* chains) {
   int all = 0, post = 0;
-  int e = block_chains<D>(
-      pick_kernel<Density, Source, kMode>(seq, snooker, false, n_blk), &all);
+  int e = block_chains<Density>(
+      pick_kernel_one<Density, Source, kMode>(seq, snooker, false, n_blk),
+      &all);
   if (e == 0)
-    e = block_chains<D>(
-        pick_kernel<Density, Source, kMode>(seq, snooker, true, n_blk),
+    e = block_chains<Density>(
+        pick_kernel_one<Density, Source, kMode>(seq, snooker, true, n_blk),
         &post);
   *chains = all < post ? all : post;
   return e;
+}
+
+// Chains a window of K > 1 iterations of a kOneCta source (K3) holds for
+// groups of Np: the chains one block holds (block_chains_of), or for a
+// kHoist density those of one cluster, its largest (cluster_size) of
+// blocks of whole groups; the fewer of the two phases'.  Above it the
+// sampler keeps K = 1 (ops/resample_step.py::resample_super_k).
+template <class Density, class Source, int kMode = kAcceptMH>
+int window_chains(bool seq, bool snooker, int n_blk, int Np, int* chains) {
+  if constexpr (!kHoistOf<Density>) {
+    return block_chains_of<Density, Source, kMode>(seq, snooker, n_blk,
+                                                   chains);
+  } else {
+    if (Np < 1) return (int)cudaErrorInvalidValue;
+    int fewest = 0;
+    for (int post = 0; post < 2; ++post) {
+      int most = 0, ctas = 0;
+      const int e = cluster_size<Density>(
+          pick_kernel<Density, Source, kMode>(seq, snooker, post, n_blk),
+          &most, &ctas);
+      if (e != 0) return e;
+      const int n = ctas * (most / Np) * Np;
+      fewest = post == 0 || n < fewest ? n : fewest;
+    }
+    *chains = fewest;
+    return (int)cudaSuccess;
+  }
 }
 
 // Launch one window.  K3 on a density with lanes over the dimensions
@@ -531,15 +781,18 @@ int window_chains(bool seq, bool snooker, int n_blk, int* chains) {
 // constant blocks): L the largest power of two <= 32 with
 // C L <= kDimBlockThreads (the instantiation with ceil(D / 32) slots a
 // lane at L = 32, ceil(D / kDimMinLanes) below).
-// Otherwise: whole groups per block, about kThreadsTarget threads;
-// a Source that needs one CTA (K3's history) for K > 1 runs the whole
-// population in one block, if the instantiation can launch that block
-// (block_chains).  A density with lanes (kMaxLanes > 1) gets L threads a
-// chain: the largest power of two <= kLanes with Np L within the threads
-// one block of the kernel may have, kLaneBlockThreads (L = 1 for the
-// largest groups, so a group fits one block whenever it fits with one
-// thread a chain), and about kLaneThreadsTarget threads a block.  Returns cudaGetLastError()
-// after the launch.
+// Otherwise: whole groups per block, about kThreadsTarget threads
+// (kHoistThreadsTarget on a kHoist density); a Source that needs one CTA
+// (K3's history) for K > 1 runs the whole population in one block, if the
+// instantiation can launch that block (block_chains) -- on a kHoist
+// density, in one cluster of such blocks (cluster_size), as many as the
+// groups need up to the largest cluster, with more groups a block
+// beyond.  A density with lanes (kMaxLanes > 1) gets L threads a chain:
+// the largest power of two <= kLanes with Np L within the threads one
+// block of the kernel may have, kLaneBlockThreads (L = 1 for the largest
+// groups, which run the one-thread kernel, so a group fits one block
+// whenever it fits with one thread a chain), and about kLaneThreadsTarget
+// threads a block.  Returns the launch's CUDA error code.
 template <class Density, class Source, int kMode = kAcceptMH>
 int launch_sweep(const StepArgs<Density::D>& args, const Density& dens,
                  const Source& src, bool post, cudaStream_t stream) {
@@ -573,7 +826,9 @@ int launch_sweep(const StepArgs<Density::D>& args, const Density& dens,
   }
   auto kernel = pick_kernel<Density, Source, kMode>(a.n_members > 1,
                                                     a.r_sn >= 0, post, a.n_blk);
-  int gpb = a.Np >= kThreadsTarget ? 1 : kThreadsTarget / a.Np;
+  constexpr int kTarget =
+      kHoistOf<Density> ? kHoistThreadsTarget : kThreadsTarget;
+  int gpb = a.Np >= kTarget ? 1 : kTarget / a.Np;
   a.lanes = 1;
   if constexpr (kL > 1) {
     int L = kL;
@@ -582,21 +837,43 @@ int launch_sweep(const StepArgs<Density::D>& args, const Density& dens,
                                          : kLaneThreadsTarget / (a.Np * L);
     if (gpb > a.G) gpb = a.G;
     a.lanes = L;
+    if (L == 1)
+      kernel = pick_kernel_one<Density, Source, kMode>(
+          a.n_members > 1, a.r_sn >= 0, post, a.n_blk);
   }
+  // a sub-sweep block's words must fit sweep_kernel_hoist's table
+  if (kHoistOf<Density> && a.stride > kHoistRows<D>)
+    return (int)cudaErrorInvalidValue;
+  int blocks = (a.G + gpb - 1) / gpb;
+  int cluster = 0;  // CTAs of the launch's cluster (0: none)
   if (Source::kOneCta && a.K > 1) {
     int most = 0;
-    const int e = block_chains<D>(kernel, &most);
-    if (e != 0) return e;
-    if (a.G * a.Np > most) return (int)cudaErrorInvalidValue;
-    gpb = a.G;
+    if constexpr (kHoistOf<Density>) {
+      int ctas = 0;
+      const int e = cluster_size<Density>(kernel, &most, &ctas);
+      if (e != 0) return e;
+      if (blocks > ctas) {
+        gpb = (a.G + ctas - 1) / ctas;
+        blocks = (a.G + gpb - 1) / gpb;
+      }
+      cluster = blocks;
+    } else {
+      const int e = block_chains<Density>(kernel, &most);
+      if (e != 0) return e;
+      gpb = a.G;
+      blocks = 1;
+    }
+    if (gpb * a.Np > most) return (int)cudaErrorInvalidValue;
   }
   const int threads = gpb * a.Np * a.lanes;
-  const int blocks = (a.G + gpb - 1) / gpb;
-  const size_t smem = (size_t)gpb * a.Np * (D + 1) * sizeof(float);
-  if (smem > 48 * 1024) {  // above the default: opt in (one-CTA K3 windows)
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  size_t smem = 0;
+  const int e = stage_smem<Density>(kernel, gpb * a.Np, &smem);
+  if (e != 0) return e;
+  if (cluster > 0) {
+    const ClusterLaunch l(blocks, threads, smem, stream, cluster);
+    const cudaError_t le = cudaLaunchKernelEx(&l.cfg, kernel, a, dens, src);
+    if (le != cudaSuccess) return (int)le;
+    return (int)cudaGetLastError();
   }
   kernel<<<blocks, threads, smem, stream>>>(a, dens, src);
   return (int)cudaGetLastError();

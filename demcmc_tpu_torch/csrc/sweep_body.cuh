@@ -1,9 +1,10 @@
 // The body of the DE sweep kernels sweep_kernel and sweep_kernel_lanes
 // (step_body.cuh), included as text inside each: not a header.  In scope:
 // the template parameters Density, Source, kSeq, kSnooker, kPost, kNBlk,
-// kMode and the arguments a (StepArgs), dens and src.
+// kMode, the kernel's threads a chain at most kBodyLanes and the arguments
+// a (StepArgs), dens and src.
   constexpr int D = Density::D;
-  constexpr int kL = kMaxLanes<Density, Source>;
+  constexpr int kL = kBodyLanes;
   extern __shared__ float sh[];
   const int tid = threadIdx.x, Np = a.Np;
   // the thread's chain slot in the block and its lane (kL == 1: the thread)

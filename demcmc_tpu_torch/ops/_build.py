@@ -52,6 +52,10 @@ GREEDY_MODES = ("max", "min")
 # block sweeps per iteration K1 and K3 are instantiated for besides 1 (no
 # blocks): csrc/step_body.cuh kMaxBlocks
 BLOCK_COUNTS = (2,)
+# the densities whose kernels take their draws before the state
+# (csrc/sweep_hoist.cuh, a density's kHoist) and whose K3 windows run over
+# a thread block cluster, not one CTA (ops/resample_step.py::window_chains)
+HOIST_DENSITIES = ("gaussian", "rastrigin")
 _K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P, _I, _P]
 _K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _P]
 SIGNATURES = {
@@ -68,7 +72,9 @@ SIGNATURES = {
     "de_step_resample": {
         **{f"resample_step_{d}": _K3
            for d in KERNEL_DENSITIES["resample_step"]},
-        **{f"resample_window_chains_{d}": [_I, _I, _I, _IP]
+        **{f"resample_block_chains_{d}": [_I, _I, _I, _IP]
+           for d in KERNEL_DENSITIES["resample_step"]},
+        **{f"resample_window_chains_{d}": [_I, _I, _I, _I, _IP]
            for d in KERNEL_DENSITIES["resample_step"]},
     },
     "migration": {

@@ -89,18 +89,21 @@ def block_chains(resample: bool, density, seq: bool, snooker: bool,
     """Chains one block of K1 (K3 where ``resample``) holds for a
     configuration: on a CUDA device the fewer that its two phases'
     instantiations hold in one block (the threads their registers allow,
-    and the stage, d + 1 floats a chain, within the shared memory a block
-    may opt in to), read from the built library once per configuration
-    (``csrc/step_body.cuh`` ``block_chains``); on the CPU the launch's
-    static limit, :data:`MAX_BLOCK_CHAINS`.  A group must fit one block,
-    and a K3 window of K > 1 the whole population.  ``mode`` is the accept
-    mode (``'mh'``, or K1's greedy ``'max'``/``'min'``)."""
+    and the stage, d + 1 floats a chain and on the d = 2 densities their
+    words' table, within the shared memory a block may opt in to; for a
+    density with lanes, the one-thread kernel's, which
+    runs the largest groups at one lane a chain), read from the built
+    library once per configuration (``csrc/step_body.cuh``
+    ``block_chains_of``); on the CPU the launch's static limit,
+    :data:`MAX_BLOCK_CHAINS`.  A group must fit one block (a K3 window's
+    population: :func:`.resample_step.window_chains`).  ``mode`` is the
+    accept mode (``'mh'``, or K1's greedy ``'max'``/``'min'``)."""
     device = torch.device(device)
     if device.type != "cuda":
         return MAX_BLOCK_CHAINS
     kernel = "resample_step" if resample else "de_step"
     name = _build.entry(kernel, density, mode)      # raises if not built
-    fn = ("resample_window_chains_" + density.name if resample
+    fn = ("resample_block_chains_" + density.name if resample
           else name.replace("de_step_", "de_step_block_chains_", 1))
     key = (fn, bool(seq), bool(snooker), int(n_blocks), device.index)
     if key not in _block_chains:

@@ -28,10 +28,14 @@ the same step words (bits-in).
 A window of K iterations runs as one launch, as K1's does
 (:mod:`.fused_step`).  Iteration ``it + 1`` may read history row ``it −
 1`` of any chain, so a window of K > 1 runs the whole population in one
-CTA.  How many chains one CTA holds depends on the instantiation (its
-registers per thread, the stage's shared memory); above that K3 takes one
-iteration per launch (:func:`resample_super_k`, a rule on the
-configuration and the built kernel, read once).
+CTA, or, on a density of ``_build.HOIST_DENSITIES`` (the Gaussian), in
+one thread block cluster of CTAs of whole groups with the cluster barrier
+between iterations.  How many chains it holds depends on the
+instantiation (its registers per thread, the stage's shared memory) and,
+for a cluster, on the CTAs the card co-schedules in one (16 where it can,
+else 8); above that K3 takes one iteration per launch
+(:func:`resample_super_k`, a rule on the configuration and the built
+kernel, read once).
 
 With migration (α > 0 and G > 1, the JAX kernel's ``mig_in_kernel`` on
 the resample layout, :2061-2101) the iteration's words begin with the
@@ -45,6 +49,8 @@ exchange is K2's over the G real groups.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from .. import rng
@@ -52,7 +58,11 @@ from . import _build
 from . import fused_step as fused_ops
 from . import proposals as proposal_ops
 
-MAX_WINDOW_C = fused_ops.MAX_BLOCK_CHAINS  # the most a K3 window holds
+MAX_WINDOW_C = fused_ops.MAX_BLOCK_CHAINS  # the most one CTA's window holds
+# CTAs of a cluster window on the CPU's static rule: the portable cluster
+# size (the card reads its own, csrc/step_body.cuh cluster_size)
+CLUSTER_CTAS = 8
+_window_chains: dict = {}
 # Iterations per K3 window at most, chosen on an H100 by chip_smoke.py's K
 # sweep on the MVN flagship (PERF.md: K = 4 to 256 within 4% of each
 # other, K3 being bound by one thread's serial chain; 64 the lowest); any
@@ -61,12 +71,32 @@ RESAMPLE_SUPER_K = 64
 
 
 def window_chains(cfg, device) -> int:
-    """Chains a K3 window of K > 1 (one CTA) holds for this configuration
-    (``fused_step.block_chains`` of its K3 instantiations; 1,024 on the
-    CPU)."""
-    r = cfg.rows
-    return fused_ops.block_chains(True, cfg.density, r.n_members > 1,
-                                  r.snooker >= 0, r.n_blocks, device)
+    """Chains a K3 window of K > 1 holds for this configuration: on a CUDA
+    device read from the built library once per configuration
+    (``csrc/step_body.cuh`` ``window_chains``): one CTA's, or on a density
+    of ``_build.HOIST_DENSITIES`` one cluster's CTAs of whole groups of
+    ``cfg.Np``; on the CPU the static rule, :data:`MAX_WINDOW_C` (one CTA)
+    or :data:`CLUSTER_CTAS` CTAs of whole groups within
+    :data:`MAX_WINDOW_C` chains each."""
+    r, dens = cfg.rows, cfg.density
+    device = torch.device(device)
+    if device.type != "cuda":
+        if dens is not None and dens.name in _build.HOIST_DENSITIES:
+            return CLUSTER_CTAS * (MAX_WINDOW_C // cfg.Np) * cfg.Np
+        return MAX_WINDOW_C
+    _build.entry("resample_step", dens)              # raises if not built
+    fn = "resample_window_chains_" + dens.name
+    key = (fn, r.n_members > 1, r.snooker >= 0, r.n_blocks, cfg.Np,
+           device.index)
+    if key not in _window_chains:
+        lib = _build.library("de_step_resample")
+        n = ctypes.c_int()
+        with torch.cuda.device(device):
+            rc = getattr(lib, fn)(int(key[1]), int(key[2]), r.n_blocks,
+                                  cfg.Np, ctypes.byref(n))
+        _build.check(lib, rc, fn)
+        _window_chains[key] = n.value
+    return _window_chains[key]
 
 
 def resample_super_k(cfg, device="cpu") -> int:
@@ -152,10 +182,10 @@ def _check_window(cfg, hist, it, K, emit, phase):
                          f"0..{it + K - 2}; the history has {H} rows")
     most = window_chains(cfg, hist.device)
     if K > 1 and cfg.G * cfg.Np > most:
-        raise ValueError(f"a K3 window of K > 1 runs in one CTA, at most "
-                         f"{most} chains for this configuration; this "
-                         f"population has {cfg.G * cfg.Np} "
-                         f"(resample_super_k gives 1)")
+        raise ValueError(f"a K3 window of K > 1 runs in one CTA (or one "
+                         f"cluster), at most {most} chains for this "
+                         f"configuration; this population has "
+                         f"{cfg.G * cfg.Np} (resample_super_k gives 1)")
 
 
 def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,

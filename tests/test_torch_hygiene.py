@@ -75,7 +75,8 @@ def test_mesh_modules_import_neither_jax_nor_the_jax_package(rel):
 @pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py",
                                   "tools/k1_ab.py", "tools/sweep_phases.py",
                                   "tools/sample_ab.py", "tools/mesh_cards.py",
-                                  "tools/rhat_ab.py", "tools/k2_phases.py"])
+                                  "tools/rhat_ab.py", "tools/k2_phases.py",
+                                  "tools/window_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
     roots = set(_imported_roots(PKG.parent / name))
     assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}

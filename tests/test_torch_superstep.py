@@ -326,21 +326,31 @@ def test_resample_windows(which, monkeypatch):
     _assert_same(got, _loop_reference(model, de, n_iter, 9, 1))
 
 
-def test_resample_windows_keep_one_iteration_above_one_cta():
-    """Above the chains one CTA holds (on the CPU, 1,024; on the card, what
-    the configuration's kernel can launch in one block) K3 takes one
-    iteration per launch, from the configuration; a window of two
-    raises."""
-    model, de = tgauss.make(data=DATA, n_groups=300, Np=4, alpha=0.0,
-                            sample="resample", n_initial=2, sweep="sync")
+@pytest.mark.parametrize("which", ["mvn30", "gaussian"])
+def test_resample_windows_keep_one_iteration_above_one_cta(which):
+    """Above the chains a K3 window holds K3 takes one iteration per launch,
+    from the configuration; a window of two raises.  A window runs in one
+    CTA (on the CPU, 1,024 chains; on the card, what the configuration's
+    kernel can launch in one block), or on the Gaussian in one cluster of
+    CTAs of whole groups (on the CPU, 8 of 1,024 chains)."""
+    if which == "mvn30":
+        model, de = tmvn.make(d=30, n_obs=20, key=1, n_groups=300, Np=4,
+                              n_initial=2)
+        most, n_groups = tres.MAX_WINDOW_C, 256
+    else:
+        model, de = tgauss.make(data=DATA, n_groups=2049, Np=4, alpha=0.0,
+                                sample="resample", n_initial=2,
+                                sweep="sync")
+        most, n_groups = tres.CLUSTER_CTAS * tres.MAX_WINDOW_C, 2048
     spec = tdm.make_spec(model, de)
     step = tdm.build_step(model, de, spec, device="cpu")
-    assert tres.window_chains(step.cfg, "cpu") == tres.MAX_WINDOW_C == 1024
+    assert tres.window_chains(step.cfg, "cpu") == most
+    assert de.n_chains > most >= 1024
     assert step.superstep_k == 1
     assert tres.resample_super_k(step.cfg) == 1
-    small = tdm.build_step(model, de.replace(n_groups=256),
-                           tdm.make_spec(model, de.replace(n_groups=256)),
-                           device="cpu")
+    small = tdm.build_step(model, de.replace(n_groups=n_groups),
+                           tdm.make_spec(model, de.replace(
+                               n_groups=n_groups)), device="cpu")
     assert small.superstep_k == tres.RESAMPLE_SUPER_K
     s = tsampler._grow_history(tdm.init_state(model, de, spec, 1,
                                               device="cpu"), 4)

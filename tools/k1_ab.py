@@ -13,7 +13,9 @@ of each where the tree's ``chip_smoke`` can say), discrete binomial
 (3,072; and 2 × 1,024, where a chain gets one lane), LBA (4,096 chains,
 100 trials; and 2 × 1,024), 4,096-chain Gaussian,
 65,536-chain snooker Gaussian and 16,384-chain sequential-sweep Gaussian
-(``main-seq``'s 4,096 × 4) cells past burn-in, fired K2 launches on Philox
+(``main-seq``'s 4,096 × 4) cells past burn-in, the blocked cell (4,096,
+the blocks (μ), (σ)) and the optimization cells (opt-mle, K1 max on the
+Gaussian; opt-rastrigin, K1 min) at 4,096 chains, fired K2 launches on Philox
 words at (G, Np) = (8, 16), (32, 16), (64, 16), (128, 16), (64, 4), (128,
 4), (256, 4), (512, 4), (256, 16), (4,096, 16), (4,096, 4) and (8,192, 16)
 (in a tree whose K2 has two forms, also each form forced), one-iteration K3
@@ -23,13 +25,22 @@ with
 ``chip_smoke.device_ms`` (launches queued behind a spin kernel, CUDA
 events).  A tree whose ``de_step`` takes ``K`` also times windows of 64
 iterations (no gate open before the last, the post variant), per
-iteration, and K3 windows of 64 at the MVN flagship past burn-in and in
-it, and at the MVN's C = 64.
+iteration (the optimization cells' storing no row, as ``optimize()``
+runs them), K1 windows in burn-in on the Gaussian, sequential and blocked
+cells, and K3 windows of 64 at the MVN flagship past burn-in and in it, at
+the MVN's C = 64, on the C = 512 DE-MCz Gaussian (128 × 4) past burn-in
+and in it, at the mcz-mig cell's 128 × 4 (α = 0.1) on a window whose last
+iteration opens the gate and the others do not, and at C = 2,048 (512 × 4)
+where the tree's ``window_chains`` holds it (else the same 64 iterations
+as one launch each, so the digests compare a window with single
+launches); and one-iteration K3 launches on the Gaussian at C = 512.
 
 Each turn also writes digests (SHA-256 of the bytes) of the kernels'
 results on fixed inputs: K1's θ, w, accept flags and gate after one
 iteration in burn-in, one past it and a window of 64 on the LBA, ABC,
-discrete and Gaussian cells, on LBA at 4 × 64 and 2 × 1,024 on 100 and 37
+discrete and Gaussian cells, on the sequential, snooker, blocked and
+optimization cells (a window in burn-in too), on LBA at 4 × 64 and 2 ×
+1,024 on 100 and 37
 trials, on the discrete binomial at 2 × 256, 2 × 512 and 2 × 1,024 (4, 2
 and 1 lanes a chain beside the cell's 8) and at the cell's shape on 20
 unique counts,
@@ -38,6 +49,8 @@ and the cell's shape with bounds (−0.5, 1.5); K3's after one iteration on
 the MVN flagship, and after windows of 64 in burn-in and past it on the
 MVN at C = 3 and at the populations of ``chip_smoke.MVN_LANE_CASES`` in
 this script's own tree (C = 32, 64, 16 synchronous, 3 without snooker);
+K3's θ, w, accept flags, gate and history after the Gaussian windows
+above;
 K2's θ and w after a fired exchange in bits-in mode at K2's shapes with
 pairs of tied leader words and at G = 256 and 4,096 with every leader's
 tied (inputs from this script's own tree's ``chip_smoke._mig_case``; a
@@ -55,15 +68,18 @@ stack use (``cuobjdump -res-usage``) to ``chiprun_out/ab_<label>.res``,
 of registers and stack over the functions on ``CHANGED`` by kernel, and
 writes the SASS of K4 and of the K1 instantiations on one density or
 more (``--sass``: the starts of their C++ class names, comma separated,
-``DiscreteBinomial`` by default) to ``ab_<label>_kde.sass`` and
+``Gaussian`` by default) to ``ab_<label>_kde.sass`` and
 ``ab_<label>_<density>.sass``, and hashes
 every K1 and K3 function's SASS (addresses, encodings and constants
-stripped): the script prints how many of the functions off the discrete
-binomial (``CHANGED``) are identical between the trees, and names each
-that is not.  Prints one line per tree and measurement, then the card's
-name and power limit.
+stripped): the script prints how many of the functions off the Gaussian
+and the Rastrigin (``CHANGED``, the densities whose kernels this change
+redesigns) are identical between the trees, and names each that is not,
+with a diff of its stripped SASS between the trees in
+``chiprun_out/ab_sass_diff_<label>_<i>.txt``.  Prints one line per tree
+and measurement, then the card's name and power limit.
 """
 
+import difflib
 import hashlib
 import inspect
 import json
@@ -85,8 +101,8 @@ KDE_SHAPES = ((64, 1, 10_000), (40, 33, 4173), (8, 300, 2500))
 # chip_smoke.ABC_WIDE_BOUNDS, written out for trees that lack it
 ABC_WIDE_BOUNDS = ((-0.5, 1.5),)
 # the kernels whose SASS this change may alter (class names in the
-# mangled function names): K1 on the discrete binomial
-CHANGED = ("DiscreteBinomialDensity",)
+# mangled function names): K1 and K3 on the d = 2 densities
+CHANGED = ("GaussianDensity", "RastriginDensity")
 # K2's digested shapes (G, Np), d = 2, and the timed ones (the small G
 # between 8 and 256 place the one-CTA form's threshold)
 K2_SHAPES = ((8, 16), (256, 16), (4096, 16), (4096, 4), (8192, 16))
@@ -94,6 +110,10 @@ K2_TIMED = ((8, 16), (32, 16), (64, 16), (128, 16), (64, 4), (128, 4),
             (256, 4), (512, 4)) + K2_SHAPES[1:]
 # the MVN flagship's population, (n_groups, Np, sweep, θs; None: 0.1)
 MVN_FLAGSHIP = (1, 3, "auto", None)
+# K3 on the Gaussian DE-MCz (synchronous, θs = 0.1, n_initial = 50):
+# name -> (n_groups, Np, α)
+K3_GAUSS = {"k3g512": (128, 4, 0.0), "k3mig": (128, 4, 0.1),
+            "k3g2048": (512, 4, 0.0)}
 
 
 def mvn_pops():
@@ -142,6 +162,75 @@ def k3_window(resample_step, case, it0, phase, dev):
     return run, st, out
 
 
+def k3_gauss(cs, dev, G_, Np_, alpha, burnin=1000, extra_rows=3000):
+    """(model, spec, cfg, state) of the Gaussian DE-MCz at G_ × Np_."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian
+    from demcmc_tpu_torch.ops import fused_step
+    model, de = gaussian.make(data=cs._gauss_data(), n_groups=G_, Np=Np_,
+                              alpha=alpha, sample="resample", n_initial=50,
+                              burnin=burnin, theta_snooker=0.1, sweep="sync")
+    spec = tdm.make_spec(model, de)
+    cfg = fused_step.StepConfig.make(model, de, spec)
+    s = tdm.sampler._grow_history(
+        tdm.init_state(model, de, spec, 4, device=dev), extra_rows)
+    return model, spec, cfg, s
+
+
+def gate_at_end(cs, cfg, lo, K):
+    """(seed, it0): a window of K from it0 >= lo whose inner iterations'
+    gates are shut and whose last iteration's gate opens."""
+    for seed in range(256):
+        g = cs._gates(seed, lo, 4096 + K, cfg)
+        for i in range(4096):
+            if g[i + K - 1] and not g[i:i + K - 1].any():
+                return seed, lo + i
+    raise AssertionError("no window with its gate open at the end")
+
+
+def k3_gauss_runs(cs, resample_step, dev):
+    """{name: (run, state, outputs, window)} of the Gaussian K3 windows of
+    WINDOW_K: at C = 512 in burn-in and past it, mcz-mig's with the gate
+    open at its end, C = 2,048 past burn-in and in it -- as one launch
+    where the tree's window holds the population, else one launch an
+    iteration.  Each run starts from a fresh copy of its case's state."""
+    import torch
+    runs = {}
+    for name, (G_, Np_, alpha) in K3_GAUSS.items():
+        # mcz-mig's window starts where its gates say (gate_at_end)
+        case = k3_gauss(cs, dev, G_, Np_, alpha,
+                        extra_rows=8000 if alpha > 0.0 else 3000)
+        model, spec, cfg, s = case
+        C = G_ * Np_
+        starts = [("post", 2500, "post", 0)]
+        if name != "k3mig":
+            starts.append(("burnin", 300, "all", 0))
+        else:
+            seed, it0 = gate_at_end(cs, cfg, 2000, WINDOW_K)
+            starts = [("post", it0, "post", seed)]
+        for tag, it0, phase, seed in starts:
+            st = [s.theta.clone(), s.weight.clone(), s.fire.clone(),
+                  s.history.clone()]
+            out = (torch.empty((WINDOW_K, C, cfg.d), device=dev),
+                   torch.empty((WINDOW_K, C), device=dev),
+                   torch.empty((WINDOW_K, C), dtype=torch.bool, device=dev))
+            window = C <= resample_step.window_chains(cfg, dev)
+
+            def run(st=st, out=out, it0=it0, phase=phase, seed=seed,
+                    cfg=cfg, model=model, spec=spec, window=window):
+                if window:
+                    resample_step.resample_step(
+                        cfg, model, spec, *st, it0, seed=seed, out=out,
+                        K=WINDOW_K, phase=phase)
+                    return
+                for k in range(WINDOW_K):
+                    resample_step.resample_step(
+                        cfg, model, spec, *st, it0 + k, seed=seed,
+                        out=tuple(o[k] for o in out), phase=phase)
+            runs[f"{name}_{tag}"] = (run, st, out, window)
+    return runs
+
+
 def res_summary(text, keep):
     """{kernel: (registers low-high, stack low-high)} over the functions
     of ``cuobjdump -res-usage`` output whose names hold ``keep``."""
@@ -167,9 +256,11 @@ def digest(*tensors) -> str:
     return h.hexdigest()[:16]
 
 
-def k1_digests(cs, fused_step, tdm, name, model, de, windows, dev):
+def k1_digests(cs, fused_step, tdm, name, model, de, windows, dev,
+               burnin_window=False):
     """Digests of one K1 iteration in burn-in, one past it and a window of
-    WINDOW_K from the same initial state."""
+    WINDOW_K past it (and, with ``burnin_window``, one in burn-in) from the
+    same initial state."""
     import torch
     spec = tdm.make_spec(model, de)
     cfg = fused_step.StepConfig.make(model, de, spec)
@@ -179,6 +270,8 @@ def k1_digests(cs, fused_step, tdm, name, model, de, windows, dev):
     runs = [("burnin", de.burnin // 2, 1), ("post", IT, 1)]
     if windows:
         runs.append(("window", IT, WINDOW_K))
+        if burnin_window:
+            runs.append(("window_burnin", 100, WINDOW_K))
     for tag, it, K in runs:
         st = (s.theta.clone(), s.weight.clone(), s.fire.clone())
         shape = (C,) if K == 1 else (K, C)
@@ -187,8 +280,11 @@ def k1_digests(cs, fused_step, tdm, name, model, de, windows, dev):
                torch.empty(shape, dtype=torch.bool, device=dev))
         kw = dict(K=K, phase="post") if K > 1 else {}
         if K > 1:
-            seed, it = cs.quiet_start(0, cfg, it, 1 << 16, K)
+            hi = de.burnin - K if tag == "window_burnin" else 1 << 16
+            seed, it = cs.quiet_start(0, cfg, it, hi, K)
             kw["seed"] = seed
+            if tag == "window_burnin":
+                kw["phase"] = "all"
         fused_step.de_step(cfg, model, spec, *st, it, out=out, **kw)
         res[f"digest_k1_{name}_{tag}"] = digest(*st, *out)
     return res
@@ -221,6 +317,9 @@ def worker(label: str, dump: str, pops: dict):
     dev = torch.device("cuda")
     windows = "K" in inspect.signature(fused_step.de_step).parameters
 
+    def opt(which):
+        return cs._opt_model(which)[:2]
+
     def lba(G_, Np_, n):
         return lba_model.make(key=0, n_trials=n, Np=Np_, n_groups=G_,
                               burnin=1000)
@@ -245,7 +344,12 @@ def worker(label: str, dump: str, pops: dict):
                                           alpha=0.1, theta_snooker=0.1),
                  seq_4096x4=gaussian.make(data=cs._gauss_data(), Np=4,
                                           n_groups=4096, burnin=1000,
-                                          alpha=0.1, theta_snooker=0.1))
+                                          alpha=0.1, theta_snooker=0.1),
+                 blocked=gaussian.make(
+                     data=cs._gauss_data(), Np=pc.BLOCKED_CELL["Np"],
+                     n_groups=pc.BLOCKED_CELL["n_groups"], burnin=1000,
+                     blocks=pc.BLOCKED_CELL["blocks"], blocking_on=True),
+                 opt_mle=opt("mle"), opt_rastrigin=opt("rastrigin"))
     res = {}
     for name, (model, de) in timed.items():
         spec = tdm.make_spec(model, de)
@@ -278,10 +382,20 @@ def worker(label: str, dump: str, pops: dict):
             wout = (torch.empty((WINDOW_K, C, cfg.d), device=dev),
                     torch.empty((WINDOW_K, C), device=dev),
                     torch.empty((WINDOW_K, C), dtype=torch.bool, device=dev))
+            # the optimization cells store no row (optimize())
+            kw = (dict(out=None, emit=(WINDOW_K, 1)) if name.startswith("opt")
+                  else dict(out=wout))
             ms = cs.device_ms(lambda: fused_step.de_step(
-                cfg, model, spec, *st, it0, seed=seed, out=wout, K=WINDOW_K,
-                phase="post"), 2 if name == "abc" else 20)[0]
+                cfg, model, spec, *st, it0, seed=seed, K=WINDOW_K,
+                phase="post", **kw), 2 if name == "abc" else 20)[0]
             res[name + "_window_per_iteration"] = ms / WINDOW_K
+            if name in ("gauss", "seq_4096x4", "blocked"):
+                seed, it0 = cs.quiet_start(0, cfg, 100, de.burnin - WINDOW_K,
+                                           WINDOW_K)
+                ms = cs.device_ms(lambda: fused_step.de_step(
+                    cfg, model, spec, *st, it0, seed=seed, out=wout,
+                    K=WINDOW_K, phase="all"), 20)[0]
+                res[name + "_window_burnin_per_iteration"] = ms / WINDOW_K
     from demcmc_tpu_torch.ops import resample_step
     model, spec, cfg, s = mvn_case(dev, pops["mvn"])
     res["mvn_window_chains"] = resample_step.window_chains(cfg, dev)
@@ -293,6 +407,26 @@ def worker(label: str, dump: str, pops: dict):
     st = [t.clone() for t in st]
     resample_step.resample_step(cfg, model, spec, *st, IT + 500, out=out)
     res["digest_k3_mvn"] = digest(*st, *out)
+    # K3 on the Gaussian: one iteration at C = 512, and the windows of
+    # k3_gauss_runs, timed where the tree's window holds them, digested
+    model, spec, cfg, s = k3_gauss(cs, dev, 128, 4, 0.0)
+    st = (s.theta, s.weight, s.fire, s.history)
+    out = (torch.empty((512, cfg.d), device=dev), torch.empty(512, device=dev),
+           torch.empty(512, dtype=torch.bool, device=dev))
+    res["k3g512_one"] = cs.device_ms(lambda: resample_step.resample_step(
+        cfg, model, spec, *st, IT + 500, out=out), 200)[0]
+    res["k3g2048_window_chains"] = resample_step.window_chains(
+        k3_gauss(cs, dev, 512, 4, 0.0, extra_rows=10)[2], dev)
+    if windows:
+        for name, (run, st, out, window) in k3_gauss_runs(
+                cs, resample_step, dev).items():
+            if window:
+                res[f"{name}_window_per_iteration"] = \
+                    cs.device_ms(run, 20)[0] / WINDOW_K
+        for name, (run, st, out, window) in k3_gauss_runs(
+                cs, resample_step, dev).items():
+            run()
+            res[f"digest_{name}_window"] = digest(*st, *out)
     if windows:
         # K3 windows of 64: timed at C = 3 (past burn-in and in it) and
         # C = 64, digested at every population of mvn_pops()
@@ -399,16 +533,22 @@ def worker(label: str, dump: str, pops: dict):
                  discrete_2x256=discrete(2, 256),
                  discrete_2x512=discrete(2, 512),
                  discrete_2x1024=discrete(2, 1024),
-                 discrete_20u=discrete(dcell["n_groups"], dcell["Np"], 20))
+                 discrete_20u=discrete(dcell["n_groups"], dcell["Np"], 20),
+                 **{k: timed[k] for k in ("snooker65k", "seq_4096x4",
+                                          "blocked", "opt_mle",
+                                          "opt_rastrigin")})
     for name, (model, de) in cases.items():
         res.update(k1_digests(cs, fused_step, tdm, name, model, de, windows,
-                              dev))
+                              dev, burnin_window=name in (
+                                  "gauss", "seq_4096x4", "blocked",
+                                  "opt_mle", "opt_rastrigin")))
     if dump:
         cuobjdump = "/usr/local/cuda/bin/cuobjdump"
         libs = _build.build_all(("de_step", "de_step_resample", "kde"))
         res["sass"] = {}
         for name in ("de_step", "de_step_resample"):
-            res["sass"].update(sass_hashes(cuobjdump, libs[name]))
+            res["sass"].update(sass_hashes(cuobjdump, libs[name],
+                                           OUT / f"ab_{label}_{name}.all"))
         for name, suffix in (("de_step", ""), ("de_step_resample", "_k3"),
                              ("kde", "_kde")):
             run = subprocess.run([cuobjdump, "-res-usage", str(libs[name])],
@@ -430,26 +570,34 @@ def worker(label: str, dump: str, pops: dict):
     print("RESULT " + json.dumps(res), flush=True)
 
 
-def sass_hashes(cuobjdump, lib):
-    """{function: hash of its SASS with addresses, encodings and constants
-    stripped} for every function of a library."""
-    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
-                          text=True).stdout
+def sass_functions(sass):
+    """{function: its SASS instructions with addresses, encodings and
+    constants stripped} of ``cuobjdump -sass`` output."""
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name, body = part.split("\n", 1)
-        ins = [re.sub(r"0x[0-9a-f]+", "X", m.group(1)) for m in
-               re.finditer(r"/\*[0-9a-f]{4,}\*/\s*(.*?);", body)]
-        out[name.strip()] = hashlib.sha256(
-            "\n".join(ins).encode()).hexdigest()[:16]
+        out[name.strip()] = [re.sub(r"0x[0-9a-f]+", "X", m.group(1)) for m in
+                             re.finditer(r"/\*[0-9a-f]{4,}\*/\s*(.*?);",
+                                         body)]
     return out
+
+
+def sass_hashes(cuobjdump, lib, keep):
+    """{function: hash of its stripped SASS} for every function of a
+    library; the whole SASS is written to ``keep`` (for a diff of the
+    functions that differ between trees, ``main``)."""
+    sass = subprocess.run([cuobjdump, "-sass", str(lib)], capture_output=True,
+                          text=True).stdout
+    keep.write_text(sass)
+    return {f: hashlib.sha256("\n".join(ins).encode()).hexdigest()[:16]
+            for f, ins in sass_functions(sass).items()}
 
 
 def main():
     if sys.argv[1:2] == ["--worker"]:
         worker(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]))
         return
-    args, dump = sys.argv[1:], "DiscreteBinomial"
+    args, dump = sys.argv[1:], "Gaussian"
     if args[:1] == ["--sass"]:
         dump, args = args[1], args[2:]
     trees = [a.split("=", 1) for a in args]
@@ -496,11 +644,22 @@ def main():
         print(f"SASS {labels[0]} vs {other}: {same} of {len(common)} "
               f"functions off {', '.join(CHANGED)} identical; "
               f"{len(a) - len(common)} / {len(b) - len(common)} others")
-        for f in common:
-            if a[f] != b[f]:
-                print(f"SASS differs: {f}")
+        for i, f in enumerate(f for f in common if a[f] != b[f]):
+            print(f"SASS differs: {f} (diff in chiprun_out/"
+                  f"ab_sass_diff_{other}_{i}.txt)")
+            sides = []
+            for lab in (labels[0], other):
+                fns = {}
+                for lib in ("de_step", "de_step_resample"):
+                    fns.update(sass_functions(
+                        (OUT / f"ab_{lab}_{lib}.all").read_text()))
+                sides.append(fns.get(f, []))
+            (OUT / f"ab_sass_diff_{other}_{i}.txt").write_text("\n".join(
+                difflib.unified_diff(*sides, labels[0], other, lineterm="")))
         if same < len(common):
             differ.append(f"SASS off {', '.join(CHANGED)}")
+    for f in OUT.glob("ab_*.all"):
+        f.unlink()
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,

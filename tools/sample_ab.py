@@ -8,8 +8,11 @@ commits unpacked under ``_verify/``).  For each tree, in turns (the trees in
 order, then in reverse), a process started in that tree builds its kernels
 from its own sources and times the host-bound cells of its
 ``chip_smoke.py`` as a user calls them: the 4,096-chain Gaussian, the
-blocked Gaussian, the discrete binomial, LBA and opt-mle, and the
-device-bound 65,536-chain snooker Gaussian (thin 10) as a control.  Each
+blocked Gaussian, the discrete binomial, LBA, opt-mle and opt-rastrigin,
+the 16,384-chain sequential Gaussian (``main-seq``, thin 10), the C = 512
+DE-MCz Gaussian (``main-wide``) and its mcz-mig twin (α = 0.1, 5,000
+iterations), and the device-bound 65,536-chain snooker Gaussian (thin 10)
+as a control.  Each
 cell runs once untimed, then ``REPEATS`` times between card
 synchronisations; prints µs per iteration for each tree, cell and run,
 then the card's name and power limit.  ``--profile CELL`` also runs that
@@ -42,6 +45,7 @@ def worker(label: str, profile: str):
     _build.build_all()
     data, pc = cs._gauss_data(), cs.pc
     bc, oc = pc.BLOCKED_CELL, pc.OPT_MLE_CELL
+    rc, mc = pc.OPT_RASTRIGIN_CELL, pc.MCZ_MIG_CELL
 
     def zoo(name):
         case, cell = cs.ZOO[name]
@@ -57,6 +61,25 @@ def worker(label: str, profile: str):
         "discrete": (*zoo("discrete"), {}),
         "lba": (*zoo("lba"), {}),
         "opt_mle": (cs._opt_model("mle")[:2], oc["n_iter"], {"opt": True}),
+        "opt_rastrigin": (cs._opt_model("rastrigin")[:2], rc["n_iter"],
+                          {"opt": True}),
+        "seq16384": (gaussian.make(data=data, Np=cs.NSEQ, n_groups=cs.G65,
+                                   burnin=cs.BURNIN, alpha=0.1,
+                                   theta_snooker=0.1), cs.N_ITER,
+                     {"thin": 10}),
+        "mcz512": (gaussian.make(data=data, n_groups=mc["n_groups"],
+                                 Np=mc["Np"], alpha=0.0, sample="resample",
+                                 n_initial=mc["n_initial"],
+                                 burnin=mc["burnin"],
+                                 theta_snooker=mc["theta_snooker"],
+                                 sweep="sync"), cs.N_ITER, {}),
+        "mcz_mig": (gaussian.make(data=data, n_groups=mc["n_groups"],
+                                  Np=mc["Np"], alpha=mc["alpha"],
+                                  sample="resample",
+                                  n_initial=mc["n_initial"],
+                                  burnin=mc["burnin"],
+                                  theta_snooker=mc["theta_snooker"],
+                                  sweep="sync"), mc["n_iter"], {}),
         "snooker65k": (gaussian.make(data=data, Np=cs.N65, n_groups=cs.G65,
                                      burnin=cs.BURNIN, theta_snooker=0.1),
                        cs.N_ITER, {"thin": 10}),
