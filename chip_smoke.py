@@ -217,6 +217,29 @@ post variant.  Its launch checks are the counts of
            beside the plain exchange and K2's bound; K1 on one shard of
            four beside its plain version and its bound.
 
+48. main-chunked  ``sample()`` plain, with ``progress=True`` (20 chunks)
+           and with ``checkpoint_every=700`` (chunks that do not divide
+           the run), each bit for bit the others and the loop's kept rows
+           (the only rows a run stores, streamed chunk by chunk to pinned
+           host memory), launches as the plan with the chunks' edges: the
+           Gaussian 4,096, on 2 shards of the card too, the snooker
+           Gaussian 65,536 (thin 10), the mcz-mig cell (K3 and K2, a chunk
+           edge on an open gate), LBA 4,096 and abc_kde 3,072 (300
+           iterations, K4 through the unfused step);
+49. main-ckpt  the Gaussian 4,096 (K1), the mcz-mig cell (K3 and K2, its
+           saved gate open) and the unfused Gaussian interrupted at a
+           checkpoint, loaded and resumed: bit for bit the uninterrupted
+           run; each asynchronous write's ms and whether it overlapped the
+           next chunk;
+50. main-monitor  the Gaussian 4,096 with ``monitor=True`` (the streaming
+           split-R̂ within 1e-2 of the draws'), and with ``stop_rhat=1.01``
+           over 20,000 iterations (an early stop, R̂max ≤ 1.01, the draws
+           through ``[main]``'s quadrature gate);
+51. trace-chunked  the Gaussian 4,096 ``sample()`` under
+           ``torch.profiler``: the copies to the host overlap the K1
+           windows; hidden and exposed copy ms, the idle share, the host's
+           final wait; the pinned allocation's cost cold and cached.
+
 Before them, the host seconds of each cell's ``Chains.rhat()`` and the
 script's total, each beside the card's name and power limit.  The last
 three lines of standard output are the kernels' JSON line, the card's
@@ -281,15 +304,19 @@ def _gates(key, it0, n, cfg):
     return (rng.to_uni(w) <= np.float32(cfg.alpha)).numpy()
 
 
-def plan_counts(model, de, n_iter, key, it0=None, k_max=None):
+def plan_counts(model, de, n_iter, key, it0=None, k_max=None, thin=1,
+                chunked=None):
     """The launches ``sample(model, de, n_iter, key=key)`` must make,
     counted here from the gates alone: a K1 (K3) launch per window of at
     most ``k_max`` (the configured K) iterations, a new window at every
-    iteration whose migration gate is open and at the burn-in switch to
-    the post variant; a K2 launch per open gate (the first one from the
-    run's own GATE_NS word)."""
+    iteration whose migration gate is open, at the burn-in switch to the
+    post variant and, with ``chunked`` (the call's ``progress``,
+    ``checkpoint_every`` and ``stop_rhat`` options), at every chunk's
+    edge (``sampler.chunk_schedule``, held to the JAX loop's on the CPU);
+    a K2 launch per open gate (the first one from the run's own GATE_NS
+    word)."""
     import demcmc_tpu_torch as tdm
-    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch import rng, sampler
     from demcmc_tpu_torch.ops import fused_step, resample_step
     spec = tdm.make_spec(model, de)
     cfg = fused_step.StepConfig.make(model, de, spec)
@@ -302,10 +329,18 @@ def plan_counts(model, de, n_iter, key, it0=None, k_max=None):
     gates = _gates(key, it0, n_iter, cfg)
     switch = de.burnin - (it0 - 1) if (cfg.random_gamma
                                         and de.burnin > 0) else None
+    cuts = set()
+    if chunked:
+        chunks = sampler.chunk_schedule(
+            n_iter, thin, chunked.get("checkpoint_every", 0),
+            bool(chunked.get("progress")),
+            chunked.get("stop_rhat") is not None,
+            switch if switch is not None and switch > 0 else None)
+        cuts = set((np.cumsum(chunks)[:-1] * thin).tolist())
     windows = opened = length = 0
     for i in range(n_iter):
         opens = fire0 if i == 0 else bool(gates[i - 1])
-        if i == 0 or opens or length == k_max or i == switch:
+        if i == 0 or opens or length == k_max or i == switch or i in cuts:
             windows += 1
             length = 0
         opened += int(opens)
@@ -717,6 +752,12 @@ def plain_iteration(cfg, model, spec, st, it, seed=0):
     fused_step.de_step_plain(cfg, model, spec, *st, it, words)
 
 
+def _device_to_host(e):
+    """A device-to-host copy in a ``torch.profiler`` trace (CUPTI names
+    them ``Memcpy DtoH``)."""
+    return e["cat"] == "gpu_memcpy" and "DtoH" in e["name"]
+
+
 def _busy(spans, lo=-float("inf"), hi=float("inf")):
     """Length of the union of the (start, end) spans, clipped to [lo, hi]."""
     busy, end = 0.0, lo
@@ -739,7 +780,8 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
     Returns the device's busy time and idle share over the iteration loop
     (first to last launch of these kernels) and over the whole call (first
     to last device event), kernel launches per iteration and the time of
-    the trajectory's copy to the host; the mean traced time of a call
+    the trajectory's copies to the host, while the kernels ran (hidden)
+    and after the last launch (exposed); the mean traced time of a call
     (of its kernels summed) is logged."""
     import demcmc_tpu_torch as tdm
     from torch.profiler import ProfilerActivity, profile
@@ -794,7 +836,9 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
     loop_busy = _busy(every, lo, hi)
     call = max(b for _, b in every) - min(a for a, _ in every)
     call_busy = _busy(every)
-    copy = _busy(spans(lambda e: e["cat"] == "gpu_memcpy"), hi)
+    d2h = spans(_device_to_host)
+    copy = _busy(d2h, hi)
+    hidden = _busy(d2h, lo, hi)
     mean = {k: sum(b - a for a, b in v) / calls[k]
             for k, v in ours.items() if calls[k]}
     out = {"traced_us_per_iteration": wall / n_iter * 1e6,
@@ -803,14 +847,18 @@ def _trace_sample(tag, model, de, n_iter, names, fname, key=2, thin=1,
            "span_busy_us_per_iteration": loop_busy / n_iter,
            "span_idle_share": 1.0 - loop_busy / (hi - lo),
            "call_idle_share": 1.0 - call_busy / call,
-           "trajectory_copy_ms": copy / 1e3}
+           "trajectory_copy_ms": copy / 1e3,
+           "trajectory_copy_hidden_ms": hidden / 1e3,
+           "trajectory_copies": len(d2h)}
     log(tag, f"sample() traced: {out['traced_us_per_iteration']:.2f} "
         f"us/iteration on the host clock; first to last launch "
         f"{out['span_us_per_iteration']:.2f} us/iteration on the device "
         f"clock, busy {out['span_busy_us_per_iteration']:.3f}, idle share "
         f"{out['span_idle_share']:.4f}; whole call {call / 1e3:.3f} ms, idle "
-        f"share {out['call_idle_share']:.4f}; trajectory copy to the host "
-        f"{out['trajectory_copy_ms']:.3f} ms; "
+        f"share {out['call_idle_share']:.4f}; trajectory copies to the "
+        f"host: {len(d2h)}, {hidden / 1e3:.3f} ms of them while the "
+        f"kernels ran (hidden), {copy / 1e3:.3f} ms after the last launch "
+        f"(exposed); "
         f"{out['launches_per_iteration']:.4f} kernel launches/iteration; "
         "mean traced time a call "
         + ", ".join(f"{k} {v:.3f} us" for k, v in mean.items())
@@ -4171,6 +4219,330 @@ def phase_timing8(dev, launches, errs):
     return rows
 
 
+# ------------------------------------------------- the chunked run (A4, A9)
+
+
+CHUNK_VARIANTS = (("plain", {}), ("progress", {"progress": True}),
+                  ("every700", {"checkpoint_every": 700}))
+CHUNK_KDE_ITER, CHUNK_KDE_BURNIN = 300, 100   # abc_kde's run in main-chunked
+CKPT_UNFUSED_ITER = 300                       # the unfused Gaussian's run
+STOP_ITER, STOP_RHAT = 20_000, 1.01           # main-monitor's early stop
+PINNED_COLD_BYTES = 3 << 29    # 1.5 GiB: above any trajectory the phases
+                               # keep, so its first allocation is cold
+
+
+def _quiet_sample(model, de, n_iter, key, unfused=False, **kw):
+    """``sample()`` on the card with its progress line captured (returned
+    beside the result); the unfused step under ``torch.inference_mode()``
+    as in ``_unfused_sample``."""
+    import io
+    import demcmc_tpu_torch as tdm
+    buf = io.StringIO()
+    ctx = torch.inference_mode() if unfused else contextlib.nullcontext()
+    with ctx, contextlib.redirect_stdout(buf):
+        out = tdm.sample(model, de, n_iter, key=key, **kw)
+    torch.cuda.synchronize()
+    return out, buf.getvalue()
+
+
+def _open_gates(model, de, n_iter, key):
+    """Run indices ``i >= 1`` of a run from the start whose migration gate
+    is open (the gate iteration it0 + i - 1 writes)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.ops import fused_step
+    cfg = fused_step.StepConfig.make(model, de, tdm.make_spec(model, de))
+    g = _gates(key, de.n_initial + 1, n_iter, cfg)
+    return set((np.flatnonzero(g[:n_iter - 1]) + 1).tolist())
+
+
+def _chunked_runs(tag, model, de, n_iter, key, thin=1, mesh=None,
+                  unfused=False, k4=False, variants=CHUNK_VARIANTS):
+    """``sample()`` as it comes and chunked (``variants``: progress, a
+    checkpoint interval the chunks do not divide), each bit for bit the
+    others and the one-launch-per-iteration loop's kept rows
+    (``_loop_run``, unsharded), final state included; the launches as the
+    gates' plan with the chunks' edges says (K1 or K3 once per window and
+    shard, K2 once per open gate), or K4 once per iteration and shard and
+    once for the initial weights; the progress line's last count the
+    run's.  Returns µs per iteration of each variant."""
+    runs, secs = {}, {}
+    D = 1 if mesh is None else len(mesh.devices)
+    for name, opts in variants:
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, text = _quiet_sample(model, de, n_iter, key, unfused, thin=thin,
+                                  return_state=True, mesh=mesh,
+                                  allow_fused=not unfused, **opts)
+        secs[name] = time.perf_counter() - t0
+        got = _counts()
+        if unfused:
+            want = {"kde_logpdf": D * n_iter + 1} if k4 else {}
+        else:
+            want = plan_counts(model, de, n_iter, key, thin=thin,
+                               chunked=opts)
+            want = {k: v * D if k != "migrate" else v
+                    for k, v in want.items()}
+        if got != {k: want.get(k, 0) for k in got}:
+            raise AssertionError(f"{tag} {name}: launches {got}, expected "
+                                 f"{want}")
+        if opts.get("progress") and \
+                f"] {n_iter}/{n_iter} iterations" not in text:
+            raise AssertionError(f"{tag} {name}: no final progress line")
+        runs[name] = out
+    ctx = torch.inference_mode() if unfused else contextlib.nullcontext()
+    with ctx:
+        loop = _loop_run(model, de, n_iter, key, thin)
+    for name in runs:
+        _same_run(tag, runs[name], loop,
+                  between=f"sample({name}) and the loop's kept rows")
+    C_ = de.n_chains
+    m = {f"{name}_us_per_iteration": secs[name] / n_iter * 1e6
+         for name in runs}
+    log(tag, f"{n_iter} iterations (thin {thin}, {C_} chains"
+        + (f", {D} shards" if D > 1 else "") + "): "
+        + ", ".join(f"{k} {v:.2f}" for k, v in m.items())
+        + f" us/iteration; {runs['plain'][0].data.shape[0]} kept rows; "
+        f"every variant equals the loop's kept rows bit for bit")
+    return {f"{tag}_{k}": v for k, v in m.items()}
+
+
+def phase_main_chunked(dev):
+    """``sample()`` plain, with ``progress=True`` (20 chunks) and with
+    ``checkpoint_every=700``, bit for bit one another and the loop's kept
+    rows: the Gaussian 4,096, the snooker Gaussian 65,536 (thin 10), the
+    mcz-mig cell (K3 and K2, a chunk edge on an open gate), LBA 4,096,
+    abc_kde 3,072 (300 iterations, K4 through the unfused step) and the
+    Gaussian 4,096 on a 2-shard mesh of the card."""
+    from demcmc_tpu_torch.models import gaussian
+    data, m = _gauss_data(), {}
+    model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN)
+    m.update(_chunked_runs("main-chunked-4096", model, de, N_ITER, 0))
+    m.update(_chunked_runs("main-chunked-mesh2", model, de, N_ITER, 0,
+                           mesh=_on_card(2, dev)))
+    model, de = gaussian.make(data=data, Np=N65, n_groups=G65, burnin=1000,
+                              alpha=0.1, theta_snooker=0.1)
+    m.update(_chunked_runs("main-chunked-65k", model, de, 3000, 0, thin=10))
+    cell = pc.MCZ_MIG_CELL
+    model, de = gaussian.make(
+        data=data, n_groups=cell["n_groups"], Np=cell["Np"],
+        alpha=cell["alpha"], sample="resample", n_initial=cell["n_initial"],
+        burnin=cell["burnin"], theta_snooker=cell["theta_snooker"],
+        sweep="sync")
+    n = cell["n_iter"]
+    opens = _open_gates(model, de, n, 0)
+    edge = min(opens)            # a chunk edge on an open gate
+    log("main-chunked-mcz-mig", f"checkpoint_every={edge}: the first open "
+        f"gate (run index {edge}) on a chunk's edge")
+    m.update(_chunked_runs("main-chunked-mcz-mig", model, de, n, 0,
+                           variants=CHUNK_VARIANTS + (
+                               ("gate-edge", {"checkpoint_every": edge}),)))
+    case, cell = ZOO["lba"]
+    model, de = case(burnin=cell["burnin"])
+    m.update(_chunked_runs("main-chunked-lba", model, de, cell["n_iter"], 0))
+    model, de = _kde_case(CHUNK_KDE_BURNIN)
+    m.update(_chunked_runs("main-chunked-kde", model, de, CHUNK_KDE_ITER, 0,
+                           unfused=True, k4=True,
+                           variants=(("plain", {}),
+                                     ("progress", {"progress": True}),
+                                     ("every70", {"checkpoint_every": 70}))))
+    return m
+
+
+def _ckpt_interval(model, de, n_iter, key):
+    """A checkpoint interval from a fifth to half of the run whose last
+    snapshot (the JAX loop's rule on ``chunk_schedule``'s chunks, cut at
+    the burn-in switch) falls inside the run on an iteration whose
+    migration gate is open, so the saved gate is 1."""
+    from demcmc_tpu_torch import sampler
+    opens = _open_gates(model, de, n_iter, key)
+    switch = de.burnin - de.n_initial
+    for every in range(n_iter // 5, n_iter // 2):
+        done = last = 0
+        for c in sampler.chunk_schedule(n_iter, 1, every,
+                                        switch=switch if switch > 0
+                                        else None):
+            done += c
+            if done - last >= every:
+                last = done
+        if last < n_iter and last in opens:
+            return every
+    raise AssertionError("no checkpoint interval lands on an open gate")
+
+
+def phase_main_ckpt(dev):
+    """Runs interrupted at a checkpoint, loaded and resumed, each bit for
+    bit the uninterrupted run (draws and final state): the Gaussian 4,096
+    (K1), the mcz-mig cell (K3 and K2) with the saved gate open across
+    the checkpoint, and the unfused Gaussian 4,096 (300 iterations); each
+    asynchronous write's milliseconds and whether it overlapped the next
+    chunk (still under way when the run went on)."""
+    import tempfile
+    from demcmc_tpu_torch.models import gaussian
+    from demcmc_tpu_torch.utils import checkpoint
+    data, m = _gauss_data(), {}
+    cell = pc.MCZ_MIG_CELL
+    cases = []
+    model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN,
+                              discard_burnin=False)
+    cases.append(("main-ckpt-k1", model, de, N_ITER, False,
+                  _ckpt_interval(model, de, N_ITER, 0)))
+    model, de = gaussian.make(
+        data=data, n_groups=cell["n_groups"], Np=cell["Np"],
+        alpha=cell["alpha"], sample="resample", n_initial=cell["n_initial"],
+        burnin=cell["burnin"], theta_snooker=cell["theta_snooker"],
+        sweep="sync", discard_burnin=False)
+    cases.append(("main-ckpt-mcz-mig", model, de, cell["n_iter"], False,
+                  _ckpt_interval(model, de, cell["n_iter"], 0)))
+    model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=100,
+                              discard_burnin=False)
+    cases.append(("main-ckpt-unfused", model, de, CKPT_UNFUSED_ITER, True,
+                  70))
+    save = checkpoint.save_state
+    writes = []      # (future, done when the run went on) of each write
+
+    def recording(path, state, async_=False):
+        fut = save(path, state, async_=async_)
+        writes.append((fut, fut.done()))
+        return fut
+    OUT.mkdir(exist_ok=True)
+    checkpoint.save_state = recording
+    try:
+        with tempfile.TemporaryDirectory(dir=OUT) as tmp:
+            for case in cases:
+                m.update(_resume_case(*case, f"{tmp}/{case[0]}", writes))
+    finally:
+        checkpoint.save_state = save
+    return m
+
+
+def _resume_case(tag, model, de, n, unfused, every, path, writes):
+    """One case of :func:`phase_main_ckpt`: the uninterrupted run, the run
+    with checkpoints, and the run resumed from the last of them."""
+    import demcmc_tpu_torch as tdm
+    full, _ = _quiet_sample(model, de, n, 0, unfused, return_state=True,
+                            allow_fused=not unfused)
+    writes.clear()
+    _quiet_sample(model, de, n, 0, unfused, allow_fused=not unfused,
+                  checkpoint_every=every, checkpoint_path=path)
+    state = tdm.load_state(path)
+    done = state.iteration - de.n_initial - 1
+    if not 0 < done < n:
+        raise AssertionError(f"{tag}: last snapshot at {done}")
+    resumed, _ = _quiet_sample(model, de, n - done, 0, unfused, state=state,
+                               return_state=True, allow_fused=not unfused)
+    (cf, sf), (cr, sr) = full, resumed
+    for x, y, what in ((cr.data, cf.data[done:], "draws"),
+                       (cr.lp, cf.lp[done:], "lp"),
+                       (cr.acceptance, cf.acceptance[done:], "acceptance")):
+        if x.shape != y.shape or x.tobytes() != y.tobytes():
+            raise AssertionError(f"{tag}: resumed {what} differ from the "
+                                 f"uninterrupted run's")
+    if sr.history is not None:            # grown again for the resumed run
+        sr = sr._replace(history=sr.history[:sf.history.shape[0]])
+    _same_run(tag, (cf, sf), (cf, sr),
+              between="the resumed and the uninterrupted run")
+    if tag == "main-ckpt-mcz-mig" and int(state.fire[0]) != 1:
+        raise AssertionError(f"{tag}: the saved gate is not open")
+    ms = [(f.result()["end"] - f.result()["start"]) * 1e3 for f, _ in writes]
+    overlapped = [not done_then for _, done_then in writes]
+    log(tag, f"checkpoint_every={every}: {len(ms)} writes of "
+        + ", ".join(f"{x:.2f} ms" + (" (overlapped the next chunk)" if o
+                                     else " (done before the run went on)")
+                    for x, o in zip(ms, overlapped))
+        + f"; resumed at iteration {state.iteration} (gate "
+        f"{int(state.fire[0])}) for {n - done} iterations: draws and final "
+        f"state equal the uninterrupted run's bit for bit")
+    return {f"{tag}_write_ms": ms, f"{tag}_writes_overlapped": sum(overlapped)}
+
+
+def phase_main_monitor(dev):
+    """The Gaussian 4,096 with ``monitor=True``: the streaming split-R̂
+    within 1e-2 of the draws' split R̂, one monitor row per kept draw; with
+    ``stop_rhat=1.01`` over 20,000 iterations: an early stop at a chunk's
+    end, R̂max at most 1.01, and the draws through ``[main]``'s quadrature
+    gate."""
+    from demcmc_tpu_torch import diagnostics
+    from demcmc_tpu_torch.models import gaussian
+    data = _gauss_data()
+    model, de = gaussian.make(data=data, Np=NP, n_groups=G, burnin=BURNIN)
+    chains, _ = _quiet_sample(model, de, N_ITER, 0, monitor=True)
+    mon = chains.monitor
+    r = mon.rhat()
+    want = np.array([diagnostics.split_rhat(chains[n]) for n in chains.names])
+    log("main-monitor", f"streaming split-R̂ {np.round(r, 6)} against the "
+        f"draws' {np.round(want, 6)}; {mon.n} monitored draws")
+    if mon.n != len(chains) or not np.all(np.abs(r - want) <= 1e-2):
+        raise AssertionError("main-monitor: streaming R̂ off the draws'")
+    t0 = time.perf_counter()
+    chains, text = _quiet_sample(model, de, STOP_ITER, 0,
+                                 stop_rhat=STOP_RHAT, progress=True)
+    dt = time.perf_counter() - t0
+    n = len(chains)
+    r = chains.monitor.max_rhat()
+    log("main-monitor", f"stop_rhat={STOP_RHAT}: stopped after {n} kept "
+        f"draws ({n + BURNIN} of {STOP_ITER} iterations) in {dt:.3f} s, "
+        f"streaming R̂max {r:.5f}; "
+        f"{text.strip().splitlines()[-1] if text.strip() else ''}")
+    if not 50 <= n < STOP_ITER - BURNIN or r > STOP_RHAT:
+        raise AssertionError("main-monitor: no early stop at the target")
+    _posterior_gate("main-monitor", chains, data, n, C)
+    return {"monitor_rhat": r.tolist() if hasattr(r, "tolist") else r,
+            "stop_rhat_kept_draws": n, "stop_rhat_seconds": dt}
+
+
+def phase_trace_chunked(dev):
+    """The Gaussian 4,096 cell's ``sample()`` under ``torch.profiler``:
+    its rows reach pinned host memory in copies that overlap the K1
+    windows (hidden against exposed copy ms), the idle share over the
+    span, and the host's final wait for the last copy; then the pinned
+    allocation of the cell's kept rows and of a size no phase allocated,
+    each twice (the second time from PyTorch's host cache)."""
+    from demcmc_tpu_torch import sampler
+    from demcmc_tpu_torch.models import gaussian
+    model, de = gaussian.make(data=_gauss_data(), Np=NP, n_groups=G,
+                              burnin=BURNIN)
+    waits = []
+    result = sampler._Store.result
+
+    def timed(self):
+        t0 = time.perf_counter()
+        out = result(self)
+        waits.append(time.perf_counter() - t0)
+        return out
+    sampler._Store.result = timed
+    try:
+        out = _trace_sample("trace-chunked", model, de, N_ITER,
+                            {"de_step": K1_NAME, "migrate": k2_kernels(de)},
+                            "trace_chunked.json")
+    finally:
+        sampler._Store.result = result
+    if out["trajectory_copies"] < 2 or out["trajectory_copy_hidden_ms"] <= 0:
+        raise AssertionError("trace-chunked: the trajectory's copies do not "
+                             "overlap the kernels")
+    # the pinned allocation: the cell's kept rows (which the host cache
+    # holds from the runs above), and a size no phase has allocated
+    T = N_ITER - BURNIN
+    alloc = {}
+    for what, n in (("cell", T * C * (D + 1) * 4 + T * C),
+                    ("new", PINNED_COLD_BYTES)):
+        for turn in ("first", "again"):
+            t0 = time.perf_counter()
+            h = torch.empty(n, dtype=torch.uint8, pin_memory=True)
+            alloc[f"{what}_{turn}"] = (time.perf_counter() - t0) * 1e3
+            del h
+    log("trace-chunked", f"host's final wait for the last copy "
+        f"{waits[-1] * 1e3:.3f} ms; pinned allocation of the cell's "
+        f"{(T * C * (D + 1) * 4 + T * C) / 1e6:.1f} MB "
+        f"{alloc['cell_first']:.3f} ms, again {alloc['cell_again']:.3f} "
+        f"ms; of {PINNED_COLD_BYTES / 1e6:.1f} MB, a size not cached, "
+        f"{alloc['new_first']:.3f} ms, again from the host cache "
+        f"{alloc['new_again']:.3f} ms")
+    out.update({"final_wait_ms": waits[-1] * 1e3,
+                **{f"pinned_alloc_{k}_ms": v for k, v in alloc.items()}})
+    return {"trace_chunked_" + k: v for k, v in out.items()}
+
+
 def gpu_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4257,6 +4629,12 @@ def main():
     mesh_launches, m = run(phase_main_mesh, dev)
     metrics.update(m)
     rows += run(phase_timing8, dev, mesh_launches, errs)
+    for phase in (phase_main_chunked, phase_main_ckpt, phase_main_monitor,
+                  phase_trace_chunked):
+        metrics.update(run(phase, dev))
+    new = ("main_chunked", "main_ckpt", "main_monitor", "trace_chunked")
+    log("end", f"the chunked run's phases took "
+        f"{sum(took[k] for k in new):.1f} s")
     _rhat_results(metrics)
     card = gpu_line()
     log("end", "host seconds of Chains.rhat() by cell: "

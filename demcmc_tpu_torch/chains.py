@@ -156,3 +156,21 @@ class Chains:
         extras = np.stack([self.acceptance.astype(self.data.dtype),
                            self.lp.astype(self.data.dtype)], axis=1)
         return np.concatenate([self.data, extras], axis=1)
+
+    def to_inference_data(self):
+        """ArviZ export (``demcmc_tpu/chains.py:157-167``): ``arviz`` is
+        optional, and its absence raises ``ImportError``."""
+        try:
+            import arviz as az
+        except ImportError as e:
+            raise ImportError("arviz is not installed") from e
+        return az.from_dict(**self._inference_dict())
+
+    def _inference_dict(self) -> dict:
+        """What :meth:`to_inference_data` hands ``arviz.from_dict``: each
+        parameter's draws ``[C, Ns]``, and the acceptance and lp."""
+        posterior = {n: self.data[:, i, :].T
+                     for i, n in enumerate(self.names)}
+        return {"posterior": posterior,
+                "sample_stats": {"acceptance": self.acceptance.T,
+                                 "lp": self.lp.T}}

@@ -188,9 +188,15 @@ def launch(lib: ctypes.CDLL, fn: str, device, *args):
     another card than the current one (a shard of a chain mesh) needs its
     card made current first."""
     with torch.cuda.device(device):
-        rc = getattr(lib, fn)(*args,
-                              torch.cuda.current_stream(device).cuda_stream)
+        rc = getattr(lib, fn)(*args, stream(device).cuda_stream)
     check(lib, rc, fn)
+
+
+def stream(device) -> "torch.cuda.Stream":
+    """The current stream of ``device``, the one :func:`launch` launches
+    on: what a trajectory's copies to the host and a checkpoint's snapshot
+    are ordered after."""
+    return torch.cuda.current_stream(device)
 
 
 def check(lib: ctypes.CDLL, rc: int, what: str):

@@ -20,7 +20,7 @@ import torch
 
 from .config import DE, MCMCThreads
 from .model import DEModel
-from .sampler import (_grow_history, _not_ported, _on_mesh, _phase2,
+from .sampler import (_grow_history, _on_mesh, _phase2,
                       build_step, init_state, make_spec, run_scan)
 
 
@@ -56,16 +56,14 @@ def optimize(model: DEModel, de: DE, *args, key: int = 0,
     it); no trajectory is stored.  ``key`` is the integer Philox seed;
     ``device`` is ``cuda`` unless the caller asks for the CPU; ``mesh``
     (a :func:`~demcmc_tpu_torch.parallel.chain_mesh`) splits the groups
-    over its devices, as :func:`~demcmc_tpu_torch.sample` does.
-    ``progress=True`` belongs to a later slice of the port (ROADMAP.md A9)
-    and raises ``NotImplementedError``.  Returns the final
+    over its devices, as :func:`~demcmc_tpu_torch.sample` does;
+    ``progress=True`` prints the JAX package's progress line (the run in
+    20 chunks; the same population).  Returns the final
     :class:`Population` (:func:`get_optimal` picks its best particle)."""
     args = [a for a in args if not isinstance(a, MCMCThreads)]
     if len(args) != 1:
         raise TypeError("expected optimize(model, de, n_iter)")
     n_iter = int(args[0])
-    if progress:
-        _not_ported("progress=True", "A9, API surface", "optimize")
     _check_opt_config(de)
     devices, device = _on_mesh(mesh, device)
     spec = make_spec(model, de)
@@ -78,7 +76,7 @@ def optimize(model: DEModel, de: DE, *args, key: int = 0,
         state = step.split(state)
     state, _ = run_scan(step, state, n_iter,
                         phase2=_phase2(step, de, state, n_iter),
-                        collect=False)
+                        collect=False, progress=progress)
     if devices is not None:
         state = step.gather(state)
     return Population(theta=state.theta.cpu().numpy(),

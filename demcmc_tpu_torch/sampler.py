@@ -29,7 +29,10 @@ above per shard, and runs migration on the whole population; a sharded
 run is the unsharded run bit for bit.
 
 The host loop reads the device once, the first gate before the loop, so
-it runs ahead of the card; the trajectory comes back once, at the end.
+it runs ahead of the card.  :func:`run_scan` runs the JAX package's chunk
+loop (progress, checkpoints, the streaming monitor, an early stop at a
+chunk's end); only the rows a run keeps are stored, and they stream to
+pinned host memory as the run goes.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``,
 which runs the plain PyTorch versions of the kernels (the tests do); with
@@ -39,6 +42,9 @@ no GPU and no ``device=`` they raise.
 from __future__ import annotations
 
 import functools
+import itertools
+import math
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -56,7 +62,8 @@ from .ops import mutation as mutation_ops
 from .ops import proposals as proposal_ops
 from .ops import resample_step as resample_ops
 from .parallel.mesh import mesh_devices
-from .utils import dists
+from .utils import checkpoint, dists
+from .utils.monitor import ConvergenceMonitor
 
 
 class SamplerState(NamedTuple):
@@ -281,32 +288,39 @@ class Window(NamedTuple):
 
 
 def plan_windows(it0: int, n_iter: int, fire0: bool, gates, k_max: int,
-                 thin: int = 1, switch: int = None, store: bool = True):
+                 thin: int = 1, switch: int = None, store: bool = True,
+                 cuts=(), skip: int = 0):
     """Cut the iterations ``it0 .. it0+n_iter-1`` of a run into windows of
     at most ``k_max``: a window ends before an iteration whose migration
     gate is open (``fire0`` for the first iteration, ``gates[i]`` — the
     gate iteration ``it0 + i`` writes — for the next, None: no migration),
-    at run index ``switch`` (the first iteration of phase 2, or None) and
-    at the end.  Run index i is stored where ``(i + 1) % thin == 0``, so a
-    window that ends mid-thin carries its offset into the next; with
-    ``store=False`` no window stores a row (emission rule ``(K, 1)``: a
-    run without a trajectory).  Returns a list of :class:`Window`."""
+    at run index ``switch`` (the first iteration of phase 2, or None), at
+    each run index of ``cuts`` (a chunk's edge, :func:`run_scan`) and at
+    the end.  Run index i is stored where ``(i + 1) % thin == 0``, as
+    trajectory row ``(i + 1) // thin - 1 - skip``: the first ``skip`` rows
+    are not stored (a window that reaches them starts its emission rule
+    at the first kept one), and a window that ends mid-thin carries its
+    offset into the next; with ``store=False`` no window stores a row
+    (emission rule ``(K, 1)``: a run without a trajectory).  Returns a
+    list of :class:`Window`."""
     opens = np.zeros(n_iter, dtype=bool)
     if gates is not None and n_iter:
         opens[0] = bool(fire0)
         opens[1:] = np.asarray(gates, dtype=bool)[:n_iter - 1]
-    cuts = {0, n_iter, *np.flatnonzero(opens).tolist()}
+    cuts = {0, n_iter, *np.flatnonzero(opens).tolist(),
+            *(int(c) for c in cuts if 0 < c < n_iter)}
     if switch is not None and 0 < switch < n_iter:
         cuts.add(switch)
     cuts = sorted(cuts)
+    kept = (skip + 1) * thin - 1          # run index of the first kept row
     out = []
     for a, b in zip(cuts, cuts[1:]):
         for s in range(a, b, k_max):
             K = min(k_max, b - s)
-            first = (thin - 1 - s) % thin if store else K
+            first = max((thin - 1 - s) % thin, kept - s) if store else K
             out.append(Window(
                 it0 + s, K, bool(opens[s]), (first, thin if store else 1),
-                (s + first + 1) // thin - 1 if store else 0,
+                (s + first + 1) // thin - 1 - skip if store else 0,
                 fused_ops.n_emitted(K, (first, thin)) if store else 0,
                 switch is not None and s >= switch))
     return out
@@ -316,8 +330,9 @@ class Step:
     """The kernels' step for a (model, de, spec) configuration: one
     iteration (``__call__``: K2 where the configuration migrates, then K1,
     or K3 for DE-MCz), or a planned
-    run of K-iteration windows (:meth:`advance`, which :func:`run_scan`
-    takes), with the JAX step's superstep names (``superstep_k``,
+    run of K-iteration windows (:meth:`plan` and :meth:`window`, which
+    :func:`run_scan` takes; :meth:`advance`), with the JAX step's superstep
+    names (``superstep_k``,
     :meth:`get_superstep`, :meth:`get_thin_step`, :meth:`get_post_burnin`,
     ``demcmc_tpu/sampler.py:464-595``).
 
@@ -432,7 +447,7 @@ class Step:
         """Launch window ``w`` on the state's tensors in place: K2 first
         where ``w.migrate``, then one K1 (or K3) launch of ``w.K``
         iterations writing its rows of ``traj = (θ [T, C, d], w [T, C],
-        acc [T, C])``, unchecked (:meth:`check` checks a run once), through
+        acc [T, C])`` (or of a run's :class:`_Rows`), unchecked (:meth:`check` checks a run once), through
         the post-burn-in variant where ``w.post``.  The state's
         ``iteration`` is not advanced; a shard's step does not migrate."""
         cfg, key = self.cfg, state.key
@@ -440,7 +455,7 @@ class Step:
         C = self.n_all
         out = None
         if traj is not None and w.n_emit:
-            out = tuple(x[w.t0:w.t0 + w.n_emit] for x in traj)
+            out = _slot(traj, w.t0, w.n_emit)
         bits = idx = None
         if self.device.type == "cpu":     # one Philox call per window
             bits = rng.words_block(key, w.it0, w.K, cfg.rows.n_words, C,
@@ -469,12 +484,14 @@ class Step:
                               emit=w.emit, phase=phase, chain0=self.chain0)
 
     def plan(self, state: SamplerState, n_iter: int, thin: int = 1,
-             fire=None, switch: int = None, store: bool = True):
+             fire=None, switch: int = None, store: bool = True, cuts=(),
+             skip: int = 0):
         """The windows of ``n_iter`` iterations from ``state``
         (:func:`plan_windows`; ``store=False``: windows that store no
-        row): the gates from :func:`rng.gates`, the first one ``fire``
-        or, when None, read from ``state.fire`` (the run's one host
-        sync)."""
+        row; ``cuts``: more run indices where a window ends; ``skip``:
+        trajectory rows not stored): the gates from :func:`rng.gates`, the
+        first one ``fire`` or, when None, read from ``state.fire`` (the
+        run's one host sync)."""
         cfg = self.cfg
         gates, fire0 = None, False
         if cfg.rows.mig >= 0:
@@ -482,7 +499,8 @@ class Step:
             gates = rng.gates(state.key, state.iteration, n_iter,
                               cfg.rows.fire, cfg.alpha)
         return plan_windows(state.iteration, n_iter, fire0, gates,
-                            self.superstep_k, thin, switch, store)
+                            self.superstep_k, thin, switch, store, cuts,
+                            skip)
 
     def advance(self, state: SamplerState, n_iter: int, thin: int = 1,
                 traj=None, fire=None, switch: int = None) -> SamplerState:
@@ -982,11 +1000,12 @@ class ShardedStep:
         return self.steps[0].superstep_k
 
     def plan(self, state: ShardedState, n_iter: int, thin: int = 1,
-             fire=None, switch: int = None, store: bool = True):
+             fire=None, switch: int = None, store: bool = True, cuts=(),
+             skip: int = 0):
         """The run's windows (:meth:`Step.plan`): the gates are the
         population's, the same for every shard."""
         return self.steps[0].plan(state.shards[0], n_iter, thin, fire,
-                                  switch, store)
+                                  switch, store, cuts, skip)
 
     def advance(self, state: ShardedState, n_iter: int, thin: int = 1,
                 traj=None, fire=None, switch: int = None) -> ShardedState:
@@ -1056,12 +1075,12 @@ def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
 
 def _trajectory_run(step, state, n_iter: int, thin: int, body,
                     collect: bool = True):
-    """Allocate the trajectory (in the state's dtype; for a
+    """Allocate the whole trajectory (in the state's dtype; for a
     :class:`ShardedState` a list of one per shard, on its device), check
     once, run ``body(state, traj)`` and bring the stored rows to the host
     (the shards' chains side by side); with ``collect=False`` no trajectory
     at all (``traj`` None, no buffer, no copy; returns ``(state,
-    None)``)."""
+    None)``).  :func:`run_loop`'s storage: the reference's, kept simple."""
     if thin < 1 or n_iter % thin:
         raise ValueError(f"n_iter ({n_iter}) must be a positive multiple "
                          f"of thin ({thin})")
@@ -1079,8 +1098,6 @@ def _trajectory_run(step, state, n_iter: int, thin: int, body,
     traj = trajs if sharded else trajs[0]
     step.check(state, _row(traj, 0))
     state = body(state, traj)
-    # one trajectory is returned as it comes (a copy of the whole of it
-    # costs a fused cell tens of µs per iteration)
     theta, lp, acc = (
         np.concatenate(x, 1) if sharded else x[0]
         for x in ([t[i].cpu().numpy() for t in trajs] for i in range(3)))
@@ -1095,36 +1112,320 @@ def _row(traj, t: int):
     return tuple(x[t] for x in traj)
 
 
-def run_scan(step, state: SamplerState, n_iter: int, thin: int = 1,
-             phase2: int = None, collect: bool = True):
+def _slot(traj, t0: int, n: int):
+    """Rows ``t0 .. t0+n-1`` of a trajectory, a tuple of tensors or a
+    :class:`_Rows`, as a window's slot."""
+    if isinstance(traj, _Rows):
+        return traj.slot(t0, n)
+    return tuple(x[t0:t0 + n] for x in traj)
+
+
+class _Rows:
+    """The kept trajectory rows of one device's chains as a run stores
+    them, in order: ``T`` rows of θ ``[C, d]``, w ``[C]`` (the state's
+    dtype) and the accept flags ``[C]``, on the host at the end.
+
+    On the CPU a slot is a slice of the host tensors.  On a CUDA device
+    the rows go to one of ``N_BUF`` device buffers in turn, each of
+    ``cap`` rows (about ``BUF_BYTES``, and at least the most one window
+    stores, ``min_rows``); a buffer is closed where the next slot would
+    not fit, so a window never straddles two.  A closed buffer's rows are
+    copied, ``non_blocking``, on a stream of their own into pinned host
+    memory, after an event recorded on the compute stream; the compute
+    stream waits for that copy's event before it writes the buffer again.
+    Neither waits on the host: only :meth:`wait` does (the end of a run,
+    the monitor's rows).  A failed pinned allocation, stream or copy
+    raises."""
+
+    N_BUF = 3
+    BUF_BYTES = 4 << 20
+
+    def __init__(self, T: int, C: int, d: int, dtype, device,
+                 min_rows: int = 1):
+        self.T, self.device = T, torch.device(device)
+        self.cuda = self.device.type == "cuda"
+        shapes = ((T, C, d), (T, C), (T, C))
+        dts = (dtype, dtype, torch.bool)
+        self.host = tuple(torch.empty(sh, dtype=dt, pin_memory=self.cuda)
+                          for sh, dt in zip(shapes, dts))
+        if self.cuda and T and not all(h.is_pinned() for h in self.host):
+            raise RuntimeError("the trajectory's host rows are not pinned")
+        self.next = 0                 # rows handed out so far
+        self.cap = 0
+        if not self.cuda or T == 0:
+            return
+        row = C * (d + 1) * torch.empty((), dtype=dtype).element_size() + C
+        self.cap = min(T, max(min_rows, -(-self.BUF_BYTES // row)))
+        self.bufs = [tuple(torch.empty((self.cap,) + sh[1:], dtype=dt,
+                                       device=self.device)
+                           for sh, dt in zip(shapes, dts))
+                     for _ in range(self.N_BUF)]
+        self.freed = [None] * self.N_BUF   # each buffer's last copy done
+        self.stream = torch.cuda.Stream(self.device)
+        self.k, self.cur, self.base, self.done = -1, None, 0, None
+
+    def slot(self, t0: int, n: int):
+        """The slot of rows ``t0 .. t0+n-1`` (``[n, C, d]``, ``[n, C]``,
+        ``[n, C]``), the next rows of the run."""
+        if t0 != self.next or t0 + n > self.T:
+            raise RuntimeError(f"rows {t0}..{t0 + n - 1} out of order "
+                               f"(next {self.next} of {self.T})")
+        if not self.cuda:
+            self.next = t0 + n
+            return tuple(x[t0:t0 + n] for x in self.host)
+        if self.cur is None or t0 + n - self.base > self.cap:
+            self.flush()              # rows base .. t0-1
+            self.k = (self.k + 1) % self.N_BUF
+            if self.freed[self.k] is not None:
+                _build.stream(self.device).wait_event(
+                    self.freed[self.k])
+            self.cur, self.base = self.bufs[self.k], t0
+        self.next = t0 + n
+        off = t0 - self.base
+        return tuple(x[off:off + n] for x in self.cur)
+
+    def probe(self):
+        """A one-row slot that :meth:`Step.check` can check (no row is
+        handed out), or None without rows."""
+        if self.T == 0:
+            return None
+        return tuple(x[0] for x in (self.bufs[0] if self.cuda
+                                    else self.host))
+
+    def flush(self):
+        """Copy the open buffer's rows to the host (without waiting)."""
+        if not self.cuda or self.cur is None:
+            return
+        n = self.next - self.base
+        if n:
+            ready = torch.cuda.Event()
+            ready.record(_build.stream(self.device))
+            with torch.cuda.stream(self.stream):
+                self.stream.wait_event(ready)
+                for h, b in zip(self.host, self.cur):
+                    h[self.base:self.next].copy_(b[:n], non_blocking=True)
+                ev = torch.cuda.Event()
+                ev.record(self.stream)
+            self.freed[self.k] = self.done = ev
+        self.cur = None
+
+    def wait(self):
+        """Every row handed out on the host: flush, then block until the
+        last copy is done."""
+        self.flush()
+        if self.cuda and self.done is not None:
+            self.done.synchronize()
+
+    def rows(self, i: int, lo: int, hi: int) -> np.ndarray:
+        """Rows ``lo .. hi-1`` of field ``i`` (0 θ, 1 w, 2 accept) on the
+        host; :meth:`wait` first."""
+        return self.host[i][lo:hi].numpy()
+
+
+class _Store:
+    """A run's kept rows over its shards (one :class:`_Rows` each, the
+    whole population for an unsharded run); ``traj`` is what the steps
+    take: the one :class:`_Rows`, or the list of them."""
+
+    def __init__(self, state, T: int, min_rows: int = 1):
+        self.sharded = isinstance(state, ShardedState)
+        self.parts = [_Rows(T, *s.theta.shape, s.theta.dtype,
+                            s.theta.device, min_rows)
+                      for s in (state.shards if self.sharded else (state,))]
+        self.traj = self.parts if self.sharded else self.parts[0]
+
+    @property
+    def next(self) -> int:
+        return self.parts[0].next
+
+    def row(self, t: int):
+        """Trajectory row ``t`` as a one-iteration slot (or a list)."""
+        out = [tuple(x[0] for x in p.slot(t, 1)) for p in self.parts]
+        return out if self.sharded else out[0]
+
+    def probe(self):
+        out = [p.probe() for p in self.parts]
+        return out if self.sharded else out[0]
+
+    def wait(self):
+        for p in self.parts:
+            p.flush()
+        for p in self.parts:
+            p.wait()
+
+    def rows(self, i: int, lo: int, hi: int) -> np.ndarray:
+        """Rows ``lo .. hi-1`` of field ``i``, the shards' chains side by
+        side; :meth:`wait` first."""
+        x = [p.rows(i, lo, hi) for p in self.parts]
+        return np.concatenate(x, 1) if self.sharded else x[0]
+
+    def result(self) -> StepOutput:
+        """The rows handed out, on the host."""
+        self.wait()
+        theta, lp, acc = (self.rows(i, 0, self.next) for i in range(3))
+        return StepOutput(theta=theta, accept=acc, lp=lp)
+
+
+PROGRESS_CHUNKS = 20      # chunks of a run with progress or stop_rhat
+
+
+def chunk_schedule(n_iter: int, thin: int = 1, checkpoint_every: int = 0,
+                   progress: bool = False, stop: bool = False,
+                   switch: int = None) -> list:
+    """The chunks of a run, in outer steps (``n_iter / thin``), as the JAX
+    ``run_scan`` cuts them (``demcmc_tpu/sampler.py:1254-1261,
+    1372-1391``): ``checkpoint_every`` rounded up to outer steps, at most
+    ``ceil(n_outer / PROGRESS_CHUNKS)`` with ``progress`` or ``stop``
+    (``stop_rhat``), and a cut at the phase-2 ``switch`` (a run index)
+    where it falls on an outer step inside the run."""
+    if thin < 1 or n_iter % thin:
+        raise ValueError(f"n_iter ({n_iter}) must be a positive multiple "
+                         f"of thin ({thin})")
+    n = n_iter // thin
+    if checkpoint_every and checkpoint_every > 0 and thin > 1:
+        checkpoint_every = max(1, math.ceil(checkpoint_every / thin))
+    chunk = n
+    if checkpoint_every and checkpoint_every > 0:
+        chunk = min(chunk, checkpoint_every)
+    if progress or stop:
+        chunk = min(chunk, max(1, math.ceil(n / PROGRESS_CHUNKS)))
+    cut = None
+    if switch is not None and 0 < switch < n_iter and switch % thin == 0:
+        cut = switch // thin
+    out, done = [], 0
+    while done < n:
+        m = min(chunk, n - done)
+        if cut is not None and done < cut:
+            m = min(m, cut - done)
+        out.append(m)
+        done += m
+    return out
+
+
+def _at(state, iteration: int):
+    if isinstance(state, ShardedState):
+        return state.at(iteration)
+    return state._replace(iteration=iteration)
+
+
+def run_scan(step, state, n_iter: int, thin: int = 1, phase2: int = None,
+             collect: bool = True, *, skip: int = 0, progress: bool = False,
+             checkpoint_every: int = 0, checkpoint_path=None, monitor=None,
+             monitor_skip: int = 0, stop_check=None):
     """Run ``n_iter`` iterations, storing every ``thin``-th (iterations
-    thin, 2·thin, ... of the run); returns ``(state, StepOutput)`` with the
-    trajectory on the host, or ``(state, None)`` with ``collect=False``
-    (the JAX ``run_scan(..., collect=False)`` of optimization: no
-    trajectory is stored or copied).  The kernels' :class:`Step` runs as
-    planned K-iteration windows (:meth:`Step.advance`: one read of
-    ``state.fire``, then launches only); ``phase2`` is the run index from
-    which they take the post-burn-in variant (the switch of the JAX
-    ``run_scan``'s ``phase2 = (post_step, switch)``; :func:`sample` wires
-    it).  The unfused step runs one iteration at a time
-    (:func:`run_loop`), with no sync.  A :class:`ShardedStep` runs a
-    :class:`ShardedState` the same way."""
-    if not _kernels(step):
-        if phase2 is not None:
-            raise ValueError("phase2 needs the kernels' Step")
-        return run_loop(step, state, n_iter, thin, collect)
-    return _trajectory_run(
-        step, state, n_iter, thin,
-        lambda s, traj: step.advance(s, n_iter, thin, traj, switch=phase2),
-        collect)
+    thin, 2·thin, ... of the run) but the first ``skip`` of those
+    (``sample()`` skips the burn-in's with ``discard_burnin``); returns
+    ``(state, StepOutput)`` with the stored rows on the host, or ``(state,
+    None)`` with ``collect=False`` (optimization: no trajectory).
+
+    The run is the JAX ``run_scan``'s chunk loop (``demcmc_tpu/
+    sampler.py:1226-1448``): chunks of outer steps (:func:`chunk_schedule`),
+    and at each chunk's end the progress line, a periodic asynchronous
+    checkpoint to ``checkpoint_path`` (``checkpoint_every`` iterations,
+    :func:`~demcmc_tpu_torch.utils.checkpoint.save_state`, joined before
+    the next and at the end), the streaming ``monitor`` (fed the stored
+    rows from run row ``monitor_skip`` on) and ``stop_check()``, which ends
+    the run there (only the rows taken are returned).  The kernels'
+    :class:`Step` runs one plan of K-iteration windows for the whole run
+    (one read of ``state.fire``, the gates computed once), cut at every
+    chunk's edge as well; ``phase2`` is the run index from which they take
+    the post-burn-in variant (:func:`sample` wires it).  The unfused step
+    runs one iteration at a time.  A :class:`ShardedStep` runs a
+    :class:`ShardedState` the same way.
+
+    The stored rows stream to the host as the run goes (:class:`_Rows`:
+    device buffers copied on a side stream into pinned memory); the host
+    waits for them only for the monitor and at the end."""
+    kernels = _kernels(step)
+    if phase2 is not None and not kernels:
+        raise ValueError("phase2 needs the kernels' Step")
+    chunks = chunk_schedule(n_iter, thin, checkpoint_every, progress,
+                            stop_check is not None, phase2)
+    n_out = n_iter // thin
+    skip = min(max(int(skip), 0), n_out) if collect else 0
+    edges = [0, *itertools.accumulate(c * thin for c in chunks)]
+    it0 = state.iteration
+    plan = None
+    if kernels:
+        plan = step.plan(state, n_iter, thin, switch=phase2, store=collect,
+                         cuts=edges[1:-1], skip=skip)
+    store = traj = None
+    if collect:
+        store = _Store(state, n_out - skip,
+                       max([w.n_emit for w in plan or ()] + [1]))
+        traj = store.traj
+    step.check(state, store.probe() if store is not None else None)
+    ckpt_every = checkpoint_every if checkpoint_every and \
+        checkpoint_every > 0 else 0
+    if ckpt_every and thin > 1:
+        ckpt_every = max(1, math.ceil(ckpt_every / thin))
+    ckpt_future, last_ckpt, fed, wi, done = None, 0, 0, 0, 0
+    t0 = done0 = None
+    for n, a, b in zip(chunks, edges[:-1], edges[1:]):
+        if kernels:
+            while wi < len(plan) and plan[wi].it0 - it0 < b:
+                step.window(state, plan[wi], traj)
+                wi += 1
+            state = _at(state, it0 + b)
+        else:
+            for i in range(a, b):
+                t = (i + 1) // thin - 1 - skip
+                out = (store.row(t) if store is not None
+                       and (i + 1) % thin == 0 and t >= 0 else None)
+                state = step(state, out, check=False)
+        done += n
+        if monitor is not None and store is not None:
+            lo, hi = max(fed, monitor_skip - skip), store.next
+            if lo < hi:
+                store.wait()
+                monitor.update(store.rows(0, lo, hi))
+            fed = max(fed, hi)
+        if progress:
+            # rate and ETA as the reference's ProgressMeter, clocked from
+            # the end of the first chunk
+            if t0 is None:
+                t0, done0, tail = time.perf_counter(), done, ""
+            else:
+                rate = ((done - done0) * thin
+                        / max(time.perf_counter() - t0, 1e-9))
+                eta = (n_out - done) * thin / max(rate, 1e-9)
+                tail = f"  ({rate:,.0f} it/s, ETA {eta:,.1f}s)"
+            if monitor is not None:
+                r = monitor.max_rhat()
+                if r is not None:
+                    tail += f"  R̂max {r:.3f}"
+            print(f"\r[demcmc_tpu_torch] {done * thin}/{n_iter} iterations"
+                  f"{tail}", end="", flush=True)
+        if (ckpt_every and checkpoint_path
+                and done - last_ckpt >= ckpt_every):
+            last_ckpt = done
+            if ckpt_future is not None:
+                ckpt_future.result()     # one write at a time; errors here
+            snap = (step.gather(state) if isinstance(state, ShardedState)
+                    else state)
+            ckpt_future = checkpoint.save_state(checkpoint_path, snap,
+                                                async_=True)
+        if stop_check is not None and done < n_out and stop_check():
+            if progress:
+                print(f"\n[demcmc_tpu_torch] convergence target reached at "
+                      f"{done * thin}/{n_iter} iterations", flush=True)
+            break
+    if progress:
+        print()
+    if ckpt_future is not None:
+        ckpt_future.result()             # join the last write
+    if store is None:
+        return state, None
+    return state, store.result()
 
 
 def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1,
              collect: bool = True):
     """:func:`run_scan` one iteration at a time through ``step(state,
     out)`` (for :class:`Step`: K2, gated on the device flag, and K1 at
-    every iteration, or K3): the unfused step's loop, and the kernels'
-    one-launch-per-iteration reference."""
+    every iteration, or K3), storing every stored row, burn-in included,
+    in one trajectory on the device copied at the end: the reference the
+    chunked runs are held against."""
     def body(s, traj):
         for i in range(n_iter):
             out = None
@@ -1133,12 +1434,6 @@ def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1,
             s = step(s, out, check=False)
         return s
     return _trajectory_run(step, state, n_iter, thin, body, collect)
-
-
-def _not_ported(name: str, where: str, fn: str = "sample"):
-    raise NotImplementedError(
-        f"{fn}(..., {name}) is not ported to demcmc_tpu_torch yet "
-        f"(ROADMAP.md {where}); use demcmc_tpu for it")
 
 
 def sample(model: DEModel, de: DE, *args, key: int = 0,
@@ -1153,30 +1448,31 @@ def sample(model: DEModel, de: DE, *args, key: int = 0,
 
     ``key`` is the integer Philox seed, ``thin`` keeps every thin-th draw
     (``n_iter`` and, with ``discard_burnin``, ``burnin`` divisible by it),
-    ``state`` resumes from a returned state (it is not modified),
-    ``return_state`` also returns the final state, ``allow_fused=False``
-    takes the unfused step (:func:`build_step`).  ``mesh`` (a
-    :func:`~demcmc_tpu_torch.parallel.chain_mesh`) splits the groups over
-    its devices (:class:`ShardedStep`; the state starts on, and a returned
-    state is gathered to, its first device; bitwise the unsharded run);
-    ``device=`` with a mesh must name the mesh's devices.
-    ``progress=True``, ``checkpoint_every``, ``monitor`` and ``stop_rhat``
-    belong to later slices of the port (ROADMAP.md A9) and raise
-    ``NotImplementedError``.
-    Returns a :class:`Chains`."""
+    ``state`` resumes from a returned or loaded state (it is not
+    modified), ``return_state`` also returns the final state,
+    ``allow_fused=False`` takes the unfused step (:func:`build_step`).
+    ``mesh`` (a :func:`~demcmc_tpu_torch.parallel.chain_mesh`) splits the
+    groups over its devices (:class:`ShardedStep`; the state starts on,
+    and a returned state is gathered to, its first device; bitwise the
+    unsharded run); ``device=`` with a mesh must name the mesh's devices.
+
+    As in the JAX package (``demcmc_tpu/sampler.py:1451-1575``):
+    ``progress`` prints a progress line (rate, ETA and, when monitoring,
+    R̂max); ``checkpoint_every``/``checkpoint_path`` save the state every
+    that many iterations, asynchronously and atomically
+    (:func:`~demcmc_tpu_torch.load_state` and ``state=`` resume it, bit
+    for bit); ``monitor`` streams a split-R̂ and ESS over the post-burn-in
+    draws as they reach the host, attached to the chains as ``.monitor``
+    (:class:`~demcmc_tpu_torch.utils.monitor.ConvergenceMonitor`);
+    ``stop_rhat`` (implies ``monitor``) ends the run at the first chunk
+    boundary where the streaming R̂max is at or below it, never before 50
+    stored post-burn-in draws, and returns only the draws taken.  None of
+    them changes the draws.  Returns a :class:`Chains`."""
     args = [a for a in args if not isinstance(a, MCMCThreads)]
     if len(args) != 1:
         raise TypeError("expected sample(model, de, n_iter) or "
                         "sample(model, de, MCMCThreads(), n_iter)")
     n_iter = int(args[0])
-    if progress:
-        _not_ported("progress=True", "A9, API surface")
-    if checkpoint_every or checkpoint_path:
-        _not_ported("checkpoint_every=", "A9, checkpointing")
-    if monitor:
-        _not_ported("monitor=True", "A9, streaming monitor")
-    if stop_rhat is not None:
-        _not_ported("stop_rhat=", "A9, streaming monitor")
     if thin > 1 and de.discard_burnin and de.burnin % thin:
         raise ValueError(f"burnin ({de.burnin}) must be divisible by "
                          f"thin ({thin})")
@@ -1195,11 +1491,31 @@ def sample(model: DEModel, de: DE, *args, key: int = 0,
                       allow_fused=allow_fused, mesh=mesh)
     if devices is not None:
         state = step.split(state)
+    mon = None
+    if monitor or stop_rhat is not None:
+        mon = ConvergenceMonitor()
+    stop_check = None
+    if stop_rhat is not None:
+        def stop_check():
+            if mon.n < 50:           # too few draws for a stable R̂
+                return False
+            r = mon.max_rhat()
+            return r is not None and np.isfinite(r) and r <= stop_rhat
+    skip = de.burnin // thin if de.discard_burnin else 0
     state, ys = run_scan(step, state, n_iter, thin=thin,
-                         phase2=_phase2(step, de, state, n_iter))
+                         phase2=_phase2(step, de, state, n_iter), skip=skip,
+                         progress=progress,
+                         checkpoint_every=checkpoint_every,
+                         checkpoint_path=checkpoint_path, monitor=mon,
+                         monitor_skip=de.burnin // thin,
+                         stop_check=stop_check)
+    # an early stop returns the draws taken
+    n_iter = (ys.theta.shape[0] + min(skip, n_iter // thin)) * thin
     if devices is not None:
         state = step.gather(state)
     chains = bundle_samples(model, de, spec, ys, n_iter, thin=thin)
+    if mon is not None:
+        chains.monitor = mon
     if return_state:
         return chains, state
     return chains
@@ -1219,15 +1535,22 @@ def _phase2(step, de: DE, state, n_iter: int):
 def bundle_samples(model: DEModel, de: DE, spec: ParamSpec, ys: StepOutput,
                    n_iter: int, thin: int = 1) -> Chains:
     """Trajectory to :class:`Chains` (reference ``bundle_samples``,
-    ``src/main.jl:222-250``): drop the burn-in draws when
-    ``discard_burnin``; per-chain acceptance and lp internals.  With
-    ``n_initial > 0`` the output is the run's iterations burnin+1 ..
-    n_iter, not history rows (``demcmc_tpu/sampler.py:1591-1594``)."""
+    ``src/main.jl:222-250``): the burn-in draws left out when
+    ``discard_burnin`` (dropped here from a trajectory that stored them,
+    as :func:`run_loop`'s; a chunked run's never stored them); per-chain
+    acceptance and lp internals.  With ``n_initial > 0`` the output is
+    the run's iterations burnin+1 .. n_iter, not history rows
+    (``demcmc_tpu/sampler.py:1591-1594``)."""
     offset = de.burnin if de.discard_burnin else 0
     if offset >= n_iter and de.discard_burnin:
         raise ValueError(f"burnin ({de.burnin}) >= n_iter ({n_iter}); "
                          "nothing left to return")
     offset //= thin
-    return Chains.from_samples(np.asarray(ys.theta)[offset:],
-                               np.asarray(ys.accept)[offset:],
-                               np.asarray(ys.lp)[offset:], spec)
+    rows, full = np.asarray(ys.theta).shape[0], n_iter // thin
+    drop = offset if rows == full else 0
+    if rows - drop != full - offset:
+        raise ValueError(f"{rows} trajectory rows for {n_iter} iterations "
+                         f"(thin {thin}, {offset} burn-in rows)")
+    return Chains.from_samples(np.asarray(ys.theta)[drop:],
+                               np.asarray(ys.accept)[drop:],
+                               np.asarray(ys.lp)[drop:], spec)

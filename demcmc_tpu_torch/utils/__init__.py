@@ -1,3 +1,3 @@
-from . import dists, kde
+from . import checkpoint, dists, kde, monitor, pytree
 
-__all__ = ["dists", "kde"]
+__all__ = ["checkpoint", "dists", "kde", "monitor", "pytree"]

@@ -72,11 +72,66 @@ def test_mesh_modules_import_neither_jax_nor_the_jax_package(rel):
         assert "torch" in roots
 
 
+@pytest.mark.parametrize("rel", ["utils/checkpoint.py", "utils/monitor.py",
+                                 "utils/pytree.py"])
+def test_state_and_api_modules_import_neither_jax_nor_the_jax_package(rel):
+    """The chunked run's modules, one by one: each exists and imports no
+    JAX and nothing of the JAX package (the JAX monitor is numpy only, and
+    the port keeps its own copy); the monitor and the pytree helpers are
+    numpy only, the checkpoint module takes torch's tensors."""
+    roots = set(_imported_roots(PKG / rel))
+    assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}
+    assert "numpy" in roots
+    assert ("torch" in roots) == (rel == "utils/checkpoint.py")
+
+
+def test_exports_of_the_jax_package():
+    """The JAX package's exports the port carries: the proposal slots,
+    the checkpoint pair, ``as_union`` and the module alias ``DEMCMC``;
+    the replicated runs wait for ROADMAP.md A8."""
+    from demcmc_tpu_torch.ops import proposals
+    from demcmc_tpu_torch.utils import checkpoint, pytree
+    for name, obj in (("snooker", proposals.snooker),
+                      ("resample", proposals.resample),
+                      ("sample_current", proposals.sample_current),
+                      ("save_state", checkpoint.save_state),
+                      ("load_state", checkpoint.load_state),
+                      ("as_union", pytree.as_union)):
+        assert name in tdm.__all__ and getattr(tdm, name) is obj
+    assert tdm.DEMCMC is tdm and "DEMCMC" in tdm.__all__
+    assert not {"sample_replicated", "sample_replicated_packed"} & set(
+        tdm.__all__)
+    assert tdm.as_union((1, [2, 3])) == [1, [2, 3]]
+    spec = tdm.ParamSpec.from_example(["a", "b"], [np.zeros(()),
+                                                   np.zeros((2, 2))], None)
+    np.testing.assert_array_equal(
+        pytree.ravel_params(spec, [1.5, [[1, 2], [3, 4]]]),
+        [1.5, 1, 2, 3, 4])
+
+
+def test_to_inference_data_dict_and_missing_arviz():
+    """``Chains.to_inference_data`` hands arviz each parameter's draws
+    ``[C, Ns]`` and the acceptance and lp; without arviz it raises
+    ``ImportError``."""
+    import importlib.util
+    model, de = tgauss.make(data=DATA, Np=4, n_groups=2, burnin=2)
+    chains = tdm.sample(model, de, 6, device="cpu")
+    d = chains._inference_dict()
+    assert set(d["posterior"]) == set(chains.names)
+    np.testing.assert_array_equal(d["posterior"]["mu"], chains["mu"].T)
+    np.testing.assert_array_equal(d["sample_stats"]["lp"], chains.lp.T)
+    assert d["sample_stats"]["acceptance"].shape == (8, 4)
+    if importlib.util.find_spec("arviz") is None:
+        with pytest.raises(ImportError, match="arviz"):
+            chains.to_inference_data()
+
+
 @pytest.mark.parametrize("name", ["chip_smoke.py", "port_cells.py",
                                   "tools/k1_ab.py", "tools/sweep_phases.py",
                                   "tools/sample_ab.py", "tools/mesh_cards.py",
                                   "tools/rhat_ab.py", "tools/k2_phases.py",
-                                  "tools/window_ab.py"])
+                                  "tools/window_ab.py",
+                                  "tools/run_scan_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
     roots = set(_imported_roots(PKG.parent / name))
     assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}

@@ -87,8 +87,9 @@ def test_gaussian_mle():
 
 def test_optimize_rejects_mh_config():
     """An MH configuration, and minimizing the posterior, raise
-    ``ValueError`` (``demcmc_tpu/optimize.py:86-98``); the later slices'
-    options raise ``NotImplementedError``."""
+    ``ValueError`` (``demcmc_tpu/optimize.py:86-98``); ``progress=True``,
+    which raised until the chunked run was ported, runs and returns the
+    same population."""
     model, de = rastrigin.make()
     with pytest.raises(ValueError, match="maximize"):
         tdm.optimize(model, de.replace(update_particle="mh",
@@ -97,8 +98,9 @@ def test_optimize_rejects_mh_config():
     with pytest.raises(ValueError, match="ill-posed"):
         tdm.optimize(model, de.replace(evaluate_fitness="posterior"), 10,
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        tdm.optimize(model, de, 10, device="cpu", progress=True)
+    quiet = tdm.optimize(model, de, 10, device="cpu")
+    shown = tdm.optimize(model, de, 10, device="cpu", progress=True)
+    np.testing.assert_array_equal(quiet.theta, shown.theta)
 
 
 def test_get_optimal_direction_minimize():

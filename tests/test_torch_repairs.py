@@ -41,13 +41,19 @@ def test_de_with_array_bounds_compares_and_hashes_by_content():
     assert (d1 == "DE") is False
 
 
-def test_sample_takes_progress_false_and_raises_for_true():
+def test_sample_takes_progress_false_and_raises_for_true(capsys):
+    """``progress=False`` is accepted (fault F6), and ``progress=True``,
+    which raised until the chunked run was ported, prints the progress
+    line and gives the same draws."""
     model, de = tgauss.make(Np=6, n_groups=2, burnin=4)
     a = tdm.sample(model, de, 8, device="cpu", progress=False)
     b = tdm.sample(model, de, 8, device="cpu")
     np.testing.assert_array_equal(a.data, b.data)
-    with pytest.raises(NotImplementedError, match="A9"):
-        tdm.sample(model, de, 8, device="cpu", progress=True)
+    assert capsys.readouterr().out == ""
+    c = tdm.sample(model, de, 8, device="cpu", progress=True)
+    np.testing.assert_array_equal(a.data, c.data)
+    out = capsys.readouterr().out
+    assert "[demcmc_tpu_torch] 8/8 iterations" in out
 
 
 def _tied_draws(seed, n=300, c=12):

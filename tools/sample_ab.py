@@ -1,7 +1,8 @@
 """Same-call A/B of ``sample()`` and ``optimize()`` on the host clock
 between source trees, on one GPU, without a mesh.
 
-    python3 tools/sample_ab.py [--profile CELL] LABEL=DIR [LABEL=DIR ...]
+    python3 tools/sample_ab.py [--profile CELL[,CELL...]] [--cells CELL[,CELL...]]
+        LABEL=DIR [LABEL=DIR ...]
 
 Each DIR is the root of a checkout (for example ``git archive`` of two
 commits unpacked under ``_verify/``).  For each tree, in turns (the trees in
@@ -15,10 +16,10 @@ iterations), and the device-bound 65,536-chain snooker Gaussian (thin 10)
 as a control.  Each
 cell runs once untimed, then ``REPEATS`` times between card
 synchronisations; prints µs per iteration for each tree, cell and run,
-then the card's name and power limit.  ``--profile CELL`` also runs that
-cell once more under ``cProfile`` in the first turn of each tree and
-writes the 30 functions of most own time to
-``chiprun_out/sample_ab_<label>.prof``.
+then the card's name and power limit.  ``--cells`` times only the cells
+named.  ``--profile`` also runs each cell named once more under
+``cProfile`` in the first turn of each tree and writes the 30 functions
+of most own time to ``chiprun_out/sample_ab_<label>_<cell>.prof``.
 """
 
 import cProfile
@@ -34,7 +35,7 @@ REPEATS = 3
 OUT = Path(__file__).resolve().parent.parent / "chiprun_out"
 
 
-def worker(label: str, profile: str):
+def worker(label: str, profile: str, only: str):
     import torch
     sys.path.insert(0, str(Path.cwd()))
     import chip_smoke as cs
@@ -86,6 +87,8 @@ def worker(label: str, profile: str):
     }
     res = {}
     for name, ((model, de), n_iter, kw) in cells.items():
+        if only and name not in only.split(","):
+            continue
         def run():
             if kw.get("opt"):
                 tdm.optimize(model, de, n_iter, key=0)
@@ -99,7 +102,7 @@ def worker(label: str, profile: str):
             torch.cuda.synchronize()
             res.setdefault(name, []).append(
                 (time.perf_counter() - t0) / n_iter * 1e6)
-        if name == profile:
+        if name in profile.split(","):
             prof = cProfile.Profile()
             prof.runcall(run)
             torch.cuda.synchronize()
@@ -107,17 +110,19 @@ def worker(label: str, profile: str):
             pstats.Stats(prof, stream=text).sort_stats("tottime") \
                 .print_stats(30)
             OUT.mkdir(exist_ok=True)
-            (OUT / f"sample_ab_{label}.prof").write_text(text.getvalue())
+            (OUT / f"sample_ab_{label}_{name}.prof").write_text(
+                text.getvalue())
     print("RESULT " + json.dumps(res), flush=True)
 
 
 def main():
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2], sys.argv[3])
+        worker(*sys.argv[2:5])
         return
-    args, profile = sys.argv[1:], ""
-    if args[:1] == ["--profile"]:
-        profile, args = args[1], args[2:]
+    args, opts = sys.argv[1:], {"--profile": "", "--cells": ""}
+    while args[:1] and args[0] in opts:
+        opts[args[0]], args = args[1], args[2:]
+    profile, only = opts["--profile"], opts["--cells"]
     trees = [a.split("=", 1) for a in args]
     me = Path(__file__).resolve()
     results = {}
@@ -125,7 +130,7 @@ def main():
         for label, d in order:
             run = subprocess.run(
                 [sys.executable, str(me), "--worker", label,
-                 profile if turn == 0 else ""],
+                 profile if turn == 0 else "", only],
                 cwd=d, capture_output=True, text=True, timeout=900)
             line = [x for x in run.stdout.splitlines()
                     if x.startswith("RESULT ")]
