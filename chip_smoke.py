@@ -13,8 +13,12 @@ post variant.  Its launch checks are the counts of
 ``plan_counts``, which this script derives from the gates alone.
 
 1. build   the CUDA kernels from ``demcmc_tpu_torch/csrc`` (one ``nvcc``
-           per source, all started together);
-2. philox  device Philox words equal the plain torch words bit for bit;
+           per source, all started together), in a thread while the main
+           thread runs phase 37, ``main-hier``, which launches no kernel
+           of the port;
+2. philox  device Philox words equal the plain torch words bit for bit,
+           and the noise panel fill's uniforms (10,000 × 3,072 at an
+           evaluation's rows, two chain offsets) its plain version's;
 3. K2      the migration kernel, in both its forms (one CTA; spread over
            the card: victims, ranks by counting, scatter), equals its
            plain version bit for bit, in bits-in mode, at (G, Np, d) =
@@ -129,12 +133,16 @@ post variant.  Its launch checks are the counts of
 27. main-unfused-gauss  the 4,096-chain Gaussian with
            ``allow_fused=False``: no kernel of the port launched,
            posterior within 0.01 of the quadrature oracle, max R̂ < 1.01;
+           the step's sweeps as CUDA graphs against eager, bit for bit
+           (every unfused phase logs whether its step kept its graphs);
 28. main-lnr  the 3,072-chain LNR cell (per-cell density through
            ``torch.func.vmap``): means and sds within 5% of a float64
            importance-sampling oracle, max R̂ < 1.01;
 29. trace4  the abc_kde cell and the unfused Gaussian under
            ``torch.profiler``: kernel launches per iteration, K4's count,
-           the device's idle share;
+           the device's idle share (the profiler traces a graph's kernels
+           one by one, so the graphed Gaussian's times there are not its
+           untraced times);
 30. timing4  K4's device ms per launch at the cell's shape beside its
            plain version and its bound;
 31. k-sweep  ``sample()`` with at most K ∈ {4, 16, 64, 256} iterations
@@ -161,10 +169,11 @@ post variant.  Its launch checks are the counts of
            posterior within 0.01, max R̂ < 1.01;
 36. main-blocked  the 4,096-chain Gaussian with two blocks
            (``port_cells.BLOCKED_CELL``), the same gates;
-37. main-hier  the hierarchical model (20 subjects × 50 observations, d =
-           23, 6 chains; ``port_cells.HIER_CELL``) through the unfused
-           step, no kernel launched: posterior means against a float64
-           quadrature with β0 integrated out, max R̂ written down;
+37. main-hier  (run beside phase 1) the hierarchical model (20 subjects
+           × 50 observations, d = 23, 6 chains; ``port_cells.HIER_CELL``)
+           through the unfused step, no kernel launched: posterior means
+           against a float64 quadrature with β0 integrated out, max R̂
+           written down;
 38. trace5  the mcz-mig and blocked cells under ``torch.profiler``;
 39. timing6  device ms per launch of K1 and K3 with two blocks and of K3
            with the gate (one iteration and a window of K), and K2 at G =
@@ -239,6 +248,36 @@ post variant.  Its launch checks are the counts of
            ``torch.profiler``: the copies to the host overlap the K1
            windows; hidden and exposed copy ms, the idle share, the host's
            final wait; the pinned allocation's cost cold and cached.
+52. main-kde-fresh  ``sample()`` on the fresh-noise abc_kde cell (3,072
+           chains, 10,000 simulations an evaluation, a new panel each
+           time; ``port_cells.KDE_FRESH_CELL``) through the unfused step:
+           K4 and the noise panel fill once per iteration and once for
+           the initial weights, K1, K2 and K3 never; (μ, σ) within 0.01 of
+           the quadrature of the synthetic likelihood averaged over 32
+           panels, max R̂ < 1.01;
+53. main-abc-fixed  the fixed-noise ABC binomial (4,096 chains, n_sim =
+           10,000) through the unfused step, no port kernel launched: θ
+           within 0.01 of the exact posterior of its step-function
+           likelihood, max R̂ < 1.01;
+54. main-custom  the unfused 4,096-chain Gaussian with custom strategy
+           slots: a ``sample`` and a ``generate_proposal`` slot that
+           delegate to their built-ins bit for bit the built-in run; the
+           random walk from its key (two fills an iteration) near the
+           quadrature posterior; tempering (sd ratio > 1.25);
+           always-accept (acceptance 1); the tempered fitness on the
+           fresh abc_kde cell (3,072 chains): one K4 launch for every
+           cell under vmap, half the built-in fitness, then ``sample()``
+           with K4 and the fill once an evaluation;
+55. main-lv  Lotka–Volterra at the reference example's width (36
+           chains): the card's density against the CPU's on 4,096 prior
+           draws, then ``sample()`` (``port_cells.LV_CELL``), µs per
+           iteration;
+56. trace-kde-fresh  the fresh-noise cell under ``torch.profiler``: K4's
+           and the fill's counts and device µs per iteration, the idle
+           share;
+57. timing9  the fill's device ms per launch at the panel's shape beside
+           its plain version and its bound; K4's row on the fresh cell's
+           inputs, held against its plain version.
 
 Before them, the host seconds of each cell's ``Chains.rhat()`` and the
 script's total, each beside the card's name and power limit.  The last
@@ -345,8 +384,11 @@ def plan_counts(model, de, n_iter, key, it0=None, k_max=None, thin=1,
             length = 0
         opened += int(opens)
         length += 1
-    return {"resample_step" if cfg.resample else "de_step": windows,
-            "migrate": opened}
+    out = {"resample_step" if cfg.resample else "de_step": windows,
+           "migrate": opened}
+    if model.stochastic:        # the initial weights' noise panel
+        out["philox_fill"] = 1
+    return out
 
 
 def quiet_start(key, cfg, lo, hi, K):
@@ -379,17 +421,78 @@ def phase_build():
                 log("build", f"{name}: {line.strip()}")
 
 
+def phase_build_beside_hier(dev):
+    """The kernels' build (:func:`phase_build`, its nvcc processes) in a
+    thread while the main thread runs ``[main-hier]``, which launches no
+    kernel of the port: the host-bound hierarchical cell takes the
+    build's minute off the script's clock.  Loading a library in that
+    time raises (it would start a second nvcc for a source being built).
+    Returns ``[main-hier]``'s launches and metrics; raises what the build
+    raised."""
+    import threading
+    from demcmc_tpu_torch.ops import _build
+    failed, secs = [], {}
+
+    def build():
+        t0 = time.perf_counter()
+        try:
+            phase_build()
+        except BaseException as e:      # re-raised in the main thread
+            failed.append(e)
+        secs["build"] = time.perf_counter() - t0
+
+    def refuse(name):
+        raise AssertionError(f"main-hier loaded the {name} library while "
+                             "the kernels build")
+    thread = threading.Thread(target=build, name="build", daemon=True)
+    library, _build.library = _build.library, refuse
+    thread.start()
+    try:
+        t0 = time.perf_counter()
+        out = phase_main_hier(dev)
+        secs["hier"] = time.perf_counter() - t0
+    finally:
+        _build.library = library
+        thread.join()
+    if failed:
+        raise failed[0]
+    log("build", f"the build took {secs['build']:.1f} s and [main-hier] "
+        f"{secs['hier']:.1f} s beside it")
+    return out
+
+
 def phase_philox(dev):
+    """The device Philox fill against the plain torch words on the card,
+    bit for bit: words of the step's namespace, and the uniforms of a
+    stochastic model's noise panel at the fresh abc_kde cell's shape
+    (10,000 × 3,072) at an evaluation's rows (block 1, member 2) and a
+    shard's chains.  Returns 0.0, the largest |fill − plain| (any
+    difference raises)."""
     from demcmc_tpu_torch import rng
     from demcmc_tpu_torch.ops import fused_step
     seed, it = (0x9E3779B97F4A7C15, 1234)
     out = torch.empty((17, C), dtype=torch.uint32, device=dev)
-    fused_step.philox_words_cuda(out, seed, it, rng.STEP_NS)
+    fused_step.philox_fill(out, seed, it, rng.STEP_NS)
     want = rng.words(seed, it, 17, C, device=dev)
     torch.cuda.synchronize()
     if not torch.equal(ints(out), ints(want)):
         raise AssertionError("device Philox words differ from plain ones")
     log("philox", f"[17, {C}] device words equal the plain words bit for bit")
+    c = pc.KDE_FRESH_CELL
+    n, rows = c["n_groups"] * c["Np"], pc.KDE_N_SIM
+    row0 = rng.eval_row(1, 2, c["Np"], rows)
+    for chain0 in (0, 6 * c["Np"]):
+        got = fused_step.philox_uniforms(seed, it, rows, n, rng.EVAL_NS, dev,
+                                         row0=row0, chain0=chain0)
+        plain = rng.to_uni(rng.words(seed, it, rows, n, rng.EVAL_NS, dev,
+                                     row0=row0, chain0=chain0))
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError("the device noise panel differs from the "
+                                 "plain one")
+    log("philox", f"[{rows}, {n}] noise panel (rows {row0}.., chains 0.. "
+        f"and {6 * c['Np']}..) equal to the plain uniforms bit for bit")
+    return 0.0
 
 
 def _mig_case(rng, G_, Np_, dev, ties="pairs"):
@@ -708,7 +811,8 @@ def _windows_vs_loop(tag, model, de, n_iter, key, thin=1,
     import demcmc_tpu_torch as tdm
     want = {"windows": plan_counts(model, de, n_iter, key),
             "loop": {"resample_step" if de.uses_resample else "de_step":
-                     n_iter, "migrate": n_iter if de.alpha > 0.0 else 0}}
+                     n_iter, "migrate": n_iter if de.alpha > 0.0 else 0,
+                     "philox_fill": int(model.stochastic)}}
     runs, secs = {}, {}
     for which in turns:
         _reset_counts()
@@ -731,7 +835,8 @@ def _windows_vs_loop(tag, model, de, n_iter, key, thin=1,
     m = {"launches": want["windows"]}
     for which in ("windows", "loop"):
         us = float(np.mean(secs[which])) / n_iter * 1e6
-        per = sum(want[which].values()) / n_iter
+        per = sum(v for k, v in want[which].items()
+                  if k != "philox_fill") / n_iter
         m[f"{which}_us_per_iteration"] = us
         m[f"{which}_launches_per_iteration"] = per
         log(tag, f"{which}: {n_iter} iterations in "
@@ -1339,16 +1444,20 @@ def _reset_counts():
     migration.migrate.launches = 0
     resample_step.resample_step.launches = 0
     kde.kde_logpdf.launches = 0
+    fused_step.philox_fill.launches = 0
 
 
 def _counts(**want):
     """Every kernel's launch count; with ``want``, raise unless the counts
-    are ``want`` (kernels not named there: 0)."""
+    are ``want`` (kernels not named there: 0).  ``philox_fill`` draws a
+    stochastic model's noise panels (the initial weights' once, and each
+    evaluation's in the unfused step) and a custom slot's key words."""
     from demcmc_tpu_torch.ops import fused_step, kde, migration, resample_step
     got = {"de_step": fused_step.de_step.launches,
            "migrate": migration.migrate.launches,
            "resample_step": resample_step.resample_step.launches,
-           "kde_logpdf": kde.kde_logpdf.launches}
+           "kde_logpdf": kde.kde_logpdf.launches,
+           "philox_fill": fused_step.philox_fill.launches}
     if want and got != {k: want.get(k, 0) for k in got}:
         raise AssertionError(f"launches {got}, expected {want}")
     return got
@@ -2035,24 +2144,45 @@ RHAT_SECONDS = {}     # host seconds of each cell's Chains.rhat(), by tag
 _RHAT_JOBS = []       # the R̂ gates under way (see _rhat_gate)
 
 
-def _rhat_gate(tag, chains, key):
-    """Start the cell's gate, max R̂ < RHAT_MAX of ``Chains.rhat()``, in a
-    forked process: numpy on the draws, no CUDA, on a core of its own while
-    the next phases drive the card.  :func:`_rhat_results` waits for it,
-    writes the value under ``key`` and applies the gate."""
+def _forked(fn, *args):
+    """Run ``fn(*args)`` (numpy only, no CUDA) in a forked process while
+    the card runs the next work; returns a function that waits for its
+    result (raising if the process died)."""
     import multiprocessing as mp
     ctx = mp.get_context("fork")
     recv, send = ctx.Pipe(duplex=False)
-    proc = ctx.Process(target=_rhat_child, args=(chains, send), daemon=True)
+
+    def child():
+        send.send(fn(*args))
+
+    proc = ctx.Process(target=child, daemon=True)
     proc.start()
     send.close()
-    _RHAT_JOBS.append((tag, key, proc, recv, chains.data.shape))
+
+    def wait():
+        try:
+            out = recv.recv()
+        except EOFError:
+            raise AssertionError(f"{fn.__name__}: its process died (exit "
+                                 f"code {proc.exitcode})") from None
+        proc.join()
+        return out
+    return wait
 
 
-def _rhat_child(chains, send):
+def _rhat_gate(tag, chains, key):
+    """Start the cell's gate, max R̂ < RHAT_MAX of ``Chains.rhat()``, in a
+    forked process (:func:`_forked`) on a core of its own while the next
+    phases drive the card.  :func:`_rhat_results` waits for it, writes the
+    value under ``key`` and applies the gate."""
+    _RHAT_JOBS.append((tag, key, _forked(_rhat_child, chains),
+                       chains.data.shape))
+
+
+def _rhat_child(chains):
     t0 = time.perf_counter()
     rhat = float(np.max(chains.rhat()))
-    send.send((rhat, time.perf_counter() - t0))
+    return rhat, time.perf_counter() - t0
 
 
 def _rhat_results(metrics):
@@ -2061,13 +2191,11 @@ def _rhat_results(metrics):
     its process died."""
     jobs, failed = list(_RHAT_JOBS), []
     _RHAT_JOBS.clear()
-    for tag, key, proc, recv, shape in jobs:
+    for tag, key, wait, shape in jobs:
         try:
-            rhat, secs = recv.recv()
-        except EOFError:
-            raise AssertionError(f"{tag}: the R-hat process died (exit "
-                                 f"code {proc.exitcode})") from None
-        proc.join()
+            rhat, secs = wait()
+        except AssertionError as e:
+            raise AssertionError(f"{tag}: {e}") from None
         RHAT_SECONDS[tag] = secs
         metrics[key] = rhat
         log(tag, f"max R-hat {rhat:.5f} (Chains.rhat() of {shape} draws: "
@@ -2082,14 +2210,17 @@ def _rhat_results(metrics):
 def phase_main_lba(dev):
     """``sample()`` on the LBA cell (port_cells.LBA_CELL): posterior means
     within 0.1 oracle sd and sds within 10% of the importance-sampling
-    oracle (ESS ≥ 10,000), max R̂ < 1.01."""
+    oracle (ESS ≥ 10,000; in a forked process beside the sampling), max R̂
+    < 1.01."""
+    case, cell = ZOO["lba"]
+    oracle = _forked(pc.lba_oracle, *case(burnin=cell["burnin"])[0].data)
     model, chains, launches, m = _zoo_sample("main-lba", "lba")
     t0 = time.perf_counter()
-    oracle = pc.lba_oracle(*model.data)
+    oracle = oracle()
     mean, sd, ess = oracle
-    log("main-lba", f"oracle: ESS {ess:.0f} of 200,000 draws in "
-        f"{time.perf_counter() - t0:.1f} s; mean {np.round(mean, 5)}, sd "
-        f"{np.round(sd, 5)}")
+    log("main-lba", f"oracle: ESS {ess:.0f} of 200,000 draws, ready "
+        f"{time.perf_counter() - t0:.1f} s after the sampling; mean "
+        f"{np.round(mean, 5)}, sd {np.round(sd, 5)}")
     if ess < pc.LBA_MIN_ESS:
         raise AssertionError(f"main-lba: the oracle's ESS is under "
                              f"{pc.LBA_MIN_ESS}")
@@ -2259,6 +2390,7 @@ def phase_timing3(dev, launches, err):
 KDE_OPS_PER_TERM = 7      # K4, per (chain, point, simulation): subtract,
                           # divide, |u|, compare, square, subtract, add
 K4_NAME = "kde_kernel"    # K4 in the device trace
+FILL_NAME = "philox_fill_kernel"   # the noise panel fill in the trace
 
 
 def _kde_case(burnin):
@@ -2348,14 +2480,16 @@ def _unfused_sample(tag, model, de, n_iter, want, key=0):
     Returns the chains, the counts and the wall time."""
     import demcmc_tpu_torch as tdm
     _reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    with torch.inference_mode():
-        chains = tdm.sample(model, de, n_iter, key=key, allow_fused=False)
-    torch.cuda.synchronize()
-    dt = time.perf_counter() - t0
+    with _made_steps() as made:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            chains = tdm.sample(model, de, n_iter, key=key,
+                                allow_fused=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
     launches = _counts()
-    log(tag, f"launches: {launches}")
+    log(tag, f"launches: {launches}; {_graph_state(made[-1])}")
     _counts(**want)
     d = chains.data.shape[1]
     if chains.data.shape != (n_iter - de.burnin, d, de.n_chains) or \
@@ -2366,6 +2500,66 @@ def _unfused_sample(tag, model, de, n_iter, want, key=0):
         f"{dt / n_iter * 1e6:.2f} us/iteration, {C_ * n_iter / dt:.4g} "
         f"chain-steps/s; acceptance {float(chains.acceptance.mean()):.4f}")
     return chains, launches, dt
+
+
+@contextlib.contextmanager
+def _made_steps():
+    """The list of the unfused steps built inside the block."""
+    from demcmc_tpu_torch import sampler
+    made, init = [], sampler.UnfusedStep.__init__
+
+    def record(self, *a, **k):
+        init(self, *a, **k)
+        made.append(self)
+    sampler.UnfusedStep.__init__ = record
+    try:
+        yield made
+    finally:
+        sampler.UnfusedStep.__init__ = init
+
+
+def _graph_state(step):
+    """How an unfused step ran its sweeps: as CUDA graphs (how many), or
+    eagerly and why."""
+    if step._graphs is not None:
+        return f"sweeps as CUDA graphs ({len(step._graphs)} keys)"
+    return f"sweeps eager ({step.eager_reason or 'not eligible'})"
+
+
+def _graph_vs_eager(tag, model, de, n_iter):
+    """``sample()`` through the unfused step with its sweeps as CUDA graphs
+    (the default) and with every iteration eager (``sampler.GRAPHS =
+    False``), ``n_iter`` iterations each: the graphed step keeps its
+    graphs, and the two runs' draws and accept flags are equal bit for
+    bit.  Returns µs per iteration (graphed, eager)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import sampler
+    runs = {}
+    try:
+        for graphs in (True, False):
+            sampler.GRAPHS = graphs
+            with _made_steps() as made:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.inference_mode():
+                    ch = tdm.sample(model, de, n_iter, key=5,
+                                    allow_fused=False)
+                torch.cuda.synchronize()
+            runs[graphs] = (ch, (time.perf_counter() - t0) / n_iter * 1e6,
+                            made[-1]._graphs is not None)
+    finally:
+        sampler.GRAPHS = True
+    (a, us_g, kept), (b, us_e, _) = runs[True], runs[False]
+    if not kept:
+        raise AssertionError(f"{tag}: the unfused step left its CUDA graphs")
+    if a.data.tobytes() != b.data.tobytes() or \
+            a.acceptance.tobytes() != b.acceptance.tobytes():
+        raise AssertionError(f"{tag}: the graphed run differs from the "
+                             f"eager run")
+    log(tag, f"sweeps as CUDA graphs against eager, {n_iter} iterations: "
+        f"{us_g:.2f} against {us_e:.2f} us/iteration, draws and accepts "
+        f"equal bit for bit")
+    return us_g, us_e
 
 
 def phase_main_kde(dev):
@@ -2400,7 +2594,9 @@ def phase_main_kde(dev):
 def phase_main_unfused_gauss(dev):
     """The 4,096-chain Gaussian of phase 5 with ``allow_fused=False``:
     no kernel of the port launched, posterior within 0.01 of the
-    quadrature oracle, max R̂ < 1.01."""
+    quadrature oracle, max R̂ < 1.01; then 300 iterations with the
+    sweeps as CUDA graphs against eager, bit for bit
+    (:func:`_graph_vs_eager`)."""
     from demcmc_tpu_torch.models import gaussian
     c = pc.GAUSS_UNFUSED_CELL
     data = _gauss_data()
@@ -2411,8 +2607,13 @@ def phase_main_unfused_gauss(dev):
         "main-unfused-gauss", model, de, n_iter, {})
     rhat, acc = _posterior_gate("main-unfused-gauss", chains, data,
                                 n_iter - c["burnin"], de.n_chains)
+    model, de = gaussian.make(data=data, Np=c["Np"], n_groups=c["n_groups"],
+                              burnin=150)
+    us_g, us_e = _graph_vs_eager("main-unfused-gauss", model, de, 300)
     C_ = de.n_chains
-    return launches, {"unfused_gauss_rhat_max": rhat,
+    return launches, {"unfused_gauss_graph_us_per_iteration": us_g,
+                      "unfused_gauss_eager_us_per_iteration": us_e,
+                      "unfused_gauss_rhat_max": rhat,
                       "unfused_gauss_us_per_iteration": dt / n_iter * 1e6,
                       "unfused_gauss_chain_steps_per_s": C_ * n_iter / dt,
                       "unfused_gauss_acceptance": acc}
@@ -2422,19 +2623,20 @@ def phase_main_lnr(dev):
     """``sample()`` on the 3,072-chain LNR cell (per-cell density through
     ``torch.func.vmap``): no kernel of the port launched; each posterior
     mean and sd within 5% of the float64 importance-sampling oracle (ESS
-    ≥ 10,000), max R̂ < 1.01."""
+    ≥ 10,000; in a forked process beside the sampling), max R̂ < 1.01."""
     from demcmc_tpu_torch.models import lnr
     c = pc.LNR_CELL
     model, de = lnr.make(Np=c["Np"], n_groups=c["n_groups"],
                          burnin=c["burnin"])
     n_iter = c["n_iter"]
+    oracle = _forked(pc.lnr_oracle, *model.data)
     chains, launches, dt = _unfused_sample(
         "main-lnr", model, de, n_iter, {})
     t0 = time.perf_counter()
-    oracle = pc.lnr_oracle(*model.data)
+    oracle = oracle()
     mean, sd, ess = oracle
-    log("main-lnr", f"oracle: ESS {ess:.0f} of 200,000 draws in "
-        f"{time.perf_counter() - t0:.1f} s")
+    log("main-lnr", f"oracle: ESS {ess:.0f} of 200,000 draws, ready "
+        f"{time.perf_counter() - t0:.1f} s after the sampling")
     if ess < pc.LNR_MIN_ESS:
         raise AssertionError("main-lnr: the oracle's ESS is under "
                              f"{pc.LNR_MIN_ESS}")
@@ -2453,13 +2655,14 @@ def phase_main_lnr(dev):
                       "lnr_max_sd_dev": float(ds.max())}
 
 
-def _trace_unfused(tag, model, de, n_iter, fname, k4):
+def _trace_unfused(tag, model, de, n_iter, fname, k4, fills=0):
     """``sample(..., allow_fused=False)`` under ``torch.profiler``: kernel
     launches per iteration (every kernel in the device trace from the
     first to the last, over ``n_iter``), K4's count where ``k4`` (once per
-    iteration and once for the initial weights), the kernels that take
-    the most device time, and the device's busy time and idle share over
-    that span."""
+    iteration and once for the initial weights), the noise panel fill's
+    (``fills`` launches), K4's and the fill's device µs per iteration, the
+    kernels that take the most device time, and the device's busy time
+    and idle share over that span."""
     import demcmc_tpu_torch as tdm
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -2483,6 +2686,10 @@ def _trace_unfused(tag, model, de, n_iter, fname, k4):
     n_k4 = sum(K4_NAME in name for _, _, name in kern)
     if n_k4 != (n_iter + 1 if k4 else 0):
         raise AssertionError(f"{tag}: {n_k4} K4 launches in the trace")
+    n_fill = sum(FILL_NAME in name for _, _, name in kern)
+    if n_fill != fills:
+        raise AssertionError(f"{tag}: {n_fill} noise panel fills in the "
+                             f"trace, expected {fills}")
     lo = min(a for a, _, _ in kern)
     hi = max(b for _, b, _ in kern)
     spans = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
@@ -2492,7 +2699,11 @@ def _trace_unfused(tag, model, de, n_iter, fname, k4):
            "launches_per_iteration": len(kern) / n_iter,
            "loop_us_per_iteration": (hi - lo) / n_iter,
            "loop_busy_us_per_iteration": busy / n_iter,
-           "loop_idle_share": 1.0 - busy / (hi - lo)}
+           "loop_idle_share": 1.0 - busy / (hi - lo),
+           "k4_device_us_per_iteration": sum(
+               b - a for a, b, name in kern if K4_NAME in name) / n_iter,
+           "fill_device_us_per_iteration": sum(
+               b - a for a, b, name in kern if FILL_NAME in name) / n_iter}
     by_name = {}
     for a, b, name in kern:
         by_name[name] = by_name.get(name, 0.0) + (b - a) / n_iter
@@ -2526,16 +2737,15 @@ def phase_trace4(dev):
     return out
 
 
-def phase_timing4(dev, launches, err):
-    """K4's device ms per launch at the cell's shape (spin-queued; plain,
-    kernel, kernel, plain), beside its bound and its launches in the
-    cell: bytes, the simulations, points and bandwidths read once and the
-    output written once; operations, KDE_OPS_PER_TERM per (chain, point,
-    simulation), every one of which this kernel evaluates."""
+def _k4_row(tag, name, x, sims, h, launches, err):
+    """K4's row of the kernels line on its inputs ``x [E]``, ``sims [C,
+    S]``, ``h [C]``: device ms per launch (spin-queued; plain, kernel,
+    kernel, plain) beside its plain version's and its bound: bytes, the
+    simulations, points and bandwidths read once and the output written
+    once; operations, KDE_OPS_PER_TERM per (chain, point, simulation),
+    every one of which this kernel evaluates."""
     from demcmc_tpu_torch.ops import kde
-    C_ = pc.KDE_CELL["n_groups"] * pc.KDE_CELL["Np"]
-    E, S = pc.KDE_N_OBS, pc.KDE_N_SIM
-    x, sims, h = _kde_args(C_, E, S, dev, seed=S)
+    (C_, S), E = sims.shape, x.shape[0]
 
     def k4():
         kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR)
@@ -2544,12 +2754,12 @@ def phase_timing4(dev, launches, err):
         kde.kde_logpdf_plain(x, sims, h, pc.KDE_FLOOR)
 
     t = {}
-    for name, fn, n in (("plain", k4_plain, 2), ("k4", k4, 20),
-                        ("k4", k4, 20), ("plain", k4_plain, 2)):
-        t.setdefault(name, []).append(device_ms(fn, n))
+    for which, fn, n in (("plain", k4_plain, 2), ("k4", k4, 20),
+                         ("k4", k4, 20), ("plain", k4_plain, 2)):
+        t.setdefault(which, []).append(device_ms(fn, n))
     ms = {k: float(np.mean([x_ for x_, _, _ in v])) for k, v in t.items()}
     for k, v in t.items():
-        log("timing4", f"{k}: {ms[k]:.6f} ms per call on the device ("
+        log(tag, f"{k}: {ms[k]:.6f} ms per call on the device ("
             + ", ".join(f"{x_:.6f}{'' if q else ' host-gapped'}"
                         for x_, q, _ in v)
             + "); host issues a call in "
@@ -2557,17 +2767,27 @@ def phase_timing4(dev, launches, err):
     nbytes = 4 * (C_ * S + E + C_ + C_ * E)
     nops = KDE_OPS_PER_TERM * C_ * E * S
     tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
-    log("timing4", f"kde_logpdf: {nbytes} bytes, {nops} operations, bound "
+    log(tag, f"kde_logpdf: {nbytes} bytes, {nops} operations, bound "
         f"{max(tb, to):.4g} ms ({'bytes' if tb >= to else 'operations'}); "
         f"K4 at {max(tb, to) / ms['k4']:.3f} of its bound")
-    return [{"name": f"kde_logpdf/abc_kde-{C_}", "route": "cuda",
-             "source": "demcmc_tpu_torch/csrc/kde.cu",
-             "replaces": "demcmc_tpu/ops/pallas_kde.py:35",
-             "launches": launches["kde_logpdf"], "max_abs_err": err,
-             "ms": ms["k4"], "plain_ms": ms["plain"],
-             "bound_ms": max(tb, to),
-             "bound_by": "bytes" if tb >= to else "operations",
-             "library_ms": None}]
+    return {"name": name, "route": "cuda",
+            "source": "demcmc_tpu_torch/csrc/kde.cu",
+            "replaces": "demcmc_tpu/ops/pallas_kde.py:35",
+            "launches": launches, "max_abs_err": err,
+            "ms": ms["k4"], "plain_ms": ms["plain"],
+            "bound_ms": max(tb, to),
+            "bound_by": "bytes" if tb >= to else "operations",
+            "library_ms": None}
+
+
+def phase_timing4(dev, launches, err):
+    """K4's row at the fixed-panel cell's shape and inputs
+    (:func:`_k4_row`), with its launches in the cell."""
+    C_ = pc.KDE_CELL["n_groups"] * pc.KDE_CELL["Np"]
+    E, S = pc.KDE_N_OBS, pc.KDE_N_SIM
+    x, sims, h = _kde_args(C_, E, S, dev, seed=S)
+    return [_k4_row("timing4", f"kde_logpdf/abc_kde-{C_}", x, sims, h,
+                    launches["kde_logpdf"], err)]
 
 
 # ------------------------------------------- fifth slice: K-iteration
@@ -3267,9 +3487,11 @@ def phase_main_hier(dev):
     """The hierarchical cell (port_cells.HIER_CELL: 20 subjects × 50
     observations, d = 23, 6 chains, DE-MCz with snooker, α = 0.1, two
     blocks) through ``sample()`` on the card: the unfused step (the model
-    names no CUDA density), no kernel of the port launched; the posterior
-    means of μβ0, σβ0 and σ and of every β0ᵢ against the float64
-    quadrature (port_cells.hier_oracle); max R̂ written down."""
+    names no CUDA density), its sweeps as CUDA graphs, no kernel of the
+    port launched; the posterior means of μβ0, σβ0 and σ and of every β0ᵢ
+    against the float64 quadrature (port_cells.hier_oracle); max R̂
+    written down; then 400 iterations across a burn-in of 200 graphed
+    against eager, bit for bit (:func:`_graph_vs_eager`)."""
     import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch.models import hierarchical
     cell = pc.HIER_CELL
@@ -3299,7 +3521,13 @@ def phase_main_hier(dev):
         f"{float(chains.acceptance.mean()):.4f}")
     if not ok:
         raise AssertionError("main-hier: posterior off the oracle")
+    model, de = hierarchical.make(n_subj=cell["n_subj"],
+                                  n_data=cell["n_data"], key=cell["key"],
+                                  burnin=200)
+    us_g, us_e = _graph_vs_eager("main-hier", model, de, 400)
     return launches, {"hier_us_per_iteration": dt / n_iter * 1e6,
+                      "hier_graph_us_per_iteration": us_g,
+                      "hier_eager_us_per_iteration": us_e,
                       "hier_rhat_max": rhat}
 
 
@@ -4006,7 +4234,8 @@ def _mesh_runs(tag, dev, model, de, n_iter, key, shards, thin=1,
         if allow_fused:
             plan = plan_counts(model, de, n_iter, key)
             want = {"de_step": plan["de_step"] * D,
-                    "migrate": plan["migrate"]}
+                    "migrate": plan["migrate"],
+                    "philox_fill": plan.get("philox_fill", 0)}
         else:
             want = {"kde_logpdf": D * n_iter + 1} if kde else {}
         if got[D] != {k: want.get(k, 0) for k in got[D]}:
@@ -4021,7 +4250,8 @@ def _mesh_runs(tag, dev, model, de, n_iter, key, shards, thin=1,
     C_, d = de.n_chains, tdm.make_spec(model, de).dim
     for D in (1,) + tuple(shards):
         us = float(np.mean(secs[D])) / n_iter * 1e6
-        per = sum(got[D].values()) / n_iter
+        per = sum(v for k, v in got[D].items()
+                  if k != "philox_fill") / n_iter
         m[f"{D}_us_per_iteration"] = us
         m[f"{D}_launches_per_iteration"] = per
         log(tag, f"{D} shard{'s' if D > 1 else ''}: {n_iter} iterations in "
@@ -4281,8 +4511,8 @@ def _chunked_runs(tag, model, de, n_iter, key, thin=1, mesh=None,
         else:
             want = plan_counts(model, de, n_iter, key, thin=thin,
                                chunked=opts)
-            want = {k: v * D if k != "migrate" else v
-                    for k, v in want.items()}
+            want = {k: v * D if k not in ("migrate", "philox_fill")
+                    else v for k, v in want.items()}
         if got != {k: want.get(k, 0) for k in got}:
             raise AssertionError(f"{tag} {name}: launches {got}, expected "
                                  f"{want}")
@@ -4551,6 +4781,364 @@ def gpu_line():
     return out.splitlines()[0]
 
 
+# ------------------------------------------- fourteenth slice: the custom
+# strategy slots and stochastic models in the unfused step
+
+def _kde_fresh_case(burnin):
+    """(model, de) of the fresh-noise abc_kde cell: KDE_CELL's sizes and
+    data, a new simulation at every evaluation."""
+    from demcmc_tpu_torch.models import abc_kde
+    c = pc.KDE_FRESH_CELL
+    return abc_kde.make(data=pc.kde_inputs()[0], n_sim=pc.KDE_N_SIM,
+                        Np=c["Np"], n_groups=c["n_groups"], burnin=burnin,
+                        fresh_noise=True)
+
+
+def phase_main_kde_fresh(dev):
+    """``sample()`` on the fresh-noise abc_kde cell (3,072 chains, 10,000
+    simulations per evaluation) through the unfused step: K4 and the
+    noise panel fill launched once per iteration and once for the initial
+    weights, K1, K2 and K3 never; (μ, σ) means and sds within
+    KDE_TOL of the quadrature of the panel-averaged synthetic
+    likelihood (computed in a forked process meanwhile), max R̂ < 1.01."""
+    c = pc.KDE_FRESH_CELL
+    n_iter = c["n_iter"]
+    model, de = _kde_fresh_case(c["burnin"])
+    t0 = time.perf_counter()
+    oracle = _forked(pc.kde_fresh_oracle, pc.kde_inputs()[0])
+    chains, launches, dt = _unfused_sample(
+        "main-kde-fresh", model, de, n_iter,
+        {"kde_logpdf": n_iter + 1, "philox_fill": n_iter + 1})
+    oracle = oracle()
+    log("main-kde-fresh", f"oracle ({pc.KDE_FRESH_PANELS} panels, "
+        f"{pc.KDE_FRESH_GRID}^2 grid; ready "
+        f"{time.perf_counter() - t0:.1f} s after the phase began): {oracle}")
+    ok, rows = pc.kde_gate(chains["mu"], chains["sigma"], oracle)
+    for name, (mean, sd) in rows.items():
+        log("main-kde-fresh", f"{name}: mean {mean:.5f} (oracle "
+            f"{oracle[name][0]:.5f}), sd {sd:.5f} (oracle "
+            f"{oracle[name][1]:.5f})")
+    if not ok:
+        raise AssertionError("main-kde-fresh: posterior off the oracle")
+    _rhat_gate("main-kde-fresh", chains, "kde_fresh_rhat_max")
+    C_ = de.n_chains
+    return launches, {"kde_fresh_us_per_iteration": dt / n_iter * 1e6,
+                      "kde_fresh_chain_steps_per_s": C_ * n_iter / dt,
+                      "kde_fresh_acceptance":
+                          float(chains.acceptance.mean())}
+
+
+def phase_main_abc_fixed(dev):
+    """``sample()`` on the fixed-noise ABC binomial (4,096 chains, N =
+    10, n_sim = 10,000, its panel from numpy seed 123) through the
+    unfused step, no kernel of the port launched: θ's mean and sd within
+    ABC_FIXED_TOL of the exact posterior of the panel's step-function
+    likelihood, max R̂ < 1.01."""
+    from demcmc_tpu_torch.models import binomial
+    c = pc.ABC_FIXED_CELL
+    model, de = binomial.make(N=c["N"], k=c["k"], abc=True,
+                              n_sim=pc.N_SIM, Np=c["Np"],
+                              n_groups=c["n_groups"], burnin=c["burnin"])
+    n_iter = c["n_iter"]
+    chains, launches, dt = _unfused_sample("main-abc-fixed", model, de,
+                                           n_iter, {})
+    oracle = pc.abc_fixed_oracle(pc.abc_panel(pc.N_SIM, c["N"]), c["k"])
+    ok, (mean, sd) = pc.abc_fixed_gate(chains["theta"], oracle)
+    log("main-abc-fixed", f"theta: mean {mean:.5f} (exact {oracle[0]:.5f}),"
+        f" sd {sd:.5f} (exact {oracle[1]:.5f})")
+    if not ok:
+        raise AssertionError("main-abc-fixed: posterior off the oracle")
+    _rhat_gate("main-abc-fixed", chains, "abc_fixed_rhat_max")
+    return {"abc_fixed_us_per_iteration": dt / n_iter * 1e6,
+            "abc_fixed_chain_steps_per_s": de.n_chains * n_iter / dt,
+            "abc_fixed_acceptance": float(chains.acceptance.mean())}
+
+
+def _delegating_sample(ctx, key, n, exclude_self, replace):
+    from demcmc_tpu_torch.ops import proposals
+    return proposals.sample_current(ctx, key, n, exclude_self, replace)
+
+
+def _delegating_proposal(ctx, key):
+    from demcmc_tpu_torch.ops import proposals
+    return proposals.random_gamma(ctx, key)
+
+
+def _random_walk(ctx, key):
+    return ctx.theta + 0.15 * key.normal(ctx.theta.shape, ctx.theta.dtype)
+
+
+def _tempered(model, spec, de, x):
+    from demcmc_tpu_torch.ops import accept
+    return 0.5 * accept.compute_posterior(model, spec, de, x)
+
+
+def _tempered_noisy(model, spec, de, x, noise):
+    from demcmc_tpu_torch.ops import accept
+    return 0.5 * accept.compute_posterior(model, spec, de, x, noise)
+
+
+def _always(key, w_cur, w_prop, log_adj):
+    return torch.ones(w_cur.shape, dtype=torch.bool, device=w_cur.device)
+
+
+def _bounded_prior(uniform, n):
+    """μ ~ N(0, 1), σ ~ U(0.5, 2): the JAX random-walk test's start."""
+    u = uniform(3)
+    mu = torch.sqrt(-2.0 * torch.log(torch.clamp_min(u[0], 1.2e-38))) \
+        * torch.cos(2.0 * np.pi * u[1])
+    return [mu, 0.5 + 1.5 * u[2]]
+
+
+def phase_main_custom(dev):
+    """The unfused 4,096-chain Gaussian with custom strategy slots: a
+    ``sample`` slot and a ``generate_proposal`` that delegate to their
+    built-ins give the built-in unfused run bit for bit; the random walk
+    drawing from its key (two panel fills an iteration, the key's words)
+    within the JAX test's bounds of the quadrature posterior; tempering
+    at T = 2 widens μ's sd by over 1.25; always-accept accepts every
+    proposal; no kernel of the port but the fill is launched.  Then the
+    tempered fitness on the fresh abc_kde cell (:func:`_custom_kde`)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.GAUSS_UNFUSED_CELL
+    data = _gauss_data()
+
+    def run(tag, n_iter, want, burnin, **slots):
+        model, de = gaussian.make(data=data, Np=c["Np"],
+                                  n_groups=c["n_groups"], burnin=burnin)
+        if slots.pop("bounded", False):
+            model.sample_prior = _bounded_prior
+        chains, _, dt = _unfused_sample(tag, model, de.replace(**slots),
+                                        n_iter, want)
+        return chains, dt / n_iter * 1e6
+
+    m = {}
+    n = pc.CUSTOM_BITWISE_ITER
+    ref, m["custom_builtin_us_per_iteration"] = run(
+        "main-custom builtin", n, {}, n // 2)
+    for name, slots in (("sample", {"sample": _delegating_sample}),
+                        ("proposal",
+                         {"generate_proposal": _delegating_proposal})):
+        got, m[f"custom_{name}_us_per_iteration"] = run(
+            f"main-custom {name}", n, {}, n // 2, **slots)
+        for a, b, what in ((got.data, ref.data, "draws"),
+                           (got.lp, ref.lp, "lp"),
+                           (got.acceptance, ref.acceptance, "acceptance")):
+            if np.ascontiguousarray(a).tobytes() != \
+                    np.ascontiguousarray(b).tobytes():
+                raise AssertionError(f"main-custom {name}: {what} differ "
+                                     f"from the built-in run")
+        log("main-custom", f"a delegating {name} slot: {n} iterations bit "
+            f"for bit the built-in unfused run")
+    rw = pc.CUSTOM_RW
+    chains, m["custom_rw_us_per_iteration"] = run(
+        "main-custom random-walk", rw["n_iter"],
+        {"philox_fill": 2 * (rw["n_iter"] + 1)}, rw["burnin"],
+        generate_proposal=_random_walk, bounded=True)
+    truth = gaussian.posterior_grid(data)
+    off = {k: abs(chains.mean(k) - truth[k]["mean"]) for k in truth}
+    log("main-custom", f"random walk: |mean - oracle| mu {off['mu']:.5f}, "
+        f"sigma {off['sigma']:.5f}; acceptance "
+        f"{float(chains.acceptance.mean()):.4f}")
+    if not (off["mu"] < rw["mu_tol"] and off["sigma"] < rw["sigma_tol"]):
+        raise AssertionError("main-custom: the random walk is off the "
+                             "posterior")
+    t = pc.CUSTOM_TEMPER
+    cold, _ = run("main-custom cold", t["n_iter"], {}, t["burnin"])
+    hot, m["custom_tempered_us_per_iteration"] = run(
+        "main-custom tempered", t["n_iter"], {}, t["burnin"],
+        evaluate_fitness=_tempered)
+    ratio = float(hot.std("mu") / cold.std("mu"))
+    m["custom_tempered_sd_ratio"] = ratio
+    log("main-custom", f"tempered (T = 2): sd of mu {hot.std('mu'):.5f} "
+        f"against {cold.std('mu'):.5f}, ratio {ratio:.4f}")
+    if not ratio > t["ratio"]:
+        raise AssertionError("main-custom: tempering did not widen the "
+                             "posterior")
+    k = pc.CUSTOM_ALWAYS
+    chains, _ = run("main-custom always", k, {}, k // 2,
+                    update_particle=_always)
+    if float(chains.acceptance.mean()) != 1.0:
+        raise AssertionError("main-custom: always-accept rejected")
+    log("main-custom", f"always-accept: acceptance 1.0 over {k} "
+        f"iterations")
+    if tdm.sampler.fused_supported(*gaussian.make(
+            data=data, generate_proposal=_delegating_proposal), dev):
+        raise AssertionError("main-custom: a custom slot would fuse")
+    m.update(_custom_kde(dev))
+    return m
+
+
+def _custom_kde(dev):
+    """The tempered fitness slot on the fresh-noise abc_kde cell: on one
+    panel, through ``make_fitness`` (per cell under vmap), one K4 launch
+    for the 3,072 cells and half the built-in fitness within
+    CUSTOM_KDE_RTOL; then ``sample()`` for CUSTOM_KDE's iterations, K4
+    and the panel fill once an evaluation."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import accept, fused_step, kde
+    c = pc.CUSTOM_KDE
+    model, de = _kde_fresh_case(c["burnin"])
+    hot = de.replace(evaluate_fitness=_tempered_noisy)
+    spec = tdm.make_spec(model, de)
+    C_ = de.n_chains
+    x = model.init_population(spec, 7, C_, device=dev).reshape(
+        de.n_groups, de.Np, -1)
+    panel = torch.empty((pc.KDE_N_SIM, C_), dtype=torch.float32,
+                        device=dev)
+    fused_step.philox_fill(panel, 5, 77, rng.EVAL_NS)
+    with torch.inference_mode():
+        want = 0.5 * accept.make_fitness(model, spec, de)(x, panel)
+        before = kde.kde_logpdf.launches
+        got = accept.make_fitness(model, spec, hot)(x, panel)
+        torch.cuda.synchronize()
+        n_k4 = kde.kde_logpdf.launches - before
+    diff = (got - want).abs()
+    rel = float((diff / (1 + want.abs())).max())
+    log("main-custom", f"tempered fitness on the fresh abc_kde cell, one "
+        f"panel: {n_k4} K4 launch for {C_} cells; max |slot - half the "
+        f"built-in| {float(diff.max()):.3g} (relative {rel:.3g}, "
+        f"{'bit for bit' if torch.equal(got, want) else 'not bit for bit'})")
+    if n_k4 != 1 or not torch.isfinite(got).all() or \
+            not rel <= pc.CUSTOM_KDE_RTOL:
+        raise AssertionError("main-custom: the tempered fitness on abc_kde "
+                             "is off half the built-in's, or took more "
+                             "than one K4 launch")
+    n_iter = c["n_iter"]
+    _, _, dt = _unfused_sample(
+        "main-custom kde-tempered", model, hot, n_iter,
+        {"kde_logpdf": n_iter + 1, "philox_fill": n_iter + 1})
+    return {"custom_kde_tempered_us_per_iteration": dt / n_iter * 1e6}
+
+
+def phase_main_lv(dev):
+    """Lotka–Volterra at the reference example's width (36 chains): its
+    log posterior on the card against the CPU's on LV_DENSITY_DRAWS prior
+    draws (within LV_DENSITY_RTOL / LV_DENSITY_ATOL, ms of one evaluation
+    on each); then ``sample()`` through the unfused step for LV_CELL's
+    iterations, no kernel of the port launched, µs per iteration."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import lotka_volterra
+    from demcmc_tpu_torch.ops import accept
+    c = pc.LV_CELL
+    model, de = lotka_volterra.make(Np=c["Np"], n_groups=c["n_groups"],
+                                    burnin=c["burnin"])
+    spec = tdm.make_spec(model, de)
+    x = model.init_population(spec, 7, pc.LV_DENSITY_DRAWS, device="cpu")
+    secs = {}
+    with torch.inference_mode():
+        for where, xx in (("card", x.to(dev)), ("cpu", x)):
+            accept.compute_posterior(model, spec, de, xx[:8])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w = accept.compute_posterior(model, spec, de, xx).cpu()
+            torch.cuda.synchronize()
+            secs[where] = (w, time.perf_counter() - t0)
+    got, want = secs["card"][0], secs["cpu"][0]
+    fin = torch.isfinite(want)
+    diff = (got - want).abs()[fin]
+    rel = float((diff / (pc.LV_DENSITY_ATOL + pc.LV_DENSITY_RTOL
+                         * want.abs()[fin])).max())
+    log("main-lv", f"log posterior of {pc.LV_DENSITY_DRAWS} prior draws: "
+        f"card {secs['card'][1] * 1e3:.2f} ms, cpu {secs['cpu'][1] * 1e3:.2f} "
+        f"ms; {int(fin.sum())} finite; max |card - cpu| "
+        f"{float(diff.max()):.3g} ({rel:.3f} of the tolerance)")
+    if not torch.equal(torch.isfinite(got), fin) or rel > 1.0:
+        raise AssertionError("main-lv: the card's density is off the CPU's")
+    n_iter = c["n_iter"]
+    chains, _, dt = _unfused_sample("main-lv", model, de, n_iter, {})
+    log("main-lv", f"posterior means after {n_iter - c['burnin']} kept "
+        f"draws (no gate: the run is short of the reference's 3,000 "
+        f"iterations): " + ", ".join(
+            f"{k} {chains.mean(k):.4f}" for k in chains.names))
+    return {"lv_us_per_iteration": dt / n_iter * 1e6,
+            "lv_chain_steps_per_s": de.n_chains * n_iter / dt,
+            "lv_density_card_ms": secs["card"][1] * 1e3,
+            "lv_density_cpu_ms": secs["cpu"][1] * 1e3}
+
+
+def phase_trace_kde_fresh(dev):
+    """The fresh-noise abc_kde cell (200 iterations, burn-in 100) under
+    ``torch.profiler``: K4 and the panel fill once per iteration and
+    once for the initial weights; each one's device µs per iteration,
+    the device's idle share."""
+    model, de = _kde_fresh_case(100)
+    return {"kde_fresh_" + k: v for k, v in _trace_unfused(
+        "trace-kde-fresh", model, de, 200, "trace_kde_fresh.json", True,
+        fills=201).items()}
+
+
+def phase_timing9(dev, launches, errs):
+    """The noise panel fill's device ms per launch at the fresh abc_kde
+    cell's shape (10,000 uniforms × 3,072 chains; spin-queued, plain,
+    fill, fill, plain), beside its plain version (torch's Philox on the
+    card) and its bound: bytes, the panel written once (no input);
+    operations, PHILOX_OPS per block of four rows and chain, and 3 per
+    uniform.  K4's row for the fresh cell (:func:`_k4_row`) on that
+    cell's inputs: the data, and simulations μ + σ·Φ⁻¹(u + 2⁻²⁴) from
+    the filled panel, as the fresh-noise density makes them, K4 held
+    against its plain version on them as [k4] holds it."""
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import abc_kde
+    from demcmc_tpu_torch.ops import fused_step, kde
+    from demcmc_tpu_torch.utils import kde as kde_utils
+    c = pc.KDE_FRESH_CELL
+    n, rows_ = c["n_groups"] * c["Np"], pc.KDE_N_SIM
+    out = torch.empty((rows_, n), dtype=torch.float32, device=dev)
+
+    def fill():
+        fused_step.philox_fill(out, 5, 77, rng.EVAL_NS)
+
+    def plain():
+        rng.to_uni(rng.words(5, 77, rows_, n, rng.EVAL_NS, dev))
+
+    t = {}
+    for name, fn, k in (("plain", plain, 2), ("fill", fill, 20),
+                        ("fill", fill, 20), ("plain", plain, 2)):
+        t.setdefault(name, []).append(device_ms(fn, k))
+    ms = {k: float(np.mean([x_ for x_, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing9", f"{k}: {ms[k]:.6f} ms per call on the device ("
+            + ", ".join(f"{x_:.6f}{'' if q else ' host-gapped'}"
+                        for x_, q, _ in v) + ")")
+    nbytes = 4 * rows_ * n
+    nops = PHILOX_OPS * (-(-rows_ // 4)) * n + 3 * rows_ * n
+    tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+    log("timing9", f"philox_fill: {nbytes} bytes, {nops} operations, bound "
+        f"{max(tb, to):.4g} ms ({'bytes' if tb >= to else 'operations'}); "
+        f"at {max(tb, to) / ms['fill']:.3f} of its bound")
+    fill()
+    g = np.random.default_rng(n)
+    mu = torch.tensor(g.normal(0.14, 0.13, n).astype(np.float32),
+                      device=dev)
+    sg = torch.tensor(g.uniform(0.7, 1.3, n).astype(np.float32), device=dev)
+    z = torch.special.ndtri(out + abc_kde.HALF_ULP)
+    sims = (mu[None] + sg[None] * z).T.contiguous()
+    h = kde_utils.silverman_bandwidth(sims)
+    x = torch.tensor(pc.kde_inputs()[0], dtype=torch.float32, device=dev)
+    got = kde.kde_logpdf(x, sims, h, pc.KDE_FLOOR)
+    ref = kde.kde_logpdf_plain(x, sims, h, pc.KDE_FLOOR)
+    diff = (got - ref).abs()
+    err, rel = float(diff.max()), float((diff / (1 + ref.abs())).max())
+    log("timing9", f"K4 on the fresh cell's inputs: max |K4 - plain| "
+        f"{err:.3g}, relative {rel:.3g}")
+    if not rel <= 2e-5 or not torch.isfinite(got).all():
+        raise AssertionError("timing9: K4 disagrees with its plain version "
+                             "on the fresh cell's inputs")
+    k4 = _k4_row("timing9", f"kde_logpdf/abc_kde-fresh-{n}", x, sims, h,
+                 launches["kde_logpdf"], err)
+    return [{"name": f"philox_fill/eval-panel-{rows_}x{n}", "route": "cuda",
+             "source": "demcmc_tpu_torch/csrc/de_step.cu",
+             "replaces": "demcmc_tpu/ops/fused_step.py:1508",
+             "launches": launches["philox_fill"],
+             "max_abs_err": errs["philox"], "ms": ms["fill"],
+             "plain_ms": ms["plain"], "bound_ms": max(tb, to),
+             "bound_by": "bytes" if tb >= to else "operations",
+             "library_ms": None}, k4]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -4569,18 +5157,20 @@ def main():
             time.perf_counter() - t0, 1)
         return out
 
-    run(phase_build)
-    run(phase_philox, dev)
-    errs = {"k2": run(phase_k2, dev), "k1": run(phase_k1, dev)}
+    paths = {}
+    paths["hier"], metrics = run(phase_build_beside_hier, dev)
+    errs = {"philox": run(phase_philox, dev)}
+    errs.update(k2=run(phase_k2, dev), k1=run(phase_k1, dev))
     errs["k1_super"] = run(phase_k1_super, dev)
     errs["k3_super"] = run(phase_k3_super, dev)
-    launches, metrics = run(phase_main, dev)
+    launches, m = run(phase_main, dev)
+    metrics.update(m)
     metrics.update(run(phase_main_super, dev))
     metrics.update(run(phase_trace, dev))
     rows = run(phase_timing, dev, launches, errs)
     errs["k1_variants"] = run(phase_k1_variants, dev)
     errs["k3"] = run(phase_k3, dev)
-    paths = {"main": launches}
+    paths["main"] = launches
     paths["65k"], m = run(phase_main_65k, dev)
     metrics.update(m)
     paths["mvn"], m = run(phase_main_mvn, dev)
@@ -4611,8 +5201,7 @@ def main():
     errs["k3_mig"] = run(phase_k3_mig, dev)
     errs["k_blocks"], paths["k_blocks"] = run(phase_k_blocks, dev)
     for name, phase in (("mcz_mig", phase_main_mcz_mig),
-                        ("blocked", phase_main_blocked),
-                        ("hier", phase_main_hier)):
+                        ("blocked", phase_main_blocked)):
         paths[name], m = run(phase, dev)
         metrics.update(m)
     metrics.update(run(phase_trace5, dev))
@@ -4634,6 +5223,16 @@ def main():
         metrics.update(run(phase, dev))
     new = ("main_chunked", "main_ckpt", "main_monitor", "trace_chunked")
     log("end", f"the chunked run's phases took "
+        f"{sum(took[k] for k in new):.1f} s")
+    fresh, m = run(phase_main_kde_fresh, dev)
+    metrics.update(m)
+    for phase in (phase_main_abc_fixed, phase_main_custom, phase_main_lv,
+                  phase_trace_kde_fresh):
+        metrics.update(run(phase, dev))
+    rows += run(phase_timing9, dev, fresh, errs)
+    new = ("main_kde_fresh", "main_abc_fixed", "main_custom", "main_lv",
+           "trace_kde_fresh", "timing9")
+    log("end", f"the custom slots' and stochastic models' phases took "
         f"{sum(took[k] for k in new):.1f} s")
     _rhat_results(metrics)
     card = gpu_line()

@@ -2,10 +2,16 @@
 
 Same fields, names and defaults as the JAX package's frozen ``DE``
 (reference ``src/structs.jl:57-131``; unicode spelled out: α→alpha,
-β→beta, ϵ→epsilon, σ→sigma, κ→kappa, θsnooker→theta_snooker).  Settings
-whose machinery the port does not carry yet raise ``NotImplementedError``
-naming the ROADMAP.md item that carries them instead of running something
-else: the custom strategy slots.  The optimization modes
+β→beta, ϵ→epsilon, σ→sigma, κ→kappa, θsnooker→theta_snooker).  A
+strategy slot holds the name of a built-in (given by its name or as the
+port's function of that name) or a custom callable with the JAX
+signature (the reference's extension mechanism, ``src/structs.jl:
+71-76``), which the unfused step runs: ``generate_proposal(ctx, key)``,
+``sample(ctx, key, n, exclude_self[, replace])``,
+``update_particle(key, w_cur, w_prop, log_adj)`` and
+``evaluate_fitness(model, spec, de, x[, noise])``, ``ctx`` a
+:class:`~demcmc_tpu_torch.ops.proposals.ProposalContext` and ``key`` a
+:class:`~demcmc_tpu_torch.rng.Key`.  The optimization modes
 (``update_particle='maximize'``/``'minimize'`` with ``evaluate_fitness=
 'fun'``) and ``dtype=float64`` are carried: float32 greedy configurations
 of a model with a greedy CUDA density run on K1, every other one on the
@@ -20,7 +26,10 @@ from typing import Any
 import numpy as np
 import torch
 
-_PROPOSALS = ("random_gamma", "fixed_gamma", "variable_gamma")
+_PROPOSALS = {n: n for n in ("random_gamma", "fixed_gamma",
+                              "variable_gamma")}
+_SAMPLES = {"sample": "sample", "current": "current",
+            "sample_current": "current", "resample": "resample"}
 _UPDATES = {"mh": "mh", "mh_update": "mh", "maximize": "maximize",
             "minimize": "minimize"}
 _FITNESS = {"posterior": "posterior", "compute_posterior": "posterior",
@@ -28,24 +37,24 @@ _FITNESS = {"posterior": "posterior", "compute_posterior": "posterior",
 _DTYPES = (np.dtype(np.float32), np.dtype(np.float64))
 
 
-def _later(what: str, where: str):
-    raise NotImplementedError(
-        f"{what} is not ported to demcmc_tpu_torch yet (ROADMAP.md "
-        f"{where}); use demcmc_tpu for it")
-
-
-def _slot(value, names: dict, builtins: tuple, default: str):
-    """A strategy slot as the name of the port's built-in it selects:
-    None is ``default``, a name or one of the port's functions of that name
-    (``builtins``) its canonical name, anything else None (a custom
-    slot)."""
+def _slot(value, names: dict, builtins: tuple, default, what: str):
+    """A strategy slot: None is ``default``; a name, or one of the port's
+    functions of that name (``builtins``), its canonical name; any other
+    callable stays as it is (a custom slot).  Anything else raises."""
     if value is None:
         return default
     if isinstance(value, str):
-        return names.get(value)
+        if value not in names:
+            raise ValueError(f"{what}={value!r} names no built-in "
+                             f"({', '.join(sorted(names))}); pass a "
+                             f"callable for a custom slot")
+        return names[value]
     if any(value is f for f in builtins):
         return names[value.__name__]
-    return None
+    if not callable(value):
+        raise TypeError(f"{what} must be a name or a callable, not "
+                        f"{value!r}")
+    return value
 
 
 def _default_blocking_on(de) -> bool:
@@ -95,7 +104,9 @@ class DE:
     ``update_particle`` ``'mh'`` (default), ``'maximize'`` or
     ``'minimize'`` and ``evaluate_fitness`` ``'posterior'`` (default) or
     ``'fun'``, or the functions of those names in
-    :mod:`demcmc_tpu_torch.ops.accept`, each kept as its name; ``dtype``
+    :mod:`demcmc_tpu_torch.ops.accept`, each kept as its name, or a
+    custom callable (the module's docstring), kept as it is and compared
+    by identity; ``dtype``
     float32 (default) or float64, the state's type.  ``blocks``,
     a list of masks over the parameters (reference ``src/structs.jl:48``),
     runs one sweep per block where ``blocking_on`` (a bool, or a callable
@@ -133,15 +144,12 @@ class DE:
             raise ValueError("Np (particles per group) is required")
         if self.n_groups == 1 and self.alpha > 0:
             object.__setattr__(self, "alpha", 0.0)
-        gp = self.generate_proposal
-        if gp is None:
-            gp = "random_gamma"
-        elif callable(gp):
-            gp = getattr(gp, "__name__", gp)
-        if gp not in _PROPOSALS:
-            _later(f"generate_proposal={self.generate_proposal!r} (custom "
-                   "proposal slots)", "A12 rest 3")
-        object.__setattr__(self, "generate_proposal", gp)
+        from .ops import accept, proposals   # the slots' functions
+        object.__setattr__(self, "generate_proposal", _slot(
+            self.generate_proposal, _PROPOSALS,
+            (proposals.random_gamma, proposals.fixed_gamma,
+             proposals.variable_gamma), "random_gamma",
+            "generate_proposal"))
         if self.sweep not in ("auto", "sync", "sequential"):
             raise ValueError(f"sweep must be 'auto', 'sync' or "
                              f"'sequential'; got {self.sweep!r}")
@@ -164,24 +172,17 @@ class DE:
                                  "parameter masks (or None)")
             object.__setattr__(self, "blocks", tuple(
                 _freeze_block(b) for b in self.blocks))
-        if self.sample not in (None, "sample", "current", "resample"):
-            _later(f"sample={self.sample!r} (custom partner slots)",
-                   "A12 rest 3")
-        from .ops import accept    # the slots' functions; no cycle here
-        up = _slot(self.update_particle, _UPDATES,
-                   (accept.mh_update, accept.maximize, accept.minimize),
-                   "mh")
-        if up is None:
-            _later(f"update_particle={self.update_particle!r} (custom "
-                   "update slots)", "A12 rest 3")
-        object.__setattr__(self, "update_particle", up)
-        fit = _slot(self.evaluate_fitness, _FITNESS,
-                    (accept.compute_posterior, accept.evaluate_fun),
-                    "posterior")
-        if fit is None:
-            _later(f"evaluate_fitness={self.evaluate_fitness!r} (custom "
-                   "fitness slots)", "A12 rest 3")
-        object.__setattr__(self, "evaluate_fitness", fit)
+        object.__setattr__(self, "sample", _slot(
+            self.sample, _SAMPLES,
+            (proposals.sample_current, proposals.resample), None, "sample"))
+        object.__setattr__(self, "update_particle", _slot(
+            self.update_particle, _UPDATES,
+            (accept.mh_update, accept.maximize, accept.minimize), "mh",
+            "update_particle"))
+        object.__setattr__(self, "evaluate_fitness", _slot(
+            self.evaluate_fitness, _FITNESS,
+            (accept.compute_posterior, accept.evaluate_fun), "posterior",
+            "evaluate_fitness"))
         if np.dtype(self.dtype) not in _DTYPES:
             raise ValueError(f"dtype must be float32 or float64, not "
                              f"{np.dtype(self.dtype)}")
@@ -195,6 +196,13 @@ class DE:
     def uses_resample(self) -> bool:
         """DE-MCz: partners come from the history of past states."""
         return self.sample == "resample"
+
+    @property
+    def custom_slots(self) -> tuple:
+        """The names of the strategy slots that hold a custom callable."""
+        return tuple(name for name in ("generate_proposal", "sample",
+                                       "update_particle", "evaluate_fitness")
+                     if callable(getattr(self, name)))
 
     @property
     def uses_snooker(self) -> bool:

@@ -54,12 +54,27 @@
 
 namespace demcmc {
 
+// Words (seed, it, row0 + r, chain0 + c) into out [n_rows, n]: a thread
+// per Philox block of four rows and a chain, writing the block's rows that
+// fall in the range; with uni, each word's uniform to_uni(w) as float bits
+// (a stochastic model's noise panel).
 __global__ void philox_fill_kernel(uint32_t* out, int n_rows, int n,
                                    uint32_t k0, uint32_t k1, uint32_t it,
-                                   uint32_t ns) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rows * n) return;
-  out[i] = philox_word(k0, k1, it, (uint32_t)(i / n), (uint32_t)(i % n), ns);
+                                   uint32_t ns, uint32_t row0,
+                                   uint32_t chain0, int uni,
+                                   int64_t n_threads) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_threads) return;
+  const int c = (int)(i % n);
+  const uint32_t blk = (row0 >> 2) + (uint32_t)(i / n);
+  const uint4 b = philox_block(k0, k1, it, blk, chain0 + (uint32_t)c, ns);
+  const uint32_t w[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int l = 0; l < 4; ++l) {
+    const int64_t r = (int64_t)blk * 4 + l - row0;
+    if (r < 0 || r >= n_rows) continue;
+    out[r * n + c] = uni ? __float_as_uint(to_uni(w[l])) : w[l];
+  }
 }
 
 template <class Density, int kMode = kAcceptMH>
@@ -138,16 +153,22 @@ DE_STEP_GREEDY_ENTRY(max, demcmc::kAcceptMax, rastrigin,
 DE_STEP_GREEDY_ENTRY(min, demcmc::kAcceptMin, rastrigin,
                      demcmc::RastriginDensity)
 
-// Philox words (seed, it, row, chain) for rows 0..n_rows-1, chains 0..n-1
-// into out [n_rows, n] -- used to hold the device generator against the
-// plain torch one.
+// Philox words (seed, it, row0 + r, chain0 + c) for r < n_rows, c < n into
+// out [n_rows, n], or with uni their uniforms: the unfused step's noise
+// panel of a stochastic model (rng.EVAL_NS, INIT_NOISE_NS) and a custom
+// slot's key words (rng.CUSTOM_NS), and the device generator held against
+// the plain torch one.
 extern "C" int philox_fill(uint32_t* out, int n_rows, int n, uint32_t k0,
                            uint32_t k1, uint32_t it, uint32_t ns,
+                           uint32_t row0, uint32_t chain0, int uni,
                            void* stream) {
-  const int total = n_rows * n;
-  demcmc::philox_fill_kernel<<<(total + 255) / 256, 256, 0,
-                               (cudaStream_t)stream>>>(out, n_rows, n, k0, k1,
-                                                       it, ns);
+  if (n_rows <= 0 || n <= 0) return 0;
+  const uint32_t last = row0 + (uint32_t)(n_rows - 1);
+  const int64_t n_blk = (int64_t)(last >> 2) - (row0 >> 2) + 1;
+  const int64_t n_threads = n_blk * n;
+  demcmc::philox_fill_kernel<<<(unsigned)((n_threads + 255) / 256), 256, 0,
+                               (cudaStream_t)stream>>>(
+      out, n_rows, n, k0, k1, it, ns, row0, chain0, uni, n_threads);
   return (int)cudaGetLastError();
 }
 

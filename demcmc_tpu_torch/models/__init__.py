@@ -1,5 +1,6 @@
 from . import (abc_kde, binomial, discrete_binomial, gaussian, hierarchical,
-               lba, lnr, mvnormal, rastrigin)
+               lba, lnr, lotka_volterra, mvnormal, rastrigin)
 
 __all__ = ["abc_kde", "binomial", "discrete_binomial", "gaussian",
-           "hierarchical", "lba", "lnr", "mvnormal", "rastrigin"]
+           "hierarchical", "lba", "lnr", "lotka_volterra", "mvnormal",
+           "rastrigin"]

@@ -11,8 +11,13 @@ The batched density is the JAX model's inverse-CDF form
 (``demcmc_tpu/models/binomial.py:50-86``): one uniform per simulation from
 the step's noise panel, the count Σ_j 1{u > CDF_j}.  The exact variant
 (``abc=False``, ``binomial.py:29``) has a per-cell likelihood and no CUDA
-density, so it runs the unfused step; the fixed-noise ABC variant is
-ROADMAP A6-rest.
+density, so it runs the unfused step.  The fixed-noise ABC variant
+(``abc=True, fresh_noise=False``) is deterministic: the JAX model draws
+``bernoulli(PRNGKey(123), θ, (n_sim, N))``, which is ``uniform(PRNGKey(123),
+(n_sim, N)) < θ`` (``binomial.py:32-45``); the port takes that uniform
+panel as data (``make(..., panel=)``, the JAX panel carried across; numpy
+seed 123 without it) and counts Σ_j 1{u_j < θ}, equal to the JAX model
+on the same panel.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ import numpy as np
 import torch
 
 from ..config import DE
-from ..model import CudaDensity, DEModel
+from ..model import CudaDensity, DEModel, DeviceArrays
 from ..utils import dists
 
 BOUNDS = ((0.0, 1.0),)
@@ -82,6 +87,39 @@ def loglike_abc_batched(data, theta, *, noise):
     return torch.log(dists.div(hits.to(theta.dtype), float(noise.shape[0])))
 
 
+def abc_hits(panel, N: int, k: int, theta):
+    """How many of the fixed panel's simulations hit ``k``: ``panel
+    [n_sim, N]`` uniforms, ``theta [*cs]``; a simulation's count is
+    Σ_j 1{u_j < θ} (``binomial.py:32-45``).  Exact integers, ``[*cs]``."""
+    n_sim = panel.shape[0]
+    t = theta.reshape(-1)
+    hits = torch.zeros(t.shape, dtype=torch.int64, device=t.device)
+    for s0 in range(0, n_sim, 1024):                 # bounded memory
+        cnt = (panel[s0:s0 + 1024, :, None] < t).sum(1)
+        hits = hits + (cnt == k).sum(0)
+    return hits.reshape(theta.shape)
+
+
+def abc_fraction(panel, N: int, k: int, theta):
+    """The fraction of the fixed panel's simulations that hit ``k``
+    (:func:`abc_hits`), taken as ``hits · (1 / n_sim)``, as XLA lowers the
+    JAX model's ``jnp.mean``."""
+    return abc_hits(panel, N, k, theta).to(theta.dtype) * dists.const(
+        1.0 / panel.shape[0], theta.dtype)
+
+
+def loglike_abc_fixed(panel, N: int, k: int, theta):
+    """Fixed-panel ABC log likelihood: the log of :func:`abc_fraction`."""
+    return torch.log(abc_fraction(panel, N, k, theta))
+
+
+def abc_panel(n_sim: int, N: int, seed: int = 123) -> np.ndarray:
+    """The fixed model's ``[n_sim, N]`` float32 uniform panel from numpy
+    seed ``seed`` (the JAX model's is ``jax.random.uniform(PRNGKey(123),
+    (n_sim, N))``; pass it to :func:`make` to hold the port to it)."""
+    return np.random.default_rng(seed).random((n_sim, N), dtype=np.float32)
+
+
 def prior_loglike_batched(theta):
     return torch.zeros_like(theta)            # Beta(1, 1)
 
@@ -113,20 +151,32 @@ def loglike(data, theta):
 
 
 def make_model(N: int, k: int, abc: bool = False, fresh_noise: bool = False,
-               n_sim: int = 10_000) -> DEModel:
-    """The exact model (``abc=False``) or the pseudo-marginal ABC model
-    (``abc=True, fresh_noise=True``: a fresh panel of ``n_sim`` uniforms
-    per evaluation)."""
+               n_sim: int = 10_000, panel=None) -> DEModel:
+    """The exact model (``abc=False``), the fixed-panel ABC model (``abc=True,
+    fresh_noise=False``: the ``[n_sim, N]`` uniform ``panel``, by default
+    :func:`abc_panel`) or the pseudo-marginal ABC model (``abc=True,
+    fresh_noise=True``: a fresh panel of ``n_sim`` uniforms per
+    evaluation)."""
     data = {"N": int(N), "k": int(k)}
     if not abc:
         return DEModel(loglike=loglike,
                        prior_loglike_batched=prior_loglike_batched,
                        sample_prior=sample_prior, names=NAMES, data=data)
     if not fresh_noise:
-        raise NotImplementedError(
-            "the fixed-noise ABC binomial (abc=True, fresh_noise=False) is "
-            "not ported: it needs the unfused step's per-cell random keys "
-            "(ROADMAP.md A6-rest)")
+        if panel is None:
+            panel = abc_panel(int(n_sim), int(N))
+        arrays = DeviceArrays(np.asarray(panel, np.float32))
+        if arrays.arrays[0].shape != (int(n_sim), int(N)):
+            raise ValueError(f"panel: need [{n_sim}, {N}] uniforms, got "
+                             f"{arrays.arrays[0].shape}")
+
+        def loglike_fixed(data, theta):
+            (u,) = arrays.on(theta.device)
+            return loglike_abc_fixed(u, data["N"], data["k"], theta)
+
+        return DEModel(loglike_batched=loglike_fixed,
+                       prior_loglike_batched=prior_loglike_batched,
+                       sample_prior=sample_prior, names=NAMES, data=data)
     return DEModel(loglike_batched=loglike_abc_batched,
                    prior_loglike_batched=prior_loglike_batched,
                    sample_prior=sample_prior, names=NAMES, data=data,
@@ -135,12 +185,14 @@ def make_model(N: int, k: int, abc: bool = False, fresh_noise: bool = False,
 
 
 def make(N=10, k=None, key=0, abc=False, fresh_noise=False, Np=4,
-         burnin=1000, n_sim=10_000, **de_kwargs):
+         burnin=1000, n_sim=10_000, panel=None, **de_kwargs):
     """Build (model, de) with the JAX ``make``'s defaults; without ``k``,
-    a Binomial(N, 0.5) draw from numpy seed ``key``."""
+    a Binomial(N, 0.5) draw from numpy seed ``key``; ``panel`` the fixed
+    ABC model's uniforms."""
     if k is None:
         k = int(np.random.default_rng(key).binomial(N, 0.5))
-    model = make_model(N, k, abc=abc, fresh_noise=fresh_noise, n_sim=n_sim)
+    model = make_model(N, k, abc=abc, fresh_noise=fresh_noise, n_sim=n_sim,
+                       panel=panel)
     return model, DE(bounds=BOUNDS, burnin=burnin, Np=Np, **de_kwargs)
 
 

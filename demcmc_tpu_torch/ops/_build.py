@@ -67,7 +67,7 @@ SIGNATURES = {
            for d in GREEDY_DENSITIES},
         **{f"de_step_block_chains_{m}_{d}": [_I, _I, _I, _IP]
            for m in GREEDY_MODES for d in GREEDY_DENSITIES},
-        "philox_fill": [_P, _I, _I, _U, _U, _U, _U, _P],
+        "philox_fill": [_P, _I, _I, _U, _U, _U, _U, _U, _U, _I, _P],
     },
     "de_step_resample": {
         **{f"resample_step_{d}": _K3
@@ -190,6 +190,11 @@ def launch(lib: ctypes.CDLL, fn: str, device, *args):
     with torch.cuda.device(device):
         rc = getattr(lib, fn)(*args, stream(device).cuda_stream)
     check(lib, rc, fn)
+    launch.calls += 1
+
+
+launch.calls = 0      # every launch of every library (the unfused step's
+                      # CUDA graph is for iterations that make none)
 
 
 def stream(device) -> "torch.cuda.Stream":

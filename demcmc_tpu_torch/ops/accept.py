@@ -17,24 +17,26 @@ def in_bounds(spec, x):
     """``x [..., d]`` -> bool ``[...]``: every dimension within its finite
     bounds (an infinite bound is no check, so NaN passes it and is caught
     by the posterior's NaN mask, as in the TPU kernel)."""
-    ok = torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
+    ok = None
     for i in range(spec.dim):
-        if math.isfinite(spec.lo[i]):
-            ok = ok & (x[..., i] >= float(spec.lo[i]))
-        if math.isfinite(spec.hi[i]):
-            ok = ok & (x[..., i] <= float(spec.hi[i]))
+        for bound, inside in ((spec.lo[i], torch.ge), (spec.hi[i], torch.le)):
+            if math.isfinite(bound):
+                c = inside(x[..., i], float(bound))
+                ok = c if ok is None else ok & c
+    if ok is None:
+        return torch.ones(x.shape[:-1], dtype=torch.bool, device=x.device)
     return ok
 
 
-def compute_posterior(model, spec, x, noise=None):
+def compute_posterior(model, spec, de, x, noise=None):
     """Log posterior of ``x [..., d]``; out-of-bounds or NaN -> ``-inf``
-    (``compute_posterior!``, reference ``src/utilities.jl:92-99``).  A
-    stochastic model evaluates on the uniform panel ``noise [n_noise,
-    ...]`` (``fused_step.py:2422-2428``)."""
+    (``compute_posterior!``, reference ``src/utilities.jl:92-99``; the JAX
+    signature, ``de`` unused).  A stochastic model evaluates on the
+    uniform panel ``noise [n_noise, ...]`` (``fused_step.py:2422-2428``)."""
     cols = torch.movedim(x, -1, 0)
     lp = model.log_posterior_cols(spec, cols, noise)
     ok = in_bounds(spec, x) & ~torch.isnan(lp)
-    return torch.where(ok, lp, torch.full_like(lp, -math.inf))
+    return torch.where(ok, lp, -math.inf)
 
 
 def objective(model, spec, x, bad: float, noise=None):
@@ -43,7 +45,7 @@ def objective(model, spec, x, bad: float, noise=None):
     ``fused_step.py:2429``)."""
     val = model.log_like_cols(spec, torch.movedim(x, -1, 0), noise)
     ok = in_bounds(spec, x) & ~torch.isnan(val)
-    return torch.where(ok, val, torch.full_like(val, bad))
+    return torch.where(ok, val, bad)
 
 
 def evaluate_fun(model, spec, de, x, noise=None):
@@ -89,18 +91,38 @@ def make_fitness(model, spec, de):
     Np]``, of the configuration's ``evaluate_fitness`` slot
     (``demcmc_tpu/ops/accept.py:51-88``): :func:`compute_posterior` or
     :func:`evaluate_fun` over the population, the model's per-cell
-    densities batched by ``vmap``; ``noise`` is a stochastic model's
-    panel."""
-    if de.fun_fitness:
-        return lambda x, noise=None: evaluate_fun(model, spec, de, x, noise)
-    return lambda x, noise=None: compute_posterior(model, spec, x, noise)
+    densities batched by ``vmap``; ``noise [n_noise, G·Np]`` is a
+    stochastic model's panel.  A custom slot ``slot(model, spec, de, x)``
+    runs per cell under ``torch.func.vmap``, as the JAX step vmaps it; for
+    a stochastic model it also receives the cell's panel ``[n_noise]`` as
+    a fifth argument, where the JAX step passes the cell's key."""
+    slot = de.evaluate_fitness
+    if not callable(slot):
+        fn = evaluate_fun if de.fun_fitness else compute_posterior
+        return lambda x, noise=None: fn(model, spec, de, x, noise)
+    stochastic = model.stochastic
+
+    def fitness(x, noise=None):
+        if stochastic and noise is None:
+            raise ValueError("a stochastic model's fitness needs its noise "
+                             "panel")
+        cells = x.reshape(-1, x.shape[-1])
+        if stochastic:
+            out = torch.func.vmap(
+                lambda v, u: slot(model, spec, de, v, u),
+                in_dims=(0, 1))(cells, noise)
+        else:
+            out = torch.func.vmap(lambda v: slot(model, spec, de, v))(cells)
+        return out.reshape(x.shape[:-1])
+    return fitness
 
 
 def mh_update(draws, w_cur, w_prop, log_adj):
     """Metropolis–Hastings accept mask in log space (``demcmc_tpu/ops/
     accept.py:91``): accept iff ``log max(u, tiny) <= (w′ − w) + log_adj``
-    with ``u`` the pool's next ``w``-shaped uniform in the weights' dtype
-    (two words each in float64); a NaN difference rejects."""
+    with ``u`` the next ``w``-shaped uniform of ``draws`` (the pool, or a
+    custom update's key) in the weights' dtype (two words each in
+    float64); a NaN difference rejects."""
     u = torch.clamp_min(draws.uniform(tuple(w_cur.shape), dtype=w_cur.dtype),
                         rng.tiny(w_cur.dtype))
     return torch.log(u) <= (w_prop - w_cur) + log_adj
@@ -125,7 +147,11 @@ greedy_update = maximize
 
 
 def make_update(de):
-    """The accept rule of the configuration's ``update_particle`` slot."""
+    """The accept rule of the configuration's ``update_particle`` slot: a
+    built-in, or the custom ``slot(key, w_cur, w_prop, log_adj)``, which
+    the step calls with a :class:`~demcmc_tpu_torch.rng.Key`."""
+    if callable(de.update_particle):
+        return de.update_particle
     return {"mh": mh_update, "maximize": maximize,
             "minimize": minimize}[de.update_particle]
 

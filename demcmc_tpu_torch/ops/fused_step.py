@@ -511,7 +511,7 @@ def sweep_plain(cfg: StepConfig, model, spec, theta, w, fire, it: int,
                 noise = uniforms[r.noise + o:r.noise + o + r.n_noise].view(
                     r.n_noise, G, Np)
             if cfg.mode == "mh":
-                w_prop = accept_ops.compute_posterior(model, spec, prop,
+                w_prop = accept_ops.compute_posterior(model, spec, None, prop,
                                                       noise)
                 acc, mg = accept_ops.mh_accept(w_prop, wg,
                                                uni(r.accept + o), log_adj)
@@ -718,14 +718,50 @@ def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
                              f"{tuple(t.shape)} on {t.device}")
 
 
-def philox_words_cuda(out, seed: int, it: int, ns: int = rng.STEP_NS):
-    """Fill ``out [n_rows, n]`` (uint32, CUDA) with the device Philox words
-    ``(seed, it, row, chain)`` of namespace ``ns`` — the generator K1 and
-    K2 run, exposed so it can be held against :func:`rng.words`."""
-    if out.device.type != "cuda" or out.dtype != torch.uint32 \
-            or out.dim() != 2 or not out.is_contiguous():
-        raise ValueError("out: need a contiguous 2-D uint32 CUDA tensor")
+def philox_fill(out, seed: int, it: int, ns: int = rng.STEP_NS,
+                row0: int = 0, chain0: int = 0):
+    """Fill ``out [n_rows, n]`` with the Philox words ``(seed, it, row0 +
+    r, chain0 + c)`` of namespace ``ns`` (``out`` uint32) or with their
+    uniforms ``rng.to_uni`` (``out`` float32): a stochastic model's noise
+    panel in the unfused step, a custom slot's key words, and the
+    generator K1 and K2 run, held against :func:`rng.words`.  A CPU
+    ``out`` takes the plain version (:func:`rng.words`); a CUDA one
+    launches ``philox_fill`` (``csrc/de_step.cu``; ``philox_fill.
+    launches`` counts the launches)."""
+    uni = out.dtype == torch.float32
+    if (out.dtype not in (torch.uint32, torch.float32) or out.dim() != 2
+            or not out.is_contiguous()):
+        raise ValueError(f"out: need a contiguous 2-D uint32 or float32 "
+                         f"tensor, got {out.dtype} {tuple(out.shape)}")
+    n_rows, n = out.shape
+    if row0 < 0 or chain0 < 0 or row0 + n_rows > 1 << 32 \
+            or chain0 + n > 1 << 32:
+        raise ValueError(f"rows {row0} + {n_rows} and chains {chain0} + "
+                         f"{n} must lie in [0, 2**32)")
+    if out.device.type == "cpu":
+        w = rng.words(seed, it, n_rows, n, ns, row0=row0, chain0=chain0)
+        out.copy_(rng.to_uni(w) if uni else w)
+        return out
+    if out.device.type != "cuda":
+        raise ValueError(f"philox_fill runs on cpu or cuda, not "
+                         f"{out.device}")
     lib = _build.library("de_step")
     k0, k1 = rng.seed_key(seed)
-    _build.launch(lib, "philox_fill", out.device, out.data_ptr(),
-                  out.shape[0], out.shape[1], k0, k1, int(it), int(ns))
+    _build.launch(lib, "philox_fill", out.device, out.data_ptr(), n_rows, n,
+                  k0, k1, int(it) & 0xFFFFFFFF, int(ns), int(row0),
+                  int(chain0), int(uni))
+    philox_fill.launches += 1
+    return out
+
+
+philox_fill.launches = 0
+
+
+def philox_uniforms(seed: int, it: int, n_rows: int, n: int, ns: int,
+                    device, row0: int = 0, chain0: int = 0):
+    """``[n_rows, n]`` float32 uniforms ``rng.to_uni`` of the words
+    ``(seed, it, row0 + r, chain0 + c)`` of namespace ``ns`` on
+    ``device``: one :func:`philox_fill` launch on the card, the same bits
+    as :func:`rng.words` on the CPU."""
+    out = torch.empty((n_rows, n), dtype=torch.float32, device=device)
+    return philox_fill(out, seed, it, ns, row0, chain0)

@@ -48,7 +48,22 @@ def kde_logpdf(x, sims, h, floor: float = 1e-10):
     chain's simulations ``sims [C, S]`` with bandwidths ``h [C]``
     (float32); returns ``[C, E]``.  CPU tensors take the plain version;
     CUDA tensors launch K4 (``kde_logpdf.launches`` counts the
-    launches)."""
+    launches).  The call is the operator ``demcmc_tpu_torch::kde_logpdf``,
+    whose vmap rule (:func:`_kde_vmap`) folds a ``torch.func.vmap`` batch
+    into the chains: a custom fitness slot that runs per cell launches K4
+    once for the whole population."""
+    if sims.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"kde_logpdf runs on cpu or cuda, not "
+                         f"{sims.device}")
+    return _kde_op(x, sims, h, float(floor))
+
+
+kde_logpdf.launches = 0
+
+
+@torch.library.custom_op("demcmc_tpu_torch::kde_logpdf", mutates_args=())
+def _kde_op(x: torch.Tensor, sims: torch.Tensor, h: torch.Tensor,
+            floor: float) -> torch.Tensor:
     if sims.device.type == "cpu":
         return kde_logpdf_plain(x, sims, h, floor)
     check_cuda(x, sims, h)
@@ -63,7 +78,28 @@ def kde_logpdf(x, sims, h, floor: float = 1e-10):
     return out
 
 
-kde_logpdf.launches = 0
+@_kde_op.register_vmap
+def _kde_vmap(info, in_dims, x, sims, h, floor):
+    """The batch of a vmap over :func:`kde_logpdf`, ``sims [B, C, S]`` and
+    ``h [B, C]``, runs as one call on ``[B·C, S]`` chains; only a batch of
+    evaluation points ``x [B, E]`` takes one call per batch member."""
+    B = info.batch_size
+    x_dim, sims_dim, h_dim, _ = in_dims
+
+    def front(t, dim):
+        return t.movedim(dim, 0) if dim is not None else t.expand(
+            (B,) + tuple(t.shape))
+
+    sims, h = front(sims, sims_dim), front(h, h_dim)
+    if x_dim is not None:
+        x = x.movedim(x_dim, 0)
+        return torch.stack([_kde_op(x[b], sims[b].contiguous(),
+                                    h[b].contiguous(), floor)
+                            for b in range(B)]), 0
+    C, S = sims.shape[1:]
+    out = _kde_op(x, sims.reshape(B * C, S).contiguous(),
+                  h.reshape(B * C).contiguous(), floor)
+    return out.reshape(B, C, -1), 0
 
 
 def check_cuda(x, sims, h):

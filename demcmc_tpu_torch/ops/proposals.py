@@ -9,16 +9,23 @@ parameters.  Two families live here:
   draw-to-value rules (``demcmc_tpu/ops/fused_step.py``), the plain
   versions of K1 and K3 and so their oracle;
 * the unfused step's strategies (``ProposalContext`` .. ``snooker_log_adj``,
-  the JAX names): draws from an :class:`~demcmc_tpu_torch.rng.Pool` in
-  the JAX XLA step's call order, so the port's unfused step can be fed
-  the JAX pool's words.
+  the JAX names and signatures): draws from an
+  :class:`~demcmc_tpu_torch.rng.Pool` in the JAX XLA step's call order, so
+  the port's unfused step can be fed the JAX pool's words.  A custom
+  strategy slot receives the context and a
+  :class:`~demcmc_tpu_torch.rng.Key` and may delegate to the public
+  built-ins (``random_gamma``, ``fixed_gamma``, ``variable_gamma``,
+  ``snooker``, ``sample_current``, ``resample``), which take the key for
+  the JAX signature and draw from ``ctx.draws`` exactly as when the step
+  calls them.
 """
 
 from __future__ import annotations
 
+import inspect
 import math
-from dataclasses import dataclass
-from typing import Any
+from dataclasses import dataclass, field
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -217,29 +224,69 @@ def resample_flat_indices(words, count: int, C: int):
 @dataclass
 class ProposalContext:
     """What a proposal strategy of the unfused step reads (``demcmc_tpu/
-    ops/proposals.py:39``): the configuration, the group-shaped population
-    ``theta [G, Np, d]`` and ``weight [G, Np]``, the 1-based iteration,
-    the :class:`~demcmc_tpu_torch.rng.Pool` of the iteration and, for
-    DE-MCz, the ``history [H, C, d]`` of past states."""
+    ops/proposals.py:39``, its fields in its order): the configuration and
+    the parameter spec, the group-shaped population ``theta [G, Np, d]``
+    and ``weight [G, Np]``, the 1-based iteration (a host int), for DE-MCz
+    the ``history [H, C, d]`` of past states, the iteration's
+    :class:`~demcmc_tpu_torch.rng.Pool` and, where a custom slot runs, the
+    :class:`~demcmc_tpu_torch.rng.Key` of the sweep (``key``)."""
 
     de: Any
+    spec: Any
     theta: torch.Tensor
     weight: torch.Tensor
     iteration: int
-    draws: Any
-    history: Any = None
+    history: Optional[torch.Tensor] = None
+    draws: Any = None
+    key: Any = None
+    # next_key()'s counter in a shared one-element list: dataclasses.replace
+    # copies the reference, so the count survives copies of the context
+    # (demcmc_tpu/ops/proposals.py:49-52)
+    _key_count: list = field(default_factory=lambda: [0])
 
     @property
     def dim(self) -> int:
         return self.theta.shape[-1]
 
+    def next_key(self):
+        """A fresh key for custom strategy code, distinct at each call
+        within the step, copies of the context included: ``key`` folded
+        with ``NEXT_KEY`` and the call's count (``demcmc_tpu/ops/
+        proposals.py:60-71``)."""
+        if self.key is None:
+            raise ValueError(
+                "ProposalContext.key is not set: custom strategy slots "
+                "need a key; construct the context with key=...")
+        self._key_count[0] += 1
+        return self.key.fold_in(rng.NEXT_KEY).fold_in(self._key_count[0])
+
     def partners(self, n: int, exclude_self: bool, replace: bool = False):
         """``n`` partner populations ``[n, G, Np, d]`` from the ``sample``
-        slot: the current group (:func:`sample_current`) or, for DE-MCz,
-        the history (:func:`resample`)."""
+        slot: the current group (:func:`sample_current`), the history
+        (:func:`resample`, DE-MCz) or a custom slot, called with a fresh
+        key as ``slot(ctx, key, n, exclude_self[, replace])``, ``replace``
+        passed where it takes five positionals (``demcmc_tpu/ops/
+        proposals.py:72-121``)."""
+        slot = self.de.sample
+        if callable(slot):
+            if _slot_takes_replace(slot):
+                return slot(self, self.next_key(), n, exclude_self, replace)
+            return slot(self, self.next_key(), n, exclude_self)
         if self.de.uses_resample:
-            return resample(self, n, exclude_self, replace)
-        return sample_current(self, n, exclude_self, replace)
+            return resample(self, None, n, exclude_self, replace)
+        return sample_current(self, None, n, exclude_self, replace)
+
+
+def _slot_takes_replace(slot) -> bool:
+    """True where a custom ``sample`` slot takes a fifth positional
+    (``replace``; ``demcmc_tpu/ops/proposals.py:126``)."""
+    try:
+        params = inspect.signature(slot).parameters.values()
+    except (TypeError, ValueError):
+        return False
+    n_pos = sum(p.kind in (p.POSITIONAL_ONLY, p.POSITIONAL_OR_KEYWORD)
+                for p in params)
+    return n_pos >= 5 or any(p.kind == p.VAR_POSITIONAL for p in params)
 
 
 def _distinct_indices(draws, G: int, Np: int, n: int, exclude_self: bool,
@@ -272,16 +319,17 @@ def _gather_partners(theta, idx):
     return torch.gather(src, 2, idx[..., None].expand(-1, -1, -1, d))
 
 
-def sample_current(ctx: ProposalContext, n: int, exclude_self: bool,
+def sample_current(ctx: ProposalContext, key, n: int, exclude_self: bool,
                    replace: bool = False):
     """Partners from the current group (``demcmc_tpu/ops/proposals.py:
-    200``; reference ``sample``, ``crossover.jl:138-140``)."""
+    200``; reference ``sample``, ``crossover.jl:138-140``), drawn from
+    ``ctx.draws``."""
     G, Np = ctx.theta.shape[:2]
     return _gather_partners(ctx.theta, _distinct_indices(
         ctx.draws, G, Np, n, exclude_self, replace))
 
 
-def resample(ctx: ProposalContext, n: int, exclude_self: bool,
+def resample(ctx: ProposalContext, key, n: int, exclude_self: bool,
              replace: bool = False):
     """DE-MCz partners (``demcmc_tpu/ops/proposals.py:271-295``; reference
     ``resample``, ``crossover.jl:113-124``): ``n`` uniform draws over the
@@ -294,7 +342,10 @@ def resample(ctx: ProposalContext, n: int, exclude_self: bool,
                          "states (n_initial > 0)")
     C, d = ctx.history.shape[1:]
     G, Np = ctx.theta.shape[:2]
-    span = max(int(ctx.iteration) - 1, 1) * C
+    rows = (ctx.draws.rows_seen(ctx.iteration)
+            if isinstance(ctx.draws, rng.Pool)
+            else max(int(ctx.iteration) - 1, 1))
+    span = rows * C
     if replace:
         flats = [ctx.draws.randuint((G, Np), span) for _ in range(n)]
     else:
@@ -313,8 +364,7 @@ def select_base_idx(draws, weight, Np: int):
     from there on (the kernels' form, :func:`select_base`, clamps)."""
     G = weight.shape[0]
     m = torch.amax(weight, dim=1, keepdim=True)
-    e = torch.exp(weight - torch.where(torch.isfinite(m), m,
-                                       torch.zeros_like(m)))
+    e = torch.exp(weight - torch.where(torch.isfinite(m), m, 0.0))
     q = torch.cumsum(e, dim=1)
     u = torch.clamp_min(draws.uniform((G, Np), dtype=weight.dtype),
                         rng.tiny(weight.dtype)) * q[:, -1:]
@@ -338,7 +388,7 @@ def _noise(draws, shape, eps: float, dtype):
     return draws.uniform(tuple(shape), -eps, eps, dtype)
 
 
-def random_gamma(ctx: ProposalContext):
+def random_gamma(ctx: ProposalContext, key=None):
     """θ′ = θ + γ₁(θm − θn) + γ₂(θb − θ) + b, γ₁, γ₂ ~ U(0.5, 1), γ₂ = 0
     after burn-in (``demcmc_tpu/ops/proposals.py:353``; reference
     ``crossover.jl:154-172``).  Past burn-in the base draw's columns are
@@ -374,27 +424,30 @@ def _plain_de(ctx: ProposalContext, gamma: float):
     return recombination(ctx.draws, ctx.theta, prop, ctx.de.kappa)
 
 
-def fixed_gamma(ctx: ProposalContext):
+def fixed_gamma(ctx: ProposalContext, key=None):
     """θ′ = θ + 2.38(θm − θn) + b (reference ``crossover.jl:186-199``)."""
     return _plain_de(ctx, GAMMA_FIXED)
 
 
-def variable_gamma(ctx: ProposalContext):
+def variable_gamma(ctx: ProposalContext, key=None):
     """θ′ = θ + 2.38/√(2d)(θm − θn) + b (reference
     ``crossover.jl:213-226``)."""
     return _plain_de(ctx, GAMMA_FIXED / math.sqrt(2.0 * ctx.dim))
 
 
-def _project(p1, p2):
+def _project(p1, p2, p2p2=None):
     """((p1·p2) / (p2·p2)) p2 along the last axis (reference
     ``project``, ``utilities.jl:239-246``; ``demcmc_tpu/ops/proposals.py:
-    421``).  The unfused step's sums are one reduction each, as the JAX
-    XLA step's ``jnp.sum``, which holds it by tolerance; the kernels'
-    forms sum in index order (:func:`dot`)."""
-    return (torch.sum(p1 * p2, -1) / torch.sum(p2 * p2, -1))[..., None] * p2
+    421``); ``p2p2`` is p2·p2 where the caller has it.  The unfused
+    step's sums are one reduction each, as the JAX XLA step's
+    ``jnp.sum``, which holds it by tolerance; the kernels' forms sum in
+    index order (:func:`dot`)."""
+    if p2p2 is None:
+        p2p2 = torch.sum(p2 * p2, -1)
+    return (torch.sum(p1 * p2, -1) / p2p2)[..., None] * p2
 
 
-def snooker(ctx: ProposalContext):
+def snooker(ctx: ProposalContext, key=None):
     """Snooker proposal along θ − z (``demcmc_tpu/ops/proposals.py:429``;
     reference ``snooker_update!``, ``crossover.jl:239-257``): (z, m, n)
     distinct members including the target, m and n projected onto θ − z,
@@ -406,9 +459,10 @@ def snooker(ctx: ProposalContext):
     pz, pm, pn = ctx.partners(3, exclude_self=False)
     pd = theta - pz
     degenerate = torch.sum(pd * pd, -1) <= rng.tiny(theta.dtype)
-    safe = torch.where(degenerate[..., None], torch.ones_like(pd), pd)
+    safe = torch.where(degenerate[..., None], 1.0, pd)
     gamma = draws.uniform((G, Np, 1), 1.2, 2.2, theta.dtype)
-    prop = (theta + gamma * (_project(pm, safe) - _project(pn, safe))
+    ss = torch.sum(safe * safe, -1)
+    prop = (theta + gamma * (_project(pm, safe, ss) - _project(pn, safe, ss))
             + _noise(draws, theta.shape, de.epsilon, theta.dtype))
     prop = recombination(draws, theta, prop, de.kappa)
     prop = torch.where(degenerate[..., None], theta, prop)
@@ -419,7 +473,8 @@ def snooker_log_adj(theta, prop, z, dim: int, degenerate):
     """Snooker MH correction (``demcmc_tpu/ops/proposals.py:463``;
     reference ``adjust_loglike``, ``crossover.jl:268-273``): (d − 1)
     (log‖θ′ − z‖ − log‖θ − z‖), ``-inf`` for a degenerate draw."""
-    a1 = torch.sqrt(torch.sum((prop - z) * (prop - z), -1))
-    a2 = torch.sqrt(torch.sum((theta - z) * (theta - z), -1))
+    dp, dt = prop - z, theta - z
+    a1 = torch.sqrt(torch.sum(dp * dp, -1))
+    a2 = torch.sqrt(torch.sum(dt * dt, -1))
     adj = float(dim - 1) * (torch.log(a1) - torch.log(a2))
-    return torch.where(degenerate, torch.full_like(adj, -math.inf), adj)
+    return torch.where(degenerate, -math.inf, adj)

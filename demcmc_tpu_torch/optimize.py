@@ -91,7 +91,7 @@ def _check_opt_config(de: DE):
         raise ValueError(
             "optimize requires update_particle='maximize' or 'minimize' "
             "(and evaluate_fitness='fun'), like the reference")
-    if de.is_minimize and not de.fun_fitness:
+    if de.is_minimize and de.evaluate_fitness == "posterior":
         raise ValueError(
             "minimize with the posterior fitness is ill-posed: "
             "out-of-bounds proposals score -inf and would be 'optimal'. "

@@ -16,7 +16,13 @@ migration gate, ``RESAMPLE_NS`` the DE-MCz history index words (row =
 partner slot of the iteration), ``INIT_NOISE_NS`` the noise panel that
 scores a stochastic model's initial population, ``POOL_NS`` and
 ``SCALAR_NS`` the unfused step's :class:`Pool` (row = pool column, chain
-= group) and its scalar side channel (chain 0).
+= group) and its scalar side channel (chain 0), ``EVAL_NS`` the noise
+panel of one evaluation of a stochastic model in the unfused step (row =
+:func:`eval_row`: the block, the sequential sweep's member and the
+panel's index) and ``CUSTOM_NS`` the words of a :class:`Key`, the key a
+custom strategy slot receives: the counterpart of the JAX PRNG key, not
+its threefry bits (a slot is written against each package's own API, so
+none could be bit for bit its JAX twin).
 
 The chain word is the chain's index in the whole population, so a shard
 of a run split over a chain mesh (``chain0``: its first chain, or for the
@@ -39,6 +45,18 @@ RESAMPLE_NS = 3  # DE-MCz history indices (row = partner slot)
 INIT_NOISE_NS = 4  # initial weights' noise panel (stochastic models)
 POOL_NS = 5     # the unfused step's pool: row = column, "chain" = group
 SCALAR_NS = 6   # the unfused step's scalar side channel (chain 0)
+EVAL_NS = 7     # the unfused step's noise panel of one evaluation
+CUSTOM_NS = 8   # the words of a Key (custom strategy slots)
+FOLD_NS = 9     # Key.fold_in's derivation of a key's two words
+
+# The JAX step's purpose tags within an iteration's key (demcmc_tpu/rng.py:
+# 27-40), which the unfused step folds into a Key as the JAX step folds
+# them into its PRNG key.
+ACCEPT = 16     # a custom update_particle slot's key
+BLOCK = 18      # per-block keys: BLOCK * 1000 + block
+CUSTOM = 19     # the custom slots' root (ProposalContext.key)
+NEXT_KEY = 20   # ProposalContext.next_key's stream
+MEMBER = 24     # per-member keys of the sequential sweep: MEMBER * 1000 + p
 
 _M0, _M1 = 0xD2511F53, 0xCD9E8D57          # Philox multipliers
 _W0, _W1 = 0x9E3779B9, 0xBB67AE85          # Weyl key bumps
@@ -72,18 +90,44 @@ def _mulhilo(a: torch.Tensor, m: int):
     return hi, lo
 
 
-def philox4x32(ctr, key):
-    """Philox4x32-10 on four int64 tensors of uint32 counter words and a
-    ``(k0, k1)`` key; returns the four output words (int64 tensors)."""
+def _mulhilo_u64(a: np.ndarray, m: int):
+    """:func:`_mulhilo` for numpy uint64 arrays: the product is exact."""
+    p = a * np.uint64(m)
+    return p >> np.uint64(32), p & np.uint64(_MASK)
+
+
+def _mulhilo_int(a: int, m: int):
+    """:func:`_mulhilo` for Python ints."""
+    p = a * m
+    return p >> 32, p & _MASK
+
+
+def _rounds(ctr, key, mulhilo, word=int):
+    """Philox4x32-10 on four counter words of uint32 values (int64
+    tensors, uint64 arrays or ints) and a ``(k0, k1)`` key, each product
+    by ``mulhilo`` and each key word made by ``word``."""
     c0, c1, c2, c3 = ctr
     k0, k1 = int(key[0]) & _MASK, int(key[1]) & _MASK
     for r in range(10):
         if r:
             k0, k1 = (k0 + _W0) & _MASK, (k1 + _W1) & _MASK
-        hi0, lo0 = _mulhilo(c0, _M0)
-        hi1, lo1 = _mulhilo(c2, _M1)
-        c0, c1, c2, c3 = hi1 ^ c1 ^ k0, lo1, hi0 ^ c3 ^ k1, lo0
+        hi0, lo0 = mulhilo(c0, _M0)
+        hi1, lo1 = mulhilo(c2, _M1)
+        c0, c1, c2, c3 = hi1 ^ c1 ^ word(k0), lo1, hi0 ^ c3 ^ word(k1), lo0
     return c0, c1, c2, c3
+
+
+def philox4x32(ctr, key):
+    """Philox4x32-10 on four int64 tensors of uint32 counter words and a
+    ``(k0, k1)`` key; returns the four output words (int64 tensors).  CPU
+    tensors run the rounds in numpy, whose uint64 product takes a third
+    of the operations (the port's CPU tests run in half the time); other
+    devices in torch."""
+    if ctr[0].device.type != "cpu":
+        return _rounds(ctr, key, _mulhilo)
+    out = _rounds([c.numpy().astype(np.uint64) for c in ctr], key,
+                  _mulhilo_u64, np.uint64)
+    return tuple(torch.from_numpy(o.astype(np.int64)) for o in out)
 
 
 def words(seed: int, iteration: int, n_rows: int, n: int, ns: int = STEP_NS,
@@ -259,6 +303,16 @@ class Pool:
         self.bits, self.scalars, self.x64 = bits, scalars, bool(x64)
         self.n_rows = int(bits.shape[0])
         self.offset = 0
+        # the iteration as an int64 device scalar, in a pool the unfused
+        # step's CUDA graph captures (its value changes between replays)
+        self.it_tensor = None
+
+    def rows_seen(self, iteration: int):
+        """DE-MCz's count of past rows, ``max(it − 1, 1)``: a host int,
+        or in a captured pool an int64 device scalar."""
+        if self.it_tensor is None:
+            return max(int(iteration) - 1, 1)
+        return torch.clamp_min(self.it_tensor - 1, 1)
 
     def _cols(self, shape):
         """Columns a group-shaped draw takes, or None for a scalar one."""
@@ -343,10 +397,13 @@ class Pool:
             idx = self._take(shape) % (hi - lo)
         return idx + lo if lo else idx
 
-    def randuint(self, shape, span: int):
-        """Words modulo ``span``, a uint32 span held in a Python int (the
-        JAX ``Pool.randuint``, over resample's flat (row, chain) space; one
-        word in either word rule); int64 values."""
+    def randuint(self, shape, span):
+        """Words modulo ``span``, a uint32 span held in a Python int or
+        an int64 device scalar (the JAX ``Pool.randuint``, over resample's
+        flat (row, chain) space; one word in either word rule); int64
+        values."""
+        if isinstance(span, torch.Tensor):
+            return self._take(shape) % (span & 0xFFFFFFFF)
         return self._take(shape) % (int(span) & 0xFFFFFFFF)
 
 
@@ -396,3 +453,129 @@ class CountingDraws:
 
     def randuint(self, shape, span: int):
         return self._zeros(shape, dtype=torch.int64)
+
+
+# ------------------------------------------ stochastic models, custom slots
+
+
+def eval_row(block, member, Np: int, n_noise: int) -> int:
+    """The first ``EVAL_NS`` row of one evaluation's noise panel of
+    ``n_noise`` uniforms per chain: the row packs the sweep (0, or 1 +
+    the block's index), the sequential sweep's member (0, or 1 + its
+    slot) and the panel's index, so that each (iteration, block, member)
+    draws its own panel, as the JAX step folds its evaluation key per
+    iteration, block and member (``demcmc_tpu/sampler.py:978, 1018,
+    1067``)."""
+    sub = ((0 if block is None else int(block) + 1) * (int(Np) + 1)
+           + (0 if member is None else int(member) + 1))
+    row = sub * int(n_noise)
+    if row + int(n_noise) > 1 << 32:
+        raise ValueError(f"the noise panel's rows reach past 2**32 "
+                         f"(block {block}, member {member}, {n_noise} "
+                         f"uniforms)")
+    return row
+
+
+GLOBAL_CHAIN = _MASK    # a Key's chain word for draws with no group axis
+
+
+class Key:
+    """The port's counterpart of the JAX PRNG key a custom strategy slot
+    receives (``ProposalContext.key``, ``next_key()``, a custom update's
+    key): a counter-based stream of Philox words of namespace
+    ``CUSTOM_NS`` under the key's own two words, drawn as the
+    :class:`Pool` draws.  A group-shaped draw (``(G, ...)`` or ``(n, G,
+    ...)``) takes the next columns of each group, the chain word being the
+    population's group index (a shard of a chain mesh, ``chain0``, draws
+    the unsharded values); any other shape takes the next columns of one
+    global stream, the same on every shard.  Maps: uniform (float32 from
+    one word, float64 from two), normal by Box–Muller, ``randint`` ``lo +
+    w mod (hi − lo)`` (two words with ``x64``), ``bits`` the words
+    themselves (int64 values in [0, 2³²)).
+
+    :meth:`fold_in` derives a new key as ``jax.random.fold_in`` does:
+    its two words are a Philox block of the data, the iteration and
+    ``FOLD_NS`` under the parent's words.  The unfused step folds them
+    as the JAX step folds its keys (``demcmc_tpu/sampler.py:978-979,
+    1024-1025, 1067``; ``next_key``, ``demcmc_tpu/ops/proposals.py:
+    60-71``), so no two calls share words, and a key's words never alias
+    the pool's (another namespace) or another key's.  A custom slot is
+    written against each package's own API, so the words are not JAX's
+    threefry bits: a slot that draws from its key gives the same law, not
+    the same numbers, as its JAX twin."""
+
+    def __init__(self, seed: int, iteration: int, n_rows: int,
+                 chain0: int = 0, device=None, x64: bool = False,
+                 words=None):
+        self.seed, self.iteration = int(seed), int(iteration)
+        self.n_rows, self.chain0 = int(n_rows), int(chain0)
+        self.device = torch.device("cpu" if device is None else device)
+        self.x64 = bool(x64)
+        self.words = seed_key(seed) if words is None else tuple(words)
+        self.offset = self.global_offset = 0
+
+    def fold_in(self, data: int) -> "Key":
+        """A new key at the start of its stream, derived from this one's
+        words and ``data`` (a non-negative int below 2⁶⁴)."""
+        data = int(data)
+        ctr = (data & _MASK, data >> 32, self.iteration & _MASK, FOLD_NS)
+        w = _rounds(ctr, self.words, _mulhilo_int)
+        return Key(self.seed, self.iteration, self.n_rows, self.chain0,
+                   self.device, self.x64, words=w[:2])
+
+    _cols = Pool._cols
+
+    def _fill(self, row0: int, n_rows: int, chain0: int, n: int):
+        """Words ``[n_rows, n]`` (int64) of rows ``row0 ..`` and chains
+        ``chain0 ..`` of this key's stream: one ``philox_fill`` launch on
+        the card, :func:`words` on the CPU."""
+        from .ops import fused_step
+        out = torch.empty((n_rows, n), dtype=torch.uint32,
+                          device=self.device)
+        fused_step.philox_fill(out, self.words[0] | (self.words[1] << 32),
+                               self.iteration, CUSTOM_NS, row0=row0,
+                               chain0=chain0)
+        return out.to(torch.int64)
+
+    def _take(self, shape):
+        """The next words for a draw of ``shape``: the group's next columns
+        for a group-shaped draw, the global stream's next values else."""
+        shape = tuple(shape)
+        k = self._cols(shape)
+        if k is None:
+            n = 1
+            for s in shape:
+                n *= int(s)
+            w = self._fill(self.global_offset, max(n, 1), GLOBAL_CHAIN, 1)
+            self.global_offset += max(n, 1)
+            return w.reshape(shape) if shape else w.reshape(())
+        w = self._fill(self.offset, k, self.chain0, self.n_rows).T
+        self.offset += k
+        if shape[0] == self.n_rows:
+            return w.reshape(shape)
+        return w.reshape((self.n_rows, shape[0]) + shape[2:]).movedim(1, 0)
+
+    def bits(self, shape=()):
+        return self._take(shape)
+
+    def uniform(self, shape=(), lo=0.0, hi=1.0, dtype=torch.float32):
+        if _wide(dtype):
+            w_hi = self._take(shape)
+            u = _uniform53(w_hi, self._take(shape))
+        else:
+            u = _uniform24(self._take(shape))
+        return _shift(u, lo, hi, dtype)
+
+    def normal(self, shape=(), dtype=torch.float32):
+        u1 = torch.clamp_min(self.uniform(shape, dtype=dtype), tiny(dtype))
+        u2 = self.uniform(shape, dtype=dtype)
+        two_pi = 2.0 * math.pi if _wide(dtype) else TWO_PI
+        return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(two_pi * u2)
+
+    def randint(self, shape, lo: int, hi: int):
+        if self.x64:
+            w_hi = self._take(shape)
+            idx = _mod64(w_hi, self._take(shape), hi - lo)
+        else:
+            idx = self._take(shape) % (hi - lo)
+        return idx + lo if lo else idx

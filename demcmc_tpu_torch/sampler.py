@@ -184,8 +184,8 @@ def init_state(model: DEModel, de: DE, spec: ParamSpec, key: int = 0,
                                       dtype=dtype)
     noise = None
     if model.stochastic:          # the initial weights' own noise panel
-        noise = rng.to_uni(rng.words(key, 0, model.noise_words, C,
-                                     ns=rng.INIT_NOISE_NS, device=device))
+        noise = fused_ops.philox_uniforms(key, 0, model.noise_words, C,
+                                          rng.INIT_NOISE_NS, device)
     weight = accept_ops.make_fitness(model, spec, de)(theta, noise)
     it0 = (de.n_initial + 1 if start_iteration is None
            else int(start_iteration))
@@ -537,6 +537,9 @@ class Step:
         return functools.partial(self, phase="post")
 
 
+GRAPHS = True        # the unfused step's sweeps as CUDA graphs on the card
+
+
 class UnfusedStep:
     """One iteration of the unfused step, the twin of the JAX XLA step
     (``demcmc_tpu/sampler.py:954-1130``: ``do_update`` :966,
@@ -546,43 +549,55 @@ class UnfusedStep:
     probability α, then the synchronous or sequential sweep, once per
     block where the blocks apply, each chain's proposal scored by the
     model's torch density through the configuration's fitness slot
-    (:func:`.ops.accept.make_fitness`: the posterior, or the objective
-    alone when optimizing) and accepted by its update slot (MH, or the
-    greedy ``maximize``/``minimize``, which draw nothing); partners
-    come from the current group or, for DE-MCz, from the history, whose
-    row ``it − 1`` takes the new state.  The state is float32 or float64,
-    the configuration's dtype; a float64 one draws by the JAX step's x64
-    word rules (:mod:`.rng`).
+    (:func:`.ops.accept.make_fitness`: the posterior, the objective alone
+    when optimizing, or a custom slot) and accepted by its update slot
+    (MH, the greedy ``maximize``/``minimize``, which draw nothing, or a
+    custom slot); partners come from the current group, from the history
+    for DE-MCz, or from a custom ``sample`` slot, whose row ``it − 1``
+    takes the new state.  The state is float32 or float64, the
+    configuration's dtype; a float64 one draws by the JAX step's x64 word
+    rules (:mod:`.rng`).
+
+    On the card the sweeps after migration replay as a CUDA graph, one per
+    (burn-in, ``blocking_on`` flag) (:meth:`_graphed`): the same kernels
+    on the same inputs as the eager iteration, bit for bit, in one call
+    instead of hundreds to thousands of launches.  Migration, whose
+    exchange takes a host-drawn group count, stays eager; a custom slot, a
+    stochastic model, a shard of a chain mesh, a density that launches a
+    kernel of the port or that a capture cannot hold run eagerly
+    (``GRAPHS = False`` runs every step so).
 
     Its random numbers come as the JAX step's do, from one
     :class:`~demcmc_tpu_torch.rng.Pool` per iteration: ``[G,
     pool_words]`` words of Philox namespace ``POOL_NS`` (the pool's width
     counted by a dry run with :class:`~demcmc_tpu_torch.rng.CountingDraws`
-    before the first iteration), and two scalars on the host (namespace
-    ``SCALAR_NS``), so the migration gate needs no sync.  Words are drawn
-    for many iterations at once.  A callable ``blocking_on`` is the JAX
-    step's ``lax.cond``, which traces both branches, the blocked one
-    first: the pool holds the blocked sweeps' columns and then the plain
-    sweep's, and an iteration uses one set and passes over the other (a
-    callable that ignores the iteration is taken as one that reads it).
-    A stochastic model's fresh noise raises ``NotImplementedError`` here
-    (the custom slots already do in ``DE``).
+    before the first iteration, custom slots included, as the JAX step
+    traces them), and two scalars on the host (namespace ``SCALAR_NS``),
+    so the migration gate needs no sync.  Words are drawn for many
+    iterations at once.  A callable ``blocking_on`` is the JAX step's
+    ``lax.cond``, which traces both branches, the blocked one first: the
+    pool holds the blocked sweeps' columns and then the plain sweep's,
+    and an iteration uses one set and passes over the other (a callable
+    that ignores the iteration is taken as one that reads it).
+
+    Where a slot is custom, each sweep has a :class:`~demcmc_tpu_torch.rng.
+    Key` folded as the JAX step folds its key (per block, per member of
+    the sequential sweep): the context's key is its ``CUSTOM`` fold, a
+    custom update gets its ``ACCEPT`` fold.  A stochastic model's
+    proposals are scored on a fresh ``[n_noise, C]`` uniform panel at each
+    evaluation, Philox namespace ``EVAL_NS`` keyed by (seed, iteration,
+    :func:`rng.eval_row`, chain): one ``philox_fill`` launch on the card.
 
     With ``groups = (g0, n)`` the step runs groups ``g0 .. g0+n-1``, one
     shard of a chain mesh (:class:`ShardedStep`): its pool holds those
-    groups' rows of the population's pool, and it passes over the
-    migration's columns, which the sharded step draws for the whole
-    population."""
+    groups' rows of the population's pool, its keys and panels draw those
+    groups' (chains') words, and it passes over the migration's columns,
+    which the sharded step draws for the whole population."""
 
     WORDS_PER_BLOCK = 1 << 21     # pool words drawn per block, at most
 
     def __init__(self, model: DEModel, de: DE, spec: ParamSpec, device,
                  groups=None):
-        if model.stochastic:
-            raise NotImplementedError(
-                "a stochastic model's fresh noise panel in the unfused step "
-                "is not ported yet (ROADMAP.md A12 rest 6); use demcmc_tpu "
-                "for it")
         self.de = de
         self.device = torch.device(device)
         self.dtype, self.x64 = de.torch_dtype, de.dtype is np.float64
@@ -591,15 +606,24 @@ class UnfusedStep:
         if groups is not None:
             self.g0, self.G = groups
         self.fitness = accept_ops.make_fitness(model, spec, de)
+        self.n_noise = model.noise_words
+        self.spec = spec
+        self.custom = bool(de.custom_slots)
+        self.update = accept_ops.make_update(de)
         self.int_mask = (torch.as_tensor(spec.int_mask, device=self.device)
                          if spec.has_int else None)
-        self.proposal = getattr(proposal_ops, de.generate_proposal)
+        self.proposal = (de.generate_proposal
+                         if callable(de.generate_proposal)
+                         else getattr(proposal_ops, de.generate_proposal))
         self.block_masks = None
         if de.blocks is not None:
             self.block_masks = [torch.as_tensor(flatten_block(spec, b),
                                                 device=self.device)
                                 for b in de.blocks]
         self.blocking = _blocking_const(de)
+        # the sequential sweep's member masks [Np], made once
+        self._members = torch.eye(self.Np, dtype=torch.bool,
+                                  device=self.device).unbind(0)
         zeros = (torch.zeros((self.G, self.Np, self.d), dtype=self.dtype,
                              device=self.device),
                  torch.zeros((self.G, self.Np), dtype=self.dtype,
@@ -608,24 +632,54 @@ class UnfusedStep:
                             device=self.device)
                 if de.uses_resample else None)
 
-        def fit0(x):
+        def fit0(x, noise=None):
             return torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
         self.branch_cols = {}
         if self.block_masks is not None and self.blocking is None:
             for blocked in (True, False):
                 counter = rng.CountingDraws(self.G, self.device, self.x64)
-                self.sweeps(counter, *zeros, 1, fit0, hist, blocked)
+                self.sweeps(counter, *zeros, 1, fit0, hist, blocked,
+                            self._key(0, 1))
                 self.branch_cols[blocked] = counter.words
         counter = rng.CountingDraws(self.G, self.device, self.x64)
-        self.step_core(counter, *zeros, 1, fit0, hist)
+        self.step_core(counter, *zeros, 1, fit0, hist, seed=0)
         self.pool_words = max(counter.words, 1)
         self._blocks = {}             # namespace -> (key, it0, words)
+        # the sweeps' CUDA graphs (:meth:`_graphed`) by key, or None: eager
+        # on the CPU, with a custom slot (user code reads host values), for
+        # a stochastic model (its panel's fill takes the iteration on the
+        # host) and in a shard of a chain mesh
+        self._graphs = ({} if GRAPHS and self.device.type == "cuda"
+                        and not self.custom and not self.n_noise
+                        and groups is None else None)
+        self.eager_reason = None      # why a graphed step turned eager
 
     # ---- the step body, draw for draw as the JAX XLA step
 
+    def _key(self, seed: int, it: int):
+        """The iteration's root key for the custom slots, or None."""
+        if not self.custom:
+            return None
+        _need_seed(seed, "a custom slot's key")
+        return rng.Key(seed, it, self.G, self.g0 or 0, self.device,
+                       self.x64)
+
+    def _panel(self, draws, seed: int, it: int, block, member):
+        """A stochastic model's noise panel ``[n_noise, G·Np]`` of one
+        evaluation (None for a deterministic model, and in the pool's
+        sizing run)."""
+        if not self.n_noise or isinstance(draws, rng.CountingDraws):
+            return None
+        _need_seed(seed, "a stochastic model's noise panel")
+        return fused_ops.philox_uniforms(
+            seed, it, self.n_noise, self.G * self.Np, rng.EVAL_NS,
+            self.device, row0=rng.eval_row(block, member, self.Np,
+                                           self.n_noise),
+            chain0=(self.g0 or 0) * self.Np)
+
     def do_update(self, draws, theta, weight, it: int, fitness,
                   history=None, block_mask=None, member: int = None,
-                  mut_mask=None):
+                  mut_mask=None, key=None, seed: int = None, block=None):
         """One mutate-or-crossover sweep over all groups (``sampler.py:
         966``; reference ``mutate_or_crossover!``, ``main.jl:199-207``);
         with ``member`` (sequential sweep) only group slot ``member``
@@ -633,14 +687,19 @@ class UnfusedStep:
         once per sweep.  ``block_mask [d]`` keeps the crossover or snooker
         proposal to the block's dimensions before the snooker correction
         (``reset!``, ``crossover.jl:84-87,336-352``); the mutation ignores
-        it (``main.jl:199-207``)."""
+        it (``main.jl:199-207``).  ``key`` is the sweep's
+        :class:`~demcmc_tpu_torch.rng.Key` (custom slots), ``seed`` and
+        ``block`` key a stochastic model's panel."""
         de, d = self.de, self.d
         G, Np = self.G, self.Np
-        ctx = proposal_ops.ProposalContext(de, theta, weight, it, draws,
-                                           history)
-        cross = self.proposal(ctx)
-        log_adj = torch.zeros((G, Np), dtype=theta.dtype,
-                              device=theta.device)
+        if key is not None and member is not None:
+            key = key.fold_in(rng.MEMBER * 1000 + member)
+        ctx = proposal_ops.ProposalContext(
+            de=de, spec=self.spec, theta=theta, weight=weight, iteration=it,
+            history=history, draws=draws,
+            key=None if key is None else key.fold_in(rng.CUSTOM))
+        cross = (self.proposal(ctx) if key is None
+                 else self.proposal(ctx, ctx.next_key()))
         if de.theta_snooker > 0.0:
             sn_gate = draws.uniform((G, Np)) <= dists.f32(de.theta_snooker)
             sn_prop, z, degen = proposal_ops.snooker(ctx)
@@ -649,81 +708,160 @@ class UnfusedStep:
             cross = torch.where(block_mask, cross, theta)
         if de.theta_snooker > 0.0:
             adj = proposal_ops.snooker_log_adj(theta, cross, z, d, degen)
-            log_adj = torch.where(sn_gate, adj, log_adj)
+            log_adj = torch.where(sn_gate, adj, 0.0)
+        else:
+            log_adj = torch.zeros((G, Np), dtype=theta.dtype,
+                                  device=theta.device)
         prop = cross
         if de.beta > 0.0:
             if mut_mask is None:
                 mut_mask = draws.uniform((G,)) <= dists.f32(de.beta)
             mut_prop = mutation_ops.mutate(draws, theta, de.sigma)
             prop = torch.where(mut_mask[:, None, None], mut_prop, cross)
-            log_adj = torch.where(mut_mask[:, None],
-                                  torch.zeros_like(log_adj), log_adj)
+            log_adj = torch.where(mut_mask[:, None], 0.0, log_adj)
         if self.int_mask is not None:
             prop = torch.where(self.int_mask, torch.round(prop), prop)
-        w_prop = fitness(prop)
-        acc = accept_ops.make_update(de)(draws, weight, w_prop, log_adj)
+        w_prop = fitness(prop, self._panel(draws, seed, it, block, member))
+        acc_src = (key.fold_in(rng.ACCEPT)
+                   if callable(de.update_particle) else draws)
+        acc = self.update(acc_src, weight, w_prop, log_adj)
         if member is not None:
-            acc = acc & (torch.arange(Np, device=acc.device) == member)
+            acc = acc & self._members[member]
         theta, weight = accept_ops.apply_accept(theta, weight, prop, w_prop,
                                                 acc)
         return theta, weight, acc
 
     def sweep_update(self, draws, theta, weight, it: int, fitness,
-                     history=None, block_mask=None):
+                     history=None, block_mask=None, key=None,
+                     seed: int = None, block=None):
         """One sweep (``sampler.py:1033``): synchronous, or the sequential
         one's Np member-masked sub-sweeps from the partly updated
         population, the mutation gate drawn once for all of them."""
         de = self.de
         if not de.sequential_sweep:
             return self.do_update(draws, theta, weight, it, fitness,
-                                  history, block_mask)
+                                  history, block_mask, key=key, seed=seed,
+                                  block=block)
         mut_mask = None
         if de.beta > 0.0:
             mut_mask = draws.uniform((self.G,)) <= dists.f32(de.beta)
         acc_tot = None
         for p0 in range(self.Np):
-            theta, weight, acc = self.do_update(draws, theta, weight, it,
-                                                fitness, history, block_mask,
-                                                member=p0, mut_mask=mut_mask)
+            theta, weight, acc = self.do_update(
+                draws, theta, weight, it, fitness, history, block_mask,
+                member=p0, mut_mask=mut_mask, key=key, seed=seed,
+                block=block)
             acc_tot = acc if acc_tot is None else acc_tot | acc
         return theta, weight, acc_tot
 
     def sweeps(self, draws, theta, weight, it: int, fitness, history,
-               blocked: bool):
+               blocked: bool, key=None, seed: int = None):
         """The iteration's sweeps after migration: one (``blocked`` False)
         or one per block, later blocks from earlier blocks' accepts, the
         last block's accept and lp kept (``block_update!``, ``main.jl:
-        174-179``; the JAX step's ``blocked``, ``sampler.py:1066-1075``)."""
+        174-179``; the JAX step's ``blocked``, ``sampler.py:1066-1075``),
+        each block's key folded from the iteration's (``:1067``)."""
         if not blocked:
             return self.sweep_update(draws, theta, weight, it, fitness,
-                                     history)
-        for mask in self.block_masks:
-            theta, weight, acc = self.sweep_update(draws, theta, weight, it,
-                                                   fitness, history, mask)
+                                     history, key=key, seed=seed)
+        for bi, mask in enumerate(self.block_masks):
+            kb = (None if key is None
+                  else key.fold_in(rng.BLOCK * 1000 + bi))
+            theta, weight, acc = self.sweep_update(
+                draws, theta, weight, it, fitness, history, mask, kb, seed,
+                bi)
         return theta, weight, acc
 
     def step_core(self, draws, theta, weight, it: int, fitness,
-                  history=None):
+                  history=None, seed: int = None):
         """Migration, then the sweeps (``sampler.py:1055``); returns
         ``(theta [G, Np, d], weight [G, Np], accept [G, Np])``.  A shard
-        passes over the migration's draws."""
+        passes over the migration's draws.  ``seed`` (the run's key) keys
+        the custom slots' keys and a stochastic model's panels."""
+        theta, weight = self.migrate(draws, theta, weight)
+        return self.after_migration(draws, theta, weight, it, fitness,
+                                    history, seed, self._flag(it))
+
+    def migrate(self, draws, theta, weight):
+        """The iteration's migration (a shard passes over its draws)."""
         if self.g0 is None:
-            theta, weight = migration_ops.maybe_migrate(
-                draws, theta, weight, self.de.alpha, self.G)
-        else:
-            migration_ops.skip_migration(draws, self.de.alpha,
-                                         self.de.n_groups, self.G, self.Np)
+            return migration_ops.maybe_migrate(draws, theta, weight,
+                                               self.de.alpha, self.G)
+        migration_ops.skip_migration(draws, self.de.alpha, self.de.n_groups,
+                                     self.G, self.Np)
+        return theta, weight
+
+    def _flag(self, it: int):
+        """A callable ``blocking_on``'s value at ``it`` (None where the
+        blocks are constant or absent)."""
         if self.block_masks is None or self.blocking is not None:
+            return None
+        return bool(self.de.blocking_on(_DEView(self.de, it)))
+
+    def after_migration(self, draws, theta, weight, it: int, fitness,
+                        history, seed, flag):
+        """The sweeps after migration, ``flag`` a callable
+        ``blocking_on``'s value (:meth:`_flag`): its other branch's columns
+        passed over."""
+        key = self._key(seed, it)
+        if flag is None:
             return self.sweeps(draws, theta, weight, it, fitness, history,
                                self.block_masks is not None
-                               and self.blocking)
-        flag = bool(self.de.blocking_on(_DEView(self.de, it)))
+                               and self.blocking, key, seed)
         if not flag:
             draws.skip((self.G, self.branch_cols[True]))
-        out = self.sweeps(draws, theta, weight, it, fitness, history, flag)
+        out = self.sweeps(draws, theta, weight, it, fitness, history, flag,
+                          key, seed)
         if flag:
             draws.skip((self.G, self.branch_cols[False]))
         return out
+
+    # ---- the sweeps as a CUDA graph
+
+    def _graphed(self, draws, theta, weight, it: int, history, seed):
+        """The sweeps after migration (:meth:`after_migration`) replayed
+        from a CUDA graph, one graph per (burn-in, ``blocking_on`` flag,
+        pool offset, history buffer): the step is host-bound, a few hundred
+        to thousands of small launches an iteration, and a replay issues
+        them in one call.  The first iteration of a key runs eagerly: if it
+        launched a kernel of the port (whose wrapper counts its launches)
+        or drew from the scalar side channel (a host value the graph would
+        keep), the step stays eager.  The next captures the graph on
+        static copies of its inputs (the pool's words, θ, w, the iteration
+        as a device scalar for DE-MCz's span) and replays it.  The graph
+        runs the eager iteration's kernels on the same inputs, so its
+        output is the eager output bit for bit.  A density that a capture
+        cannot hold (it syncs, or copies from pageable host memory) keeps
+        the step eager from that iteration on."""
+        flag = self._flag(it)
+        gkey = (it <= self.de.burnin, flag, draws.offset,
+                None if history is None
+                else (history.data_ptr(), tuple(history.shape)))
+        g = self._graphs.get(gkey)
+        if g is None:
+            n0, s0 = _build.launch.calls, draws.scalars.i
+            out = self.after_migration(draws, theta, weight, it,
+                                       self.fitness, history, seed, flag)
+            if _build.launch.calls != n0 or draws.scalars.i != s0:
+                self._graphs = None
+                self.eager_reason = ("the density launched a kernel of the "
+                                     "port" if _build.launch.calls != n0
+                                     else "the sweeps drew a host scalar")
+            else:
+                self._graphs[gkey] = _SweepGraph.SEEN
+            return out
+        if g is _SweepGraph.SEEN:
+            try:
+                g = _SweepGraph(self, draws, theta, weight, it, history,
+                                seed, flag)
+            except RuntimeError as e:   # an operation no capture holds
+                self._graphs = None      # (a sync, a pageable host copy)
+                self.eager_reason = f"the capture failed: {e}"
+                return self.after_migration(draws, theta, weight, it,
+                                            self.fitness, history, seed,
+                                            flag)
+            self._graphs[gkey] = g
+        return g.run(draws, theta, weight, it)
 
     # ---- random numbers
 
@@ -788,9 +926,15 @@ class UnfusedStep:
             self.check(state, out)
         G, Np, d, it = self.G, self.Np, self.d, state.iteration
         draws = self.draws(state.key, it)
-        theta, weight, acc = self.step_core(
-            draws, state.theta.view(G, Np, d), state.weight.view(G, Np),
-            it, self.fitness, state.history)
+        if self._graphs is None:
+            theta, weight, acc = self.step_core(
+                draws, state.theta.view(G, Np, d), state.weight.view(G, Np),
+                it, self.fitness, state.history, seed=state.key)
+        else:
+            theta, weight = self.migrate(draws, state.theta.view(G, Np, d),
+                                         state.weight.view(G, Np))
+            theta, weight, acc = self._graphed(draws, theta, weight, it,
+                                               state.history, state.key)
         if draws.offset != self.pool_words:
             raise RuntimeError(f"the step took {draws.offset} pool columns "
                                f"of {self.pool_words}")
@@ -803,6 +947,79 @@ class UnfusedStep:
             out[1].copy_(state.weight)
             out[2].copy_(acc.reshape(G * Np))
         return state._replace(iteration=it + 1)
+
+
+class _SweepGraph:
+    """One CUDA graph of :meth:`UnfusedStep.after_migration` and its
+    static inputs and outputs: the sweeps recorded on copies of an
+    iteration's inputs (its words in the eager pool's layout, θ, w, and
+    the iteration as an int64 device scalar that DE-MCz's span reads,
+    :meth:`rng.Pool.rows_seen`); :meth:`run` copies an iteration's inputs
+    in, replays, and moves the eager pool past the columns the sweeps
+    took.  On CPU tensors (tests) it reruns the recorded call on the
+    static inputs instead of a replay: the same bookkeeping, no graph."""
+
+    SEEN = object()                # a key whose first iteration ran eagerly
+
+    def __init__(self, step, draws, theta, weight, it, history, seed, flag):
+        # the graph's inputs outlive an inference_mode() around the run
+        with torch.inference_mode(False):
+            self.bits = torch.empty_like(draws.bits.T).T
+            self.theta = torch.empty_like(theta)
+            self.weight = torch.empty_like(weight)
+            self.it = torch.zeros((), dtype=torch.int64,
+                                  device=theta.device)
+        self.offset = draws.offset
+        bits, th, w, it_t, offset = (self.bits, self.theta, self.weight,
+                                     self.it, self.offset)
+
+        def body():
+            """The sweeps on the static inputs; (out, columns taken)."""
+            pool = rng.Pool(bits, rng.Scalars(()), step.x64)
+            pool.offset, pool.it_tensor = offset, it_t
+            out = step.after_migration(pool, th, w, it, step.fitness,
+                                       history, seed, flag)
+            return out, pool.offset - offset
+        self.body, self.graph = body, None
+        if theta.device.type == "cuda":
+            # captured on a side stream (the default stream cannot be),
+            # without torch.cuda.graph's synchronize and empty_cache
+            self._load(draws, theta, weight, it)
+            cur = _build.stream(theta.device)
+            side = torch.cuda.Stream(theta.device)
+            side.wait_stream(cur)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.out, self.cols = body()
+                finally:
+                    self.graph.capture_end()
+            cur.wait_stream(side)
+            self.body = None     # the graph holds the work; no cycle back
+                                 # to the step keeps its memory alive
+
+    def _load(self, draws, theta, weight, it):
+        self.bits.copy_(draws.bits)
+        self.theta.copy_(theta)
+        self.weight.copy_(weight)
+        self.it.fill_(it)
+
+    def run(self, draws, theta, weight, it):
+        self._load(draws, theta, weight, it)
+        if self.graph is None:
+            out, self.cols = self.body()
+        else:
+            self.graph.replay()
+            out = self.out
+        draws.offset += self.cols
+        return out
+
+
+def _need_seed(seed, what: str):
+    if seed is None:
+        raise ValueError(f"{what} is keyed by the run's seed: pass "
+                         f"step_core(..., seed=)")
 
 
 def fused_supported(model: DEModel, de: DE, device="cpu") -> bool:
@@ -819,9 +1036,10 @@ def fused_supported(model: DEModel, de: DE, device="cpu") -> bool:
     device; the launch's static limit of 1,024 chains on the CPU), as the
     JAX predicate falls back outside its kernel's shapes
     (``demcmc_tpu/ops/fused_step.py:200-204``).  Every other
-    configuration (float64 among them) takes the unfused step."""
+    configuration (float64 and any custom strategy slot among them) takes
+    the unfused step."""
     dens = model.cuda_density
-    if dens is None or de.dtype is not np.float32:
+    if dens is None or de.dtype is not np.float32 or de.custom_slots:
         return False
     if de.is_mh:
         if de.fun_fitness:

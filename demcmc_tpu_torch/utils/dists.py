@@ -58,21 +58,27 @@ def normal_logpdf(x, mu=0.0, sigma=1.0):
     """``jax.scipy.stats.norm.logpdf``: ``(log(2π σ²) + (x-μ)²/σ²) / -2``."""
     if isinstance(sigma, (int, float)):
         scale_sqrd, log_normalizer = normal_consts(sigma)
-        quadratic = div((x - f32(mu)) * (x - f32(mu)), scale_sqrd)
+        dx = x - f32(mu)
+        quadratic = dx * dx
+        if scale_sqrd != 1.0:           # x / 1 is x: no launch for it
+            quadratic = div(quadratic, scale_sqrd)
     else:
         scale_sqrd = sigma * sigma
         log_normalizer = torch.log(f32(2.0 * math.pi) * scale_sqrd)
-        quadratic = (x - mu) * (x - mu) / scale_sqrd
+        dx = x - mu
+        quadratic = dx * dx / scale_sqrd
     return (log_normalizer + quadratic) / -2.0
 
 
 def halfcauchy_logpdf(x, scale=1.0):
     """truncated(Cauchy(0, scale), 0, Inf): log 2 + Cauchy logpdf for
     x >= 0, -inf below (``jax.scipy.stats.cauchy.logpdf`` order)."""
-    scaled = (x - 0.0) / scale
+    # x − 0 and x / 1 are x, and c + −y is c − y: the same bits in fewer
+    # launches (the unfused step is host-bound)
+    scaled = x if scale == 1.0 else (x - 0.0) / scale
     normalize_term = f32_log(math.pi * scale)
-    lp = LOG2 + -(normalize_term + torch.log1p(scaled * scaled))
-    return torch.where(x >= 0, lp, torch.full_like(lp, -math.inf))
+    lp = LOG2 - (normalize_term + torch.log1p(scaled * scaled))
+    return torch.where(x >= 0, lp, -math.inf)
 
 
 def uniform_logpdf(x, lo=0.0, hi=1.0):
@@ -162,3 +168,64 @@ def log_ndtr(x):
         x > LOGNDTR_UPPER, -ndtr(-x),
         torch.where(x > LOGNDTR_LOWER,
                     torch.log(ndtr(torch.maximum(x, lo))), lower))
+
+
+def normal_cdf(x, mu=0.0, sigma=1.0):
+    """Φ((x − μ) / σ), ``jax.scipy.stats.norm.cdf``: :func:`ndtr` of the
+    standardized value; a Python ``x`` gives a float32 scalar tensor, as
+    JAX folds a constant bound."""
+    if not torch.is_tensor(x):
+        x = torch.tensor(float(x), dtype=torch.float32)
+    return ndtr((x - f32(mu)) / f32(sigma))
+
+
+def truncated_logpdf(logpdf_fn, cdf_fn, x, lo=-math.inf, hi=math.inf):
+    """Generic truncation (``demcmc_tpu/utils/dists.py:52-57``, Distributions.jl
+    ``truncated``): ``logpdf(x) − log(cdf(hi) − cdf(lo))`` inside ``[lo,
+    hi]``, ``-inf`` outside; the normalizer of constant bounds in float32,
+    as JAX folds it."""
+    z = cdf_fn(hi) - cdf_fn(lo)
+    lp = logpdf_fn(x) - torch.log(z).to(x.dtype)
+    inside = (x >= lo) & (x <= hi)
+    return torch.where(inside, lp, torch.full_like(lp, -math.inf))
+
+
+def truncated_normal_logpdf(x, mu, sigma, lo, hi):
+    """Normal(μ, σ) truncated to ``[lo, hi]`` (the Lotka–Volterra priors,
+    ``demcmc_tpu/models/lotka_volterra.py:70-73``)."""
+    return truncated_logpdf(lambda v: normal_logpdf(v, mu, sigma),
+                            lambda v: normal_cdf(v, mu, sigma), x, lo, hi)
+
+
+def inverse_gamma_logpdf(x, a=2.0, b=3.0):
+    """InverseGamma(a, b) log density, ``a log b − lgamma(a) − (a + 1) log
+    x − b / x`` for x > 0, ``-inf`` else (``demcmc_tpu/models/
+    lotka_volterra.py:64-67``), the constants folded in float32 and ``b /
+    x`` a true division."""
+    c = f32(f32(a) * f32_log(b) - math.lgamma(a))
+    lp = c - f32(a + 1.0) * torch.log(x) - div_by(b, x)
+    return torch.where(x > 0, lp, torch.full_like(lp, -math.inf))
+
+
+def div_by(c: float, x):
+    """``c / x`` for a Python constant ``c``, a true division on every
+    device (``c / x`` in torch is ``c · (1 / x)``)."""
+    return torch.full_like(x, c) / x
+
+
+def sample_truncated_normal(u, mu, sigma, lo, hi):
+    """Normal(μ, σ) truncated to ``[lo, hi]`` from uniforms ``u`` in [0,
+    1) by the inverse CDF (``demcmc_tpu/utils/dists.py:97-104``, there
+    through ``erf_inv``; here ``ndtri``): μ + σ Φ⁻¹(a + u (b − a)), a and
+    b the bounds' CDFs."""
+    a = float(normal_cdf(lo, mu, sigma))
+    b = float(normal_cdf(hi, mu, sigma))
+    return f32(mu) + f32(sigma) * torch.special.ndtri(a + u * (b - a))
+
+
+def sample_gamma2(u1, u2):
+    """Gamma(2, 1) draws from two uniform rows: −log u₁ − log u₂ (the sum
+    of two Exp(1) draws), each u clamped to the smallest normal."""
+    t = torch.finfo(u1.dtype).tiny
+    return -torch.log(torch.clamp_min(u1, t)) - torch.log(
+        torch.clamp_min(u2, t))

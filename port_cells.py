@@ -1,6 +1,8 @@
 """The cells of the PyTorch/CUDA port's slices from the third on (LBA,
 ABC binomial, discrete binomial; abc_kde, the unfused Gaussian, LNR; the
-DE-MCz, blocked and hierarchical cells; the optimization cells): their
+DE-MCz, blocked and hierarchical cells; the optimization cells; the
+fresh-noise abc_kde, the fixed-noise ABC binomial, the custom slots and
+Lotka–Volterra): their
 sizes and run lengths, the float64 posterior oracles and the gates that
 ``chip_smoke.py`` holds the GPU's ``sample()`` to, and that
 ``tools/port_oracles_cpu.py`` holds the JAX package and the port's plain
@@ -275,7 +277,7 @@ def kde_oracle(data, noise, n_grid=301):
 
 def kde_gate(mu, sigma, oracle):
     """(ok, {name: (mean, sd)}) of draws of μ and σ: each mean and sd
-    within KDE_TOL of ``kde_oracle``'s."""
+    within KDE_TOL of the oracle's (``kde_oracle``, ``kde_fresh_oracle``)."""
     rows, ok = {}, True
     for name, v in (("mu", mu), ("sigma", sigma)):
         v = np.asarray(v, np.float64)
@@ -515,3 +517,140 @@ def mle_gate(mu, sigma, data, tol):
     rows = {"mu": (float(mu), float(x.mean())),
             "sigma": (float(sigma), float(x.std()))}
     return all(abs(a - b) <= tol for a, b in rows.values()), rows
+
+
+# ------------------------------------------------ slice 14: stochastic models
+# and custom slots in the unfused step.
+#
+# kde-fresh: the abc_kde cell's model with fresh_noise=True (the reference
+# example's own semantics, Examples/KDE_Example.jl: a new simulation at
+# every evaluation), at KDE_CELL's sizes and data.  A pseudo-marginal chain
+# targets the prior times the synthetic likelihood averaged over panels,
+# E_z[L̂(θ; z)]: the oracle averages kde_log_like64's likelihood over
+# KDE_FRESH_PANELS independent panels (numpy seeds 1000 + m, logsumexp)
+# on a KDE_FRESH_GRID² grid.  Each panel moves the fixed-panel posterior
+# mean of μ by about σ·mean(z) ≈ 0.01, so the average of 32 sits within
+# ~0.002 of the limit.  The gate is kde_gate's KDE_TOL, as the fixed
+# cell's: tools/port_oracles_cpu.py kde-fresh runs the JAX package's XLA
+# step (96 chains, the cell's length) through it, 0.0048 off at worst
+# (PERF.md).
+KDE_FRESH_CELL = dict(KDE_CELL)
+KDE_FRESH_PANELS, KDE_FRESH_GRID = 32, 201
+# abc-fixed: the fixed-noise ABC binomial (binomial.make(N=10, k=6,
+# abc=True), Binomial_ABC.jl's model with common random numbers) at
+# ABC_CELL's 4,096 chains and n_sim = 10,000, its [n_sim, N] uniform panel
+# from numpy seed ABC_PANEL_SEED.  Its likelihood is a step function of θ:
+# simulation s hits k exactly for θ in (u_s,(k), u_s,(k+1)], its k-th and
+# (k+1)-th smallest uniforms, so the posterior under the U(0, 1) prior has
+# exact moments (abc_fixed_oracle); the gate ABC_FIXED_TOL.
+ABC_FIXED_CELL = dict(ABC_CELL, N=10, k=6)
+ABC_PANEL_SEED, ABC_FIXED_TOL = 123, 0.01
+# custom: the unfused 4,096-chain Gaussian (GAUSS_UNFUSED_CELL's sizes and
+# data) with custom slots: delegating slots against the built-in run, bit
+# for bit, over CUSTOM_BITWISE_ITER iterations; the random-walk proposal
+# (σ = 0.15 from its key, the JAX test's bounded start; CUSTOM_RW) within
+# the JAX test's bounds (0.05, 0.07) of the quadrature posterior;
+# tempering at T = 2 (CUSTOM_TEMPER: the sd of μ above 1.25 times the
+# untempered run's; √2 in the limit); always-accept (CUSTOM_ALWAYS
+# iterations, acceptance exactly 1).  Lengths fixed on the CPU
+# (tests/test_torch_custom_slots.py at 24 chains: the walk's means within
+# 0.003 of the posterior's at 1,500 iterations, the sd ratio 1.50).
+CUSTOM_BITWISE_ITER = 300
+CUSTOM_RW = dict(burnin=750, n_iter=1500, mu_tol=0.05, sigma_tol=0.07)
+CUSTOM_TEMPER = dict(burnin=500, n_iter=1500, ratio=1.25)
+CUSTOM_ALWAYS = 100
+# custom-kde: the tempered fitness (T = 2, the slot taking the cell's panel
+# as its fifth argument) on the fresh-noise abc_kde cell (KDE_FRESH_CELL's
+# 3,072 chains) for CUSTOM_KDE's iterations: run per cell under vmap, K4's
+# vmap rule folds the cells into one launch an evaluation; on one panel
+# the slot is half the built-in fitness within CUSTOM_KDE_RTOL relative
+# (of 1 + |w|: the same K4 launch on the same simulations, sums of the
+# same terms).
+CUSTOM_KDE = dict(burnin=150, n_iter=300)
+CUSTOM_KDE_RTOL = 1e-6
+# lv: Lotka–Volterra at the reference example's width
+# (Examples/Predator_Prey_Example.jl; demcmc_tpu/models/lotka_volterra.py:
+# Np = 12, 3 groups, 36 chains; data from the true rates (1.5, 1.0, 3.0,
+# 1.0) with noise 0.5, numpy seed 0).  One evaluation is 500 RK4 steps of
+# elementwise torch operations, about 15,000 launches: the reference's
+# 3,000 iterations do not fit the script's budget, so the cell runs
+# LV_CELL's n_iter, with its µs per iteration and no posterior gate
+# (ROADMAP.md, beside the unfused step's CUDA graph).  Its density on the
+# card is held to the CPU's on LV_DENSITY_DRAWS prior draws within
+# LV_DENSITY_RTOL / LV_DENSITY_ATOL (the solve has no transcendental, so
+# only the likelihood's log and the sums' order differ).
+LV_CELL = dict(Np=12, n_groups=3, burnin=50, n_iter=100)
+LV_DENSITY_DRAWS, LV_DENSITY_RTOL, LV_DENSITY_ATOL = 4096, 1e-5, 1e-4
+
+
+def _grid_posterior(data, log_like, n_grid):
+    """Posterior means and sds of (μ, σ) under μ ~ Normal(0, 1), σ ~
+    half-Cauchy(0, 1) and ``log_like(MU, SG)`` by quadrature on an
+    ``n_grid``² grid over x̄ ± 6 s/√n × [0.4 s, 2.5 s], in float64; raises
+    if the grid's edge holds mass."""
+    x = np.asarray(data, np.float64)
+    m, sd = x.mean(), x.std()
+    mu = np.linspace(m - 6 * sd / np.sqrt(len(x)),
+                     m + 6 * sd / np.sqrt(len(x)), n_grid)
+    sg = np.linspace(0.4 * sd, 2.5 * sd, n_grid)
+    MU, SG = np.meshgrid(mu, sg, indexing="ij")
+    logp = -0.5 * MU ** 2 - np.log1p(SG ** 2) + log_like(MU, SG)
+    w = np.exp(logp - logp.max())
+    w /= w.sum()
+    edge = max(w[0].max(), w[-1].max(), w[:, 0].max(), w[:, -1].max())
+    if edge > 1e-6 * w.max():
+        raise ValueError("the grid's edge holds posterior mass")
+    out = {}
+    for name, v in (("mu", MU), ("sigma", SG)):
+        mean = float((w * v).sum())
+        out[name] = (mean, float(np.sqrt((w * (v - mean) ** 2).sum())))
+    return out
+
+
+def kde_fresh_oracle(data, n_sim=KDE_N_SIM, n_panels=KDE_FRESH_PANELS,
+                     n_grid=KDE_FRESH_GRID):
+    """Posterior means and sds of (μ, σ) of the fresh-noise abc_kde model:
+    the synthetic likelihood averaged over ``n_panels`` panels of
+    ``n_sim`` standard normals (numpy seeds 1000 + m), combined by
+    logsumexp.  Returns {"mu": (mean, sd), "sigma": (mean, sd)}."""
+    x = np.asarray(data, np.float64)
+
+    def log_like(MU, SG):
+        ll = np.stack([kde_log_like64(
+            MU, SG, x, np.random.default_rng(1000 + m).standard_normal(
+                n_sim)) for m in range(n_panels)])
+        top = ll.max(0)
+        return top + np.log(np.exp(ll - top).mean(0))
+
+    return _grid_posterior(x, log_like, n_grid)
+
+
+def abc_panel(n_sim, N, seed=ABC_PANEL_SEED):
+    """The fixed ABC binomial's ``[n_sim, N]`` float32 uniforms from numpy
+    seed ``seed`` (``demcmc_tpu_torch/models/binomial.py::abc_panel``'s
+    draw, restated here so the oracle imports neither package)."""
+    return np.random.default_rng(seed).random((n_sim, N), dtype=np.float32)
+
+
+def abc_fixed_oracle(panel, k):
+    """Exact posterior mean and sd of θ under the fixed-panel ABC
+    likelihood (the fraction of the panel's simulations whose count
+    Σ_j 1{u_j < θ} equals ``k``) and θ ~ U(0, 1), in float64: simulation s
+    hits for θ in (a_s, b_s], its k-th and (k+1)-th smallest uniforms
+    (0 and 1 past the ends), so the moments are sums of (b^p − a^p) / p."""
+    u = np.sort(np.asarray(panel, np.float64), axis=1)
+    n, N = u.shape
+    a = u[:, k - 1] if k > 0 else np.zeros(n)
+    b = u[:, k] if k < N else np.ones(n)
+    z, m1, m2 = ((b ** p - a ** p).sum() / p for p in (1, 2, 3))
+    mean = m1 / z
+    return mean, float(np.sqrt(m2 / z - mean * mean))
+
+
+def abc_fixed_gate(draws, oracle):
+    """(ok, (mean, sd)) of draws of θ: mean and sd each within
+    ABC_FIXED_TOL of :func:`abc_fixed_oracle`'s."""
+    v = np.asarray(draws, np.float64)
+    mean, sd = float(v.mean()), float(v.std(ddof=1))
+    return (abs(mean - oracle[0]) < ABC_FIXED_TOL
+            and abs(sd - oracle[1]) < ABC_FIXED_TOL, (mean, sd))

@@ -177,7 +177,7 @@ def test_blocked_plain_k3_matches_jax_kernel(Np, sweep, theta_sn):
         -1).astype(np.float32)
     model, de = tmvn.make(d=3, data=MVN_DATA, **kw)
     tspec = tdm.make_spec(model, de)
-    w0 = tdm.ops.accept.compute_posterior(model, tspec,
+    w0 = tdm.ops.accept.compute_posterior(model, tspec, de,
                                           torch.tensor(hist0[0])).numpy()
     S, B = jfused.RESAMPLE_S_GRAN, 128 // C
     packed = np.zeros((S, D, 128), np.float32)

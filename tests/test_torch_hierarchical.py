@@ -62,7 +62,8 @@ def test_density_matches_jax():
     x[3:5, -1] = -0.1
     want = np.asarray(jax.vmap(lambda q: jdm.compute_posterior(
         jm, jspec, jde, q))(jnp.asarray(x)))
-    got = taccept.compute_posterior(model, spec, torch.tensor(x)).numpy()
+    got = taccept.compute_posterior(model, spec, de,
+                                     torch.tensor(x)).numpy()
     fin = np.isfinite(want)
     assert (~fin).sum() == 5
     np.testing.assert_array_equal(np.isfinite(got), fin)
@@ -84,7 +85,8 @@ def test_full_configuration_matches_jax_xla_step(margins):
     hist0 = np.stack([_population(C, s) for s in range(n_init)])
     theta0 = hist0[0]
     spec = tdm.make_spec(model, de)
-    w0 = taccept.compute_posterior(model, spec, torch.tensor(theta0)).numpy()
+    w0 = taccept.compute_posterior(model, spec, de,
+                                   torch.tensor(theta0)).numpy()
     it0 = n_init + 1
     n_words, pools, scalars, outs, hists = _jax_run(jm, jde, theta0, w0,
                                                     hist0, 2, it0)

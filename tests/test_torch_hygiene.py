@@ -40,7 +40,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
 @pytest.mark.parametrize("rel", ["sampler.py", "ops/kde.py", "utils/kde.py",
                                  "models/abc_kde.py", "models/lnr.py",
                                  "models/binomial.py",
-                                 "models/hierarchical.py"])
+                                 "models/hierarchical.py",
+                                 "models/lotka_volterra.py",
+                                 "utils/dists.py", "rng.py",
+                                 "ops/proposals.py", "ops/accept.py"])
 def test_unfused_step_modules_import_neither_jax_nor_the_jax_package(rel):
     """The unfused step's modules, one by one (the sweep above covers them
     too): each exists and imports only torch, numpy and the port."""
@@ -131,7 +134,8 @@ def test_to_inference_data_dict_and_missing_arviz():
                                   "tools/sample_ab.py", "tools/mesh_cards.py",
                                   "tools/rhat_ab.py", "tools/k2_phases.py",
                                   "tools/window_ab.py",
-                                  "tools/run_scan_ab.py"])
+                                  "tools/run_scan_ab.py",
+                                  "tools/unfused_graph_ab.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
     roots = set(_imported_roots(PKG.parent / name))
     assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}
@@ -192,16 +196,19 @@ def test_kernel_wrappers_never_fall_back():
 
 
 # the cases keep the ids they had when migration, blocks, the optimization
-# modes and float64 raised too
+# modes and float64 raised too, and when the custom slots raised naming
+# their ROADMAP item
 @pytest.mark.parametrize("kw,what", [
     ({"generate_proposal": "snooker"}, "snooker"),
-    ({"sample": "custom"}, "partner slots"),
+    ({"sample": "custom"}, "custom"),
 ], ids=["kw0-snooker", "kw4-partner slots"])
 def test_unported_settings_raise(kw, what):
-    """A setting the port does not carry raises, naming the ROADMAP item
-    that carries it."""
+    """A strategy slot named by a string that names no built-in raises,
+    naming the string (a custom slot is a callable, which the port carries
+    since the custom slots were ported; the snooker proposal is
+    ``theta_snooker``, not a ``generate_proposal``)."""
     kw = {"Np": 6, **kw}
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md A"):
+    with pytest.raises(ValueError, match=f"{what!r} names no built-in"):
         tdm.DE(bounds=tgauss.BOUNDS, **kw)
 
 
@@ -325,14 +332,21 @@ def test_step_choice_is_static():
 
 @pytest.mark.parametrize("case,what", [("stochastic", "noise")])
 def test_unfused_step_refuses_what_it_does_not_carry(case, what):
-    """A stochastic model's fresh noise panel in the unfused step raises,
-    naming the ROADMAP item."""
+    """A stochastic model's density without its noise panel raises (it
+    raised in the unfused step as a whole before the step carried the
+    panels): the step scores every evaluation on its own panel, and runs
+    two iterations on the CPU."""
     from demcmc_tpu_torch.models import binomial as tbin
     model, de = tbin.make(N=10, k=6, abc=True, fresh_noise=True, n_sim=50)
     spec = tdm.make_spec(model, de)
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP.md "
-                                                  f"A12 rest 6"):
-        tdm.build_step(model, de, spec, "cpu", allow_fused=False)
+    step = tdm.build_step(model, de, spec, "cpu", allow_fused=False)
+    assert isinstance(step, tdm.UnfusedStep)
+    state = tdm.init_state(model, de, spec, 3, device="cpu")
+    with pytest.raises(ValueError, match=what):
+        step.fitness(state.theta.view(de.n_groups, de.Np, -1))
+    for _ in range(2):
+        state = step(state)
+    assert torch.isfinite(state.weight).any()
 
 
 def test_unfused_step_runs_resample():

@@ -114,6 +114,45 @@ def test_kde_wrapper_takes_plain_version_on_cpu(monkeypatch):
     assert torch.equal(tkde_ops.kde_logpdf(x, s, h), whole)
 
 
+def test_kde_vmap_folds_the_batch_into_one_call(monkeypatch):
+    """Under ``torch.func.vmap`` (a custom fitness slot runs per cell) the
+    operator's vmap rule folds the batch into the chains: one call of the
+    plain version on the CPU (one K4 launch on the card) for the whole
+    batch, bit for bit the unbatched call, nested vmaps too; a batch of
+    evaluation points takes one call per member."""
+    calls = []
+    plain = tkde_ops.kde_logpdf_plain
+
+    def counted(x, sims, h, floor):
+        calls.append(tuple(sims.shape))
+        return plain(x, sims, h, floor)
+
+    monkeypatch.setattr(tkde_ops, "kde_logpdf_plain", counted)
+    x, s = torch.tensor(X), torch.tensor(SIMS)
+    h = tkde.silverman_bandwidth(s)
+    whole = tkde_ops.kde_logpdf(x, s, h)
+    calls.clear()
+
+    def cell(sims, hh):
+        return tkde_ops.kde_logpdf(x, sims[None], hh[None])[0]
+
+    assert torch.equal(torch.func.vmap(cell)(s, h), whole)
+    assert calls == [(4, 1537)]
+    calls.clear()
+    nested = torch.func.vmap(torch.func.vmap(cell))(s.reshape(2, 2, -1),
+                                                    h.reshape(2, 2))
+    assert torch.equal(nested.reshape(4, -1), whole)
+    assert calls == [(4, 1537)]
+    calls.clear()
+    xs = torch.stack([x, x.flip(0), x + 0.5, x - 0.5])
+    got = torch.func.vmap(lambda xx, sims, hh: tkde_ops.kde_logpdf(
+        xx, sims[None], hh[None])[0])(xs, s, h)
+    for c in range(4):
+        assert torch.equal(got[c], plain(xs[c], s[c:c + 1], h[c:c + 1],
+                                         1e-10)[0])
+    assert calls == [(1, 1537)] * 4
+
+
 @pytest.mark.parametrize("n_sim,tile", [(1537, 1664), (100, 128),
                                         (10_000, 2048), (2048, 2048)])
 def test_sim_tile_is_the_pallas_rule(n_sim, tile):

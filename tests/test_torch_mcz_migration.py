@@ -90,7 +90,7 @@ def _seeds(G, kw):
     sigma = np.abs(rng.normal(1.0, 0.2, (N_INIT, C, 1))) + 0.05
     hist = np.concatenate([mu, sigma], -1).astype(np.float32)
     model, de = tmvn.make(d=D_MU, data=DATA, n_initial=N_INIT, **kw)
-    w = tdm.ops.accept.compute_posterior(model, tdm.make_spec(model, de),
+    w = tdm.ops.accept.compute_posterior(model, tdm.make_spec(model, de), de,
                                          torch.tensor(hist[0]))
     return hist, w.numpy()
 

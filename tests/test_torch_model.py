@@ -83,7 +83,7 @@ def test_gaussian_density_matches_jax():
     got = model.log_posterior_cols(spec, theta.T).numpy()
     assert got.dtype == np.float32
     np.testing.assert_allclose(got, want, rtol=1e-6)
-    post = tdm.ops.accept.compute_posterior(model, spec, theta).numpy()
+    post = tdm.ops.accept.compute_posterior(model, spec, de, theta).numpy()
     assert np.isneginf(post[sigma < 0]).all()
     ok = sigma > 0
     np.testing.assert_allclose(post[ok], want[ok], rtol=1e-6)
@@ -168,6 +168,59 @@ def test_philox_known_answers(ctr, key, want):
     out = rng.philox4x32([torch.tensor([c], dtype=torch.int64) for c in ctr],
                          key)
     assert tuple(int(o[0]) for o in out) == want
+
+
+PRODUCTS = {
+    "torch": lambda ctr, key: rng._rounds(
+        [torch.tensor([c], dtype=torch.int64) for c in ctr], key,
+        rng._mulhilo),
+    "numpy": lambda ctr, key: rng._rounds(
+        [np.array([c], dtype=np.uint64) for c in ctr], key,
+        rng._mulhilo_u64, np.uint64),
+    "int": lambda ctr, key: rng._rounds(ctr, key, rng._mulhilo_int),
+}
+
+
+@pytest.mark.parametrize("form", list(PRODUCTS))
+@pytest.mark.parametrize("ctr,key,want", KAT)
+def test_philox_product_forms_known_answers(ctr, key, want, form):
+    """Each product form of the Philox rounds (torch's split, numpy's
+    uint64, Python ints) gives Random123's known answers."""
+    out = PRODUCTS[form](ctr, key)
+    assert tuple(int(np.asarray(o).reshape(-1)[0]) for o in out) == want
+
+
+@pytest.mark.parametrize("ns", [rng.STEP_NS, rng.EVAL_NS])
+def test_cpu_words_are_the_torch_rounds_across_the_wrap(ns):
+    """On the CPU the rounds run in numpy: the words equal torch's form
+    of the rounds (the card's) at the same counters, across the 32-bit
+    iteration wrap, at rows and chains far from 0."""
+    seed, it0 = 0xFEDCBA9876543210, 0xFFFFFFFE
+    row0, chain0 = 4097, 2 ** 32 - 40
+    got = rng.words_block(seed, it0, 4, 9, 33, ns=ns, row0=row0,
+                          chain0=chain0)
+    rows = torch.arange(row0, row0 + 9)
+    it = torch.arange(it0, it0 + 4) & 0xFFFFFFFF
+    shape = (4, 9, 33)
+    ctr = (torch.arange(chain0, chain0 + 33).expand(shape),
+           (rows >> 2)[None, :, None].expand(shape),
+           it[:, None, None].expand(shape),
+           torch.full(shape, ns, dtype=torch.int64))
+    lanes = torch.stack(rng._rounds(ctr, rng.seed_key(seed), rng._mulhilo))
+    want = torch.gather(lanes, 0, (rows & 3)[None, None, :, None].expand(
+        (1,) + shape))[0]
+    assert torch.equal(got.to(torch.int64), want)
+
+
+def test_key_fold_is_a_philox_block():
+    """``Key.fold_in``'s two words are lanes 0 and 1 of the Philox block
+    at (data lo, data hi, iteration, FOLD_NS) under the parent's words."""
+    key = rng.Key(0x0123456789ABCDEF, 2 ** 32 + 5, 4)
+    data = (7 << 32) | 99
+    child = key.fold_in(data)
+    lanes = rng.philox4x32([torch.tensor([c], dtype=torch.int64)
+                            for c in (99, 7, 5, rng.FOLD_NS)], key.words)
+    assert child.words == (int(lanes[0][0]), int(lanes[1][0]))
 
 
 def test_words_are_philox_lanes():

@@ -185,7 +185,7 @@ def test_init_state_scores_with_the_fitness_slot():
     assert torch.equal(s_opt.weight, taccept.evaluate_fun(
         model, spec, opt, s_opt.theta))
     assert torch.equal(s_mh.weight, taccept.compute_posterior(
-        model, spec, s_mh.theta))
+        model, spec, de, s_mh.theta))
     assert not torch.equal(s_opt.weight, s_mh.weight)
 
 

@@ -250,3 +250,40 @@ def test_hier_oracle_and_gate():
     bad = dict(means, mu_b0=o["mu_b0"][0] + 1.01 * lim)
     assert not pc.hier_gate(bad, o["b0"], o)[0]
     assert not pc.hier_gate(means, o["b0"] + 0.16, o)[0]
+
+
+def test_abc_fixed_oracle_is_the_counted_posterior():
+    """The exact moments of the fixed-panel ABC posterior equal a
+    quadrature of the port's own hit counts on a fine θ grid (to the
+    grid's resolution), and the panel is the port model's default."""
+    from demcmc_tpu_torch.models import binomial as tbin
+    panel = pc.abc_panel(2000, 10)
+    np.testing.assert_array_equal(panel, tbin.abc_panel(2000, 10))
+    th = np.linspace(0.0, 1.0, 20_001)[1:-1].astype(np.float32)
+    hits = tbin.abc_hits(torch.tensor(panel), 10, 6,
+                         torch.tensor(th)).numpy().astype(np.float64)
+    w = hits / hits.sum()
+    mean = float(w @ th)
+    sd = float(np.sqrt(w @ (th - mean) ** 2))
+    got = pc.abc_fixed_oracle(panel, 6)
+    assert abs(got[0] - mean) < 2e-4 and abs(got[1] - sd) < 2e-4
+    z = np.random.default_rng(0).standard_normal(1000)
+    z = (z - z.mean()) / z.std(ddof=1)
+    assert pc.abc_fixed_gate(got[0] + got[1] * z, got)[0]
+    assert not pc.abc_fixed_gate(got[0] + 0.011 + got[1] * z, got)[0]
+    assert not pc.abc_fixed_gate(got[0] + 1.1 * got[1] * z, got)[0]
+
+
+def test_kde_fresh_oracle_of_one_panel_is_the_fixed_oracle():
+    """The panel-averaged oracle over one panel is the fixed-panel oracle
+    on that panel (the same likelihood), and averaging over panels moves
+    the posterior by less than a panel's own shift."""
+    data = pc.kde_inputs()[0]
+    one = pc.kde_fresh_oracle(data, n_panels=1, n_grid=121)
+    panel = np.random.default_rng(1000).standard_normal(pc.KDE_N_SIM)
+    fixed = pc._grid_posterior(
+        data, lambda MU, SG: pc.kde_log_like64(MU, SG, data, panel), 121)
+    for name in ("mu", "sigma"):
+        np.testing.assert_allclose(one[name], fixed[name], rtol=1e-12)
+    many = pc.kde_fresh_oracle(data, n_panels=3, n_grid=121)
+    assert abs(many["mu"][0] - one["mu"][0]) < 0.05

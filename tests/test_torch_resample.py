@@ -88,7 +88,7 @@ def _population(seed, C, H):
     sigma = np.abs(rng.normal(1.0, 0.2, (H, C, 1))) + 0.05
     hist = np.concatenate([mu, sigma], -1).astype(np.float32)
     model, de = tmvn.make(d=D_MU, data=DATA)
-    w = tdm.ops.accept.compute_posterior(model, tdm.make_spec(model, de),
+    w = tdm.ops.accept.compute_posterior(model, tdm.make_spec(model, de), de,
                                          torch.tensor(hist[0]))
     return hist, w.numpy()
 
@@ -290,7 +290,7 @@ def test_mvnormal_density_matches_jax():
     got = model.log_posterior_cols(spec, x).numpy()
     ok = sigma > 0
     np.testing.assert_allclose(got[ok], want[ok], rtol=1e-6)
-    post = tdm.ops.accept.compute_posterior(model, spec, x.T).numpy()
+    post = tdm.ops.accept.compute_posterior(model, spec, de, x.T).numpy()
     assert np.isneginf(post[~ok]).all()
     assert model.cuda_density is None          # no kernel built for d = 3
     m30, _ = tmvn.make()

@@ -138,7 +138,7 @@ def test_init_state_and_first_gate():
     assert s.theta.shape == (24, 2) and s.theta.dtype == torch.float32
     assert (s.theta[:, 1] > 0).all()
     torch.testing.assert_close(
-        s.weight, tdm.ops.accept.compute_posterior(model, spec, s.theta),
+        s.weight, tdm.ops.accept.compute_posterior(model, spec, de, s.theta),
         rtol=0, atol=0)
     again = tdm.init_state(model, de, spec, 9, device="cpu")
     assert torch.equal(s.theta, again.theta)

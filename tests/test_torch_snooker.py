@@ -52,7 +52,7 @@ def _population(seed, C):
     sigma = np.abs(rng.normal(DATA.std(), 0.3, C)) + 0.05
     theta = np.stack([mu, sigma], 1).astype(np.float32)
     model, de = tgauss.make(data=DATA)
-    w = tdm.ops.accept.compute_posterior(model, tdm.make_spec(model, de),
+    w = tdm.ops.accept.compute_posterior(model, tdm.make_spec(model, de), de,
                                          torch.tensor(theta))
     return theta, w.numpy()
 

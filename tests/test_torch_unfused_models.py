@@ -53,7 +53,7 @@ def _jax_posterior(jm, jde, theta):
 
 def _port_posterior(model, de, theta):
     spec = tdm.make_spec(model, de)
-    return taccept.compute_posterior(model, spec,
+    return taccept.compute_posterior(model, spec, de,
                                      torch.tensor(theta)).numpy()
 
 

@@ -179,7 +179,8 @@ def test_unfused_step_matches_jax_xla_step(margins, name, model_name, G,
     C = G * Np
     theta0, hist0 = _start(model_name, C, key)
     spec = tdm.make_spec(model, de)
-    w0 = taccept.compute_posterior(model, spec, torch.tensor(theta0)).numpy()
+    w0 = taccept.compute_posterior(model, spec, de,
+                                   torch.tensor(theta0)).numpy()
     it0 = N_INIT + 1 if hist0 is not None else 1
     n_words, pools, scalars, outs, hists = _jax_run(jm, jde, theta0, w0,
                                                     hist0, key, it0)

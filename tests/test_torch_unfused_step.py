@@ -179,7 +179,7 @@ def test_unfused_step_matches_jax_xla_step(margins, name, maker, G, Np, kw,
     theta0 = _theta0("discrete" if maker is _disc else name, C,
                      np.random.default_rng(key))
     spec = tdm.make_spec(model, de)
-    w0 = taccept.compute_posterior(model, spec,
+    w0 = taccept.compute_posterior(model, spec, de,
                                    torch.tensor(theta0)).numpy()
     n_words, pools, scalars, outs = jax_run(jm, jde, theta0, w0, key, it0, K)
     step = tdm.build_step(model, de, spec, device="cpu", allow_fused=False)
@@ -216,7 +216,7 @@ def test_unfused_sample_matches_jax_trajectory(monkeypatch):
     C = G * Np
     theta0 = _theta0("gauss", C, np.random.default_rng(key))
     spec = tdm.make_spec(model, de)
-    w0 = taccept.compute_posterior(model, spec,
+    w0 = taccept.compute_posterior(model, spec, de,
                                    torch.tensor(theta0)).numpy()
     n_words, pools, scalars, outs = jax_run(jm, jde, theta0, w0, key, 1, K)
     monkeypatch.setattr(tdm.UnfusedStep, "draws",

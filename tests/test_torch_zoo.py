@@ -242,15 +242,18 @@ def test_kernel_arguments_of_the_new_densities():
 
 
 def test_unported_binomial_variants_raise():
-    """The fixed-noise ABC binomial still raises; the exact variant is
-    ported since the unfused step (a per-cell density, no CUDA one).  The
-    discrete binomial's default float64 configuration (as the JAX
-    ``make``'s) raised before float64 was ported; it now constructs and
-    takes the unfused step (the kernels are float32)."""
+    """Every binomial variant is ported (the name is from when some
+    raised): the exact variant since the unfused step (a per-cell density,
+    no CUDA one), the fixed-noise ABC binomial since the unfused step
+    carried stochastic models (deterministic on its fixed panel, no CUDA
+    density).  The discrete binomial's default float64 configuration (as
+    the JAX ``make``'s) raised before float64 was ported; it now
+    constructs and takes the unfused step (the kernels are float32)."""
     exact, _ = tbin.make(N=10, k=6)
     assert exact.cuda_density is None and exact.loglike is not None
-    with pytest.raises(NotImplementedError, match="unfused step"):
-        tbin.make(N=10, k=6, abc=True)
+    fixed, fixed_de = tbin.make(N=10, k=6, abc=True, n_sim=50)
+    assert fixed.cuda_density is None and not fixed.stochastic
+    assert not tdm.sampler.fused_supported(fixed, fixed_de)
     disc, disc_de = tdisc.make()
     assert disc_de.dtype is np.float64
     assert not tdm.sampler.fused_supported(disc, disc_de)

@@ -126,7 +126,8 @@ def test_plain_step_matches_jax_kernel(f32_jax, member_gather, name, case,
     noise = None
     if model.stochastic:
         noise = tdm.rng.to_uni(tdm.rng.words(9, 0, model.noise_words, C))
-    w = tdm.ops.accept.compute_posterior(model, spec, torch.tensor(theta),
+    w = tdm.ops.accept.compute_posterior(model, spec, de,
+                                         torch.tensor(theta),
                                          noise).numpy()
     key2 = np.array([0x3456 + seed, 0xBEEF], np.uint32)
     jt, jw, jacc, jfire = (np.asarray(o) for o in jax.jit(kern)(

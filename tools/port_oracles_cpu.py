@@ -5,7 +5,7 @@ the port's cells (``port_cells.py``) on the CPU, so that the GPU's run
     JAX_PLATFORMS=cpu python tools/port_oracles_cpu.py [CELL ...]
 
 CELL is any of ``lba discrete kde gauss-unfused lnr mcz-mig blocked
-hier opt`` (all by default).
+hier opt kde-fresh abc-fixed`` (all by default).
 
 1. LBA (100 trials, numpy seed 0): ``port_cells.lba_oracle``, then
    ``demcmc_tpu.sample`` (the JAX package's XLA step) with 256 chains at
@@ -46,6 +46,17 @@ hier opt`` (all by default).
    then the reference's float64 cells through both packages (the port's
    unfused step; the JAX package with x64 on) at the cells' length, with
    the float64 gates.
+
+10. kde-fresh: ``port_cells.kde_fresh_oracle`` (the synthetic likelihood
+   averaged over 32 panels), then the JAX XLA step on the JAX
+   ``abc_kde.make(fresh_noise=True)`` model with the cell's data (a fresh
+   simulation per evaluation) with 96 chains at the cell's length,
+   through ``port_cells.kde_gate``.
+11. abc-fixed: ``port_cells.abc_fixed_oracle`` of the JAX fixed-noise ABC
+   binomial's panel (``uniform(PRNGKey(123), (10,000, 10))``) and the JAX
+   XLA step with 64 chains at the cell's length; the same for the port's
+   plain path on its own numpy panel; each through
+   ``port_cells.abc_fixed_gate``.
 
 Prints one line per run; exits non-zero if a run at the cell's length
 fails its gate or R̂ ≥ ``port_cells.RHAT_MAX``.  About three minutes on
@@ -388,10 +399,60 @@ def check_opt():
     return all_ok
 
 
+def check_kde_fresh(n_groups=16):
+    from demcmc_tpu.models import abc_kde as jabc
+    cell = pc.KDE_FRESH_CELL
+    data, _ = pc.kde_inputs()
+    t0 = time.perf_counter()
+    oracle = pc.kde_fresh_oracle(data)
+    print(f"[kde-fresh] oracle ({pc.KDE_FRESH_PANELS} panels): {oracle} "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    jm, jde = jabc.make(data=data, n_sim=pc.KDE_N_SIM, Np=cell["Np"],
+                        n_groups=n_groups, burnin=cell["burnin"],
+                        fresh_noise=True, use_pallas=False)
+    t0 = time.perf_counter()
+    ch = jdm.sample(jm, jde, cell["n_iter"], key=0)
+    secs = time.perf_counter() - t0
+    ok, rows = pc.kde_gate(ch["mu"], ch["sigma"], oracle)
+    return _report("kde-fresh", f"demcmc_tpu.sample, {jde.n_chains} chains",
+                   cell["n_iter"], cell, secs, ok, rows,
+                   np.asarray(ch.rhat()))
+
+
+def check_abc_fixed(n_groups=8):
+    import jax
+    from demcmc_tpu.models import binomial as jbin
+    from demcmc_tpu_torch.models import binomial as tbin
+    cell = pc.ABC_FIXED_CELL
+    kw = dict(N=cell["N"], k=cell["k"], abc=True, n_sim=pc.N_SIM,
+              Np=cell["Np"], n_groups=n_groups, burnin=cell["burnin"])
+    jax_panel = np.asarray(jax.random.uniform(jax.random.PRNGKey(123),
+                                              (pc.N_SIM, cell["N"])))
+    all_ok = True
+    for tag, panel, run in (
+            ("demcmc_tpu.sample", jax_panel,
+             lambda: jdm.sample(*jbin.make(**kw), cell["n_iter"], key=0)),
+            ("demcmc_tpu_torch.sample(device='cpu')",
+             pc.abc_panel(pc.N_SIM, cell["N"]),
+             lambda: tdm.sample(*tbin.make(**kw), cell["n_iter"], key=0,
+                                device="cpu"))):
+        oracle = pc.abc_fixed_oracle(panel, cell["k"])
+        t0 = time.perf_counter()
+        ch = run()
+        secs = time.perf_counter() - t0
+        ok, rows = pc.abc_fixed_gate(ch["theta"], oracle)
+        all_ok = _report("abc-fixed", f"{tag}, {cell['Np'] * n_groups} "
+                         f"chains (exact oracle {np.round(oracle, 5)})",
+                         cell["n_iter"], cell, secs, ok, np.round(rows, 5),
+                         np.asarray(ch.rhat())) and all_ok
+    return all_ok
+
+
 CHECKS = {"lba": check_lba, "discrete": check_discrete, "kde": check_kde,
           "gauss-unfused": check_gauss_unfused, "lnr": check_lnr,
           "mcz-mig": check_mcz_mig, "blocked": check_blocked,
-          "hier": check_hier, "opt": check_opt}
+          "hier": check_hier, "opt": check_opt,
+          "kde-fresh": check_kde_fresh, "abc-fixed": check_abc_fixed}
 
 if __name__ == "__main__":
     names = sys.argv[1:] or list(CHECKS)
