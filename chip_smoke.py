@@ -278,6 +278,46 @@ post variant.  Its launch checks are the counts of
 57. timing9  the fill's device ms per launch at the panel's shape beside
            its plain version and its bound; K4's row on the fresh cell's
            inputs, held against its plain version.
+58. k1-rep  the replicated K1 (``csrc/de_step_rep.cu``) against its plain
+           version, bit for bit: the Gaussian (16 replications × 4 × 4;
+           local chain words and, at α = 0, a packed run's global ones,
+           windows of 16), LBA (4 replications of 100 trials each, lanes),
+           the ABC and discrete binomials' data tables, the Gaussian
+           MLE's greedy max: bits-in iterations crossing burn-in with
+           every gate set at the start, then Philox words; then the
+           main paths' shapes: ``[main-rep]``'s 64 × 4 × 4 on its seeds
+           across the burn-in switch, ``[main-packed]``'s global words
+           with a window of 16, ``[main-opt-rep]``'s greedy max at
+           64 × 2 × 12; each replication's rows of a window of 16 bit for
+           bit a solo K1 launch on its model, seed and chains;
+59. k2-rep  the segmented K2 against its plain version and a per-segment
+           numpy oracle, bit for bit, at 64 replications × 4 × 4: each
+           replication's gate (local and global words), and a packed
+           window's events;
+60. main-rep  ``sample_replicated`` at ``bench.py:133-161``'s width
+           (``port_cells.REP_CELL``: 64 Gaussian datasets of 50
+           observations from numpy seed 5, 4 × 4 chains each, burn-in 100,
+           α = 0.1): launches as the plan over the 64 replications' gates
+           (K1 windows and K2 launches per iteration logged),
+           replications 0, 31 and 63 bit for bit their solo ``sample()``,
+           each replication's posterior means within ``REP_TOL`` of its
+           quadrature, max R̂ < 1.01; the 64 run in turn through
+           ``sample()``, wall time against the batch's;
+61. main-packed  ``sample_replicated_packed`` on the same cell: K1
+           windows of ``SUPER_K``, one K2 a window with an event, the same
+           gates;
+62. main-opt-rep  ``optimize_replicated`` through the replicated K1's
+           greedy max on 64 datasets (``port_cells.OPT_REP_CELL``):
+           replications 0, 31 and 63 bit for bit their solo
+           ``optimize()``, each MLE within ``OPT_REP_TOL`` of the closed
+           form;
+63. main-rep-mesh  ``[main-rep]`` on 4 shards of the card, bit for bit;
+64. trace-rep  ``[main-rep]`` and ``[main-packed]`` at 2,100 iterations
+           under ``torch.profiler``: µs and launches per iteration, the
+           idle share;
+65. timing10  the replicated K1's and the segmented K2's device ms per
+           launch at ``[main-rep]``'s shape beside their plain versions
+           and their bounds.
 
 Before them, the host seconds of each cell's ``Chains.rhat()`` and the
 script's total, each beside the card's name and power limit.  The last
@@ -344,7 +384,7 @@ def _gates(key, it0, n, cfg):
 
 
 def plan_counts(model, de, n_iter, key, it0=None, k_max=None, thin=1,
-                chunked=None):
+                chunked=None, packed_key=None):
     """The launches ``sample(model, de, n_iter, key=key)`` must make,
     counted here from the gates alone: a K1 (K3) launch per window of at
     most ``k_max`` (the configured K) iterations, a new window at every
@@ -353,7 +393,14 @@ def plan_counts(model, de, n_iter, key, it0=None, k_max=None, thin=1,
     ``checkpoint_every`` and ``stop_rhat`` options), at every chunk's
     edge (``sampler.chunk_schedule``, held to the JAX loop's on the CPU);
     a K2 launch per open gate (the first one from the run's own GATE_NS
-    word)."""
+    word).
+
+    ``key`` a list of seeds: a replicated run of them (replicated K1 and
+    segmented K2), a gate open where any replication's opens; with
+    ``packed_key`` too, the packed run of that many replications, its K1
+    windows cut only at K and the switch, a K2 before each window that
+    holds an (iteration, replication) event (PACKED_GATE_NS words of
+    ``packed_key``)."""
     import demcmc_tpu_torch as tdm
     from demcmc_tpu_torch import rng, sampler
     from demcmc_tpu_torch.ops import fused_step, resample_step
@@ -363,9 +410,20 @@ def plan_counts(model, de, n_iter, key, it0=None, k_max=None, thin=1,
     if k_max is None:
         k_max = (resample_step.resample_super_k(cfg, "cuda")
                  if cfg.resample else fused_step.super_k())
-    u0 = float(rng.to_uni(rng.words(key, it0, 1, 1, ns=rng.GATE_NS))[0, 0])
-    fire0 = cfg.alpha > 0.0 and u0 <= np.float32(cfg.alpha)
-    gates = _gates(key, it0, n_iter, cfg)
+    rep = isinstance(key, (list, tuple))
+    keys = list(key) if rep else [key]
+    fire0, gates = False, np.zeros(n_iter, dtype=bool)
+    events = np.zeros(n_iter, dtype=bool)
+    if packed_key is None:
+        for k in keys:
+            u0 = float(rng.to_uni(rng.words(k, it0, 1, 1,
+                                            ns=rng.GATE_NS))[0, 0])
+            fire0 |= cfg.alpha > 0.0 and u0 <= np.float32(cfg.alpha)
+            gates |= _gates(k, it0, n_iter, cfg)
+    elif cfg.alpha > 0.0:
+        w = rng.words_block(packed_key, it0, n_iter, 1, len(keys),
+                            ns=rng.PACKED_GATE_NS)[:, 0]
+        events = (rng.to_uni(w) <= np.float32(cfg.alpha)).numpy().any(1)
     switch = de.burnin - (it0 - 1) if (cfg.random_gamma
                                         and de.burnin > 0) else None
     cuts = set()
@@ -377,13 +435,18 @@ def plan_counts(model, de, n_iter, key, it0=None, k_max=None, thin=1,
             switch if switch is not None and switch > 0 else None)
         cuts = set((np.cumsum(chunks)[:-1] * thin).tolist())
     windows = opened = length = 0
+    has_event = False
     for i in range(n_iter):
         opens = fire0 if i == 0 else bool(gates[i - 1])
         if i == 0 or opens or length == k_max or i == switch or i in cuts:
-            windows += 1
-            length = 0
+            opened += has_event
+            windows, length, has_event = windows + 1, 0, False
         opened += int(opens)
+        has_event |= bool(events[i])
         length += 1
+    opened += has_event
+    if rep:
+        return {"de_step_rep": windows, "migrate_segments": opened}
     out = {"resample_step" if cfg.resample else "de_step": windows,
            "migrate": opened}
     if model.stochastic:        # the initial weights' noise panel
@@ -782,15 +845,21 @@ def _loop_run(model, de, n_iter, key, thin=1):
     return sampler.bundle_samples(model, de, spec, ys, n_iter, thin), state
 
 
-def _same_run(tag, a, b, between="the planned windows and the loop"):
-    """Raise unless two ``(chains, state)`` results are equal bit for
-    bit: draws, lp, acceptance and the final θ, w, gate and history."""
-    (ca, sa), (cb, sb) = a, b
+def _same_draws(tag, ca, cb, between):
+    """Raise unless two ``Chains`` are equal bit for bit: draws, lp,
+    acceptance."""
     for x, y, what in ((ca.data, cb.data, "draws"), (ca.lp, cb.lp, "lp"),
                        (ca.acceptance, cb.acceptance, "acceptance")):
         x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
         if x.shape != y.shape or x.tobytes() != y.tobytes():
             raise AssertionError(f"{tag}: {what} differ between {between}")
+
+
+def _same_run(tag, a, b, between="the planned windows and the loop"):
+    """Raise unless two ``(chains, state)`` results are equal bit for
+    bit: draws, lp, acceptance and the final θ, w, gate and history."""
+    (ca, sa), (cb, sb) = a, b
+    _same_draws(tag, ca, cb, between)
     if sa.iteration != sb.iteration:
         raise AssertionError(f"{tag}: final iterations differ")
     for k in ("theta", "weight", "fire", "history"):
@@ -1445,6 +1514,8 @@ def _reset_counts():
     resample_step.resample_step.launches = 0
     kde.kde_logpdf.launches = 0
     fused_step.philox_fill.launches = 0
+    fused_step.de_step_rep.launches = 0
+    migration.migrate_segments.launches = 0
 
 
 def _counts(**want):
@@ -1457,7 +1528,9 @@ def _counts(**want):
            "migrate": migration.migrate.launches,
            "resample_step": resample_step.resample_step.launches,
            "kde_logpdf": kde.kde_logpdf.launches,
-           "philox_fill": fused_step.philox_fill.launches}
+           "philox_fill": fused_step.philox_fill.launches,
+           "de_step_rep": fused_step.de_step_rep.launches,
+           "migrate_segments": migration.migrate_segments.launches}
     if want and got != {k: want.get(k, 0) for k in got}:
         raise AssertionError(f"launches {got}, expected {want}")
     return got
@@ -5139,6 +5212,718 @@ def phase_timing9(dev, launches, errs):
              "library_ms": None}, k4]
 
 
+# ------------------------------------------- fifteenth slice: replicated
+# runs (sample_replicated, sample_replicated_packed, optimize_replicated)
+
+REP_NAME, REP_K2_NAME = "RepPartners", "migrate_segments_kernel"
+
+
+def _same_bits(tag, pairs):
+    """Raise unless every (kernel, plain, what) pair is equal bit for bit
+    (bool tensors as bytes)."""
+    for a, b, what in pairs:
+        va = a.view(torch.uint8) if a.dtype == torch.bool else ints(a)
+        vb = b.view(torch.uint8) if b.dtype == torch.bool else ints(b)
+        if not torch.equal(va, vb):
+            raise AssertionError(f"{tag}: {what} differ from the plain "
+                                 f"version")
+
+
+def _rep_case(models, de, dev, seeds=None, packed_key=None):
+    """(step, state, spec) of a replicated launch over ``models`` (one
+    per replication): :class:`sampler.RepStep` and the replications'
+    initial states side by side; ``seeds`` default 11, 12, ..."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import sampler
+    spec = tdm.make_spec(models[0], de)
+    seeds = list(seeds or range(11, 11 + len(models)))
+    step = sampler.RepStep(models, de, spec, dev, seeds, packed_key)
+    state = sampler._rep_state(models, de, spec, seeds, dev)
+    return step, [state.theta, state.weight, state.fire], spec
+
+
+def _rep_compare(tag, cfg, spec, state, it, K=1, emit=(0, 1), words=None,
+                 phase="all"):
+    """One replicated K1 launch (a window of ``K``) and its plain version
+    from copies of ``state``: θ, w, every replication's gate and the
+    stored rows bit for bit.  Returns the plain result and its accepted
+    count."""
+    from demcmc_tpu_torch.ops import fused_step
+    dev = state[0].device
+    C_, T = cfg.G * cfg.Np, fused_step.n_emitted(K, emit)
+    k = [x.clone() for x in state]
+    p = [x.clone() for x in state]
+    ok = (torch.empty((T, C_, cfg.d), device=dev),
+          torch.empty((T, C_), device=dev),
+          torch.empty((T, C_), dtype=torch.bool, device=dev))
+    op = tuple(torch.empty_like(x) for x in ok)
+    fused_step.de_step_rep(cfg, spec, *k, it, out=ok, bits=words, K=K,
+                           emit=emit, phase=phase)
+    fused_step.de_step_rep_plain(cfg, spec, *p, it, words, op, K, emit,
+                                 phase)
+    torch.cuda.synchronize()
+    _same_bits(tag, ((k[0], p[0], "theta"), (k[1], p[1], "w"),
+                     (k[2], p[2], "the gates fire[R]"),
+                     (ok[0], op[0], "stored theta"),
+                     (ok[1], op[1], "stored w"),
+                     (ok[2], op[2], "accept flags")))
+    return p, int(op[2].sum())
+
+
+def _rep_k1_run(tag, step, state, spec, n_bits=8, burnin=4, K=16, it0=1):
+    """``n_bits`` bits-in iterations from ``it0`` (the gates set at the
+    start; crossing burn-in where they reach it), one on Philox words,
+    then (``K``) a window of K on Philox words storing every row (past
+    burn-in, the post variant the main path takes there), each against
+    the plain version."""
+    cfg = step.cfg
+    rng_ = np.random.default_rng(cfg.G * cfg.Np + n_bits)
+    state[2].fill_(1)
+    acc = 0
+    t0 = time.perf_counter()
+    for it in range(it0, it0 + n_bits):
+        words = random_words(rng_, cfg.rows.n_words, cfg.G * cfg.Np,
+                             state[0].device)
+        state, n = _rep_compare(tag, cfg, spec, state, it, words=words)
+        acc += n
+    state, n = _rep_compare(tag, cfg, spec, state, it0 + n_bits)
+    acc += n
+    if K:
+        it = it0 + n_bits + 1
+        state, n = _rep_compare(tag, cfg, spec, state, it, K=K,
+                                phase="post" if it > burnin else "all")
+        acc += n
+    log(tag, f"{cfg.reps.n_reps} replications x {cfg.reps.c_rep} chains, "
+        f"{'local' if cfg.reps.local else 'global'} chain words: "
+        f"{n_bits} bits-in iterations from {it0}, one on Philox words"
+        + (f", a window of {K}" if K else "")
+        + f": bit for bit the plain version ({acc} accepts; "
+        f"{time.perf_counter() - t0:.1f} s)")
+    return state
+
+
+def phase_k1_rep(dev):
+    """The replicated K1 against its plain version, bit for bit, on the
+    Gaussian (the hoisted body; local chain words, and global ones as a
+    packed run draws them), LBA (lanes over 100 trials, each
+    replication's own trials), the ABC and discrete binomials' data
+    tables and the Gaussian MLE's greedy max; at the main paths' shapes
+    (``[main-rep]``'s 64 × 4 × 4 on its seeds, local chain words across
+    the burn-in switch; ``[main-packed]``'s global words with a window of
+    16 past burn-in; ``[main-opt-rep]``'s greedy max at 64 × 2 × 12);
+    then each replication's rows of a window of 16 on Philox words bit
+    for bit a solo K1 launch on that replication (its model, seed and
+    chains)."""
+    import dataclasses
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import binomial, discrete_binomial
+    from demcmc_tpu_torch.models import gaussian, lba
+    from demcmc_tpu_torch.ops import fused_step
+    data = pc.rep_datasets()
+    de = tdm.DE(bounds=gaussian.BOUNDS, Np=4, n_groups=4, burnin=4,
+                alpha=0.1)
+    gm = [gaussian.make_model(x) for x in data[:16]]
+    de0 = dataclasses.replace(de, alpha=0.0)
+    for key in (None, 5):
+        step, st, spec = _rep_case(gm, de if key is None else de0, dev,
+                                   packed_key=key)
+        _rep_k1_run("k1-rep-gauss", step, st, spec,
+                    K=16 if key is not None else 0)
+    # a window needs no inner gate: at α = 0 the plain window checks none
+    step, st, spec = _rep_case(gm, de0, dev)
+    _rep_k1_run("k1-rep-gauss", step, st, spec, K=16)
+    lm = [lba.make(key=r, n_trials=100, Np=16, n_groups=2)[0]
+          for r in range(4)]
+    _, lde = lba.make(key=0, n_trials=100, Np=16, n_groups=2, burnin=4)
+    step, st, spec = _rep_case(lm, lde, dev)
+    _rep_k1_run("k1-rep-lba", step, st, spec, n_bits=4, K=0)
+    am = []
+    for r in range(4):
+        m, ade = binomial.make(N=10, k=4 + r, abc=True, fresh_noise=True,
+                               n_sim=500, Np=8, n_groups=4, burnin=4)
+        am.append(m)
+    step, st, spec = _rep_case(am, ade, dev)
+    _rep_k1_run("k1-rep-abc", step, st, spec, n_bits=4, K=0)
+    # four datasets whose tables of unique counts have one shape (one
+    # launch takes data of one shape)
+    dm, key = [], 0
+    while len(dm) < 4:
+        m, dde = discrete_binomial.make(key=key, Np=12, n_groups=2,
+                                        burnin=4, dtype=np.float32)
+        key += 1
+        shape = m.cuda_density.data.shape
+        if not dm or shape == dm[0].cuda_density.data.shape:
+            dm.append(m)
+    step, st, spec = _rep_case(dm, dde, dev)
+    _rep_k1_run("k1-rep-discrete", step, st, spec, n_bits=4, K=0)
+    ode = tdm.DE(bounds=gaussian.BOUNDS, Np=4, n_groups=4, burnin=4,
+                 update_particle="maximize", evaluate_fitness="fun")
+    step, st, spec = _rep_case(gm[:8], ode, dev)
+    _rep_k1_run("k1-rep-max", step, st, spec, n_bits=4, K=0)
+
+    # the main paths' shapes: [main-rep]'s 64 x 4 x 4 with its seeds and
+    # local chain words across the burn-in switch (windows of one, as its
+    # gates cut them); [main-packed]'s global chain words on one key with
+    # a window past burn-in; [main-opt-rep]'s greedy max at 64 x 2 x 12
+    c, o = pc.REP_CELL, pc.OPT_REP_CELL
+    full = [gaussian.make_model(x) for x in pc.rep_datasets(c)]
+    seeds = rng.replication_seeds(c["key"], c["n_reps"])
+    step, st, spec = _rep_case(full, _rep_de(), dev, seeds)
+    _rep_k1_run("k1-rep-cell", step, st, spec, n_bits=3, K=1,
+                burnin=c["burnin"], it0=c["burnin"] - 1)
+    step, st, spec = _rep_case(full, _rep_de(), dev, seeds,
+                               packed_key=c["key"])
+    _rep_k1_run("k1-rep-cell", step, st, spec, n_bits=1, K=16,
+                burnin=c["burnin"], it0=c["burnin"])
+    om = [gaussian.make_model(x) for x in pc.opt_rep_datasets(o)]
+    step, st, spec = _rep_case(om, _opt_rep_de(), dev,
+                               rng.replication_seeds(o["key"], o["n_reps"]))
+    _rep_k1_run("k1-rep-cell-max", step, st, spec, n_bits=2, K=0)
+
+    # each replication's rows: a solo K1 launch on its chains
+    step, st, spec = _rep_case(gm, de0, dev)
+    cfg, reps = step.cfg, step.reps
+    K, it0 = 16, 3
+    T, C_ = K, cfg.G * cfg.Np
+    out = (torch.empty((T, C_, 2), device=dev), torch.empty((T, C_),
+                                                            device=dev),
+           torch.empty((T, C_), dtype=torch.bool, device=dev))
+    k = [x.clone() for x in st]
+    fused_step.de_step_rep(cfg, spec, *k, it0, out=out, K=K)
+    one = fused_step.StepConfig.make(gm[0], de0, spec)
+    Cr = reps.c_rep
+    for r in range(reps.n_reps):
+        sl = slice(r * Cr, (r + 1) * Cr)
+        s = [st[0][sl].clone(), st[1][sl].clone(), st[2][r:r + 1].clone()]
+        o = tuple(torch.empty_like(x[:, sl]).contiguous() for x in out)
+        solo = fused_step.StepConfig.make(gm[r], de0, spec)
+        fused_step.de_step(solo, gm[r], spec, *s, it0, seed=reps.seeds[r],
+                           out=o, K=K)
+        torch.cuda.synchronize()
+        _same_bits(f"k1-rep-solo r={r}", (
+            (k[0][sl], s[0], "theta"), (k[1][sl], s[1], "w"),
+            (out[0][:, sl], o[0], "stored theta"),
+            (out[1][:, sl], o[1], "stored w"),
+            (out[2][:, sl], o[2], "accept flags")))
+    del one
+    log("k1-rep-solo", f"every replication's rows of a window of {K} "
+        f"({reps.n_reps} x {Cr} chains) bit for bit a solo K1 launch on "
+        f"its model, seed and chains")
+    return 0.0
+
+
+def _np_exchange(theta, w, u, n_act, gum):
+    """The exchange in numpy (``tests/test_fused_step.py``'s
+    ``_np_migration_oracle``): groups ranked by ``u`` (ties by index),
+    the first ``n_act`` ranks' victims (argmax(gum − w), first on ties)
+    moved rank r ← rank (r − 1) mod n_act.  theta [G, Np, d]."""
+    G_ = theta.shape[0]
+    order = np.lexsort((np.arange(G_), u))
+    rank = np.empty(G_, int)
+    rank[order] = np.arange(G_)
+    vid = np.argmax(gum - w, axis=1)
+    nt, nw = theta.copy(), w.copy()
+    for g in range(G_):
+        r = rank[g]
+        if r < n_act:
+            src = order[(r - 1) % n_act]
+            nt[g, vid[g]] = theta[src, vid[src]]
+            nw[g, vid[g]] = w[src, vid[src]]
+    return nt, nw
+
+
+def phase_k2_rep(dev):
+    """The segmented K2 against its plain version and the per-segment
+    oracle (:func:`_np_exchange` on each replication's words), bit for
+    bit, at R = 64 replications of 4 groups of 4 (d = 2), in both modes:
+    each replication's gate (about half of them set; local and global
+    chain words), and a packed window's events (0 to 3 a replication at
+    offsets within a window of 64, each on the words of its own
+    iteration); ±inf weights in some groups."""
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step, migration as mig
+    R, G_, Np_, d = 64, 4, 4, 2
+    Cr = G_ * Np_
+    g = np.random.default_rng(9)
+    seeds = [int(x) for x in g.integers(0, 2 ** 63, R)]
+    theta0 = torch.tensor(g.normal(size=(R * Cr, d)).astype(np.float32),
+                          device=dev)
+    w0 = torch.tensor(g.normal(size=R * Cr).astype(np.float32), device=dev)
+    w0[::37] = -float("inf")
+    w0[5::41] = float("inf")
+    it = 777
+    moved = 0
+    for mode in ("fire-local", "fire-global", "events"):
+        local = mode == "fire-local"
+        fire = events = None
+        if mode.startswith("fire"):
+            fire = torch.tensor(g.integers(0, 2, R).astype(np.int32),
+                                device=dev)
+        else:
+            ev = np.zeros((64, R), dtype=bool)
+            for r in range(R):
+                ev[g.choice(64, int(g.integers(0, 4)), replace=False), r] = 1
+            events = mig.segment_events(ev, R)
+        reps = fused_step.Replicas(tuple(seeds), local, Cr, None, ())
+        tk, wk = theta0.clone(), w0.clone()
+        tp, wp = theta0.clone(), w0.clone()
+        mig.migrate_segments(tk, wk, G_, Np_, reps, it, fire=fire,
+                             events=events)
+        mig.migrate_segments_plain(tp, wp, G_, Np_, reps, it, fire=fire,
+                                   events=events)
+        torch.cuda.synchronize()
+        _same_bits(f"k2-rep {mode}", ((tk, tp, "theta"), (wk, wp, "w")))
+        # the oracle, replication by replication
+        tn = theta0.cpu().numpy().reshape(R, G_, Np_, d).copy()
+        wn = w0.cpu().numpy().reshape(R, G_, Np_).copy()
+        for r in range(R):
+            chain0 = 0 if local else r * Cr
+            if fire is not None:
+                its = [it] if int(fire[r]) else []
+                ns = rng.STEP_NS
+            else:
+                its = [it + int(x) for x in events[1][r, :events[0][r]]]
+                ns = rng.PACKED_MIG_NS
+            for t in its:
+                words = rng.words(seeds[r], t, mig.N_ROWS, Cr, ns=ns,
+                                  chain0=chain0)
+                u, n_act, gum = mig.draws(words, G_, Np_)
+                tn[r], wn[r] = _np_exchange(tn[r], wn[r], u.numpy(),
+                                            int(n_act), gum.numpy())
+        if not (np.array_equal(tp.cpu().numpy().reshape(tn.shape).view(
+                np.int32), tn.view(np.int32)) and np.array_equal(
+                wp.cpu().numpy().reshape(wn.shape).view(np.int32),
+                wn.view(np.int32))):
+            raise AssertionError(f"k2-rep {mode}: the plain version differs "
+                                 f"from the per-segment oracle")
+        n = int((ints(tk) != ints(theta0)).any(1).sum())
+        moved += n
+        what = (f"gates {int(fire.sum())}" if fire is not None
+                else f"events {int(events[0].sum())}")
+        log("k2-rep", f"{mode}: R={R} x G={G_} x Np={Np_}, {what}: "
+            f"segmented K2 bit for bit its plain version and the "
+            f"per-segment oracle ({n} chains moved)")
+    if moved == 0:
+        raise AssertionError("k2-rep: no chain moved")
+    return 0.0
+
+
+def _rep_de(cell=None, **kw):
+    """The replicated cell's configuration (``port_cells.REP_CELL``)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian
+    c = cell or pc.REP_CELL
+    kw = {**dict(Np=c["Np"], n_groups=c["n_groups"], burnin=c["burnin"],
+                 alpha=c["alpha"]), **kw}
+    return tdm.DE(bounds=gaussian.BOUNDS, **kw)
+
+
+def _opt_rep_de():
+    """The replicated optimization cell's configuration (``port_cells.
+    OPT_REP_CELL``: K1's greedy max on the Gaussian's likelihood)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.OPT_REP_CELL
+    return tdm.DE(bounds=gaussian.BOUNDS, n_groups=c["n_groups"], Np=c["Np"],
+                  burnin=0, update_particle="maximize",
+                  evaluate_fitness="fun")
+
+
+def _rep_rhat_child(reps):
+    t0 = time.perf_counter()
+    rhat = max(float(np.max(ch.rhat())) for ch in reps)
+    return rhat, time.perf_counter() - t0
+
+
+def _rep_gates(tag, reps, data, metrics, key):
+    """Each replication's μ and σ posterior means within ``port_cells.
+    REP_TOL`` of its own dataset's quadrature; the max R̂ over every
+    replication and parameter, in a forked process (:func:`_rhat_gate`'s
+    way, applied by :func:`_rhat_results`)."""
+    from demcmc_tpu_torch.models import gaussian
+    worst, where = 0.0, None
+    for r, (ch, x) in enumerate(zip(reps, data)):
+        if not np.isfinite(ch.data).all():
+            raise AssertionError(f"{tag}: replication {r} has non-finite "
+                                 f"draws")
+        truth = gaussian.posterior_grid(x)
+        for k in ("mu", "sigma"):
+            e = abs(float(ch.mean(k)) - truth[k]["mean"])
+            if e > worst:
+                worst, where = e, (r, k)
+    log(tag, f"worst |posterior mean - quadrature| over {len(reps)} "
+        f"replications: {worst:.5f} (replication {where[0]}, {where[1]}; "
+        f"gate {pc.REP_TOL})")
+    if not worst < pc.REP_TOL:
+        raise AssertionError(f"{tag}: a replication's posterior is off its "
+                             f"oracle")
+    metrics[key + "_worst_mean_err"] = worst
+    _RHAT_JOBS.append((tag, key + "_rhat_max",
+                       _forked(_rep_rhat_child, reps),
+                       (len(reps),) + reps[0].data.shape))
+
+
+def phase_main_rep(dev):
+    """``sample_replicated`` at ``bench.py:133-161``'s width
+    (``port_cells.REP_CELL``: 64 Gaussian datasets, 4 × 4 chains each,
+    burn-in 100, α = 0.1): launches exactly as the plan over the 64
+    replications' gates says (windows per iteration logged), replications
+    0, 31 and 63 bit for bit their solo ``sample()``, every replication's
+    posterior against its quadrature, max R̂; then the 64 replications
+    run in turn through ``sample()``, wall time against the batch's."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.REP_CELL
+    data, de, n_iter = pc.rep_datasets(c), _rep_de(), c["n_iter"]
+    seeds = rng.replication_seeds(c["key"], c["n_reps"])
+    tdm.sample_replicated(gaussian.make_model, de, 2 * de.burnin,
+                          data[:2], key=c["key"])        # warm the loader
+    torch.cuda.synchronize()
+    _reset_counts()
+    t0 = time.perf_counter()
+    reps = tdm.sample_replicated(gaussian.make_model, de, n_iter, data,
+                                 key=c["key"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = plan_counts(gaussian.make_model(data[0]), de, n_iter, seeds)
+    log("main-rep", f"launches {launches} (the plan over the "
+        f"{c['n_reps']} replications' gates: {want}); "
+        f"{want['de_step_rep'] / n_iter:.4f} K1 windows and "
+        f"{want['migrate_segments'] / n_iter:.4f} K2 launches per "
+        f"iteration (a window ends where any replication's gate opens)")
+    _counts(**want)
+    R = c["n_reps"]
+    for r in (0, R // 2 - 1, R - 1):
+        solo = tdm.sample(gaussian.make_model(data[r]), de, n_iter,
+                          key=seeds[r])
+        _same_draws("main-rep", reps[r], solo, f"replication {r} and its "
+                    f"solo sample()")
+    log("main-rep", f"replications 0, {R // 2 - 1} and {R - 1} bit for bit "
+        f"their solo sample()")
+    metrics = {"main_rep_wall_s": wall,
+               "main_rep_us_per_iteration": wall / n_iter * 1e6}
+    _rep_gates("main-rep", reps, data, metrics, "main_rep")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for r in range(c["n_reps"]):
+        tdm.sample(gaussian.make_model(data[r]), de, n_iter, key=seeds[r])
+    torch.cuda.synchronize()
+    turn = time.perf_counter() - t0
+    log("main-rep", f"{c['n_reps']} replications x {n_iter} iterations: "
+        f"one batch {wall:.3f} s, in turn through sample() {turn:.3f} s "
+        f"({turn / wall:.2f}x)")
+    metrics["main_rep_in_turn_s"] = turn
+    return reps, launches, metrics
+
+
+def phase_main_packed(dev):
+    """``sample_replicated_packed`` on the same cell: K1 windows of
+    ``SUPER_K`` (cut at the burn-in switch), one segmented K2 before each
+    window that holds an event (the events from ``key``), the posterior
+    and R̂ gates."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.REP_CELL
+    data, de, n_iter = pc.rep_datasets(c), _rep_de(), c["n_iter"]
+    seeds = rng.replication_seeds(c["key"], c["n_reps"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    reps = tdm.sample_replicated_packed(gaussian.make_model, de, n_iter,
+                                        data, key=c["key"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    want = plan_counts(gaussian.make_model(data[0]), de, n_iter, seeds,
+                       packed_key=c["key"])
+    log("main-packed", f"launches {launches} (windows of SUPER_K and the "
+        f"events' plan: {want}); {wall / n_iter * 1e6:.2f} us/iteration "
+        f"on the host clock")
+    _counts(**want)
+    metrics = {"main_packed_wall_s": wall,
+               "main_packed_us_per_iteration": wall / n_iter * 1e6}
+    _rep_gates("main-packed", reps, data, metrics, "main_packed")
+    return launches, metrics
+
+
+def phase_main_opt_rep(dev):
+    """``optimize_replicated`` through K1's greedy max at
+    ``tests/test_replicated.py:105-131``'s width (``port_cells.
+    OPT_REP_CELL``: G = 2, Np = 12, 60 observations, 1,500 iterations) on
+    64 datasets: launches as the plan, replications 0, 31 and 63 bit for
+    bit their solo ``optimize()``, each MLE within ``port_cells.
+    OPT_REP_TOL`` of its dataset's mean and sd (ddof 0)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.OPT_REP_CELL
+    data, de = pc.opt_rep_datasets(c), _opt_rep_de()
+    seeds = rng.replication_seeds(c["key"], c["n_reps"])
+    _reset_counts()
+    t0 = time.perf_counter()
+    pops = tdm.optimize_replicated(gaussian.make_model, de, c["n_iter"],
+                                   data, key=c["key"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    want = plan_counts(gaussian.make_model(data[0]), de, c["n_iter"], seeds)
+    launches = _counts()
+    log("main-opt-rep", f"launches {launches} (the plan: {want}); "
+        f"{wall:.3f} s")
+    _counts(**want)
+    R = c["n_reps"]
+    for r in (0, R // 2 - 1, R - 1):
+        solo = tdm.optimize(gaussian.make_model(data[r]), de, c["n_iter"],
+                            key=seeds[r])
+        for x, y, what in ((pops[r].theta, solo.theta, "theta"),
+                           (pops[r].weight, solo.weight, "weight")):
+            x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+            if x.shape != y.shape or x.tobytes() != y.tobytes():
+                raise AssertionError(f"main-opt-rep: replication {r}'s "
+                                     f"{what} differ from its solo "
+                                     f"optimize()")
+    log("main-opt-rep", f"replications 0, {R // 2 - 1} and {R - 1} bit for "
+        f"bit their solo optimize()")
+    worst = 0.0
+    for r, pop in enumerate(pops):
+        theta, _ = tdm.get_optimal(de, gaussian.make_model(data[r]), pop)
+        _, rows = pc.mle_gate(float(theta["mu"]), float(theta["sigma"]),
+                              data[r], c.get("tol", pc.OPT_REP_TOL))
+        worst = max(worst, *(abs(a - b) for a, b in rows.values()))
+    log("main-opt-rep", f"worst |MLE - closed form| over {len(pops)} "
+        f"datasets: {worst:.3g} (gate {pc.OPT_REP_TOL})")
+    if not worst <= pc.OPT_REP_TOL:
+        raise AssertionError("main-opt-rep: an MLE is off its closed form")
+    return {"main_opt_rep_wall_s": wall, "main_opt_rep_worst_err": worst,
+            "main_opt_rep_launches": launches}
+
+
+def phase_main_rep_mesh(dev, reps):
+    """``[main-rep]`` with ``mesh=chain_mesh(devices=[cuda:0] * 4)``: 16
+    whole replications a shard, every replication bit for bit the
+    unsharded run's, each shard's launches its own plan's (its windows cut
+    at its own replications' gates)."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.REP_CELL
+    data, de, n_iter = pc.rep_datasets(c), _rep_de(), c["n_iter"]
+    seeds = rng.replication_seeds(c["key"], c["n_reps"])
+    mesh = tdm.parallel.chain_mesh(devices=[dev] * 4)
+    _reset_counts()
+    t0 = time.perf_counter()
+    got = tdm.sample_replicated(gaussian.make_model, de, n_iter, data,
+                                key=c["key"], mesh=mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    model, n = gaussian.make_model(data[0]), c["n_reps"] // 4
+    plans = [plan_counts(model, de, n_iter, seeds[i:i + n])
+             for i in range(0, c["n_reps"], n)]
+    want = {k: sum(p[k] for p in plans) for k in plans[0]}
+    launches = _counts()
+    log("main-rep-mesh", f"launches {launches} (each shard's plan over its "
+        f"own {n} replications' gates, summed: {want}); {wall:.3f} s")
+    _counts(**want)
+    for r in range(c["n_reps"]):
+        _same_draws("main-rep-mesh", got[r], reps[r],
+                    f"replication {r} and the unsharded run")
+    log("main-rep-mesh", f"all {c['n_reps']} replications bit for bit the "
+        f"unsharded run")
+    return {"main_rep_mesh_wall_s": wall}
+
+
+def _trace_rep(tag, run, n_iter, want, fname):
+    """``run()`` under ``torch.profiler``: the replicated K1 and the
+    segmented K2 in the device trace as often as ``want`` says; µs per
+    iteration on the host clock, kernel launches per iteration and the
+    device's idle share from the first to the last launch of the two."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    OUT.mkdir(exist_ok=True)
+    path = OUT / fname
+    prof.export_chrome_trace(str(path))
+    ev = [e for e in json.loads(path.read_text())["traceEvents"]
+          if e.get("ph") == "X" and e.get("cat") in
+          ("kernel", "gpu_memcpy", "gpu_memset")]
+    path.unlink()          # tens of MB: the numbers are logged
+    spans = {k: [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                 for e in ev if e["cat"] == "kernel" and x in e["name"]]
+             for k, x in (("de_step_rep", REP_NAME),
+                          ("migrate_segments", REP_K2_NAME))}
+    counts = {k: len(v) for k, v in spans.items()}
+    if counts != {k: want.get(k, 0) for k in counts}:
+        raise AssertionError(f"{tag}: traced launches {counts}, expected "
+                             f"{want}")
+    ours = [sp for v in spans.values() for sp in v]
+    lo, hi = min(a for a, _ in ours), max(b for _, b in ours)
+    every = [(float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+             for e in ev]
+    busy = _busy(every, lo, hi)
+    n_kernels = sum(1 for e in ev if e["cat"] == "kernel")
+    out = {"traced_us_per_iteration": wall / n_iter * 1e6,
+           "launches_per_iteration": n_kernels / n_iter,
+           "k1_k2_launches_per_iteration": sum(counts.values()) / n_iter,
+           "span_us_per_iteration": (hi - lo) / n_iter,
+           "span_busy_us_per_iteration": busy / n_iter,
+           "span_idle_share": 1.0 - busy / (hi - lo)}
+    mean = {k: sum(b - a for a, b in v) / max(len(v), 1)
+            for k, v in spans.items()}
+    log(tag, f"traced: {out['traced_us_per_iteration']:.2f} us/iteration "
+        f"on the host clock; first to last launch "
+        f"{out['span_us_per_iteration']:.2f} us/iteration on the device "
+        f"clock, busy {out['span_busy_us_per_iteration']:.3f}, idle share "
+        f"{out['span_idle_share']:.4f}; {counts} ("
+        f"{out['k1_k2_launches_per_iteration']:.4f} an iteration; every "
+        f"kernel of the call, the replications' set-up included, "
+        f"{out['launches_per_iteration']:.4f}); "
+        f"mean traced time a launch: " + ", ".join(
+            f"{k} {v:.3f} us" for k, v in mean.items()))
+    return out
+
+
+REP_TRACE_ITER = 2100      # the traced replicated runs: past burn-in
+
+
+def phase_trace_rep(dev):
+    """``[main-rep]`` and ``[main-packed]`` (``REP_TRACE_ITER``
+    iterations) under ``torch.profiler``: µs per iteration, launches per
+    iteration, the idle share."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import gaussian
+    c = pc.REP_CELL
+    data, de, n = pc.rep_datasets(c), _rep_de(), REP_TRACE_ITER
+    seeds = rng.replication_seeds(c["key"], c["n_reps"])
+    out = {}
+    for tag, packed in (("trace-rep", None), ("trace-packed", c["key"])):
+        want = plan_counts(gaussian.make_model(data[0]), de, n, seeds,
+                           packed_key=packed)
+        if packed is None:
+            def run():
+                tdm.sample_replicated(gaussian.make_model, de, n, data,
+                                      key=c["key"])
+        else:
+            def run():
+                tdm.sample_replicated_packed(gaussian.make_model, de, n,
+                                             data, key=c["key"])
+        out.update({f"{tag.replace('-', '_')}_{k}": v for k, v in
+                    _trace_rep(tag, run, n, want,
+                               f"{tag}.json").items()})
+    return out
+
+
+def phase_timing10(dev, launches, errs):
+    """The replicated K1's device ms per launch at ``[main-rep]``'s shape
+    (64 replications × 16 chains; one iteration, as its windows mostly
+    are, past burn-in and in it; and a window of 64 past burn-in, the
+    packed run's), and the segmented K2's with 7 of 64 replications'
+    gates open (≈ α R, as an iteration of ``[main-rep]``), beside their
+    plain versions (plain, kernel, kernel, plain) and their bounds: each
+    replication's :func:`_step_work` on its own words plus the table's
+    bytes; K2, :func:`_exchange_work` of each fired replication plus the
+    gates read."""
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.models import gaussian
+    from demcmc_tpu_torch.ops import fused_step, migration as mig
+    c = pc.REP_CELL
+    data, de = pc.rep_datasets(c), _rep_de()
+    models = [gaussian.make_model(x) for x in data]
+    step, st, spec = _rep_case(models, de, dev, rng.replication_seeds(
+        c["key"], c["n_reps"]))
+    cfg, reps = step.cfg, step.reps
+    theta, w, fire = st
+    R, Cr, C_ = reps.n_reps, reps.c_rep, cfg.G * cfg.Np
+    out = (torch.empty((1, C_, 2), device=dev), torch.empty((1, C_),
+                                                            device=dev),
+           torch.empty((1, C_), dtype=torch.bool, device=dev))
+    it, it_b, K = 2000, 50, fused_step.super_k()
+    fired = torch.zeros(R, dtype=torch.int32, device=dev)
+    fired[::10] = 1
+    n_fired = int(fired.sum())
+
+    def k1():
+        fused_step.de_step_rep(cfg, spec, theta, w, fire, it, out=out,
+                               check=False, phase="post")
+
+    def k1_plain():
+        fused_step.de_step_rep_plain(cfg, spec, theta, w, fire, it, None,
+                                     out, phase="post")
+
+    def k1_burnin():
+        fused_step.de_step_rep(cfg, spec, theta, w, fire, it_b, out=out,
+                               check=False)
+
+    def k1_window():
+        fused_step.de_step_rep(cfg, spec, theta, w, fire, it, check=False,
+                               K=K, emit=(K, 1), phase="post")
+
+    def k2():
+        mig.migrate_segments(theta, w, de.n_groups, de.Np, reps, it,
+                             fire=fired, check=False)
+
+    def k2_plain():
+        mig.migrate_segments_plain(theta, w, de.n_groups, de.Np, reps, it,
+                                   fire=fired)
+
+    t = {}
+    for name, fn, n in (("k1_plain", k1_plain, 2), ("k1", k1, 200),
+                        ("k1", k1, 200), ("k1_plain", k1_plain, 2),
+                        ("k1_burnin", k1_burnin, 200),
+                        ("k1_window", k1_window, 20),
+                        ("k1_window", k1_window, 20),
+                        ("k2_plain", k2_plain, 2), ("k2", k2, 200),
+                        ("k2", k2, 200), ("k2_plain", k2_plain, 2)):
+        t.setdefault(name, []).append(device_ms(fn, n))
+    ms = {k: float(np.mean([x_ for x_, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing10", f"{k}: {ms[k]:.6f} ms per call on the device ("
+            + ", ".join(f"{x_:.6f}{'' if q else ' host-gapped'}"
+                        for x_, q, _ in v) + ")")
+    log("timing10", f"replicated K1 window of {K} past burn-in: "
+        f"{ms['k1_window'] / K * 1e3:.3f} us per iteration; one iteration "
+        f"in burn-in {ms['k1_burnin']:.6f} ms")
+    one = fused_step.solo_config(cfg)
+    k1_bytes = k1_ops = 0
+    for r in range(R):
+        words = rng.words(reps.seeds[r], it, cfg.rows.n_words, Cr,
+                          device=dev)
+        b, o = _step_work(one, words, GAUSS_F32_OPS)
+        k1_bytes, k1_ops = k1_bytes + b, k1_ops + o
+    k1_bytes += R * (len(models[0].cuda_density.params) * 4 + 8)
+    k2_bytes, k2_ops = _exchange_work(de.n_groups, de.Np, 2)
+    k2_bytes, k2_ops = n_fired * k2_bytes + 4 * R + 8 * R, n_fired * k2_ops
+    rows = []
+    for name, src, repl, key, nbytes, nops, plain, n in (
+            (f"de_step_rep/gaussian-{R}x{Cr}",
+             "demcmc_tpu_torch/csrc/de_step_rep.cu",
+             "demcmc_tpu/ops/fused_step.py:1858", "k1", k1_bytes, k1_ops,
+             "k1_plain", launches["de_step_rep"]),
+            (f"migrate_segments/{R}x{de.n_groups}x{de.Np}-fired-{n_fired}",
+             "demcmc_tpu_torch/csrc/migration.cu",
+             "demcmc_tpu/ops/fused_step.py:1144", "k2", k2_bytes, k2_ops,
+             "k2_plain", launches["migrate_segments"])):
+        tb, to = nbytes / PEAK_BYTES * 1e3, nops / PEAK_OPS * 1e3
+        log("timing10", f"{name}: {nbytes} bytes, {nops} operations, bound "
+            f"{max(tb, to):.4g} ms ({'bytes' if tb >= to else 'operations'}"
+            f"); at {max(tb, to) / ms[key]:.3f} of its bound")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": repl, "launches": n,
+                     "max_abs_err": errs.get(key + "_rep", 0.0),
+                     "ms": ms[key], "plain_ms": ms[plain],
+                     "bound_ms": max(tb, to),
+                     "bound_by": "bytes" if tb >= to else "operations",
+                     "library_ms": None})
+    return rows
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -5233,6 +6018,21 @@ def main():
     new = ("main_kde_fresh", "main_abc_fixed", "main_custom", "main_lv",
            "trace_kde_fresh", "timing9")
     log("end", f"the custom slots' and stochastic models' phases took "
+        f"{sum(took[k] for k in new):.1f} s")
+    errs["k1_rep"] = run(phase_k1_rep, dev)
+    errs["k2_rep"] = run(phase_k2_rep, dev)
+    reps, rep_launches, m = run(phase_main_rep, dev)
+    metrics.update(m)
+    packed_launches, m = run(phase_main_packed, dev)
+    metrics.update(m)
+    metrics.update(run(phase_main_opt_rep, dev))
+    metrics.update(run(phase_main_rep_mesh, dev, reps))
+    del reps
+    metrics.update(run(phase_trace_rep, dev))
+    rows += run(phase_timing10, dev, rep_launches, errs)
+    new = ("k1_rep", "k2_rep", "main_rep", "main_packed", "main_opt_rep",
+           "main_rep_mesh", "trace_rep", "timing10")
+    log("end", f"the replicated runs' phases took "
         f"{sum(took[k] for k in new):.1f} s")
     _rhat_results(metrics)
     card = gpu_line()

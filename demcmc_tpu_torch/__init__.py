@@ -14,8 +14,11 @@ for every other model, whose density may launch a kernel of its own
 (``csrc/kde.cu``); ``mesh=chain_mesh(...)`` splits a run's groups over
 devices (:mod:`.parallel`); ``progress``, ``checkpoint_every`` (with
 :func:`save_state`/:func:`load_state`), ``monitor`` and ``stop_rhat`` ride
-on the JAX package's chunked run.  Each kernel has a plain PyTorch version
-beside it for CPU tensors.  Exports keep the JAX package's names.
+on the JAX package's chunked run; ``sample_replicated``,
+``sample_replicated_packed`` and ``optimize_replicated`` run R datasets'
+runs as one batch (a replicated K1 launch a window).  Each kernel has a
+plain PyTorch version beside it for CPU tensors.  Exports keep the JAX
+package's names.
 """
 
 from . import diagnostics, models, ops, parallel, utils
@@ -34,6 +37,7 @@ from .particle import Particle
 from .parallel import chain_mesh
 from .sampler import (SamplerState, ShardedStep, UnfusedStep, build_step,
                       init_state, make_spec, run_scan, sample,
+                      sample_replicated, sample_replicated_packed,
                       state_from_numpy)
 from .utils.checkpoint import load_state, save_state
 from .utils.pytree import as_union
@@ -49,7 +53,8 @@ __all__ = [
     "DE", "DEModel", "MCMCThreads", "Chains", "ParamSpec", "CudaDensity",
     "Particle", "Population",
     "SamplerState", "UnfusedStep", "ShardedStep", "chain_mesh", "sample",
-    "init_state", "make_spec",
+    "sample_replicated", "sample_replicated_packed", "init_state",
+    "make_spec",
     "build_step", "optimize", "optimize_replicated", "get_optimal",
     "mh_update", "maximize", "minimize", "greedy_update",
     "compute_posterior", "evaluate_fun",

@@ -43,7 +43,8 @@ struct BinomialAbcDensity {
   int N, k, n_sim;
   const float* comb;  // [N] float32(C(N, j))
 
-  static BinomialAbcDensity from(const float* p, const float* data) {
+  __host__ __device__ static BinomialAbcDensity from(const float* p,
+                                                     const float* data) {
     return BinomialAbcDensity{(int)p[0], (int)p[1], (int)p[2], data};
   }
 

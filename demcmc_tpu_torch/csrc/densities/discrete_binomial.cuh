@@ -44,7 +44,8 @@ struct DiscreteBinomialDensity {
   float log_prior;
   const float* table;  // [n_unique, 2] (k_u, c_u)
 
-  static DiscreteBinomialDensity from(const float* p, const float* data) {
+  __host__ __device__ static DiscreteBinomialDensity from(
+      const float* p, const float* data) {
     return DiscreteBinomialDensity{p[0], p[1], p[2], p[3], (int)p[4], p[5],
                                    data};
   }

@@ -26,7 +26,8 @@ struct GaussianDensity {
   static constexpr bool kHoist = true;
   float n, xbar, ss, c0, log_2pi, log_pi, log2;
 
-  static GaussianDensity from(const float* p, const float*) {
+  __host__ __device__ static GaussianDensity from(const float* p,
+                                                  const float*) {
     return GaussianDensity{p[0], p[1], p[2], p[3], p[4], p[5], p[6]};
   }
 

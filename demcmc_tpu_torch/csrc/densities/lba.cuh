@@ -48,7 +48,8 @@ struct LbaDensity {
   int n_trials;
   const float* trials;  // [n_trials, 2] (choice, rt)
 
-  static LbaDensity from(const float* p, const float* data) {
+  __host__ __device__ static LbaDensity from(const float* p,
+                                             const float* data) {
     return LbaDensity{p[0], p[1], p[2], p[3], p[4], p[5], p[6], p[7], p[8],
                       p[9], p[10], (int)p[11], data};
   }

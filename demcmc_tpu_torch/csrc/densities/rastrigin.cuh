@@ -27,7 +27,8 @@ struct RastriginDensity {
   static constexpr bool kHoist = true;
   float an, a, two_pi;
 
-  static RastriginDensity from(const float* p, const float*) {
+  __host__ __device__ static RastriginDensity from(const float* p,
+                                                   const float*) {
     return RastriginDensity{p[0], p[1], p[2]};
   }
 

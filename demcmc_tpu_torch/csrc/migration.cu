@@ -71,10 +71,12 @@ namespace demcmc {
 
 constexpr size_t kMaxSmem = 232448;  // H100 per-block shared memory
 
-__global__ void migrate_kernel(float* theta, float* w, const int* fire,
-                               WordSource W, int G, int Np, int D, int P) {
-  if (*fire == 0) return;
-  extern __shared__ float smem[];
+// One exchange over G groups of Np chains by one CTA, on the words W
+// (chain c of theta/w is W's chain c): the one-CTA form's body.
+__device__ __forceinline__ void exchange_cta(float* theta, float* w,
+                                             const WordSource& W, int G,
+                                             int Np, int D, int P,
+                                             float* smem) {
   float* key = smem;                      // [P] sort keys
   int* idx = (int*)(key + P);             // [P] group index, sorted along
   int* vid = idx + P;                     // [G] victim slot per group
@@ -138,6 +140,40 @@ __global__ void migrate_kernel(float* theta, float* w, const int* fire,
     for (int i = 0; i < D; ++i)
       theta[(size_t)c * D + i] = vals[src * (D + 1) + i];
     w[c] = vals[src * (D + 1) + D];
+  }
+}
+
+__global__ void migrate_kernel(float* theta, float* w, const int* fire,
+                               WordSource W, int G, int Np, int D, int P) {
+  if (*fire == 0) return;
+  extern __shared__ float smem[];
+  exchange_cta(theta, w, W, G, Np, D, P, smem);
+}
+
+// The segmented form (replicated runs): CTA r runs replication r's
+// exchanges on its G groups (chains r G Np ..), words keyed by row r of
+// the key table, its chain words local to the replication (local) or the
+// population's.  With fire ([R], sample_replicated) one exchange where
+// fire[r], on the words of iteration it; with ev (a packed run's window:
+// counts [R], then the event iterations [R, E] as offsets from it) ev[r]
+// exchanges in order, event j on the words of iteration it + its[r, j] in
+// namespace ns.  Each exchange is the one-CTA form's, so replication r's
+// result is the solo K2's on its chains, word for word.
+__global__ void migrate_segments_kernel(float* theta, float* w,
+                                        const int* fire, const int* ev,
+                                        int E, const uint32_t* keys,
+                                        uint32_t it, uint32_t ns, int local,
+                                        int R, int G, int Np, int D, int P) {
+  extern __shared__ float smem[];
+  const int r = blockIdx.x;
+  const int n_ev = fire != nullptr ? (fire[r] != 0) : ev[r];
+  const size_t c0 = (size_t)r * G * Np;
+  WordSource W{nullptr, G * Np, keys[2 * r], keys[2 * r + 1], it, ns,
+               local ? 0u : (uint32_t)c0};
+  for (int j = 0; j < n_ev; ++j) {
+    if (fire == nullptr) W.it = it + (uint32_t)ev[R + r * E + j];
+    exchange_cta(theta + c0 * D, w + c0, W, G, Np, D, P, smem);
+    __syncthreads();  // the next event reads this one's writes
   }
 }
 
@@ -341,6 +377,38 @@ extern "C" int migrate_f32(float* theta, float* w, const int* fire,
   const int threads = P < 32 ? 32 : (P > 1024 ? 1024 : P);
   demcmc::migrate_kernel<<<1, threads, smem, st>>>(theta, w, fire, W, G, Np,
                                                    D, P);
+  return (int)cudaGetLastError();
+}
+
+// Replication-local migration of theta [R G Np, D] / w [R G Np] in place,
+// one CTA a replication (the segmented form above): fire [R] (each
+// replication's gate) or ev (counts [R], then [R, E] event offsets), keys
+// [R, 2] uint32, the words' iteration it and namespace ns, local != 0 for
+// chain words local to each replication.  A replication must fit the
+// one-CTA form.  Returns cudaGetLastError() after the launch.
+extern "C" int migrate_segments_f32(float* theta, float* w, const int* fire,
+                                    const int* ev, int E,
+                                    const uint32_t* keys, int it, int ns,
+                                    int local, int R, int G, int Np, int D,
+                                    void* stream) {
+  if (R < 1 || G < 2 || G > demcmc::kMaxGroups || Np < 1 || D < 1 ||
+      (fire == nullptr) == (ev == nullptr) || (ev != nullptr && E < 1))
+    return (int)cudaErrorInvalidValue;
+  int P = 1;
+  while (P < G) P <<= 1;
+  const size_t smem = (size_t)P * 8 + (size_t)G * 4 + (size_t)G * (D + 1) * 4;
+  if (smem > demcmc::kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        demcmc::migrate_segments_kernel,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  const int threads = P < 32 ? 32 : (P > 1024 ? 1024 : P);
+  demcmc::migrate_segments_kernel<<<R, threads, smem,
+                                    (cudaStream_t)stream>>>(
+      theta, w, fire, ev, E, keys, (uint32_t)it, (uint32_t)ns, local, R, G,
+      Np, D, P);
   return (int)cudaGetLastError();
 }
 

@@ -520,6 +520,18 @@ struct HistoryPartners {
 // sweep_kernel_dims, lanes over the dimensions
 #include "sweep_dims.cuh"
 
+// A replicated launch (a partner source with kRep, de_step_rep.cu): the
+// population is R replications of c_rep chains, whole groups each.  The
+// bodies call bind() once per thread, where a chain takes its
+// replication's density and words; they write each replication's gate
+// into fire[r].  kRep is compile-time, so a source without it (every other
+// instantiation) compiles none of that code.
+template <class Source, class = void>
+constexpr bool kRepOf = false;
+template <class Source>
+constexpr bool kRepOf<Source, std::void_t<decltype(Source::kRep)>> =
+    Source::kRep;
+
 // kSeq (the sequential sweep), kSnooker, kPost, kNBlk and kMode (the
 // accept) are compile-time, so a configuration without them runs none of
 // their code: as run-time flags they made K1 measurably slower on an H100

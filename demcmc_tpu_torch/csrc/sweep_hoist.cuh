@@ -55,6 +55,8 @@
   const bool valid = g < a.G;
   const int c = valid ? g * Np + p : 0;
   const size_t C = (size_t)a.G * Np;
+  // a replicated launch: the chain's replication's density and words
+  if constexpr (kRepOf<Source>) src.bind(c, a.words, dens);
 
   float th[D], prop[D];
   float w = 0.0f;
@@ -391,7 +393,16 @@
   if (!valid) return;
   for (int i = 0; i < D; ++i) a.theta[(size_t)c * D + i] = th[i];
   a.w[c] = w;
-  if (c == 0) {
+  if constexpr (kRepOf<Source>) {
+    // replication r's gate, from its first chain's word
+    if (c % src.c_rep == 0) {
+      const int last = a.K - 1;
+      const WordSource W =
+          a.words.at(last, (uint32_t)(a.it0 + last), a.n_words);
+      const float uf = to_uni(W(a.r_fire, c));
+      a.fire[c / src.c_rep] = (a.alpha > 0.0f && uf <= a.alpha) ? 1 : 0;
+    }
+  } else if (c == 0) {
     const int last = a.K - 1;
     const WordSource W = a.words.at(last, (uint32_t)(a.it0 + last), a.n_words);
     const float uf = to_uni(W.global(a.r_fire, 0));  // every shard: chain 0

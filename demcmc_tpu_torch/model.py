@@ -163,6 +163,66 @@ class CudaDensity:
         return t
 
 
+@dataclass(frozen=True)
+class DensityTable:
+    """R models' :class:`CudaDensity` stacked for one replicated K1 launch
+    (``sampler.sample_replicated``): the density's name, its constants as
+    a ``[R, P]`` float32 table (row r replication r's ``params``) and its
+    data buffers as ``[R, n]`` float32 (row r replication r's ``data``,
+    flattened; None for a density without one).  The kernel reads row r
+    at ``r·P`` and ``r·n``."""
+
+    name: str
+    params: np.ndarray
+    data: Optional[np.ndarray] = field(default=None, compare=False)
+    _on: dict = field(default_factory=dict, compare=False, repr=False)
+
+    @staticmethod
+    def stack(densities) -> "DensityTable":
+        """The table of ``densities`` (one per replication); raises
+        ``ValueError`` unless they name one density with as many
+        constants and data of one shape."""
+        densities = list(densities)
+        if not densities or any(d is None for d in densities):
+            raise ValueError("a replicated K1 launch needs a CUDA density "
+                             "for every replication")
+        d0 = densities[0]
+        shape0 = None if d0.data is None else np.shape(d0.data)
+        for r, d in enumerate(densities):
+            shape = None if d.data is None else np.shape(d.data)
+            if (d.name != d0.name or len(d.params) != len(d0.params)
+                    or shape != shape0):
+                raise ValueError(
+                    f"replication {r}'s density ({d.name}, "
+                    f"{len(d.params)} constants, data {shape}) differs from "
+                    f"replication 0's ({d0.name}, {len(d0.params)}, "
+                    f"{shape0}): one replicated launch takes one density "
+                    f"with data of one shape")
+        params = np.array([d.params for d in densities], dtype=np.float32)
+        data = None
+        if shape0 is not None:
+            data = np.stack([np.asarray(d.data, np.float32).reshape(-1)
+                             for d in densities])
+        return DensityTable(d0.name, params, data)
+
+    @property
+    def n_reps(self) -> int:
+        return int(self.params.shape[0])
+
+    def on(self, device) -> tuple:
+        """``(params [R, P], data [R, n] or None)`` as contiguous float32
+        tensors on ``device``, copied once per device and kept here while
+        kernels may read them."""
+        key = str(torch.device(device))
+        t = self._on.get(key)
+        if t is None:
+            t = self._on[key] = tuple(
+                None if a is None else torch.tensor(
+                    np.ascontiguousarray(a), device=device)
+                for a in (self.params, self.data))
+        return t
+
+
 class DeviceArrays:
     """A model's numpy arrays as tensors, copied once per device and kept
     here while densities read them (a density reads ``on(x.device)``, so

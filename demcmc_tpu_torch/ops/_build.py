@@ -24,7 +24,7 @@ import torch
 PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "_build"
-SOURCES = ("de_step", "de_step_resample", "migration", "kde")
+SOURCES = ("de_step", "de_step_rep", "de_step_resample", "migration", "kde")
 # no --use_fast_math: logf/expf/cosf stay full precision; -fmad=false keeps
 # each float operation rounded like the plain PyTorch versions;
 # --split-compile=0 runs the optimizer on every core (de_step.cu holds 64
@@ -58,6 +58,12 @@ BLOCK_COUNTS = (2,)
 HOIST_DENSITIES = ("gaussian", "rastrigin")
 _K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P, _I, _P]
 _K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _P]
+# the replicated K1: K1's arguments but chain0, then the replication table
+# (keys, params, data, n_params, data_stride, c_rep, local) and the stream
+_K1R = _K1[:11] + [_P, _P, _P, _I, _I, _I, _I, _P]
+_K1_NAMES = (tuple(KERNEL_DENSITIES["de_step"])
+             + tuple(f"{m}_{d}" for m in GREEDY_MODES
+                     for d in GREEDY_DENSITIES))
 SIGNATURES = {
     "de_step": {
         **{f"de_step_{d}": _K1 for d in KERNEL_DENSITIES["de_step"]},
@@ -68,6 +74,11 @@ SIGNATURES = {
         **{f"de_step_block_chains_{m}_{d}": [_I, _I, _I, _IP]
            for m in GREEDY_MODES for d in GREEDY_DENSITIES},
         "philox_fill": [_P, _I, _I, _U, _U, _U, _U, _U, _U, _I, _P],
+    },
+    "de_step_rep": {
+        **{f"de_step_rep_{n}": _K1R for n in _K1_NAMES},
+        **{f"de_step_rep_block_chains_{n}": [_I, _I, _I, _IP]
+           for n in _K1_NAMES},
     },
     "de_step_resample": {
         **{f"resample_step_{d}": _K3
@@ -81,6 +92,8 @@ SIGNATURES = {
         "migrate_f32": [_P, _P, _P, _P, _U, _U, _I, _I, _I, _I, _P, _I,
                         _P],
         "migrate_scratch_bytes": [_I, _I],
+        "migrate_segments_f32": [_P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
+                                 _I, _I, _I, _P],
     },
     "kde": {
         "kde_logpdf_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _F, _P],

@@ -51,6 +51,13 @@ package's ``sharded_supported`` (``demcmc_tpu/ops/fused_step.py:399-
 which the port does not use; here a configuration runs sharded where it
 runs unsharded (``sampler.fused_supported`` depends on the group, not on
 how many groups a launch holds).
+
+A replicated launch (``sampler.sample_replicated`` and its packed and
+optimization twins; :func:`de_step_rep`, ``csrc/de_step_rep.cu``) runs R
+replications' populations side by side, group-contiguous, in one launch:
+``StepConfig.reps`` (:class:`Replicas`) gives each replication its seed,
+its row of the density table and its gate ``fire[r]``, and the plain
+version steps each replication with its own model's torch density.
 """
 
 from __future__ import annotations
@@ -72,6 +79,48 @@ from . import migration as migration_ops
 from . import mutation as mutation_ops
 from . import proposals as proposal_ops
 
+
+@dataclass(frozen=True)
+class Replicas:
+    """The replication table of a replicated K1 launch (``sampler.
+    sample_replicated``, ``sample_replicated_packed``): the population is
+    ``n_reps`` replications of ``c_rep`` chains each, group-contiguous
+    (replication r owns chains ``r·c_rep .. (r+1)·c_rep − 1``, whole
+    groups), replication r's words keyed by ``seeds[r]`` with chain words
+    local to it (``local``: chain ``c − r·c_rep``, so each replication is
+    its solo run) or the population's (a packed run: every seed the same),
+    its density built from row r of ``table``
+    (:class:`~demcmc_tpu_torch.model.DensityTable`) and, in the plain
+    version, scored by ``models[r]``'s torch density; K1 writes its gate
+    into ``fire[r]``."""
+    seeds: Tuple[int, ...]
+    local: bool
+    c_rep: int
+    table: object                 # model.DensityTable
+    models: tuple = field(compare=False, repr=False)
+    _keys: dict = field(default_factory=dict, compare=False, repr=False)
+
+    @property
+    def n_reps(self) -> int:
+        return len(self.seeds)
+
+    def keys_on(self, device) -> torch.Tensor:
+        """The ``[R, 2]`` uint32 Philox key table on ``device``, made once
+        per device: row r the two words of ``seeds[r]``."""
+        key = str(torch.device(device))
+        t = self._keys.get(key)
+        if t is None:
+            k = np.array([rng.seed_key(x) for x in self.seeds], np.int64)
+            t = self._keys[key] = torch.tensor(
+                k.astype(np.uint32).view(np.int32), device=device).view(
+                    torch.uint32)
+        return t
+
+    def chain0(self, r: int) -> int:
+        """Replication r's first chain word (0 where words are local)."""
+        return 0 if self.local else r * self.c_rep
+
+
 # Iterations per K1 window at most (the JAX package's SUPER_K,
 # demcmc_tpu/ops/fused_step.py:121), chosen on an H100 by chip_smoke.py's
 # K sweep (PERF.md: on the 4,096-chain Gaussian at α = 0.1, K = 4, 16, 64
@@ -85,7 +134,8 @@ _block_chains: dict = {}
 
 
 def block_chains(resample: bool, density, seq: bool, snooker: bool,
-                 n_blocks: int, device, mode: str = "mh") -> int:
+                 n_blocks: int, device, mode: str = "mh",
+                 rep: bool = False) -> int:
     """Chains one block of K1 (K3 where ``resample``) holds for a
     configuration: on a CUDA device the fewer that its two phases'
     instantiations hold in one block (the threads their registers allow,
@@ -97,17 +147,20 @@ def block_chains(resample: bool, density, seq: bool, snooker: bool,
     ``block_chains_of``); on the CPU the launch's static limit,
     :data:`MAX_BLOCK_CHAINS`.  A group must fit one block (a K3 window's
     population: :func:`.resample_step.window_chains`).  ``mode`` is the
-    accept mode (``'mh'``, or K1's greedy ``'max'``/``'min'``)."""
+    accept mode (``'mh'``, or K1's greedy ``'max'``/``'min'``); ``rep``
+    asks of the replicated K1 (:func:`de_step_rep`)."""
     device = torch.device(device)
     if device.type != "cuda":
         return MAX_BLOCK_CHAINS
     kernel = "resample_step" if resample else "de_step"
     name = _build.entry(kernel, density, mode)      # raises if not built
     fn = ("resample_block_chains_" + density.name if resample
-          else name.replace("de_step_", "de_step_block_chains_", 1))
+          else name.replace("de_step_", "de_step_rep_block_chains_" if rep
+                            else "de_step_block_chains_", 1))
     key = (fn, bool(seq), bool(snooker), int(n_blocks), device.index)
     if key not in _block_chains:
-        lib = _build.library("de_step_resample" if resample else "de_step")
+        lib = _build.library("de_step_resample" if resample else
+                             "de_step_rep" if rep else "de_step")
         n = ctypes.c_int()
         with torch.cuda.device(device):
             rc = getattr(lib, fn)(int(seq), int(snooker), int(n_blocks),
@@ -251,6 +304,7 @@ class StepConfig:
     # the constant blocks' flat [d] masks, one per block sweep (none: ())
     blocks: Tuple[Tuple[bool, ...], ...] = ()
     mode: str = "mh"            # accept: mh | max | min (accept_mode)
+    reps: Optional[Replicas] = None  # a replicated launch's table, or None
     _iargs: dict = field(default_factory=dict, compare=False, repr=False)
 
     @staticmethod
@@ -367,6 +421,21 @@ def shard_groups(G: int, n_shards: int):
         out.append((g0, n))
         g0 += n
     return out
+
+
+def rep_config(cfg: StepConfig, reps: Replicas) -> StepConfig:
+    """The configuration of a replicated K1 launch over ``reps``: ``cfg``
+    (one replication's: its groups, row layout and α) on the whole
+    population of ``reps.n_reps`` replications, with the table."""
+    if reps.c_rep != cfg.G * cfg.Np:
+        raise ValueError(f"a replication holds {reps.c_rep} chains; the "
+                         f"configuration's groups {cfg.G * cfg.Np}")
+    return replace(cfg, G=cfg.G * reps.n_reps, reps=reps, _iargs={})
+
+
+def solo_config(cfg: StepConfig) -> StepConfig:
+    """One replication's configuration of a replicated ``cfg``."""
+    return replace(cfg, G=cfg.reps.c_rep // cfg.Np, reps=None, _iargs={})
 
 
 def local_config(cfg: StepConfig, n_groups: int) -> StepConfig:
@@ -653,6 +722,9 @@ def de_step(cfg: StepConfig, model, spec, theta, w, fire, it: int,
     if cfg.resample:
         raise ValueError("a resample configuration steps with "
                          "resample_step (K3), not de_step")
+    if cfg.reps is not None:
+        raise ValueError("a replicated configuration steps with "
+                         "de_step_rep, not de_step")
     if theta.device.type == "cpu":
         de_step_plain(cfg, model, spec, theta, w, fire, it, bits, out, K,
                       emit, phase, seed, chain0)
@@ -683,6 +755,102 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
+def de_step_rep_plain(cfg: StepConfig, spec, theta, w, fire, it: int,
+                      words=None, out=None, K: int = 1, emit=(0, 1),
+                      phase: str = "all"):
+    """Plain version of the replicated K1 (``cfg.reps``), in place: each
+    replication's :func:`sweep_plain` window on its own chains (``theta
+    [R·c_rep, d]`` group-contiguous), scored by its own model's torch
+    density, with its own words — Philox(``seeds[r]``, it + k) at its
+    chain words (:meth:`Replicas.chain0`), or columns ``r·c_rep ..`` of a
+    bits-in buffer ``words [K·n_words, R·c_rep]`` — and its gate, the fire
+    row's word of its first chain, written into ``fire[r]``.  ``out`` is
+    the window's trajectory slice over the whole population.  Returns the
+    accept margins, ``[C]`` (K = 1) or ``[K, C]``."""
+    check_window(cfg, it, K, emit, phase)
+    out = trajectory(cfg, out, K, emit)
+    reps, one_cfg = cfg.reps, solo_config(cfg)
+    n, Cr = cfg.rows.n_words, reps.c_rep
+    if words is not None and words.shape[1] != cfg.G * cfg.Np:
+        raise ValueError(f"words: {words.shape[1]} columns for "
+                         f"{cfg.G * cfg.Np} chains")
+    margins = []
+    for r in range(reps.n_reps):
+        sl = slice(r * Cr, (r + 1) * Cr)
+        model = reps.models[r]
+        wr = (words[:, sl] if words is not None else rng.words_block(
+            reps.seeds[r], it, K, n, Cr, device=theta.device,
+            chain0=reps.chain0(r)).view(K * n, Cr))
+
+        def one(k, it_k, slot, r=r, wr=wr, model=model, sl=sl):
+            wk = wr[k * n:(k + 1) * n]
+            return sweep_plain(one_cfg, model, spec, theta[sl], w[sl],
+                               fire[r:r + 1], it_k, wk,
+                               group_partners(one_cfg, wk), slot)
+
+        margins.append(window_plain(
+            one_cfg, fire[r:r + 1], it, K, emit,
+            None if out is None else tuple(o[:, sl] for o in out), one))
+    return torch.cat(margins, -1)
+
+
+def de_step_rep(cfg: StepConfig, spec, theta, w, fire, it: int, out=None,
+                bits=None, check: bool = True, K: int = 1, emit=(0, 1),
+                phase: str = "all"):
+    """A window of ``K`` iterations of every replication of ``cfg.reps``
+    in one launch, in place on ``theta [R·c_rep, d]`` / ``w [R·c_rep]``;
+    writes each replication's next gate into ``fire [R]`` and, with
+    ``out``, the trajectory rows of the emission rule over the whole
+    population (as :func:`de_step`).  Each replication's chains build
+    their density from its row of the table and draw their words under
+    its seed (:class:`Replicas`).  CPU tensors take the plain version
+    (:func:`de_step_rep_plain`); CUDA tensors launch the replicated K1
+    once (``de_step_rep.launches`` counts the launches).  ``bits`` is a
+    bits-in buffer ``[K·n_words, R·c_rep]`` (tests)."""
+    reps = cfg.reps
+    if reps is None:
+        raise ValueError("de_step_rep needs a replicated configuration "
+                         "(rep_config)")
+    if cfg.resample:
+        raise ValueError("K1 runs no DE-MCz: replications of a resample "
+                         "configuration run in turn")
+    if theta.device.type == "cpu":
+        de_step_rep_plain(cfg, spec, theta, w, fire, it, bits, out, K, emit,
+                          phase)
+        return
+    check_window(cfg, it, K, emit, phase)
+    if check:
+        check_cuda(cfg, theta, w, fire, bits, out, K=K, emit=emit)
+    lib = _build.library("de_step_rep")
+    name = rep_entry(cfg.density, cfg.mode)
+    params, data = reps.table.on(theta.device)
+    o_t, o_w, o_a = (None, None, None) if out is None else (
+        out[0].data_ptr(), out[1].data_ptr(), out[2].data_ptr())
+    _build.launch(
+        lib, name, theta.device,
+        theta.data_ptr(), w.data_ptr(), o_t, o_w, o_a, fire.data_ptr(),
+        None if bits is None else bits.data_ptr(),
+        cfg.iargs(it, 0, K, emit, phase == "post",
+                  None if bits is None else bits.shape[1]),
+        cfg.fargs, cfg.sweep_args, cfg.theta_snooker_arg,
+        reps.keys_on(theta.device).data_ptr(), params.data_ptr(),
+        _ptr(data), int(params.shape[1]),
+        0 if data is None else int(data.shape[1]), int(reps.c_rep),
+        int(reps.local))
+    de_step_rep.launches += 1
+
+
+de_step_rep.launches = 0
+
+
+def rep_entry(density, mode: str = "mh") -> str:
+    """The replicated K1's C entry point for a density and accept mode
+    (``de_step_rep_NAME``, ``de_step_rep_MODE_NAME``); raises where the
+    solo K1 has none."""
+    return _build.entry("de_step", density, mode).replace(
+        "de_step_", "de_step_rep_", 1)
+
+
 def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
                K: int = 1, emit=(0, 1), chain0: int = 0):
     """Raise unless the tensors are what K1 (or K3) takes on a CUDA
@@ -695,9 +863,21 @@ def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
     _build.entry(what, cfg.density, cfg.mode)
     C, d = cfg.G * cfg.Np, cfg.d
     T = n_emitted(K, emit)
+    n_fire = 1
+    if cfg.reps is not None:
+        reps = cfg.reps
+        n_fire = reps.n_reps
+        if (reps.c_rep % cfg.Np or reps.c_rep * reps.n_reps != C
+                or reps.table.n_reps != reps.n_reps
+                or reps.table.name != cfg.density.name
+                or len(reps.models) != reps.n_reps or chain0):
+            raise ValueError(f"the replication table ({reps.n_reps} of "
+                             f"{reps.c_rep} chains, {reps.table.name}) does "
+                             f"not fit the launch ({C} chains of groups of "
+                             f"{cfg.Np}, {cfg.density.name})")
     want = [("theta", theta, torch.float32, [(C, d)]),
             ("w", w, torch.float32, [(C,)]),
-            ("fire", fire, torch.int32, [(1,)])]
+            ("fire", fire, torch.int32, [(n_fire,)])]
     if chain0 < 0:
         raise ValueError(f"chain0 must be >= 0, not {chain0}")
     if bits is not None:

@@ -19,6 +19,8 @@ additive victim broadcast).  The exchange runs only when the device-side
 
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import numpy as np
 import torch
 
@@ -132,6 +134,143 @@ def migrate(theta, w, fire, G: int, Np: int, seed: int = 0, it: int = 0,
 
 
 migrate.launches = 0
+
+
+class SegmentEvents(NamedTuple):
+    """A packed window's events as K2's segmented form takes them
+    (:func:`segment_events`): ``counts [R]`` and ``its [R, E]`` int32,
+    row r replication r's event iterations as offsets from the window's
+    first, in rising order (E at least 1, unused entries 0), and ``dev``,
+    the flat table ``[counts, its]`` on the card (:func:`upload_events`),
+    or None."""
+    counts: np.ndarray
+    its: np.ndarray
+    dev: Optional[torch.Tensor] = None
+
+    def flat(self) -> np.ndarray:
+        return np.concatenate([self.counts, self.its.reshape(-1)])
+
+
+def segment_events(events, n_reps: int) -> SegmentEvents:
+    """A packed window's events, ``[n, R]`` bool over its iterations
+    ``it0 .. it0+n-1`` (:func:`~demcmc_tpu_torch.rng.packed_events`), as
+    :class:`SegmentEvents`."""
+    events = np.asarray(events, dtype=bool).reshape(-1, n_reps)
+    counts = events.sum(0).astype(np.int32)
+    its = np.zeros((n_reps, max(int(counts.max(initial=0)), 1)), np.int32)
+    for r in range(n_reps):
+        k = np.flatnonzero(events[:, r])
+        its[r, :k.size] = k
+    return SegmentEvents(counts, its)
+
+
+def upload_events(windows, device) -> list:
+    """The :class:`SegmentEvents` of a run's windows with their tables on
+    ``device``, in one copy (a run's plan makes it once, so no window
+    waits on a copy from the host)."""
+    if not windows or torch.device(device).type != "cuda":
+        return list(windows)
+    flats = [ev.flat() for ev in windows]
+    table = torch.tensor(np.concatenate(flats), dtype=torch.int32).to(
+        device)
+    out, at = [], 0
+    for ev, f in zip(windows, flats):
+        out.append(ev._replace(dev=table[at:at + f.size]))
+        at += f.size
+    return out
+
+
+def migrate_segments_plain(theta, w, G: int, Np: int, reps, it: int,
+                           fire=None, events=None):
+    """Plain version of K2's segmented form, in place: ``theta [R·G·Np,
+    d]`` / ``w`` as the R replications of ``reps`` (a
+    :class:`~demcmc_tpu_torch.ops.fused_step.Replicas`) of G groups each,
+    exchanging among their own groups only, as the solo exchange
+    (:func:`migrate_plain`) on their chains.  With ``fire [R]`` int32
+    replication r exchanges once where ``fire[r]``, on the words
+    Philox(``reps.seeds[r]``, ``it``) rows 0-2 of ``STEP_NS`` at its chain
+    words (``reps.chain0(r)``: local, ``c − r·G·Np``, or the
+    population's).  With ``events`` (:class:`SegmentEvents`: ``counts
+    [R]``, ``its [R, E]``) replication r runs ``counts[r]`` exchanges in
+    order, event j on the words Philox(``reps.seeds[r]``, ``it + its[r,
+    j]``) rows 0-2 of ``PACKED_MIG_NS``."""
+    Cr = G * Np
+    one = torch.ones(1, dtype=torch.int32, device=theta.device)
+    for r, seed in enumerate(reps.seeds):
+        sl = slice(r * Cr, (r + 1) * Cr)
+        if events is None:
+            words = rng.words(seed, it, N_ROWS, Cr, device=theta.device,
+                              chain0=reps.chain0(r))
+            migrate_plain(theta[sl], w[sl], fire[r:r + 1], words, G, Np)
+            continue
+        counts, its = events.counts, events.its
+        for j in range(int(counts[r])):
+            words = rng.words(seed, it + int(its[r, j]), N_ROWS, Cr,
+                              ns=rng.PACKED_MIG_NS, device=theta.device,
+                              chain0=reps.chain0(r))
+            migrate_plain(theta[sl], w[sl], one, words, G, Np)
+
+
+def migrate_segments(theta, w, G: int, Np: int, reps, it: int, fire=None,
+                     events=None, check: bool = True):
+    """Replication-local migration (K2's segmented form): the exchange of
+    :func:`migrate_segments_plain` on every replication of ``theta
+    [R·G·Np, d]`` in one launch, one CTA a replication, in place.  Either
+    ``fire [R]`` int32 on the device (``sample_replicated``: each
+    replication's own gate) or ``events``, a packed run's window
+    (:class:`SegmentEvents`, its table on the card where the run's plan
+    uploaded it, :func:`upload_events`).  The seeds and chain words are
+    ``reps``'s (``fused_step.Replicas``), its key table copied to the card
+    once (``Replicas.keys_on``).  CPU tensors take the plain version; CUDA
+    tensors launch the segmented K2 once (``migrate_segments.launches``
+    counts the launches).  A replication of more than ``ONE_CTA_MAX_CHAINS`` chains
+    raises (ROADMAP.md A8 rest)."""
+    if (fire is None) == (events is None):
+        raise ValueError("pass fire (each replication's gate) or events "
+                         "(a packed window's), not both or neither")
+    if theta.device.type == "cpu":
+        migrate_segments_plain(theta, w, G, Np, reps, it, fire, events)
+        return
+    R = reps.n_reps
+    if G * Np > ONE_CTA_MAX_CHAINS:
+        raise ValueError(
+            f"a replication of {G * Np} chains exceeds the "
+            f"{ONE_CTA_MAX_CHAINS} K2's segmented form takes in one CTA "
+            f"(ROADMAP.md A8 rest: replications larger than one K2 CTA)")
+    if theta.device.type != "cuda":
+        raise ValueError(f"migrate_segments runs on cpu or cuda, not "
+                         f"{theta.device}")
+    ev = None
+    if events is not None:
+        ev = events.dev
+        if ev is None or ev.device != theta.device:
+            ev = upload_events([events], theta.device)[0].dev
+    keys = reps.keys_on(theta.device)
+    if check:
+        C, d = R * G * Np, theta.shape[-1]
+        want = [("theta", theta, torch.float32, (C, d)),
+                ("w", w, torch.float32, (C,)),
+                ("keys", keys, torch.uint32, (R, 2))]
+        if fire is not None:
+            want.append(("fire", fire, torch.int32, (R,)))
+        for name, t, dt, shape in want:
+            if (t.device != theta.device or t.dtype != dt
+                    or tuple(t.shape) != shape or not t.is_contiguous()):
+                raise ValueError(f"{name}: need a contiguous {dt} {shape} "
+                                 f"tensor on {theta.device}")
+    lib = _build.library("migration")
+    E = 0 if events is None else int(events.its.shape[1])
+    _build.launch(lib, "migrate_segments_f32", theta.device,
+                  theta.data_ptr(), w.data_ptr(),
+                  None if fire is None else fire.data_ptr(),
+                  None if ev is None else ev.data_ptr(), E,
+                  keys.data_ptr(), int(it),
+                  rng.STEP_NS if events is None else rng.PACKED_MIG_NS,
+                  int(reps.local), R, G, Np, theta.shape[-1])
+    migrate_segments.launches += 1
+
+
+migrate_segments.launches = 0
 
 
 def _scratch_of(lib, G: int, d: int, device) -> int:

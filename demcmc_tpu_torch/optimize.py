@@ -9,6 +9,8 @@ is built for with the greedy accept (``_build.GREEDY_DENSITIES``) runs
 on K1 (and K2 between its windows); every other one, float64 and DE-MCz
 among them, on the unfused step (:func:`.sampler.build_step`); under a
 chain mesh, one of them per shard (:class:`.sampler.ShardedStep`).
+:func:`optimize_replicated` runs R such optimizations, one dataset each,
+as one replicated K1 batch (:class:`.sampler.RepStep`) or in turn.
 """
 
 from __future__ import annotations
@@ -20,8 +22,9 @@ import torch
 
 from .config import DE, MCMCThreads
 from .model import DEModel
-from .sampler import (_grow_history, _on_mesh, _phase2,
-                      build_step, init_state, make_spec, run_scan)
+from .sampler import (_grow_history, _on_mesh, _phase2, _rep_devices,
+                      _replicated_setup, _run_replicated, build_step,
+                      init_state, make_spec, rep_supported, run_scan)
 
 
 class Population(NamedTuple):
@@ -100,12 +103,33 @@ def _check_opt_config(de: DE):
 
 
 def optimize_replicated(make_model, de: DE, n_iter: int, datasets, key=0,
-                        keys=None, mesh=None) -> list:
-    """R independent optimizations as one batch (``demcmc_tpu/optimize.py:
-    101``): not ported yet; raises, naming ROADMAP.md A8."""
-    raise NotImplementedError(
-        "optimize_replicated is not ported to demcmc_tpu_torch yet "
-        "(ROADMAP.md A8, replicated runs); use demcmc_tpu for it")
+                        keys=None, mesh=None, device=None) -> list:
+    """R independent optimizations, one dataset each (per-subject MLE
+    fits, objective sweeps), as one batch: the optimization twin of
+    :func:`~demcmc_tpu_torch.sample_replicated` (``demcmc_tpu/
+    optimize.py:101-141``; the same ``make_model``/``datasets``/``key``/
+    ``keys``/``mesh`` contract), storing no trajectory.  Replication r is
+    bit for bit ``optimize(make_model(datasets[r]), de, n_iter,
+    key=seeds[r])``: where every replication takes K1 with its greedy
+    accept (:func:`~demcmc_tpu_torch.sampler.rep_supported`) as one
+    replicated K1 batch with the segmented K2, else in turn.  Returns a
+    list of R :class:`Population`; feed each to :func:`get_optimal`."""
+    _check_opt_config(de)
+    models, seeds, spec = _replicated_setup(make_model, de, datasets, key,
+                                            keys)
+    devices, by_rep = _rep_devices(mesh, device, len(models))
+    if not all(rep_supported(models, de, d) for d in set(by_rep)):
+        return [optimize(m, de, n_iter, key=s, device=d)
+                for m, s, d in zip(models, seeds, by_rep)]
+    start = None if de.uses_resample else 1   # reference: de.iter = iter
+    state, _ = _run_replicated(models, de, spec, seeds, n_iter, 1, devices,
+                               by_rep[0], collect=False,
+                               start_iteration=start)
+    theta, weight = state.theta.cpu().numpy(), state.weight.cpu().numpy()
+    c_rep = de.n_groups * de.Np
+    return [Population(theta=theta[r * c_rep:(r + 1) * c_rep],
+                       weight=weight[r * c_rep:(r + 1) * c_rep], spec=spec)
+            for r in range(len(models))]
 
 
 def get_optimal(de: DE, model: DEModel, particles: Population):

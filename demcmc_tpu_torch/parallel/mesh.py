@@ -4,12 +4,13 @@ twin of ``demcmc_tpu.parallel.mesh``).
 Groups never interact inside an iteration, so a run can hold a contiguous
 run of whole groups on each device of a 1-axis ``chains`` mesh and step
 each shard alone; migration, the only operation across groups, runs on
-the whole population (``sampler.ShardedStep``).  A device may appear more
-than once, and its shards then share it: ``chain_mesh(devices=["cuda:0"]
-* 4)`` runs four shards on one card and ``chain_mesh(devices=["cpu"] *
-8)`` eight on the CPU (the twin of the JAX test harness's virtual CPU
-devices).  The likelihood's data axis (``data_mesh``, ``shard_data``) is
-not carried yet.
+the whole population (``sampler.ShardedStep``); a replicated run splits
+its replications over the devices instead (:func:`shard_replications`).
+A device may appear more than once, and its shards then share it:
+``chain_mesh(devices=["cuda:0"] * 4)`` runs four shards on one card and
+``chain_mesh(devices=["cpu"] * 8)`` eight on the CPU (the twin of the JAX
+test harness's virtual CPU devices).  The likelihood's data axis
+(``data_mesh``, ``shard_data``) is not carried yet.
 """
 
 from __future__ import annotations
@@ -80,6 +81,20 @@ def mesh_devices(mesh) -> list:
                         f"(demcmc_tpu_torch.parallel.chain_mesh), not "
                         f"{type(mesh).__name__}")
     return list(mesh.devices)
+
+
+def shard_replications(n_reps: int, devices) -> list:
+    """The replications of a replicated run over a mesh's devices (the
+    JAX ``_shard_replications``, ``demcmc_tpu/sampler.py:1668-1685``):
+    ``[(device, r0, n), ...]``, each device ``n = R / n_dev`` whole
+    replications from ``r0`` in mesh order, which it runs as one batch.
+    Raises ``ValueError`` unless R divides over the devices."""
+    devices = list(devices)
+    if not devices or n_reps % len(devices):
+        raise ValueError(f"{n_reps} replications must divide over "
+                         f"{len(devices)} devices")
+    n = n_reps // len(devices)
+    return [(d, i * n, n) for i, d in enumerate(devices)]
 
 
 def _data_axis():

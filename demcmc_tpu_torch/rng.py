@@ -22,7 +22,11 @@ panel of one evaluation of a stochastic model in the unfused step (row =
 panel's index) and ``CUSTOM_NS`` the words of a :class:`Key`, the key a
 custom strategy slot receives: the counterpart of the JAX PRNG key, not
 its threefry bits (a slot is written against each package's own API, so
-none could be bit for bit its JAX twin).
+none could be bit for bit its JAX twin).  A replicated run's seeds come
+from ``REPLICATE_NS`` (:func:`replication_seeds`, chain = replication);
+a packed run's migration events from ``PACKED_GATE_NS`` (:func:`packed_events`,
+chain = replication) and each event's exchange words from
+``PACKED_MIG_NS`` (rows 0-2, keyed by the event's own iteration).
 
 The chain word is the chain's index in the whole population, so a shard
 of a run split over a chain mesh (``chain0``: its first chain, or for the
@@ -48,6 +52,9 @@ SCALAR_NS = 6   # the unfused step's scalar side channel (chain 0)
 EVAL_NS = 7     # the unfused step's noise panel of one evaluation
 CUSTOM_NS = 8   # the words of a Key (custom strategy slots)
 FOLD_NS = 9     # Key.fold_in's derivation of a key's two words
+REPLICATE_NS = 10   # a replicated run's seeds (chain = replication)
+PACKED_GATE_NS = 11  # a packed run's migration events (chain = replication)
+PACKED_MIG_NS = 12  # a packed event's exchange words (rows 0-2, K2's)
 
 # The JAX step's purpose tags within an iteration's key (demcmc_tpu/rng.py:
 # 27-40), which the unfused step folds into a Key as the JAX step folds
@@ -168,6 +175,37 @@ def gates(seed: int, it0: int, n: int, row: int, alpha: float) -> np.ndarray:
     if alpha <= 0.0 or n <= 0:
         return np.zeros(max(n, 0), dtype=bool)
     w = words_block(seed, it0, n, 1, 1, row0=row)[:, 0, 0]
+    return (to_uni(w) <= float(np.float32(alpha))).numpy()
+
+
+def replication_seeds(key: int, n_reps: int) -> list:
+    """The Philox seeds of a replicated run's ``n_reps`` replications,
+    a pure function of ``key`` (the JAX package splits its key,
+    ``demcmc_tpu/sampler.py:1658-1659``): replication r's seed is the
+    64-bit word pair ``(row 0, row 1)`` of chain r in ``REPLICATE_NS``."""
+    w = words(key, 0, 2, n_reps, ns=REPLICATE_NS).to(torch.int64).tolist()
+    return [lo | (hi << 32) for lo, hi in zip(w[0], w[1])]
+
+
+def rep_gates(seeds, it0: int, n: int, row: int, alpha: float) -> np.ndarray:
+    """:func:`gates` of each seed of a replicated run: ``[n, R]`` bool,
+    column r replication r's solo gates."""
+    if not len(seeds):
+        return np.zeros((max(n, 0), 0), dtype=bool)
+    return np.stack([gates(s, it0, n, row, alpha) for s in seeds], axis=1)
+
+
+def packed_events(key: int, it0: int, n: int, n_reps: int,
+                  alpha: float) -> np.ndarray:
+    """A packed run's migration events at iterations ``it0 .. it0+n-1``:
+    ``[n, R]`` bool, True where ``to_uni(word(key, it, 0, r)) <= α`` in
+    ``PACKED_GATE_NS`` (α rounded to float32) and α > 0 — one Bernoulli(α)
+    event per iteration and replication, the JAX law (``demcmc_tpu/
+    sampler.py:858-863``), a pure function of the iteration, so the same
+    for any split of the run into windows."""
+    if alpha <= 0.0 or n <= 0:
+        return np.zeros((max(n, 0), n_reps), dtype=bool)
+    w = words_block(key, it0, n, 1, n_reps, ns=PACKED_GATE_NS)[:, 0]
     return (to_uni(w) <= float(np.float32(alpha))).numpy()
 
 

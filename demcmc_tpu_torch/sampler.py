@@ -28,6 +28,13 @@ Under a chain mesh of more than one device (``mesh=``, :mod:`.parallel`)
 above per shard, and runs migration on the whole population; a sharded
 run is the unsharded run bit for bit.
 
+:func:`sample_replicated` (and :func:`sample_replicated_packed`,
+``optimize.optimize_replicated``) runs R datasets' runs as one batch:
+:class:`RepStep`, a :class:`Step` over the R populations side by side
+through the replicated K1 and K2's segmented form (over a mesh,
+:class:`RepShardedStep`), or, where a replication takes no K1, each
+replication's solo run in turn.
+
 The host loop reads the device once, the first gate before the loop, so
 it runs ahead of the card.  :func:`run_scan` runs the JAX package's chunk
 loop (progress, checkpoints, the streaming monitor, an early stop at a
@@ -53,7 +60,7 @@ import torch
 from . import rng
 from .chains import Chains
 from .config import DE, MCMCThreads, _blocking_const
-from .model import DEModel, ParamSpec
+from .model import DensityTable, DEModel, ParamSpec
 from .ops import _build
 from .ops import accept as accept_ops
 from .ops import fused_step as fused_ops
@@ -61,8 +68,8 @@ from .ops import migration as migration_ops
 from .ops import mutation as mutation_ops
 from .ops import proposals as proposal_ops
 from .ops import resample_step as resample_ops
-from .parallel.mesh import mesh_devices
-from .utils import checkpoint, dists
+from .parallel.mesh import mesh_devices, shard_replications
+from .utils import checkpoint, dists, pytree
 from .utils.monitor import ConvergenceMonitor
 
 
@@ -293,7 +300,9 @@ def plan_windows(it0: int, n_iter: int, fire0: bool, gates, k_max: int,
     """Cut the iterations ``it0 .. it0+n_iter-1`` of a run into windows of
     at most ``k_max``: a window ends before an iteration whose migration
     gate is open (``fire0`` for the first iteration, ``gates[i]`` — the
-    gate iteration ``it0 + i`` writes — for the next, None: no migration),
+    gate iteration ``it0 + i`` writes — for the next, None: no migration;
+    a replicated run's ``fire0 [R]`` and ``gates [n, R]``, where any
+    replication's gate opens),
     at run index ``switch`` (the first iteration of phase 2, or None), at
     each run index of ``cuts`` (a chunk's edge, :func:`run_scan`) and at
     the end.  Run index i is stored where ``(i + 1) % thin == 0``, as
@@ -305,8 +314,9 @@ def plan_windows(it0: int, n_iter: int, fire0: bool, gates, k_max: int,
     list of :class:`Window`."""
     opens = np.zeros(n_iter, dtype=bool)
     if gates is not None and n_iter:
-        opens[0] = bool(fire0)
-        opens[1:] = np.asarray(gates, dtype=bool)[:n_iter - 1]
+        g = np.asarray(gates, dtype=bool)
+        opens[0] = bool(np.any(fire0))
+        opens[1:] = g.reshape(g.shape[0], -1)[:n_iter - 1].any(axis=1)
     cuts = {0, n_iter, *np.flatnonzero(opens).tolist(),
             *(int(c) for c in cuts if 0 < c < n_iter)}
     if switch is not None and 0 < switch < n_iter:
@@ -1248,8 +1258,8 @@ class ShardedStep:
 
 def _kernels(step) -> bool:
     """True for the kernels' step, on one device or over a mesh."""
-    return isinstance(step, Step) or (isinstance(step, ShardedStep)
-                                      and step.fused)
+    return isinstance(step, (Step, RepShardedStep)) or (
+        isinstance(step, ShardedStep) and step.fused)
 
 
 def _on_mesh(mesh, device):
@@ -1772,3 +1782,411 @@ def bundle_samples(model: DEModel, de: DE, spec: ParamSpec, ys: StepOutput,
     return Chains.from_samples(np.asarray(ys.theta)[drop:],
                                np.asarray(ys.accept)[drop:],
                                np.asarray(ys.lp)[drop:], spec)
+
+
+# ------------------------------------------------------ replicated runs
+#
+# R whole runs, one dataset each, as one batch (the JAX package's
+# ``sample_replicated``/``sample_replicated_packed``, ``demcmc_tpu/
+# sampler.py:1688-1877``).  The JAX package memoizes its ``jit`` wrappers
+# in a bounded LRU (``_replicated_jit``, ``:1607-1638``) so that a repeated
+# call does not re-trace; the port traces nothing and builds each kernel
+# once per process (``ops/_build.py``), so it keeps no such cache.
+
+
+class RepStep(Step):
+    """The replicated kernels' step: one :class:`Step` over the R
+    replications' populations laid out group-contiguous (replication r
+    owns chains ``r·c_rep .. (r+1)·c_rep − 1``, ``c_rep = G·Np``), each
+    window one replicated K1 launch (:func:`.ops.fused_step.de_step_rep`)
+    and migration the segmented K2 (:func:`.ops.migration.
+    migrate_segments`), one CTA a replication.
+
+    ``packed_key`` None: ``sample_replicated``'s step.  Replication r's
+    words are those of its solo run (seed ``seeds[r]``, local chain
+    words), its gates its solo gates (:func:`rng.rep_gates`); a window
+    ends where any replication's gate opens, and K2 exchanges in the
+    replications whose device-side gate ``fire[r]`` is open, so each
+    replication is its solo run bit for bit.  Otherwise a packed run's
+    step: K1 on one stream (every seed ``packed_key``, the population's
+    chain words) with migration off in the kernel, and before each window
+    K2 once where the window holds an (iteration, replication) event
+    (:func:`rng.packed_events`), each replication's events replayed in its
+    own groups."""
+
+    def __init__(self, models, de: DE, spec: ParamSpec, device, seeds,
+                 packed_key: int = None):
+        from dataclasses import replace
+        self.packed_alpha = 0.0
+        if packed_key is not None:
+            self.packed_alpha = float(de.alpha) if de.n_groups > 1 else 0.0
+            de = replace(de, alpha=0.0)
+            seeds = [int(packed_key)] * len(models)
+        super().__init__(models[0], de, spec, device)
+        self.reps = fused_ops.Replicas(
+            tuple(int(x) for x in seeds), packed_key is None,
+            self.cfg.G * self.cfg.Np,
+            DensityTable.stack(m.cuda_density for m in models),
+            tuple(models))
+        self.cfg = fused_ops.rep_config(self.cfg, self.reps)
+        self.n_all = self.cfg.G * self.cfg.Np
+        self.G1 = de.n_groups                 # groups a replication
+        self._replays = {}        # a packed plan's events by window start
+        if self.device.type == "cuda":
+            fused_ops.rep_entry(self.cfg.density, self.cfg.mode)
+
+    def check(self, state: SamplerState, out=None):
+        if self.device.type == "cuda":
+            fused_ops.check_cuda(self.cfg, state.theta, state.weight,
+                                 state.fire, out=out)
+
+    def _migrate(self, state: SamplerState, it: int, K: int):
+        """The migration before window ``it .. it+K-1``: each replication
+        whose gate is open (the device-side ``fire[r]``), or a packed
+        window's events."""
+        if self.packed_alpha > 0.0:
+            ev = self._replays.get((it, K))
+            if ev is None:
+                ev = self._events(it, K)
+            if ev is not False:
+                migration_ops.migrate_segments(
+                    state.theta, state.weight, self.G1, self.cfg.Np,
+                    self.reps, it, events=ev, check=False)
+        elif self.migrates:
+            migration_ops.migrate_segments(
+                state.theta, state.weight, self.G1, self.cfg.Np, self.reps,
+                it, fire=state.fire, check=False)
+
+    def __call__(self, state: SamplerState, out=None, check: bool = True,
+                 phase: str = "all") -> SamplerState:
+        """One iteration in place: K2 (each open gate, or the packed
+        iteration's events), then the replicated K1."""
+        if check:
+            self.check(state, out)
+        it = state.iteration
+        self._migrate(state, it, 1)
+        fused_ops.de_step_rep(self.cfg, self.spec, state.theta,
+                              state.weight, state.fire, it, out=out,
+                              check=False, phase=phase)
+        return state._replace(iteration=it + 1)
+
+    def window(self, state: SamplerState, w: Window, traj=None):
+        """Window ``w``: K2 first (where ``w.migrate``; for a packed run
+        where the window holds an event), then one replicated K1 launch
+        of ``w.K`` iterations."""
+        out = None
+        if traj is not None and w.n_emit:
+            out = _slot(traj, w.t0, w.n_emit)
+        if w.migrate or self.packed_alpha > 0.0:
+            self._migrate(state, w.it0, w.K)
+        fused_ops.de_step_rep(self.cfg, self.spec, state.theta,
+                              state.weight, state.fire, w.it0, out=out,
+                              check=False, K=w.K, emit=w.emit,
+                              phase="post" if w.post else "all")
+
+    def _events(self, it: int, K: int):
+        """A packed window's events (:func:`migration_ops.segment_events`),
+        or False where it holds none."""
+        ev = rng.packed_events(self.reps.seeds[0], it, K, self.reps.n_reps,
+                               self.packed_alpha)
+        return (migration_ops.segment_events(ev, self.reps.n_reps)
+                if ev.any() else False)
+
+    def plan(self, state: SamplerState, n_iter: int, thin: int = 1,
+             fire=None, switch: int = None, store: bool = True, cuts=(),
+             skip: int = 0):
+        """The run's windows (:func:`plan_windows`), cut where any
+        replication's gate opens: the first gates ``fire [R]`` (read from
+        ``state.fire`` when None, the run's one host sync), the later ones
+        :func:`rng.rep_gates`; for a packed run also each window's events,
+        uploaded to the card in one copy."""
+        gates = None
+        if self.migrates:
+            if fire is None:
+                fire = state.fire.cpu().numpy()
+            gates = rng.rep_gates(self.reps.seeds, state.iteration, n_iter,
+                                  self.cfg.rows.fire, self.cfg.alpha)
+        plan = plan_windows(state.iteration, n_iter, fire, gates,
+                            self.superstep_k, thin, switch, store, cuts, skip)
+        if self.packed_alpha > 0.0:
+            found = [(w, self._events(w.it0, w.K)) for w in plan]
+            found = [(w, ev) for w, ev in found if ev is not False]
+            evs = migration_ops.upload_events([ev for _, ev in found],
+                                              self.device)
+            self._replays = {(w.it0, w.K): ev
+                             for (w, _), ev in zip(found, evs)}
+            self._replays.update({(w.it0, w.K): False for w in plan
+                                  if (w.it0, w.K) not in self._replays})
+        return plan
+
+
+class _ShardWindow(NamedTuple):
+    """A window of one shard's plan in a :class:`RepShardedStep` run."""
+    shard: int
+    w: Window
+
+    @property
+    def it0(self) -> int:
+        return self.w.it0
+
+    @property
+    def n_emit(self) -> int:
+        return self.w.n_emit
+
+
+class RepShardedStep:
+    """``sample_replicated(mesh=)``'s step: the replications split over
+    the mesh's devices (:func:`~demcmc_tpu_torch.parallel.mesh.
+    shard_replications`), each device a :class:`RepStep` of its R/n_dev
+    whole replications with its own plan (its windows cut at its own
+    replications' gates); nothing crosses devices during the run.  Every
+    replication draws its own words, so the run is the unsharded one bit
+    for bit.  The plan is the shards' windows in the order of their first
+    iteration, so that every device is kept busy."""
+
+    def __init__(self, models, de: DE, spec: ParamSpec, devices, seeds):
+        self.devices = [torch.device(d) for d in devices]
+        self.device = self.devices[0]
+        self.split_reps = shard_replications(len(models), self.devices)
+        self.steps = [RepStep(models[r0:r0 + n], de, spec, dev,
+                              seeds[r0:r0 + n])
+                      for dev, r0, n in self.split_reps]
+        c_rep = de.n_groups * de.Np
+        self.spans = [(r0 * c_rep, (r0 + n) * c_rep)
+                      for _, r0, n in self.split_reps]
+
+    def split(self, state: SamplerState) -> ShardedState:
+        """Each shard's replications (chains and gates) on its device."""
+        return ShardedState(tuple(state._replace(
+            theta=state.theta[a:b].to(dev, copy=True).contiguous(),
+            weight=state.weight[a:b].to(dev, copy=True).contiguous(),
+            fire=state.fire[r0:r0 + n].to(dev, copy=True).contiguous())
+            for (a, b), (dev, r0, n) in zip(self.spans, self.split_reps)))
+
+    def gather(self, state: ShardedState) -> SamplerState:
+        """Every replication on the mesh's first device."""
+        def cat(field):
+            return torch.cat([getattr(s, field).to(self.device)
+                              for s in state.shards])
+        return state.shards[0]._replace(theta=cat("theta"),
+                                        weight=cat("weight"),
+                                        fire=cat("fire"))
+
+    def check(self, state: ShardedState, out=None):
+        outs = out if out is not None else [None] * len(self.steps)
+        for step, s, o in zip(self.steps, state.shards, outs):
+            step.check(s, o)
+
+    def window(self, state: ShardedState, sw: _ShardWindow, traj=None):
+        """Shard ``sw.shard``'s window on its state and trajectory."""
+        self.steps[sw.shard].window(
+            state.shards[sw.shard], sw.w,
+            None if traj is None else traj[sw.shard])
+
+    def plan(self, state: ShardedState, n_iter: int, thin: int = 1,
+             switch: int = None, store: bool = True, cuts=(),
+             skip: int = 0):
+        """Every shard's plan (:meth:`RepStep.plan`), merged by first
+        iteration."""
+        return sorted(
+            (_ShardWindow(i, w) for i, (step, s) in enumerate(
+                zip(self.steps, state.shards))
+             for w in step.plan(s, n_iter, thin, None, switch, store, cuts,
+                                skip)),
+            key=lambda sw: (sw.it0, sw.shard))
+
+    def get_post_burnin(self):
+        return self.steps[0].get_post_burnin()
+
+
+def _replicated_setup(make_model, de: DE, datasets, key, keys):
+    """The shared set-up of the replicated runs (``demcmc_tpu/sampler.py:
+    1641-1665``): every data leaf's leading replication axis checked, each
+    replication's model, the spec from replication 0's and the seeds
+    (``keys``, R of them, or :func:`rng.replication_seeds` of ``key``).
+    Returns ``(models, seeds, spec)``."""
+    leaves = pytree.leaves(datasets)
+    if not leaves:
+        raise ValueError("datasets is empty")
+    R = int(np.shape(leaves[0])[0]) if np.ndim(leaves[0]) else 0
+    for x in leaves:
+        if np.ndim(x) == 0 or int(np.shape(x)[0]) != R:
+            raise ValueError("all dataset leaves need the same leading "
+                             "replication axis")
+    models = [make_model(pytree.take(datasets, r)) for r in range(R)]
+    if keys is None:
+        seeds = rng.replication_seeds(key, R)
+    else:
+        seeds = [int(k) for k in np.asarray(keys).reshape(-1)]
+        if len(seeds) != R:
+            raise ValueError(f"{len(seeds)} keys for {R} replications")
+    return models, seeds, make_spec(models[0], de)
+
+
+def _check_thin(de: DE, n_iter: int, thin: int):
+    if thin < 1 or n_iter % thin:
+        raise ValueError(f"n_iter ({n_iter}) must be divisible by thin "
+                         f"({thin})")
+    if thin > 1 and de.discard_burnin and de.burnin % thin:
+        raise ValueError(f"burnin ({de.burnin}) must be divisible by "
+                         f"thin ({thin})")
+
+
+def rep_supported(models, de: DE, device) -> bool:
+    """Static predicate: do these replications run as one replicated K1
+    batch (:class:`RepStep`)?  Where every replication's configuration
+    takes the kernels' step with K1 (:func:`fused_supported`, not DE-MCz)
+    and a group fits one block of the replicated kernel.  Their densities
+    must then stack into one table (``DensityTable.stack`` raises
+    otherwise)."""
+    if de.uses_resample or not all(fused_supported(m, de, device)
+                                   for m in models):
+        return False
+    dens = models[0].cuda_density
+    greedy = {} if de.is_mh else {"mode": fused_ops.accept_mode(de)}
+    n_blk = len(fused_ops.const_blocks(de))
+    return de.Np <= fused_ops.block_chains(
+        False, dens, de.sequential_sweep, de.theta_snooker > 0.0,
+        max(n_blk, 1), device, rep=True, **greedy)
+
+
+def _rep_state(models, de: DE, spec: ParamSpec, seeds, device,
+               start_iteration: int = None) -> SamplerState:
+    """The replications' initial states, each its solo run's
+    (:func:`init_state` with its own model and seed), side by side:
+    ``theta [R·c_rep, d]``, ``weight``, ``fire [R]``."""
+    states = [init_state(m, de, spec, s, device=device,
+                         start_iteration=start_iteration)
+              for m, s in zip(models, seeds)]
+    return states[0]._replace(
+        theta=torch.cat([s.theta for s in states]).contiguous(),
+        weight=torch.cat([s.weight for s in states]).contiguous(),
+        fire=torch.cat([s.fire for s in states]).contiguous())
+
+
+def _rep_devices(mesh, device, R: int):
+    """Each replication's device: ``(devices, by_rep)`` — the mesh's
+    devices (None without a mesh, or with a mesh of one device) and the
+    device of each of the R replications."""
+    devices, device = _on_mesh(mesh, device)
+    if devices is None:
+        return None, [device] * R
+    by_rep = []
+    for dev, _, n in shard_replications(R, devices):
+        by_rep += [dev] * n
+    return devices, by_rep
+
+
+def _run_replicated(models, de: DE, spec: ParamSpec, seeds, n_iter: int,
+                    thin: int, devices, device, collect: bool = True,
+                    start_iteration: int = None, packed_key: int = None):
+    """The replicated kernels' run: the replications' state, the step
+    (:class:`RepStep`, or :class:`RepShardedStep` over a mesh) and
+    :func:`run_scan`.  Returns ``(state, StepOutput or None)``."""
+    state = _rep_state(models, de, spec, seeds, device, start_iteration)
+    if devices is None:
+        step = RepStep(models, de, spec, device, seeds, packed_key)
+    else:
+        step = RepShardedStep(models, de, spec, devices, seeds)
+        state = step.split(state)
+    skip = de.burnin // thin if collect and de.discard_burnin else 0
+    state, ys = run_scan(step, state, n_iter, thin=thin,
+                         phase2=_phase2(step, de, state, n_iter),
+                         collect=collect, skip=skip)
+    if devices is not None:
+        state = step.gather(state)
+    return state, ys
+
+
+def _bundle_reps(models, de: DE, spec: ParamSpec, ys: StepOutput,
+                 n_iter: int, thin: int) -> list:
+    """Each replication's :class:`Chains` from the run's kept rows (its
+    slice of the chains)."""
+    c_rep = de.n_groups * de.Np
+    out = []
+    for r, m in enumerate(models):
+        sl = slice(r * c_rep, (r + 1) * c_rep)
+        out.append(bundle_samples(m, de, spec, StepOutput(
+            theta=ys.theta[:, sl], accept=ys.accept[:, sl],
+            lp=ys.lp[:, sl]), n_iter, thin=thin))
+    return out
+
+
+def sample_replicated(make_model, de: DE, n_iter: int, datasets, key=0,
+                      thin: int = 1, keys=None, mesh=None, device=None,
+                      allow_fused: bool = True) -> list:
+    """R independent runs, one dataset each (per-subject fits,
+    simulation-based calibration, prior-predictive sweeps), as one batch
+    (the JAX ``sample_replicated``, ``demcmc_tpu/sampler.py:1688-1761``).
+
+    ``make_model(data) -> DEModel`` is called once per replication with
+    entry r of every leaf of ``datasets`` (an array, or nested lists,
+    tuples and dicts of arrays, each with the same leading replication
+    axis R).  Replication r is bit for bit ``sample(make_model(
+    datasets[r]), de, n_iter, key=seeds[r], thin=thin)`` on the step that
+    solo run takes; ``seeds`` are ``keys`` (R integer seeds) or
+    :func:`rng.replication_seeds` of ``key``.  ``n_iter`` and, with
+    ``discard_burnin``, ``burnin`` must be divisible by ``thin``.
+
+    Where every replication takes the kernels' step with K1 (a float32
+    model with a CUDA density, the MH or greedy accept,
+    :func:`rep_supported`), the replications run as one batch on the card
+    (:class:`RepStep`: one replicated K1 launch a window, the segmented K2
+    where a replication's gate opens); their densities must name one
+    header with data of one shape, else ``ValueError``.  Every other
+    configuration (DE-MCz, float64, custom slots, stochastic models,
+    models without a CUDA density, or ``allow_fused=False``) runs its
+    replications in turn, each its solo run, in this one call.  A kernel
+    that fails to build or launch raises.
+
+    ``mesh`` (a :func:`~demcmc_tpu_torch.parallel.chain_mesh`) splits the
+    replications over its devices, R/n_dev whole ones each (R must divide
+    over them, else ``ValueError``), bit for bit the unsharded run.
+    Returns a list of R :class:`Chains`."""
+    _check_thin(de, n_iter, thin)
+    models, seeds, spec = _replicated_setup(make_model, de, datasets, key,
+                                            keys)
+    devices, by_rep = _rep_devices(mesh, device, len(models))
+    if not (allow_fused and all(rep_supported(models, de, d)
+                                for d in set(by_rep))):
+        return [sample(m, de, n_iter, key=s, thin=thin, device=d,
+                       allow_fused=allow_fused)
+                for m, s, d in zip(models, seeds, by_rep)]
+    _, ys = _run_replicated(models, de, spec, seeds, n_iter, thin, devices,
+                            by_rep[0])
+    return _bundle_reps(models, de, spec, ys, n_iter, thin)
+
+
+def sample_replicated_packed(make_model, de: DE, n_iter: int, datasets,
+                             key=0, thin: int = 1, device=None) -> list:
+    """R independent runs packed into one population (the JAX
+    ``sample_replicated_packed``, ``demcmc_tpu/sampler.py:1825-1877``):
+    replication r's groups are groups ``r·G .. (r+1)·G − 1`` of one run,
+    stepped by one replicated K1 stream keyed by ``key`` (the
+    population's chain words, migration off in the kernel).
+
+    * Every replication starts from its solo run's initial state (its own
+      seed, :func:`rng.replication_seeds`).
+    * With α > 0 migration is replication-local: each (iteration,
+      replication) pair is a Bernoulli(α) event drawn from ``key``
+      (:func:`rng.packed_events`), and a window's events are replayed at
+      its start by the segmented K2, each on the words of its own
+      iteration, so the event schedule is the same for any window sizes.
+    * The draws are not the solo runs' (one stream): the posteriors are
+      statistically equivalent, not bitwise.
+
+    A configuration that does not take the replicated K1 (DE-MCz,
+    float64, a model without a CUDA density, ...) raises ``ValueError``:
+    use :func:`sample_replicated`.  Returns a list of R :class:`Chains`."""
+    _check_thin(de, n_iter, thin)
+    models, seeds, spec = _replicated_setup(make_model, de, datasets, key,
+                                            None)
+    device = resolve_device(device)
+    if not rep_supported(models, de, device):
+        raise ValueError(
+            f"configuration is not fused-supported when packed "
+            f"(n_groups={de.n_groups * len(models)}): the replicated K1 runs "
+            f"float32 K1 densities, not DE-MCz; use sample_replicated")
+    _, ys = _run_replicated(models, de, spec, seeds, n_iter, thin, None,
+                            device, packed_key=int(key))
+    return _bundle_reps(models, de, spec, ys, n_iter, thin)

@@ -24,3 +24,24 @@ def ravel_params(spec, params):
         a = np.asarray(p, dtype=np.float64)
         segs.append(a.reshape(-1) if shape else a.reshape(1))
     return np.concatenate(segs)
+
+
+def leaves(tree) -> list:
+    """The arrays of a data pytree (an array, or nested lists, tuples and
+    dicts of them; dicts in key order), as ``jax.tree.leaves`` lists
+    them."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in leaves(t)]
+    return [tree]
+
+
+def take(tree, i: int):
+    """Entry ``i`` of every leaf's leading axis, in the tree's structure
+    (replication ``i`` of a replicated run's datasets)."""
+    if isinstance(tree, dict):
+        return {k: take(v, i) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(take(t, i) for t in tree)
+    return np.asarray(tree)[i]

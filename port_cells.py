@@ -654,3 +654,48 @@ def abc_fixed_gate(draws, oracle):
     mean, sd = float(v.mean()), float(v.std(ddof=1))
     return (abs(mean - oracle[0]) < ABC_FIXED_TOL
             and abs(sd - oracle[1]) < ABC_FIXED_TOL, (mean, sd))
+
+
+# ------------------------------------------------ slice 15: replicated runs
+#
+# rep: bench.py:133-161's packed cell (bench_packed_alpha), the repo's own
+# width for replicated runs: R = 64 replications of the Gaussian, each 50
+# observations (one [64, 50] standard-normal draw from numpy seed 5), Np =
+# 4 × G = 4 (16 chains a replication, 1,024 in all), burn-in 100, α = 0.1.
+# Users run such batches for per-subject fits and simulation-based
+# calibration: many small runs, each 16 chains.  The bench times 100,000
+# iterations; the cell runs REP_CELL's n_iter (burn-in and 10,000 kept
+# draws), with room for all 64 replications at the gates below
+# (tools/port_oracles_cpu.py rep, PERF.md): each replication's μ and σ
+# posterior means within REP_TOL of its own dataset's quadrature
+# (models/gaussian.py posterior_grid), max R̂ over every replication and
+# parameter < RHAT_MAX.  On the CPU the JAX package's sample_replicated
+# reads 0.00542 off at worst and R̂ 1.00503 at a third of the length,
+# 0.00315 and 1.00194 at it; the port's plain path on four replications
+# 0.00192 and 1.00180.  opt-rep's gate: the JAX package on all 64 datasets
+# 3.79e-4 off at worst, the port's plain path on 8 1.87e-4.
+# opt-rep: tests/test_replicated.py:105-131's width (G = 2, Np = 12, 60
+# observations, 1,500 iterations, burn-in 0) at R = 64: the datasets
+# N(μ_r, 1) with μ_r evenly from -2 to 2, numpy seed 4; each MLE within
+# OPT_REP_TOL of its dataset's mean and standard deviation (ddof = 0).
+REP_CELL = dict(n_reps=64, n_groups=4, Np=4, n_obs=50, seed=5, burnin=100,
+                alpha=0.1, n_iter=10_100, key=0)
+REP_TOL = 0.01
+OPT_REP_CELL = dict(n_reps=64, n_groups=2, Np=12, n_obs=60, seed=4,
+                    n_iter=1500, key=2)
+OPT_REP_TOL = 1e-3
+
+
+def rep_datasets(cell=REP_CELL):
+    """The replicated cell's datasets ``[R, n_obs]`` float32."""
+    return np.random.default_rng(cell["seed"]).normal(
+        0.0, 1.0, (cell["n_reps"], cell["n_obs"])).astype(np.float32)
+
+
+def opt_rep_datasets(cell=OPT_REP_CELL):
+    """The replicated optimization cell's datasets ``[R, n_obs]``
+    float32: N(μ_r, 1), μ_r evenly spaced over [-2, 2]."""
+    mus = np.linspace(-2.0, 2.0, cell["n_reps"])
+    return np.random.default_rng(cell["seed"]).normal(
+        mus[:, None], 1.0, (cell["n_reps"], cell["n_obs"])).astype(
+            np.float32)

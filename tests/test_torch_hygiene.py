@@ -90,8 +90,8 @@ def test_state_and_api_modules_import_neither_jax_nor_the_jax_package(rel):
 
 def test_exports_of_the_jax_package():
     """The JAX package's exports the port carries: the proposal slots,
-    the checkpoint pair, ``as_union`` and the module alias ``DEMCMC``;
-    the replicated runs wait for ROADMAP.md A8."""
+    the checkpoint pair, ``as_union``, the module alias ``DEMCMC`` and
+    the replicated runs (ROADMAP.md A8)."""
     from demcmc_tpu_torch.ops import proposals
     from demcmc_tpu_torch.utils import checkpoint, pytree
     for name, obj in (("snooker", proposals.snooker),
@@ -102,8 +102,11 @@ def test_exports_of_the_jax_package():
                       ("as_union", pytree.as_union)):
         assert name in tdm.__all__ and getattr(tdm, name) is obj
     assert tdm.DEMCMC is tdm and "DEMCMC" in tdm.__all__
-    assert not {"sample_replicated", "sample_replicated_packed"} & set(
-        tdm.__all__)
+    assert {"sample_replicated", "sample_replicated_packed",
+            "optimize_replicated"} <= set(tdm.__all__)
+    assert tdm.sample_replicated is tdm.sampler.sample_replicated
+    assert tdm.sample_replicated_packed is \
+        tdm.sampler.sample_replicated_packed
     assert tdm.as_union((1, [2, 3])) == [1, [2, 3]]
     spec = tdm.ParamSpec.from_example(["a", "b"], [np.zeros(()),
                                                    np.zeros((2, 2))], None)
@@ -245,12 +248,58 @@ def test_ported_settings_run(kw):
 
 
 def test_optimize_replicated_raises_naming_its_item():
-    """``optimize_replicated`` (R runs as one batch) is not ported yet: it
-    raises, naming ROADMAP.md A8."""
+    """``optimize_replicated`` (R runs as one batch, ROADMAP.md A8) is
+    ported: it runs and returns one ``Population`` a replication, the
+    Rastrigin on K1's greedy min as one replicated batch (the name is
+    historical: before A8 it raised, naming its item); it still raises
+    for what no optimization takes (the MH accept)."""
     from demcmc_tpu_torch.models import rastrigin
-    model, de = rastrigin.make()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A8"):
-        tdm.optimize_replicated(lambda data: model, de, 10, [None])
+    model, de = rastrigin.make(n_groups=2, Np=4, dtype=np.float32)
+    assert tdm.sampler.rep_supported([model], de, "cpu")
+    pops = tdm.optimize_replicated(lambda data: model, de, 10,
+                                   np.zeros((3, 1)), device="cpu")
+    assert len(pops) == 3 and all(isinstance(p, tdm.Population)
+                                  for p in pops)
+    assert all(p.theta.shape == (8, 2) for p in pops)
+    with pytest.raises(ValueError, match="update_particle"):
+        tdm.optimize_replicated(lambda data: model, de.replace(
+            update_particle="mh", evaluate_fitness="posterior"), 10,
+            np.zeros((3, 1)), device="cpu")
+
+
+@pytest.mark.parametrize("rel", ["sampler.py", "optimize.py", "model.py",
+                                 "rng.py", "ops/fused_step.py",
+                                 "ops/migration.py", "parallel/mesh.py",
+                                 "utils/pytree.py"])
+def test_replicated_modules_import_neither_jax_nor_the_jax_package(rel):
+    """The replicated runs' modules, one by one: each exists and imports
+    no JAX and nothing of the JAX package."""
+    roots = set(_imported_roots(PKG / rel))
+    assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}
+
+
+def test_replicated_wrappers_never_fall_back():
+    """The replicated K1 and the segmented K2 run their plain versions for
+    CPU tensors only: on another device they raise, and a replication
+    larger than one K2 CTA raises, naming its ROADMAP item."""
+    from demcmc_tpu_torch import sampler
+    models = [tgauss.make_model(DATA + i) for i in range(2)]
+    de = tdm.DE(bounds=tgauss.BOUNDS, Np=4, n_groups=2)
+    spec = tdm.make_spec(models[0], de)
+    step = sampler.RepStep(models, de, spec, "cpu", [1, 2])
+    theta = torch.zeros((16, 2), device="meta")
+    w = torch.zeros(16, device="meta")
+    fire = torch.zeros(2, dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tfused.de_step_rep(step.cfg, spec, theta, w, fire, 5)
+    with pytest.raises(ValueError, match="cpu or cuda"):
+        tmig.migrate_segments(theta, w, 2, 4, step.reps, 5, fire=fire)
+    with pytest.raises(ValueError, match="A8 rest"):
+        tmig.migrate_segments(torch.zeros((2 * 2048, 2), device="meta"),
+                              torch.zeros(2 * 2048, device="meta"), 128, 16,
+                              step.reps, 5, fire=fire)
+    with pytest.raises(ValueError, match="de_step_rep"):
+        tfused.de_step(step.cfg, models[0], spec, theta, w, fire, 5)
 
 
 def test_resample_wrapper_never_falls_back():

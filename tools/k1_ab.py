@@ -1,7 +1,8 @@
 """Same-call A/B of the K1, K2, K3 and K4 kernels between source trees, on
 one GPU.
 
-    python3 tools/k1_ab.py [--sass DENSITY] LABEL=DIR [LABEL=DIR ...]
+    python3 tools/k1_ab.py [--sass DENSITY] [--changed CLASSES]
+        [--sass-only] LABEL=DIR [LABEL=DIR ...]
 
 Each DIR is the root of a checkout (for example ``git archive`` of two
 commits unpacked under ``_verify/``).  For each tree, in turns (the trees in
@@ -75,7 +76,10 @@ stripped): the script prints how many of the functions off the Gaussian
 and the Rastrigin (``CHANGED``, the densities whose kernels this change
 redesigns) are identical between the trees, and names each that is not,
 with a diff of its stripped SASS between the trees in
-``chiprun_out/ab_sass_diff_<label>_<i>.txt``.  Prints one line per tree
+``chiprun_out/ab_sass_diff_<label>_<i>.txt``.  ``--changed`` names those
+densities (comma separated; ``none``: every K1 and K3 function must keep
+its SASS), ``--sass-only`` runs one turn that only builds each tree and
+compares the SASS (no timings, no digests).  Prints one line per tree
 and measurement, then the card's name and power limit.
 """
 
@@ -301,10 +305,15 @@ def own_smoke():
     return mod
 
 
-def worker(label: str, dump: str, pops: dict):
+def worker(label: str, dump: str, pops: dict, sass_only: bool = False):
     import numpy as np
     import torch
     sys.path.insert(0, str(Path.cwd()))
+    if sass_only:
+        res = {}
+        sass_dump(label, dump, res)
+        print("RESULT " + json.dumps(res), flush=True)
+        return
     import chip_smoke as cs
     import demcmc_tpu_torch as tdm
     import port_cells as pc
@@ -543,31 +552,40 @@ def worker(label: str, dump: str, pops: dict):
                                   "gauss", "seq_4096x4", "blocked",
                                   "opt_mle", "opt_rastrigin")))
     if dump:
-        cuobjdump = "/usr/local/cuda/bin/cuobjdump"
-        libs = _build.build_all(("de_step", "de_step_resample", "kde"))
-        res["sass"] = {}
-        for name in ("de_step", "de_step_resample"):
-            res["sass"].update(sass_hashes(cuobjdump, libs[name],
-                                           OUT / f"ab_{label}_{name}.all"))
-        for name, suffix in (("de_step", ""), ("de_step_resample", "_k3"),
-                             ("kde", "_kde")):
-            run = subprocess.run([cuobjdump, "-res-usage", str(libs[name])],
-                                 capture_output=True, text=True)
-            (OUT / f"ab_{label}{suffix}.res").write_text(run.stdout
-                                                         + run.stderr)
-            for keep in CHANGED:
-                for kind, v in res_summary(run.stdout, keep).items():
-                    res[f"res_{name}_{keep}_{kind}"] = ", ".join(v)
-        (OUT / f"ab_{label}_kde.sass").write_text(subprocess.run(
-            [cuobjdump, "-sass", str(libs["kde"])], capture_output=True,
-            text=True).stdout)
-        sass = subprocess.run([cuobjdump, "-sass", str(libs["de_step"])],
-                              capture_output=True, text=True).stdout
-        parts = re.split(r"(?=\n\s*Function : )", sass)
-        for name in dump.split(","):
-            (OUT / f"ab_{label}_{name}.sass").write_text(
-                "".join(p for p in parts if name in p.split("\n", 2)[1]))
+        sass_dump(label, dump, res)
     print("RESULT " + json.dumps(res), flush=True)
+
+
+def sass_dump(label: str, dump: str, res: dict):
+    """The tree's K1, K3 and K4 libraries built; every K1 and K3
+    function's stripped SASS hashed into ``res["sass"]``, the register and
+    stack use of the functions on ``CHANGED`` into ``res``, and the files
+    of the module docstring written."""
+    from demcmc_tpu_torch.ops import _build
+    cuobjdump = "/usr/local/cuda/bin/cuobjdump"
+    libs = _build.build_all(("de_step", "de_step_resample", "kde"))
+    res["sass"] = {}
+    for name in ("de_step", "de_step_resample"):
+        res["sass"].update(sass_hashes(cuobjdump, libs[name],
+                                       OUT / f"ab_{label}_{name}.all"))
+    for name, suffix in (("de_step", ""), ("de_step_resample", "_k3"),
+                         ("kde", "_kde")):
+        run = subprocess.run([cuobjdump, "-res-usage", str(libs[name])],
+                             capture_output=True, text=True)
+        (OUT / f"ab_{label}{suffix}.res").write_text(run.stdout
+                                                     + run.stderr)
+        for keep in CHANGED:
+            for kind, v in res_summary(run.stdout, keep).items():
+                res[f"res_{name}_{keep}_{kind}"] = ", ".join(v)
+    (OUT / f"ab_{label}_kde.sass").write_text(subprocess.run(
+        [cuobjdump, "-sass", str(libs["kde"])], capture_output=True,
+        text=True).stdout)
+    sass = subprocess.run([cuobjdump, "-sass", str(libs["de_step"])],
+                          capture_output=True, text=True).stdout
+    parts = re.split(r"(?=\n\s*Function : )", sass)
+    for name in dump.split(","):
+        (OUT / f"ab_{label}_{name}.sass").write_text(
+            "".join(p for p in parts if name in p.split("\n", 2)[1]))
 
 
 def sass_functions(sass):
@@ -594,22 +612,34 @@ def sass_hashes(cuobjdump, lib, keep):
 
 
 def main():
+    global CHANGED
     if sys.argv[1:2] == ["--worker"]:
-        worker(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]))
+        worker(sys.argv[2], sys.argv[3], json.loads(sys.argv[4]),
+               sys.argv[5:6] == ["sass-only"])
         return
-    args, dump = sys.argv[1:], "Gaussian"
-    if args[:1] == ["--sass"]:
-        dump, args = args[1], args[2:]
+    args, dump, sass_only = sys.argv[1:], "Gaussian", False
+    while args and args[0].startswith("--"):
+        if args[0] == "--sass":
+            dump, args = args[1], args[2:]
+        elif args[0] == "--changed":
+            CHANGED = tuple(c for c in args[1].split(",") if c != "none")
+            args = args[2:]
+        elif args[0] == "--sass-only":
+            sass_only, args = True, args[1:]
+        else:
+            sys.exit(f"unknown option {args[0]}")
     trees = [a.split("=", 1) for a in args]
     OUT.mkdir(exist_ok=True)
     me = Path(__file__).resolve()
     pops = json.dumps(mvn_pops())
     results = {}
-    for turn, order in enumerate((trees, trees[::-1])):
+    turns = (trees,) if sass_only else (trees, trees[::-1])
+    for turn, order in enumerate(turns):
         for label, d in order:
             run = subprocess.run(
                 [sys.executable, str(me), "--worker", label,
-                 dump if turn == 0 else "", pops],
+                 dump if turn == 0 else "", pops]
+                + ["sass-only"] * sass_only,
                 cwd=d, capture_output=True, text=True, timeout=900)
             line = [x for x in run.stdout.splitlines()
                     if x.startswith("RESULT ")]
@@ -642,7 +672,8 @@ def main():
                   and not any(c in f for c in CHANGED)]
         same = sum(a[f] == b[f] for f in common)
         print(f"SASS {labels[0]} vs {other}: {same} of {len(common)} "
-              f"functions off {', '.join(CHANGED)} identical; "
+              f"functions off {', '.join(CHANGED) or 'no density'} "
+              f"identical; "
               f"{len(a) - len(common)} / {len(b) - len(common)} others")
         for i, f in enumerate(f for f in common if a[f] != b[f]):
             print(f"SASS differs: {f} (diff in chiprun_out/"
@@ -657,7 +688,7 @@ def main():
             (OUT / f"ab_sass_diff_{other}_{i}.txt").write_text("\n".join(
                 difflib.unified_diff(*sides, labels[0], other, lineterm="")))
         if same < len(common):
-            differ.append(f"SASS off {', '.join(CHANGED)}")
+            differ.append(f"SASS off {', '.join(CHANGED) or 'no density'}")
     for f in OUT.glob("ab_*.all"):
         f.unlink()
     print(subprocess.run(

@@ -5,7 +5,7 @@ the port's cells (``port_cells.py``) on the CPU, so that the GPU's run
     JAX_PLATFORMS=cpu python tools/port_oracles_cpu.py [CELL ...]
 
 CELL is any of ``lba discrete kde gauss-unfused lnr mcz-mig blocked
-hier opt kde-fresh abc-fixed`` (all by default).
+hier opt kde-fresh abc-fixed rep opt-rep`` (all by default).
 
 1. LBA (100 trials, numpy seed 0): ``port_cells.lba_oracle``, then
    ``demcmc_tpu.sample`` (the JAX package's XLA step) with 256 chains at
@@ -57,6 +57,14 @@ hier opt kde-fresh abc-fixed`` (all by default).
    XLA step with 64 chains at the cell's length; the same for the port's
    plain path on its own numpy panel; each through
    ``port_cells.abc_fixed_gate``.
+12. rep: the replicated cell (``port_cells.REP_CELL``, 64 Gaussian
+   datasets of 16 chains): the JAX package's ``sample_replicated`` on all
+   64 at a third of the cell's length and at its length, the port's plain
+   path on 4, each replication's posterior means against its quadrature
+   oracle with the max R̂ over all.
+13. opt-rep: the replicated MLE cell (``port_cells.OPT_REP_CELL``): the
+   JAX package's ``optimize_replicated`` on all 64 datasets, the port's
+   plain path on 8, each MLE against the closed form.
 
 Prints one line per run; exits non-zero if a run at the cell's length
 fails its gate or R̂ ≥ ``port_cells.RHAT_MAX``.  About three minutes on
@@ -448,11 +456,105 @@ def check_abc_fixed(n_groups=8):
     return all_ok
 
 
+def _rep_rows(reps, datasets):
+    """(worst |mean − oracle| of μ and σ over the replications, max R̂ over
+    every replication and parameter) of a replicated run."""
+    from demcmc_tpu_torch.models import gaussian as tg
+    err, rhat = 0.0, 0.0
+    for ch, x in zip(reps, datasets):
+        truth = tg.posterior_grid(x)
+        err = max(err, *(abs(float(ch.mean(k)) - truth[k]["mean"])
+                         for k in ("mu", "sigma")))
+        rhat = max(rhat, float(np.max(ch.rhat())))
+    return err, rhat
+
+
+def check_rep(n_port=4):
+    """The replicated cell (``port_cells.REP_CELL``): the JAX package's
+    ``sample_replicated`` (the vmapped XLA step) on all 64 replications
+    at a third of the cell's length and at its length, and the port's
+    plain path (``sample_replicated(device='cpu')``, each replication its
+    solo run) on the first ``n_port``, each against every replication's
+    quadrature oracle (``port_cells.REP_TOL``) with the max R̂."""
+    import jax.numpy as jnp
+    from demcmc_tpu.models import gaussian as jg
+    from demcmc_tpu_torch.models import gaussian as tg
+    cell = pc.REP_CELL
+    data = pc.rep_datasets(cell)
+    kw = dict(Np=cell["Np"], n_groups=cell["n_groups"],
+              burnin=cell["burnin"], alpha=cell["alpha"])
+    all_ok = True
+    runs = [(f"demcmc_tpu.sample_replicated, {n_iter} iterations",
+             n_iter, data, lambda n_iter=n_iter: jdm.sample_replicated(
+                 jg.make_model, jdm.DE(bounds=jg.BOUNDS, **kw), n_iter,
+                 jnp.asarray(data), key=cell["key"]))
+            for n_iter in (cell["n_iter"] // 3, cell["n_iter"])]
+    runs.append((f"demcmc_tpu_torch.sample_replicated(device='cpu'), "
+                 f"{n_port} replications", cell["n_iter"], data[:n_port],
+                 lambda: tdm.sample_replicated(
+                     tg.make_model, tdm.DE(bounds=tg.BOUNDS, **kw),
+                     cell["n_iter"], data[:n_port], key=cell["key"],
+                     device="cpu")))
+    for what, n_iter, x, run in runs:
+        t0 = time.perf_counter()
+        reps = run()
+        secs = time.perf_counter() - t0
+        err, rhat = _rep_rows(reps, x)
+        ok = err < pc.REP_TOL
+        good, word = _verdict(ok, rhat, n_iter, cell["n_iter"])
+        all_ok = all_ok and good
+        print(f"[rep] {what} ({secs:.1f} s): worst |posterior mean - "
+              f"oracle| {err:.5f} (gate {pc.REP_TOL}), max R-hat "
+              f"{rhat:.5f}; {word}")
+    return all_ok
+
+
+def check_opt_rep(n_port=8):
+    """The replicated optimization cell (``port_cells.OPT_REP_CELL``):
+    the JAX package's ``optimize_replicated`` (its XLA step, float32) on
+    all 64 datasets and the port's plain path (K1's greedy max on the
+    Gaussian's likelihood) on the first ``n_port``, each MLE against the
+    closed form (``port_cells.OPT_REP_TOL``)."""
+    import jax.numpy as jnp
+    from demcmc_tpu.models import gaussian as jg
+    from demcmc_tpu_torch.models import gaussian as tg
+    cell = pc.OPT_REP_CELL
+    data = pc.opt_rep_datasets(cell)
+    kw = dict(Np=cell["Np"], n_groups=cell["n_groups"], burnin=0,
+              update_particle="maximize", evaluate_fitness="fun")
+    all_ok = True
+    for what, pkg, mods, x in (
+            ("demcmc_tpu.optimize_replicated", jdm, jg, data),
+            ("demcmc_tpu_torch.optimize_replicated(device='cpu')", tdm, tg,
+             data[:n_port])):
+        de = pkg.DE(bounds=mods.BOUNDS, **kw)
+        extra = {} if pkg is jdm else {"device": "cpu"}
+        t0 = time.perf_counter()
+        pops = pkg.optimize_replicated(
+            mods.make_model, de, cell["n_iter"],
+            jnp.asarray(x) if pkg is jdm else x, key=cell["key"], **extra)
+        secs = time.perf_counter() - t0
+        worst = 0.0
+        for r, pop in enumerate(pops):
+            theta, _ = pkg.get_optimal(de, mods.make_model(x[r]), pop)
+            _, rows = pc.mle_gate(float(theta["mu"]), float(theta["sigma"]),
+                                  x[r], pc.OPT_REP_TOL)
+            worst = max(worst, *(abs(a - b) for a, b in rows.values()))
+        ok = worst <= pc.OPT_REP_TOL
+        all_ok = all_ok and ok
+        print(f"[opt-rep] {what}, {len(x)} datasets, {cell['n_iter']} "
+              f"iterations ({secs:.1f} s): worst |MLE - closed form| "
+              f"{worst:.3g} (gate {pc.OPT_REP_TOL}); "
+              f"{'passes' if ok else 'FAILS'}")
+    return all_ok
+
+
 CHECKS = {"lba": check_lba, "discrete": check_discrete, "kde": check_kde,
           "gauss-unfused": check_gauss_unfused, "lnr": check_lnr,
           "mcz-mig": check_mcz_mig, "blocked": check_blocked,
           "hier": check_hier, "opt": check_opt,
-          "kde-fresh": check_kde_fresh, "abc-fixed": check_abc_fixed}
+          "kde-fresh": check_kde_fresh, "abc-fixed": check_abc_fixed,
+          "rep": check_rep, "opt-rep": check_opt_rep}
 
 if __name__ == "__main__":
     names = sys.argv[1:] or list(CHECKS)
