@@ -317,7 +317,40 @@ post variant.  Its launch checks are the counts of
            idle share;
 65. timing10  the replicated K1's and the segmented K2's device ms per
            launch at ``[main-rep]``'s shape beside their plain versions
-           and their bounds.
+           and their bounds;
+66. k3-shard  K3 with ``chain0`` on each of 4 shards of the mcz-mig
+           population (C = 512, α = 0.1, the population's history, one
+           launch): 8 bits-in iterations crossing burn-in (gates forced
+           open at two), then one on Philox words, bit for bit its plain
+           version and the unsharded K3's slice; each shard writes its
+           own history columns and no other;
+67. main-mesh-mcz  the mcz-mig cell at its 5,000 iterations and the
+           two-block DE-MCz Gaussian (300) on 2 and 4 shards of the card,
+           each bit for bit the unsharded run, history included: K3 once
+           per iteration and shard, K2 once per open gate; µs per
+           iteration beside the unsharded run's;
+68. main-data-mesh  the 4,096-chain Gaussian (50 observations) on
+           ``data_mesh(2, 2)`` of the card at 3,000 iterations: within
+           0.01 of the quadrature, max R̂ < 1.01, bit for bit its
+           piecewise-sum twin (the loglike of the two pieces summed in
+           order, unsharded); LBA at 4,096 chains on ``data_mesh(2, 4)``
+           (128 iterations), bit for bit its twin; every piece a tensor
+           on its device; no kernel of the port launched (the unfused
+           step);
+69. main-dist  ``tools/dist_cards.py`` under torchrun: 2 processes on the
+           card (gloo, staged through pinned memory) and, with 2 cards or
+           more, 2 with a card each (NCCL), through
+           ``global_chain_mesh()``: the 4,096-chain Gaussian and the
+           mcz-mig cell, every rank bit for bit the single-process run;
+           backend and µs per iteration logged;
+70. rep-f7  two replications of the bench Gaussian (G = 256, Np = 16, α =
+           0.1: 4,096 chains a replication, wider than K2's one CTA)
+           through ``sample_replicated``: in turn, each bit for bit its
+           solo ``sample()``, no replicated K1 or segmented K2 launch;
+           ``sample_replicated_packed`` raises before any launch;
+71. timing11  K3 on one shard of 4 of the mcz-mig population (128 chains,
+           one iteration past burn-in) beside its plain version and its
+           bound (row 3B-shard).
 
 Before them, the host seconds of each cell's ``Chains.rhat()`` and the
 script's total, each beside the card's name and power limit.  The last
@@ -4280,7 +4313,8 @@ def _mesh_runs(tag, dev, model, de, n_iter, key, shards, thin=1,
     ``shards``, in this call (``turns`` = 2: in
     the order 1, ..., D, D, ..., 1): each sharded run equal to the
     unsharded one bit for bit, its launches K1 once per planned window
-    and shard and K2 once per open gate (the kernels' step), or K4 once
+    and shard (DE-MCz: K3 once per iteration and shard) and K2 once per
+    open gate (the kernels' step), or K4 once
     per iteration and shard and once for the initial weights (the
     unfused step of a model with K4, ``kde``), nothing else.  Returns µs
     and launches per iteration for each D, and the launches of each D."""
@@ -4305,9 +4339,12 @@ def _mesh_runs(tag, dev, model, de, n_iter, key, shards, thin=1,
         secs.setdefault(D, []).append(time.perf_counter() - t0)
         got[D] = _counts()
         if allow_fused:
-            plan = plan_counts(model, de, n_iter, key)
-            want = {"de_step": plan["de_step"] * D,
-                    "migrate": plan["migrate"],
+            # a DE-MCz shard steps one iteration a launch
+            plan = plan_counts(model, de, n_iter, key,
+                               k_max=1 if de.uses_resample and D > 1
+                               else None)
+            k = "resample_step" if de.uses_resample else "de_step"
+            want = {k: plan[k] * D, "migrate": plan["migrate"],
                     "philox_fill": plan.get("philox_fill", 0)}
         else:
             want = {"kde_logpdf": D * n_iter + 1} if kde else {}
@@ -5924,6 +5961,425 @@ def phase_timing10(dev, launches, errs):
     return rows
 
 
+# ------------------------------------------- sixteenth slice: multi-GPU
+# finished (DE-MCz under a mesh, the data axis, several processes; F7)
+
+
+DIST_TIMEOUT = 420          # seconds a torchrun of tools/dist_cards.py may
+                            # take (about 60 s on one card)
+
+
+def phase_k3_shard(dev):
+    """K3 with ``chain0`` on each of 4 shards of the mcz-mig population (C
+    = 512, G = 128 × Np = 4, α = 0.1, θs = 0.1), each on its own copy of
+    the population's history, against its plain version on the same
+    shard and against the shard's slice of a launch on the whole
+    population, bit for bit (θ, w, trajectory row, accept flags, gate and
+    the history row): 8 bits-in iterations (every shard reads its columns
+    of the population's words, its own of the index buffer) crossing
+    burn-in, the gate forced open at two, then one on Philox words.  Each
+    shard writes its own columns of row ``it − 1`` and no other; between
+    iterations every copy takes the population's row, as the mesh's
+    exchange gives it.  Returns the largest |difference|."""
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step, resample_step as tres
+    it0 = pc.MCZ_MIG_CELL["n_initial"] + 1
+    model, de, spec, cfg, s = _mcz_mig_case(
+        dev, "C512", burnin=it0 + 3,
+        theta_sn=pc.MCZ_MIG_CELL["theta_snooker"], extra_rows=20)
+    C_, Np_ = de.n_chains, de.Np
+    full = [s.theta, s.weight, torch.ones(1, dtype=torch.int32, device=dev),
+            s.history]
+
+    def slot(n):
+        return (torch.empty((n, D), device=dev), torch.empty(n, device=dev),
+                torch.empty(n, dtype=torch.bool, device=dev))
+    shards = []
+    for g0, n in fused_step.shard_groups(de.n_groups, 4):
+        a, b = g0 * Np_, (g0 + n) * Np_
+        k = [full[0][a:b].clone(), full[1][a:b].clone(), full[2].clone(),
+             full[3].clone()]
+        shards.append((fused_step.local_config(cfg, n), a, b, k,
+                       [x.clone() for x in k]))
+    gen = np.random.default_rng(12)
+    fires, worst = set(), 0.0
+    for i in range(9):
+        it = it0 + i
+        words = idx = None
+        if i < 8:
+            words = random_words(gen, cfg.rows.n_words, C_, dev)
+            if i in (2, 5):                  # open the next iteration's gate
+                words[cfg.rows.fire, 0] = 0
+            idx = tres.indices_from_words(cfg, random_words(
+                gen, tres.index_rows(cfg), C_, dev), it)
+        before = full[3][it - 1].clone()
+        of = slot(C_)
+        tres.resample_step(cfg, model, spec, *full, it, seed=77, bits=words,
+                           idx=idx, out=of)
+        for scfg, a, b, k, p in shards:
+            ok, op = slot(b - a), slot(b - a)
+            sidx = None if idx is None else idx[:, a:b].contiguous()
+            tres.resample_step(scfg, model, spec, *k, it, seed=77,
+                               bits=words, idx=sidx, out=ok, chain0=a)
+            pw = words if words is not None else rng.words(
+                77, it, cfg.rows.n_words, b, device=dev)
+            pidx = sidx if sidx is not None else tres.indices(
+                scfg, 77, it, device=dev, chain0=a, n_pop=C_)
+            tres.resample_step_plain(scfg, model, spec, *p, it, pw, pidx,
+                                     out=op, chain0=a)
+            torch.cuda.synchronize()
+            for x, y, z, what in (
+                    (k[0], p[0], full[0][a:b], "theta"),
+                    (k[1], p[1], full[1][a:b], "w"),
+                    (k[2], p[2], full[2], "gate"),
+                    (k[3][it - 1, a:b], p[3][it - 1, a:b],
+                     full[3][it - 1, a:b], "history row"),
+                    (ok[0], op[0], of[0][a:b], "trajectory theta"),
+                    (ok[1], op[1], of[1][a:b], "trajectory w"),
+                    (ok[2].view(torch.uint8), op[2].view(torch.uint8),
+                     of[2][a:b].view(torch.uint8), "accept flags")):
+                if x.dtype != torch.uint8:
+                    worst = max(worst, float((x - y).abs().max()),
+                                float((x - z).abs().max()))
+                x, y, z = (t if t.dtype == torch.uint8 else ints(t)
+                           for t in (x, y, z))
+                if not torch.equal(x, y):
+                    raise AssertionError(f"k3-shard: {what} of the shard "
+                                         f"from chain {a} differs from the "
+                                         f"plain version at it={it}")
+                if not torch.equal(x, z):
+                    raise AssertionError(f"k3-shard: {what} of the shard "
+                                         f"from chain {a} differs from the "
+                                         f"whole population's at it={it}")
+            for h in (k[3], p[3]):
+                rest = torch.ones(C_, dtype=torch.bool, device=dev)
+                rest[a:b] = False
+                if not torch.equal(ints(h[it - 1][rest]),
+                                   ints(before[rest])):
+                    raise AssertionError(f"k3-shard: the shard from chain "
+                                         f"{a} wrote other shards' history "
+                                         f"columns at it={it}")
+                h[it - 1].copy_(full[3][it - 1])
+        fires.add(int(full[2][0]))
+        log("k3-shard", f"{'bits-in' if i < 8 else 'Philox'} it={it} "
+            f"({'burn-in' if it <= it0 + 3 else 'sampling'}): 4 shards of "
+            f"{C_ // 4} chains equal their plain versions and the whole "
+            f"population's launch bit for bit, history columns their own; "
+            f"gate {int(full[2][0])}")
+    if fires != {0, 1}:
+        raise AssertionError(f"k3-shard: the gate took only {fires}")
+    return worst
+
+
+def phase_main_mesh_mcz(dev, cards=None, tag="main-mesh-mcz"):
+    """DE-MCz under a chain mesh of the card or, given ``cards``, of the
+    first D of them (:func:`_mesh_runs`; ``tools/mesh_cards.py``: a
+    history replica a card, the rows copied between cards): the mcz-mig
+    cell (``port_cells.MCZ_MIG_CELL``, 5,000 iterations, α = 0.1) and the
+    two-block DE-MCz Gaussian (C = 512, the blocks (μ), (σ), 300
+    iterations) on 1, 2 and 4 shards, each sharded run bit for bit the
+    unsharded one (draws, final state and history), K3 once per iteration
+    and shard, K2 once per open gate.  Returns each cell's launches by
+    shard count, and the metrics."""
+    from demcmc_tpu_torch.models import gaussian
+    cell = pc.MCZ_MIG_CELL
+    model, de = gaussian.make(
+        data=_gauss_data(), n_groups=cell["n_groups"], Np=cell["Np"],
+        alpha=cell["alpha"], sample="resample", n_initial=cell["n_initial"],
+        burnin=cell["burnin"], theta_snooker=cell["theta_snooker"],
+        sweep="sync")
+    out, launches = {}, {}
+    shards = tuple(D for D in MESH_SHARDS if cards is None or D <= len(cards))
+    m, launches["mcz"] = _mesh_runs(tag, dev, model, de, cell["n_iter"], 0,
+                                    shards, cards=cards)
+    if not launches["mcz"][1]["migrate"]:
+        raise AssertionError(f"{tag}: no gate opened")
+    out.update({"mesh_mcz_" + k: v for k, v in m.items()})
+    _, model, de = next(c for c in _blocked_cases(150)
+                        if c[0] == "mcz-C512")
+    m, launches["blocks"] = _mesh_runs(tag + "-blocks", dev, model, de, 300,
+                                       0, shards, cards=cards)
+    out.update({"mesh_mcz_blocks_" + k: v for k, v in m.items()})
+    return launches, out
+
+
+def _no_launches(tag):
+    """Raise if any kernel of the port launched since the counts' reset."""
+    got = _counts()
+    if any(got.values()):
+        raise AssertionError(f"{tag}: launches {got}, expected none")
+
+
+def _piecewise_twin(model, loglike, pieces, data):
+    """``model`` on unsharded ``data`` with a loglike that sums
+    ``loglike(piece)`` over ``pieces`` in order: a data-mesh run's
+    arithmetic on one device."""
+    from demcmc_tpu_torch.model import DEModel
+
+    def summed(_, *params):
+        total = None
+        for p in pieces:
+            part = loglike(p, *params)
+            total = part if total is None else total + part
+        return total
+    return DEModel(loglike_batched=summed,
+                   prior_loglike_batched=model.prior_loglike_batched,
+                   sample_prior=model.sample_prior, names=model.names,
+                   data=data)
+
+
+def _data_mesh_run(tag, dev, model, twin, de, n_iter, mesh):
+    """The data-mesh run and its piecewise-sum twin (unsharded), bit for
+    bit, no kernel of the port launched; returns the chains and the µs
+    per iteration of both."""
+    import demcmc_tpu_torch as tdm
+    secs, runs = {}, {}
+    for name, kw in (("mesh", {"mesh": mesh}), ("twin", {"device": dev})):
+        m = model if name == "mesh" else twin
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            runs[name] = tdm.sample(m, de, n_iter, key=0, return_state=True,
+                                    **kw)
+        torch.cuda.synchronize()
+        secs[name] = (time.perf_counter() - t0) / n_iter * 1e6
+        _no_launches(f"{tag} ({name})")
+    _same_run(tag, runs["mesh"], runs["twin"],
+              between="the data-mesh run and its piecewise-sum twin")
+    log(tag, f"{n_iter} iterations on a {mesh.shape} mesh: "
+        f"{secs['mesh']:.2f} us/iteration, the unsharded twin "
+        f"{secs['twin']:.2f}; bit for bit; no kernel of the port launched")
+    return runs["mesh"][0], secs
+
+
+def _placed(tag, sd, mesh):
+    """Raise unless piece j of every chain row of ``sd`` is a tensor on
+    data column j's device of that row."""
+    for i in range(mesh.devices.shape[0]):
+        for j, p in enumerate(sd.row(i).pieces):
+            for t in (p if isinstance(p, tuple) else (p,)):
+                if t.device != mesh.devices[i, j]:
+                    raise AssertionError(f"{tag}: piece {j} of chain row "
+                                         f"{i} on {t.device}, not "
+                                         f"{mesh.devices[i, j]}")
+
+
+def phase_main_data_mesh(dev, cards=None, tag="main-data-mesh"):
+    """The data axis: the 4,096-chain bench Gaussian (50 observations,
+    3,000 iterations) on ``data_mesh(2, 2)`` and LBA at 4,096 chains (100
+    trials, 128 iterations) on ``data_mesh(2, 4)``, over ``dev`` repeated
+    or, given ``cards``, over them in row-major order (repeated to fill
+    the mesh); each piece a tensor on its data column's device, each run
+    bit for bit its piecewise-sum twin on ``dev`` (:func:`_data_mesh_run`,
+    the same pieces copied to the host); the Gaussian within 0.01 of the
+    quadrature with max R̂ < 1.01."""
+    from demcmc_tpu_torch import parallel
+    from demcmc_tpu_torch.models import gaussian, lba
+    from demcmc_tpu_torch.parallel.mesh import host
+
+    def grid(n):
+        return [dev] * n if cards is None else (list(cards) * n)[:n]
+    data = _gauss_data()
+    mesh = parallel.data_mesh(2, 2, devices=grid(4))
+    sd = parallel.shard_data(data, mesh)
+    _placed(tag + "-gauss", sd, mesh)
+    model, de = gaussian.make(data=sd, Np=NP, n_groups=G, burnin=BURNIN)
+    twin = _piecewise_twin(model, gaussian.loglike_batched,
+                           [host(p) for p in sd.pieces], data)
+    chains, secs = _data_mesh_run(tag + "-gauss", dev, model, twin,
+                                  de, N_ITER, mesh)
+    rhat, acc = _posterior_gate(tag + "-gauss", chains, data,
+                                N_ITER - BURNIN, de.n_chains)
+    out = {"data_mesh_gauss_us_per_iteration": secs["mesh"],
+           "data_mesh_gauss_twin_us_per_iteration": secs["twin"],
+           "data_mesh_gauss_rhat_max": rhat,
+           "data_mesh_gauss_acceptance": acc}
+    lmodel, lde = _lba_case(MESH_SHORT // 2)
+    mesh = parallel.data_mesh(2, 4, devices=grid(8))
+    sd = parallel.shard_data(lmodel.data, mesh)
+    _placed(tag + "-lba", sd, mesh)
+    model = lba.make_model(sd)
+    _placed(tag + "-lba", model.data, mesh)
+    twin = _piecewise_twin(model, lba.loglike_batched,
+                           [host(p) for p in sd.pieces], lmodel.data)
+    _, secs = _data_mesh_run(tag + "-lba", dev, model, twin, lde,
+                             MESH_SHORT, mesh)
+    out.update({"data_mesh_lba_us_per_iteration": secs["mesh"],
+                "data_mesh_lba_twin_us_per_iteration": secs["twin"]})
+    return out
+
+
+def _dist_run(tag, n_proc, *args):
+    """``tools/dist_cards.py`` under torchrun with ``n_proc`` processes;
+    at the time limit torchrun is asked to stop (it ends its ranks, each
+    in a session of its own, then exits), and killed 30 s later.  Raises
+    unless it exits 0.  Returns the ranks' results."""
+    script = Path(__file__).resolve().parent / "tools" / "dist_cards.py"
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc-per-node={n_proc}", str(script), *args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        out, err = proc.communicate(timeout=DIST_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        proc.terminate()
+        try:
+            proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.communicate()
+        raise AssertionError(f"{tag}: tools/dist_cards.py ran past "
+                             f"{DIST_TIMEOUT} s")
+    OUT.mkdir(exist_ok=True)
+    (OUT / f"{tag}.log").write_text(out + err)
+    if proc.returncode:
+        raise AssertionError(f"{tag}: tools/dist_cards.py exited "
+                             f"{proc.returncode}:\n{out[-3000:]}\n"
+                             f"{err[-3000:]}")
+    lines = [x for x in out.splitlines() if x.startswith("DIST ")]
+    for x in out.splitlines():
+        if x.startswith("[dist rank"):
+            log(tag, x)
+    log(tag, f"{n_proc} processes in {time.perf_counter() - t0:.1f} s "
+        f"(log in chiprun_out/{tag}.log)")
+    return json.loads(lines[0][5:])["ranks"]
+
+
+def phase_main_dist(dev):
+    """Several processes through ``global_chain_mesh()``
+    (``tools/dist_cards.py``): 2 processes on the one card (gloo, θ, w
+    and history rows staged through pinned memory) and, with 2 cards or
+    more, 2 processes with a card each (NCCL): the 4,096-chain Gaussian
+    (kernels' step, α = 0.1) and the mcz-mig cell, every rank's result bit
+    for bit the single-process run, its launches as planned.  Returns the
+    metrics."""
+    out = {}
+    runs = [("main-dist-gloo", ("--backend", "gloo", "--device",
+                                f"cuda:{dev.index or 0}"))]
+    if torch.cuda.device_count() >= 2:
+        runs.append(("main-dist-nccl", ()))
+    for tag, args in runs:
+        ranks = _dist_run(tag, 2, *args)
+        r0 = ranks[0]
+        log(tag, f"backend {r0['backend']}"
+            f"{' (staged)' if r0['staged'] else ''} over "
+            f"{r0['devices']}")
+        for cell in ("gauss", "mcz-mig"):
+            key = f"{tag[5:]}_{cell}".replace("-", "_")
+            out[key + "_one_us_per_iteration"] = r0[cell][
+                "one_us_per_iteration"]
+            out[key + "_us_per_iteration"] = max(
+                r[cell]["group_us_per_iteration"] for r in ranks)
+    return out
+
+
+def phase_rep_f7(dev):
+    """Fault F7 on the card: two replications of the bench Gaussian (G =
+    256, Np = 16, α = 0.1) through ``sample_replicated`` run in turn (no
+    replicated K1, no segmented K2), each bit for bit its solo
+    ``sample()``, K1 and K2 launched as their solo plans say;
+    ``sample_replicated_packed`` raises its ``ValueError`` before any
+    launch."""
+    import demcmc_tpu_torch as tdm
+    from demcmc_tpu_torch.models import gaussian
+    datasets = np.stack([_gauss_data(), np.random.default_rng(1)
+                         .standard_normal(50).astype(np.float32)])
+    _, de = gaussian.make(Np=NP, n_groups=G, burnin=BURNIN)
+    models = [gaussian.make_model(x) for x in datasets]
+    if tdm.sampler.rep_supported(models, de, dev):
+        raise AssertionError("rep-f7: a replicated batch at 4,096 chains a "
+                             "replication")
+    keys = [0, 1]
+    _reset_counts()
+    reps = tdm.sample_replicated(gaussian.make_model, de, N_ITER, datasets,
+                                 keys=keys)
+    torch.cuda.synchronize()
+    want = {"de_step": 0, "migrate": 0}
+    for m, k in zip(models, keys):
+        plan = plan_counts(m, de, N_ITER, k)
+        want = {x: want[x] + plan[x] for x in want}
+    _counts(**want)
+    for r, (m, k) in enumerate(zip(models, keys)):
+        solo = tdm.sample(m, de, N_ITER, key=k)
+        _same_draws(f"rep-f7 replication {r}", reps[r], solo,
+                    "sample_replicated and the solo sample()")
+    _reset_counts()
+    try:
+        tdm.sample_replicated_packed(gaussian.make_model, de, N_ITER,
+                                     datasets, key=0)
+    except ValueError as e:
+        if "use sample_replicated" not in str(e):
+            raise
+    else:
+        raise AssertionError("rep-f7: the packed run did not raise")
+    _no_launches("rep-f7 (packed)")
+    log("rep-f7", f"two replications of {de.n_chains} chains (α = "
+        f"{de.alpha}) ran in turn, each bit for bit its solo sample(); "
+        f"launches {want} (no de_step_rep, no migrate_segments); the packed "
+        f"run raised before any launch")
+    return {"rep_f7_launches": want}
+
+
+def phase_timing11(dev, launches, errs):
+    """K3 on one shard of 4 of the mcz-mig population (the second: 128
+    chains from chain 128, one iteration past burn-in, on the
+    population's history) beside its plain version (plain, kernel,
+    kernel, plain) and its bound (:func:`_step_work` on the shard's
+    words): row 3B-shard, with the launches of ``[main-mesh-mcz]``'s
+    4-shard run."""
+    from demcmc_tpu_torch import rng
+    from demcmc_tpu_torch.ops import fused_step, resample_step as tres
+    cell = pc.MCZ_MIG_CELL
+    it = 2000
+    model, de, spec, cfg, s = _mcz_mig_case(
+        dev, "C512", burnin=cell["burnin"], theta_sn=cell["theta_snooker"],
+        extra_rows=it)
+    C_, Np_ = de.n_chains, de.Np
+    g0, n = fused_step.shard_groups(de.n_groups, 4)[1]
+    scfg, c0, c = fused_step.local_config(cfg, n), g0 * Np_, n * Np_
+    th, w = s.theta[c0:c0 + c].clone(), s.weight[c0:c0 + c].clone()
+    fire, hist = s.fire.clone(), s.history
+    out = (torch.empty((c, D), device=dev), torch.empty(c, device=dev),
+           torch.empty(c, dtype=torch.bool, device=dev))
+    words = rng.words(0, it, cfg.rows.n_words, c0 + c, device=dev)
+    idx = tres.indices(scfg, 0, it, device=dev, chain0=c0, n_pop=C_)
+
+    def k3():
+        tres.resample_step(scfg, model, spec, th, w, fire, hist, it, out=out,
+                           check=False, phase="post", chain0=c0)
+
+    def k3_plain():
+        tres.resample_step_plain(scfg, model, spec, th, w, fire, hist, it,
+                                 words, idx, out, phase="post", chain0=c0)
+
+    t = {}
+    for name, fn, nn in (("plain", k3_plain, 2), ("k3", k3, 200),
+                         ("k3", k3, 200), ("plain", k3_plain, 2)):
+        t.setdefault(name, []).append(device_ms(fn, nn))
+    ms = {k: float(np.mean([x for x, _, _ in v])) for k, v in t.items()}
+    for k, v in t.items():
+        log("timing11", f"{k}: {ms[k]:.6f} ms per call on the device ("
+            + ", ".join(f"{x:.6f}{'' if q else ' host-gapped'}"
+                        for x, q, _ in v) + ")")
+    nbytes, ops = _step_work(scfg, rng.words(0, it, cfg.rows.n_words, c,
+                                             device=dev, chain0=c0),
+                             GAUSS_F32_OPS)
+    tb, to = nbytes / PEAK_BYTES * 1e3, ops / PEAK_OPS * 1e3
+    log("timing11", f"resample_step/shard: {ms['k3']:.6f} ms against a bound "
+        f"of {max(tb, to):.3g} ms ({nbytes} bytes, {ops} operations); plain "
+        f"{ms['plain']:.6f} ms")
+    return [{"name": f"resample_step/shard-{c}of{C_}", "route": "cuda",
+             "source": "demcmc_tpu_torch/csrc/de_step_resample.cu",
+             "replaces": "demcmc_tpu/ops/fused_step.py:2224",
+             "launches": launches["mcz"][4]["resample_step"],
+             "max_abs_err": errs["k3_shard"], "ms": ms["k3"],
+             "plain_ms": ms["plain"], "bound_ms": max(tb, to),
+             "bound_by": "bytes" if tb >= to else "operations",
+             "library_ms": None}]
+
+
 def main():
     if not torch.cuda.is_available():
         sys.exit("chip_smoke: torch.cuda.is_available() is false; "
@@ -6033,6 +6489,16 @@ def main():
     new = ("k1_rep", "k2_rep", "main_rep", "main_packed", "main_opt_rep",
            "main_rep_mesh", "trace_rep", "timing10")
     log("end", f"the replicated runs' phases took "
+        f"{sum(took[k] for k in new):.1f} s")
+    errs["k3_shard"] = run(phase_k3_shard, dev)
+    mcz_launches, m = run(phase_main_mesh_mcz, dev)
+    metrics.update(m)
+    for phase in (phase_main_data_mesh, phase_main_dist, phase_rep_f7):
+        metrics.update(run(phase, dev))
+    rows += run(phase_timing11, dev, mcz_launches, errs)
+    new = ("k3_shard", "main_mesh_mcz", "main_data_mesh", "main_dist",
+           "rep_f7", "timing11")
+    log("end", f"the sixteenth slice's phases took "
         f"{sum(took[k] for k in new):.1f} s")
     _rhat_results(metrics)
     card = gpu_line()

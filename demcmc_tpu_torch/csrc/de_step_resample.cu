@@ -59,33 +59,51 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
                          float* hist, int H, const uint32_t* bits,
                          const int64_t* idx, const uint32_t* ia,
                          const float* fa, const uint32_t* sa, float theta_sn,
-                         cudaStream_t stream) {
+                         uint32_t chain0, int C_hist, cudaStream_t stream) {
   constexpr int D = Density::D;
   const StepArgs<D> a = read_args<Density>(theta, w, out_theta, out_w, out_acc,
-                                           fire, bits, ia, fa, sa, theta_sn, 0);
+                                           fire, bits, ia, fa, sa, theta_sn,
+                                           chain0);
   const Density dens = Density::from(fa + 7 + 2 * D, nullptr);
   const int C = a.G * a.Np;
-  if (a.it0 < 2 || a.K < 1 || a.it0 + a.K - 1 > H)
+  if (a.it0 < 2 || a.K < 1 || a.it0 + a.K - 1 > H ||
+      (long long)chain0 + C > (long long)C_hist ||
+      (a.K > 1 && (chain0 != 0u || C_hist != C)))
     return (int)cudaErrorInvalidValue;
-  HistoryPartners<D> src;
-  src.hist = hist;
-  src.idx = idx;
-  src.words = WordSource{nullptr, C, ia[5], ia[6], ia[2], kResampleNs};
-  src.C = C;
-  src.n_slots = a.r_sn >= 0 ? 5 : 2;
-  src.n_rows = a.n_blk * a.n_members * src.n_slots;
-  src.span = 0;  // set per iteration (HistoryPartners::at)
+  auto fill = [&](auto& src) {
+    src.hist = hist;
+    src.idx = idx;
+    src.words =
+        WordSource{nullptr, C, ia[5], ia[6], ia[2], kResampleNs, chain0};
+    src.C = C;
+    src.n_slots = a.r_sn >= 0 ? 5 : 2;
+    src.n_rows = a.n_blk * a.n_members * src.n_slots;
+    src.span = 0;  // set per iteration (HistoryPartners::at)
+  };
+  if (chain0 == 0u && C_hist == C) {  // the whole population
+    HistoryPartners<D> src;
+    fill(src);
+    return launch_sweep(a, dens, src, ia[19] != 0, stream);
+  }
+  HistoryPartners<D, true> src;  // a shard of a chain mesh
+  fill(src);
+  src.C_hist = C_hist;
+  src.chain0 = chain0;
   return launch_sweep(a, dens, src, ia[19] != 0, stream);
 }
 
 }  // namespace demcmc
 
 // One window of K iterations of K3 on the model's density: the K1
-// arguments (see step_body.cuh read_args) plus the history [H, C, D] and,
-// in the indices-in test mode, idx [K n_blk n_members n_slots, C] int64
-// flat history indices (nullptr: drawn from Philox words).  A window of K > 1
-// runs in one CTA, or on the Gaussian in one cluster
-// (resample_window_chains_NAME).  Returns the launch's CUDA error code.
+// arguments (see step_body.cuh read_args) plus the history [H, C_hist, D]
+// and, in the indices-in test mode, idx [K n_blk n_members n_slots, C] int64
+// flat history indices (nullptr: drawn from Philox words), then chain0 and
+// C_hist: the launch's chains are chains chain0 .. chain0 + C - 1 of a
+// population of C_hist (a shard of a chain mesh; 0 and C for the whole
+// population), whose words they draw and whose history columns they write.
+// A window of K > 1 runs the whole population (chain0 = 0, C_hist = C) in
+// one CTA, or on the Gaussian in one cluster (resample_window_chains_NAME).
+// Returns the launch's CUDA error code.
 // resample_block_chains_NAME writes the chains one block of the
 // configuration's kernel (sequential sweep, snooker, block sweeps) holds
 // -- a group must fit one block -- and resample_window_chains_NAME those a
@@ -96,10 +114,11 @@ int launch_resample_step(float* theta, float* w, float* out_theta,
       float* theta, float* w, float* out_theta, float* out_w,                \
       uint8_t* out_acc, int* fire, float* hist, int H, const uint32_t* bits, \
       const int64_t* idx, const uint32_t* iargs, const float* fargs,         \
-      const uint32_t* sargs, float theta_sn, void* stream) {                 \
+      const uint32_t* sargs, float theta_sn, uint32_t chain0, int C_hist,    \
+      void* stream) {                                                        \
     return demcmc::launch_resample_step<DENSITY>(                            \
         theta, w, out_theta, out_w, out_acc, fire, hist, H, bits, idx,       \
-        iargs, fargs, sargs, theta_sn, (cudaStream_t)stream);                \
+        iargs, fargs, sargs, theta_sn, chain0, C_hist, (cudaStream_t)stream); \
   }                                                                          \
   extern "C" int resample_block_chains_##NAME(int seq, int snooker,          \
                                               int n_blk, int* chains) {      \

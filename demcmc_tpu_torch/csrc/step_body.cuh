@@ -411,21 +411,39 @@ struct GroupPartners {
 // the write.  Iteration it + 1 may read row it - 1 of any chain, so a
 // window of K > 1 runs the whole population in one CTA (kOneCta) with a
 // barrier between iterations.
-template <int D>
-struct HistoryPartners {
+// A shard of a chain mesh (kShard: chains chain0 .. of a population of
+// C_hist, HistoryShard) reads the population's history (row stride C_hist,
+// span count * C_hist), draws its index words by population chain
+// (words.chain0) and writes its own columns of row it - 1; it runs one
+// iteration a launch (the other shards write the rest of the row).  kShard
+// is compile-time, so the whole population's source (chain0 = 0,
+// C_hist = C) holds no shard fields and computes what it did before them.
+template <bool kShard>
+struct HistoryShard {};
+template <>
+struct HistoryShard<true> {
+  int C_hist;       // the population's chains: the history's row stride
+  uint32_t chain0;  // the launch's first chain in the population
+};
+
+template <int D, bool kShard = false>
+struct HistoryPartners : HistoryShard<kShard> {
   static constexpr bool kOneCta = true;
-  float* hist;         // [H, C, D]
-  const int64_t* idx;  // [K n_rows, C] or nullptr
-  WordSource words;    // RESAMPLE_NS words
+  float* hist;         // [H, C_hist, D]
+  const int64_t* idx;  // [K n_rows, C] (the launch's chains) or nullptr
+  WordSource words;    // RESAMPLE_NS words, of chains chain0 ..
   int C, n_slots, n_rows;
-  uint32_t span;       // count * C
+  uint32_t span;       // count * C_hist
 
   // the source of window iteration k (iteration it)
   __device__ __forceinline__ HistoryPartners at(int k, int it) const {
     HistoryPartners s = *this;
     s.words = words.at(k, (uint32_t)it, 0);
     if (idx) s.idx = idx + (size_t)k * n_rows * C;
-    s.span = (uint32_t)(it - 1) * (uint32_t)C;
+    if constexpr (kShard)
+      s.span = (uint32_t)(it - 1) * (uint32_t)this->C_hist;
+    else
+      s.span = (uint32_t)(it - 1) * (uint32_t)C;
     return s;
   }
 
@@ -480,8 +498,17 @@ struct HistoryPartners {
     pn = at(f2);
   }
 
+  // chain c's entry of history row it - 1
+  __device__ __forceinline__ size_t row_of(int it, int c) const {
+    if constexpr (kShard)
+      return ((size_t)(it - 1) * this->C_hist + this->chain0 + (uint32_t)c) *
+             D;
+    else
+      return ((size_t)(it - 1) * C + c) * D;
+  }
+
   __device__ __forceinline__ void commit(int it, int c, const float* th) const {
-    float* row = hist + ((size_t)(it - 1) * C + c) * D;
+    float* row = hist + row_of(it, c);
     for (int i = 0; i < D; ++i) row[i] = th[i];
   }
 
@@ -513,7 +540,7 @@ struct HistoryPartners {
 
   __device__ __forceinline__ void commit_dim(int it, int c, int i,
                                              float v) const {
-    hist[((size_t)(it - 1) * C + c) * D + i] = v;
+    hist[row_of(it, c) + i] = v;
   }
 };
 

@@ -317,9 +317,11 @@ class DEModel:
             self._no_prior()
         return self.prior_loglike(*spec.unflatten(x))
 
-    def log_like_flat(self, spec: ParamSpec, x: torch.Tensor):
-        """Per-cell log likelihood of one flat ``[d]`` vector."""
-        return self.loglike(self.data, *spec.unflatten(x))
+    def log_like_flat(self, spec: ParamSpec, x: torch.Tensor, data=None):
+        """Per-cell log likelihood of one flat ``[d]`` vector (on
+        ``data``, by default the model's)."""
+        return self.loglike(self.data if data is None else data,
+                            *spec.unflatten(x))
 
     @staticmethod
     def _vmapped(fn, spec: ParamSpec, x2: torch.Tensor):
@@ -335,17 +337,37 @@ class DEModel:
         """Batched log likelihood (the optimization objective) of ``[d,
         *cs]`` columns, in its batched form where the model gives one and
         else per cell; a stochastic model's loglike gets the panel ``noise
-        [n_noise, *cs]`` reshaped to ``[*noise_shape, *cs]``."""
+        [n_noise, *cs]`` reshaped to ``[*noise_shape, *cs]``.
+
+        Data sharded over a mesh's ``data`` axis (a
+        :class:`~demcmc_tpu_torch.parallel.ShardedData`, ``shard_data``):
+        the columns (and panel) copied to each piece's device, the
+        likelihood of the piece there, the partials copied back and summed
+        in piece order, the psum of ``demcmc_tpu/parallel/mesh.py:1-11``
+        (the likelihood must be a sum over the sharded axis)."""
+        from .parallel.mesh import ShardedData
+        if not isinstance(self.data, ShardedData):
+            return self._like_cols(self.data, spec, x2, noise)
+        total = None
+        for piece, dev in self.data.parts():
+            part = self._like_cols(
+                piece, spec, x2.to(dev),
+                None if noise is None else noise.to(dev)).to(x2.device)
+            total = part if total is None else total + part
+        return total
+
+    def _like_cols(self, data, spec: ParamSpec, x2: torch.Tensor, noise):
         if self.stochastic:
             if noise is None:
                 raise ValueError("a stochastic model's density needs its "
                                  "noise panel")
             noise = noise.reshape(self.noise_shape + tuple(x2.shape[1:]))
-            return self.loglike_batched(self.data, *spec.unflatten_cols(x2),
+            return self.loglike_batched(data, *spec.unflatten_cols(x2),
                                         noise=noise)
         if self.loglike_batched is not None:
-            return self.loglike_batched(self.data, *spec.unflatten_cols(x2))
-        return self._vmapped(self.log_like_flat, spec, x2)
+            return self.loglike_batched(data, *spec.unflatten_cols(x2))
+        return self._vmapped(
+            lambda sp, v: self.log_like_flat(sp, v, data), spec, x2)
 
     def log_posterior_cols(self, spec: ParamSpec, x2: torch.Tensor,
                            noise: torch.Tensor = None):

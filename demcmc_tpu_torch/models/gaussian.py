@@ -22,6 +22,7 @@ import torch
 from .. import rng
 from ..config import DE
 from ..model import CudaDensity, DEModel
+from ..parallel.mesh import ShardedData, host
 from ..utils import dists
 
 BOUNDS = ((-math.inf, math.inf), (0.0, math.inf))
@@ -40,7 +41,12 @@ def suff_stats(data):
 
 def loglike_batched(data, mu, sigma):
     """Chains-last Σᵢ log N(xᵢ; μ, σ) through the centered statistics."""
-    n, xbar, ss = suff_stats(data)
+    return loglike_stats(suff_stats(data), mu, sigma)
+
+
+def loglike_stats(stats, mu, sigma):
+    """:func:`loglike_batched` from the data's :func:`suff_stats`."""
+    n, xbar, ss = stats
     c0 = dists.f32(-0.5 * n * math.log(2.0 * math.pi))
     dm = mu - xbar
     return (c0 - n * torch.log(sigma)
@@ -70,6 +76,16 @@ def density(data) -> CudaDensity:
 
 
 def make_model(data) -> DEModel:
+    """The model on ``data``: an array, or data sharded over a mesh's
+    ``data`` axis (``parallel.shard_data``), whose pieces' sufficient
+    statistics are taken once here, piece by piece, and evaluated on each
+    piece's device (no CUDA density: the kernels' step is not taken under
+    a data axis)."""
+    if isinstance(data, ShardedData):
+        return DEModel(loglike_batched=loglike_stats,
+                       prior_loglike_batched=prior_loglike_batched,
+                       sample_prior=sample_prior, names=NAMES,
+                       data=data.map(lambda p: suff_stats(host(p))))
     data = np.asarray(data, dtype=np.float32)
     return DEModel(loglike_batched=loglike_batched,
                    prior_loglike_batched=prior_loglike_batched,
@@ -84,7 +100,7 @@ def make(data=None, key=0, n_obs=50, true_mu=0.0, true_sigma=1.0, Np=6,
     if data is None:
         data = true_mu + true_sigma * np.random.default_rng(
             key).standard_normal(n_obs)
-    model = make_model(np.asarray(data, dtype=np.float32))
+    model = make_model(data)
     de = DE(bounds=BOUNDS, burnin=burnin, Np=Np, n_groups=n_groups,
             **de_kwargs)
     return model, de

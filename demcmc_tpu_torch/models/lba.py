@@ -26,6 +26,7 @@ import torch
 from .. import rng
 from ..config import DE
 from ..model import CudaDensity, DEModel
+from ..parallel.mesh import ShardedData
 from ..utils import dists
 
 NAMES = ("nu", "A", "k", "tau")
@@ -87,12 +88,24 @@ def trials(data) -> np.ndarray:
                      np.asarray(rt, np.float32)], 1)
 
 
+def columns(data):
+    """``(choice, rt)`` tensors (on their device) as the float32 columns
+    of :func:`trials`: a sharded piece's form, taken once."""
+    return tuple(torch.as_tensor(x).to(torch.float32) for x in data)
+
+
 def trial_terms(data, nu, A, k, tau):
     """``[n_trials, *cs]`` per-trial log likelihoods in the JAX batched
     form: ``nu [2, *cs]``, ``A, k, tau [*cs]``; −inf where rt ≤ τ."""
     tab = torch.as_tensor(trials(data), device=A.device)
+    return column_terms((tab[:, 0], tab[:, 1]), nu, A, k, tau)
+
+
+def column_terms(cols, nu, A, k, tau):
+    """:func:`trial_terms` from the float32 ``(choice, rt)`` columns on
+    the parameters' device."""
     exp = (slice(None),) + (None,) * A.dim()
-    choice, rt = tab[:, 0][exp], tab[:, 1][exp]
+    choice, rt = cols[0][exp], cols[1][exp]
     b = A + k
     t = rt - tau[None]
     valid = t > 0
@@ -118,7 +131,15 @@ def trial_terms(data, nu, A, k, tau):
 
 def loglike_batched(data, nu, A, k, tau):
     """Chains-last LBA log likelihood, the trials summed in index order."""
-    ll = trial_terms(data, nu, A, k, tau)
+    return _sum_trials(trial_terms(data, nu, A, k, tau))
+
+
+def loglike_columns(cols, nu, A, k, tau):
+    """:func:`loglike_batched` from the :func:`columns` of the trials."""
+    return _sum_trials(column_terms(cols, nu, A, k, tau))
+
+
+def _sum_trials(ll):
     s = ll[0]
     for j in range(1, ll.shape[0]):
         s = s + ll[j]
@@ -182,13 +203,33 @@ def density(data) -> CudaDensity:
                        data=tab)
 
 
+def min_rt(data) -> float:
+    """The smallest rt of ``(choice, rt)`` or of every piece of data
+    sharded over a mesh's ``data`` axis: τ's upper bound."""
+    if isinstance(data, ShardedData):
+        return min(float(p[1].min()) for p in data.pieces)
+    return float(np.min(np.asarray(data[1])))
+
+
 def make_model(data) -> DEModel:
+    """The model on ``(choice, rt)``, or on such data sharded over a
+    mesh's ``data`` axis (``parallel.shard_data``), each piece's
+    :func:`columns` taken once here, on its device, where its trials are
+    summed (no CUDA density: the kernels' step is not taken under a data
+    axis)."""
+    if isinstance(data, ShardedData):
+        data = data.map(columns)
+        lo = min_rt(data)
+        return DEModel(loglike_batched=loglike_columns,
+                       prior_loglike_batched=make_prior(lo),
+                       sample_prior=make_sample_prior(lo), names=NAMES,
+                       data=data)
     choice, rt = data
     data = (np.asarray(choice, np.int32), np.asarray(rt, np.float32))
-    min_rt = float(data[1].min())
+    lo = min_rt(data)
     return DEModel(loglike_batched=loglike_batched,
-                   prior_loglike_batched=make_prior(min_rt),
-                   sample_prior=make_sample_prior(min_rt), names=NAMES,
+                   prior_loglike_batched=make_prior(lo),
+                   sample_prior=make_sample_prior(lo), names=NAMES,
                    data=data, cuda_density=density(data))
 
 
@@ -205,7 +246,7 @@ def make(data=None, key=0, n_trials=100, Np=15, n_groups=3, burnin=1500,
     if data is None:
         data = simulate(np.random.default_rng(key), n_trials, **TRUE)
     model = make_model(data)
-    kw = dict(bounds=bounds(float(model.data[1].min())), burnin=burnin,
+    kw = dict(bounds=bounds(min_rt(model.data)), burnin=burnin,
               Np=Np, n_groups=n_groups)
     kw.update(de_kwargs)
     return model, DE(**kw)

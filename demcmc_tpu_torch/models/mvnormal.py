@@ -24,6 +24,7 @@ import torch
 from .. import rng
 from ..config import DE
 from ..model import CudaDensity, DEModel
+from ..parallel.mesh import ShardedData, host
 from ..ops import _build
 from ..utils import dists
 
@@ -56,7 +57,12 @@ def _rowsum(rows):
 
 def loglike_batched(data, mu, sigma):
     """Chains-last log likelihood: ``mu [d, *cs]``, ``sigma [*cs]``."""
-    n, xbar, ss = suff_stats(data)
+    return loglike_stats(suff_stats(data), mu, sigma)
+
+
+def loglike_stats(stats, mu, sigma):
+    """:func:`loglike_batched` from the data's :func:`suff_stats`."""
+    n, xbar, ss = stats
     d = mu.shape[0]
     c0, nd = _consts(n, d)
     dm = [mu[i] - float(xbar[i]) for i in range(d)]
@@ -97,6 +103,18 @@ def density(data) -> CudaDensity:
 
 
 def make_model(data) -> DEModel:
+    """The model on ``data [n, d]``, or on such data sharded over a
+    mesh's ``data`` axis (``parallel.shard_data`` along the observations),
+    whose pieces' sufficient statistics are taken once here, piece by
+    piece, and evaluated on each piece's device (no CUDA density: the
+    kernels' step is not taken under a data axis)."""
+    if isinstance(data, ShardedData):
+        return DEModel(loglike_batched=loglike_stats,
+                       prior_loglike_batched=prior_loglike_batched,
+                       sample_prior=make_sample_prior(
+                           np.shape(data.pieces[0])[1]),
+                       names=NAMES,
+                       data=data.map(lambda p: suff_stats(host(p))))
     data = np.asarray(data, dtype=np.float32)
     return DEModel(loglike_batched=loglike_batched,
                    prior_loglike_batched=prior_loglike_batched,
@@ -109,10 +127,12 @@ def make(d=30, n_obs=100, key=0, data=None, **de_kwargs):
     ``data``, a standard normal ``[n_obs, d]`` from numpy seed ``key``."""
     if data is None:
         data = np.random.default_rng(key).standard_normal((n_obs, d))
-    data = np.asarray(data, dtype=np.float32)
+    if not isinstance(data, ShardedData):
+        data = np.asarray(data, dtype=np.float32)
+    d = np.shape(data.pieces[0] if isinstance(data, ShardedData)
+                 else data)[1]
     kw = dict(bounds=BOUNDS, Np=3, n_groups=1, alpha=0.0, theta_snooker=0.1,
-              sample="resample", n_initial=(data.shape[1] + 1) * 4,
-              burnin=1000)
+              sample="resample", n_initial=(d + 1) * 4, burnin=1000)
     kw.update(de_kwargs)
     return make_model(data), DE(**kw)
 

@@ -57,7 +57,8 @@ BLOCK_COUNTS = (2,)
 # a thread block cluster, not one CTA (ops/resample_step.py::window_chains)
 HOIST_DENSITIES = ("gaussian", "rastrigin")
 _K1 = [_P, _P, _P, _P, _P, _P, _P, _U32P, _F32P, _U32P, _F, _P, _I, _P]
-_K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _P]
+_K3 = [_P, _P, _P, _P, _P, _P, _P, _I, _P, _P, _U32P, _F32P, _U32P, _F, _U,
+       _I, _P]
 # the replicated K1: K1's arguments but chain0, then the replication table
 # (keys, params, data, n_params, data_stride, c_rep, local) and the stream
 _K1R = _K1[:11] + [_P, _P, _P, _I, _I, _I, _I, _P]

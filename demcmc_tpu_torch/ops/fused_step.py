@@ -881,9 +881,8 @@ def check_cuda(cfg, theta, w, fire, bits=None, out=None, what="de_step",
     if chain0 < 0:
         raise ValueError(f"chain0 must be >= 0, not {chain0}")
     if bits is not None:
-        n_all = bits.shape[-1] if what == "de_step" else C   # K3: whole
         want.append(("bits", bits, torch.uint32, [(
-            K * cfg.rows.n_words, max(n_all, chain0 + C))]))
+            K * cfg.rows.n_words, max(bits.shape[-1], chain0 + C))]))
     if out is not None:
         one = T == 1
         want += [("out[0]", out[0], torch.float32,

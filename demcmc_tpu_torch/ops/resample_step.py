@@ -113,11 +113,15 @@ def index_rows(cfg) -> int:
     return cfg.n_sets * cfg.n_slots
 
 
-def indices_from_words(cfg, words, it: int):
-    """Flat history indices ``[n_sets·n_slots, C]`` int64 from the
-    ``RESAMPLE_NS`` words of iteration ``it`` (same shape, uint32): per
-    slot set, the pair and then the triple, each without replacement."""
-    C, k = cfg.G * cfg.Np, cfg.n_slots
+def indices_from_words(cfg, words, it: int, n_pop: int = None):
+    """Flat history indices ``[n_sets·n_slots, c]`` int64 from the
+    ``RESAMPLE_NS`` words of iteration ``it`` (same shape, uint32; the
+    words of the launch's ``c`` chains): per slot set, the pair and then
+    the triple, each without replacement, over the ``count·n_pop`` (row,
+    chain) pairs of a population of ``n_pop`` chains (default the
+    configuration's ``G·Np``; a shard's is the whole population's)."""
+    C = cfg.G * cfg.Np if n_pop is None else int(n_pop)
+    k = cfg.n_slots
     count = max(int(it) - 1, 1)
     out = []
     for m in range(cfg.n_sets):
@@ -128,16 +132,20 @@ def indices_from_words(cfg, words, it: int):
     return torch.cat(out)
 
 
-def indices(cfg, seed: int, it: int, device=None):
-    """The history indices K3 draws for iteration ``it`` in Philox mode."""
+def indices(cfg, seed: int, it: int, device=None, chain0: int = 0,
+            n_pop: int = None):
+    """The history indices K3 draws for iteration ``it`` in Philox mode,
+    for chains ``chain0 ..`` of a population of ``n_pop`` chains (the
+    whole population by default)."""
     words = rng.words(seed, it, index_rows(cfg), cfg.G * cfg.Np,
-                      ns=rng.RESAMPLE_NS, device=device)
-    return indices_from_words(cfg, words, it)
+                      ns=rng.RESAMPLE_NS, device=device, chain0=chain0)
+    return indices_from_words(cfg, words, it, n_pop)
 
 
 def history_partners(cfg, hist, idx):
     """K3's partner source: the pair (and triple) of slot set ``slot_set``
-    read from ``hist [H, C, d]`` at the flat indices ``idx``."""
+    read from ``hist [H, C_pop, d]`` (the population's) at the flat
+    indices ``idx``."""
     G, Np, d, k = cfg.G, cfg.Np, cfg.d, cfg.n_slots
     flat = hist.view(-1, d)
 
@@ -152,34 +160,52 @@ def history_partners(cfg, hist, idx):
 
 def resample_step_plain(cfg, model, spec, theta, w, fire, hist, it: int,
                         words, idx, out=None, K: int = 1, emit=(0, 1),
-                        phase: str = "all"):
+                        phase: str = "all", chain0: int = 0):
     """Plain version of K3 for a window of ``K`` iterations from ``it``, in
-    place on ``theta [C, d]``, ``w [C]``, ``fire [1]`` and history rows
-    ``it − 1 .. it + K − 2`` of ``hist [H, C, d]``; ``words [K·n_words, C]``
-    uint32, ``idx [K·n_sets·n_slots, C]`` int64 flat history indices,
-    ``out`` the window's trajectory slice (``fused_step.trajectory``).
-    Returns the accept margins (``fused_step.window_plain``)."""
-    _check_window(cfg, hist, it, K, emit, phase)
+    place on ``theta [C, d]``, ``w [C]``, ``fire [1]`` and the columns
+    ``chain0 .. chain0 + C − 1`` of history rows ``it − 1 .. it + K − 2``
+    of ``hist [H, C_pop, d]``: ``theta`` holds chains ``chain0 ..`` of a
+    population of ``C_pop`` (a shard of a chain mesh, ``cfg`` its
+    ``fused_step.local_config``; one iteration at a time), or the whole
+    population (``chain0 = 0``, ``C_pop = C``).  ``words [K·n_words, n]``
+    uint32 with the population's ``n >= chain0 + C`` columns (the gate
+    from chain 0's), ``idx [K·n_sets·n_slots, C]`` int64 flat history
+    indices of the launch's chains, ``out`` the window's trajectory slice
+    (``fused_step.trajectory``).  Returns the accept margins
+    (``fused_step.window_plain``)."""
+    _check_window(cfg, hist, it, K, emit, phase, chain0)
     out = fused_ops.trajectory(cfg, out, K, emit)
-    n, m = cfg.rows.n_words, index_rows(cfg)
+    n, m, C = cfg.rows.n_words, index_rows(cfg), cfg.G * cfg.Np
+    if words.shape[1] < chain0 + C:
+        raise ValueError(f"words: {words.shape[1]} columns, need the "
+                         f"population's {chain0 + C} or more")
 
     def one(k, it_k, slot):
-        wk = words[k * n:(k + 1) * n]
+        wk = words[k * n:(k + 1) * n, chain0:chain0 + C]
+        gate = words[k * n + cfg.rows.fire, :1] if chain0 else None
         margin = fused_ops.sweep_plain(
             cfg, model, spec, theta, w, fire, it_k, wk,
-            history_partners(cfg, hist, idx[k * m:(k + 1) * m]), slot)
-        hist[it_k - 1].copy_(theta)
+            history_partners(cfg, hist, idx[k * m:(k + 1) * m]), slot, gate)
+        hist[it_k - 1, chain0:chain0 + C].copy_(theta)
         return margin
 
     return fused_ops.window_plain(cfg, fire, it, K, emit, out, one)
 
 
-def _check_window(cfg, hist, it, K, emit, phase):
+def _check_window(cfg, hist, it, K, emit, phase, chain0=0):
     fused_ops.check_window(cfg, it, K, emit, phase)
-    H = hist.shape[0]
+    H, C_pop = hist.shape[0], hist.shape[1]
     if not (2 <= it and it + K - 1 <= H):
         raise ValueError(f"iterations {it}..{it + K - 1} need history rows "
                          f"0..{it + K - 2}; the history has {H} rows")
+    C = cfg.G * cfg.Np
+    if chain0 < 0 or chain0 + C > C_pop:
+        raise ValueError(f"chains {chain0}..{chain0 + C - 1} of a history "
+                         f"of {C_pop} chains")
+    if K > 1 and (chain0 or C_pop != C):
+        raise ValueError(f"a shard of a population (chains {chain0}.. of "
+                         f"{C_pop}) steps one iteration a launch: the other "
+                         f"shards write the rest of each history row")
     most = window_chains(cfg, hist.device)
     if K > 1 and cfg.G * cfg.Np > most:
         raise ValueError(f"a K3 window of K > 1 runs in one CTA (or one "
@@ -191,7 +217,7 @@ def _check_window(cfg, hist, it, K, emit, phase):
 def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
                   seed: int = 0, out=None, bits=None, idx=None,
                   check: bool = True, K: int = 1, emit=(0, 1),
-                  phase: str = "all"):
+                  phase: str = "all", chain0: int = 0):
     """A window of ``K`` DE-MCz iterations from ``it`` in place on ``theta
     [C, d]`` / ``w [C]``, writing each iteration's state to history row
     ``it_k − 1`` of ``hist [H, C, d]``, the migration gate its last
@@ -200,26 +226,38 @@ def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
     with ``out``, the trajectory rows of the emission rule ``emit`` (as
     :func:`.fused_step.de_step`).
 
-    Words are Philox(seed, it + k) or ``bits [K·n_words, C]``; history
-    indices are drawn from Philox ``RESAMPLE_NS`` words or given as ``idx
-    [K·n_sets·n_slots, C]``.  CPU tensors take the plain version; CUDA
-    tensors launch K3 once (``resample_step.launches`` counts the
-    launches); there is no fallback."""
-    C = cfg.G * cfg.Np
+    ``theta`` may be one shard of the population (``cfg`` its
+    ``fused_step.local_config``): chains ``chain0 ..`` of it, with ``hist
+    [H, C_pop, d]`` the population's history, one iteration a launch.  The
+    shard draws the words of its chains (the gate from chain 0's), its
+    history indices over the population's ``count·C_pop`` (row, chain)
+    pairs, and writes its columns ``chain0 .. chain0 + C − 1`` of the
+    history row.
+
+    Words are Philox(seed, it + k) or ``bits [K·n_words, n]`` of the
+    population's ``n`` chains; history indices are drawn from Philox
+    ``RESAMPLE_NS`` words or given as ``idx [K·n_sets·n_slots, C]`` (the
+    launch's chains).  CPU tensors take the plain version; CUDA tensors
+    launch K3 once (``resample_step.launches`` counts the launches); there
+    is no fallback."""
+    C, C_pop = cfg.G * cfg.Np, hist.shape[1]
     if not cfg.resample:
         raise ValueError("resample_step needs a resample configuration")
-    _check_window(cfg, hist, it, K, emit, phase)
+    _check_window(cfg, hist, it, K, emit, phase, chain0)
     if theta.device.type == "cpu":
         if bits is None:
+            n = chain0 + C
             bits = rng.words_block(seed, it, K, cfg.rows.n_words,
-                                   C).view(-1, C)
+                                   n).view(-1, n)
         if idx is None:
-            idx = torch.cat([indices(cfg, seed, it + k) for k in range(K)])
+            idx = torch.cat([indices(cfg, seed, it + k, chain0=chain0,
+                                     n_pop=C_pop) for k in range(K)])
         resample_step_plain(cfg, model, spec, theta, w, fire, hist, it,
-                            bits, idx, out, K, emit, phase)
+                            bits, idx, out, K, emit, phase, chain0)
         return
     if check:
-        check_cuda(cfg, theta, w, fire, hist, bits, idx, out, K, emit)
+        check_cuda(cfg, theta, w, fire, hist, bits, idx, out, K, emit,
+                   chain0)
     lib = _build.library("de_step_resample")
     name = _build.entry("resample_step", cfg.density, cfg.mode)
     o_t, o_w, o_a = (None, None, None) if out is None else (
@@ -230,8 +268,10 @@ def resample_step(cfg, model, spec, theta, w, fire, hist, it: int,
         hist.data_ptr(), hist.shape[0],
         None if bits is None else bits.data_ptr(),
         None if idx is None else idx.data_ptr(),
-        cfg.iargs(it, seed, K, emit, phase == "post"), cfg.fargs,
-        cfg.sweep_args, cfg.theta_snooker_arg)
+        cfg.iargs(it, seed, K, emit, phase == "post",
+                  None if bits is None else bits.shape[1]),
+        cfg.fargs, cfg.sweep_args, cfg.theta_snooker_arg, int(chain0),
+        int(C_pop))
     resample_step.launches += 1
 
 
@@ -239,13 +279,15 @@ resample_step.launches = 0
 
 
 def check_cuda(cfg, theta, w, fire, hist, bits=None, idx=None, out=None,
-               K: int = 1, emit=(0, 1)):
+               K: int = 1, emit=(0, 1), chain0: int = 0):
     """Raise unless the tensors are what K3 takes on a CUDA device for a
-    window of ``K`` iterations storing by ``emit``."""
+    window of ``K`` iterations storing by ``emit``, on chains ``chain0
+    ..`` of the population whose history ``hist`` is."""
     fused_ops.check_cuda(cfg, theta, w, fire, bits, out, "resample_step",
-                         K, emit)
+                         K, emit, chain0)
     C, d = cfg.G * cfg.Np, cfg.d
-    want = [("hist", hist, torch.float32, (hist.shape[0], C, d))]
+    want = [("hist", hist, torch.float32,
+             (hist.shape[0], max(hist.shape[1], chain0 + C), d))]
     if idx is not None:
         want.append(("idx", idx, torch.int64, (K * index_rows(cfg), C)))
     for name, t, dt, shape in want:

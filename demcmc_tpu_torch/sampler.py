@@ -25,8 +25,12 @@ JAX package's ``build_step`` does (``demcmc_tpu/sampler.py:100-171``):
 
 Under a chain mesh of more than one device (``mesh=``, :mod:`.parallel`)
 :class:`ShardedStep` splits the groups over the devices, one of the
-above per shard, and runs migration on the whole population; a sharded
-run is the unsharded run bit for bit.
+above per shard, and runs migration on the whole population; DE-MCz
+keeps a history replica a device, its new rows shared every iteration; a
+``chains × data`` mesh sums each shard's likelihood over its data
+pieces; over several processes (``parallel.distributed``) each rank
+steps its own shards and the exchanges are collectives.  A sharded run
+is the unsharded run bit for bit.
 
 :func:`sample_replicated` (and :func:`sample_replicated_packed`,
 ``optimize.optimize_replicated``) runs R datasets' runs as one batch:
@@ -68,7 +72,9 @@ from .ops import migration as migration_ops
 from .ops import mutation as mutation_ops
 from .ops import proposals as proposal_ops
 from .ops import resample_step as resample_ops
-from .parallel.mesh import mesh_devices, shard_replications
+from .parallel import distributed
+from .parallel.mesh import (ShardedData, has_data_axis, mesh_devices,
+                            shard_replications)
 from .utils import checkpoint, dists, pytree
 from .utils.monitor import ConvergenceMonitor
 
@@ -353,7 +359,10 @@ class Step:
     population, one shard of a chain mesh (:class:`ShardedStep`): K1 on
     the shard's state with the words of its chains (``chain0``) and
     without migration, which the sharded step runs on the whole
-    population."""
+    population.  A DE-MCz shard runs K3 on the population's history (the
+    state's, a replica on the shard's device) one iteration a launch,
+    writing its chains' columns of each row: iteration ``it + 1`` may read
+    row ``it − 1`` of any chain, which another shard writes."""
 
     WORDS_PER_BLOCK = 1 << 20     # CPU: words drawn per block, at most
 
@@ -376,6 +385,7 @@ class Step:
                              "the JAX package")
         self.n_all = self.cfg.G * self.cfg.Np     # the population's chains
         self.chain0, self.migrates = 0, self.cfg.rows.mig >= 0
+        self.shard = groups is not None
         if groups is not None:
             self.chain0 = groups[0] * self.cfg.Np
             self.cfg = fused_ops.local_config(self.cfg, groups[1])
@@ -390,8 +400,11 @@ class Step:
     def superstep_k(self) -> int:
         """Iterations per launch at most (windows are cut shorter where a
         gate opens): K3 takes one CTA per window, so K = 1 above the chains
-        one CTA of its kernel holds (read from the library at first use)."""
+        one CTA of its kernel holds (read from the library at first use),
+        and on a shard of a chain mesh."""
         if self.cfg.resample:
+            if self.shard:
+                return 1
             return resample_ops.resample_super_k(self.cfg, self.device)
         return fused_ops.super_k()
 
@@ -418,7 +431,8 @@ class Step:
                                      cfg.G, cfg.Np)
         if cfg.resample:
             resample_ops.check_cuda(cfg, state.theta, state.weight,
-                                    state.fire, state.history, out=out)
+                                    state.fire, state.history, out=out,
+                                    chain0=self.chain0)
         else:
             fused_ops.check_cuda(cfg, state.theta, state.weight, state.fire,
                                  out=out)
@@ -438,14 +452,16 @@ class Step:
                                   bits=bits, check=check)
         if cfg.resample:
             idx = None
+            c0, c = self.chain0, cfg.G * cfg.Np
             if cpu:
                 idx = resample_ops.indices_from_words(cfg, self._words(
                     state.key, it, rng.RESAMPLE_NS,
-                    resample_ops.index_rows(cfg)), it)
+                    resample_ops.index_rows(cfg))[:, c0:c0 + c], it,
+                    self.n_all)
             resample_ops.resample_step(
                 cfg, self.model, self.spec, state.theta, state.weight,
                 state.fire, state.history, it, seed=state.key, out=out,
-                bits=bits, idx=idx, check=check, phase=phase)
+                bits=bits, idx=idx, check=check, phase=phase, chain0=c0)
         else:
             fused_ops.de_step(cfg, self.model, self.spec, state.theta,
                               state.weight, state.fire, it, seed=state.key,
@@ -472,11 +488,12 @@ class Step:
                                    device=self.device).view(-1, C)
             if cfg.resample:
                 words = rng.words_block(key, w.it0, w.K,
-                                        resample_ops.index_rows(cfg), C,
-                                        ns=rng.RESAMPLE_NS,
-                                        device=self.device)
+                                        resample_ops.index_rows(cfg),
+                                        cfg.G * cfg.Np, ns=rng.RESAMPLE_NS,
+                                        device=self.device,
+                                        chain0=self.chain0)
                 idx = torch.cat([resample_ops.indices_from_words(
-                    cfg, words[k], w.it0 + k) for k in range(w.K)])
+                    cfg, words[k], w.it0 + k, C) for k in range(w.K)])
         if w.migrate and self.migrates:
             migration_ops.migrate(state.theta, state.weight, state.fire,
                                   cfg.G, cfg.Np, seed=key, it=w.it0,
@@ -486,7 +503,7 @@ class Step:
                 cfg, self.model, self.spec, state.theta, state.weight,
                 state.fire, state.history, w.it0, seed=key, out=out,
                 bits=bits, idx=idx, check=False, K=w.K, emit=w.emit,
-                phase=phase)
+                phase=phase, chain0=self.chain0)
         else:
             fused_ops.de_step(cfg, self.model, self.spec, state.theta,
                               state.weight, state.fire, w.it0, seed=key,
@@ -602,7 +619,9 @@ class UnfusedStep:
     shard of a chain mesh (:class:`ShardedStep`): its pool holds those
     groups' rows of the population's pool, its keys and panels draw those
     groups' (chains') words, and it passes over the migration's columns,
-    which the sharded step draws for the whole population."""
+    which the sharded step draws for the whole population.  A DE-MCz
+    shard reads the population's history ``[H, C_pop, d]`` and writes its
+    chains' columns of row ``it − 1``."""
 
     WORDS_PER_BLOCK = 1 << 21     # pool words drawn per block, at most
 
@@ -612,6 +631,7 @@ class UnfusedStep:
         self.device = torch.device(device)
         self.dtype, self.x64 = de.torch_dtype, de.dtype is np.float64
         self.G, self.Np, self.d = de.n_groups, de.Np, spec.dim
+        self.n_pop = de.n_chains      # the population's chains
         self.g0 = None                # None: the whole population
         if groups is not None:
             self.g0, self.G = groups
@@ -909,10 +929,11 @@ class UnfusedStep:
         C, d = self.G * self.Np, self.d
         if self.de.uses_resample and (
                 state.history is None
-                or tuple(state.history.shape[1:]) != (C, d)
+                or tuple(state.history.shape[1:]) != (self.n_pop, d)
                 or state.history.shape[0] < state.iteration):
             raise ValueError("a resample run needs state.history [H, C, d] "
-                             "with a row for each iteration")
+                             "of the population's C chains with a row for "
+                             "each iteration")
         dt = self.dtype
         want = [("theta", state.theta, dt, (C, d)),
                 ("weight", state.weight, dt, (C,))]
@@ -951,7 +972,8 @@ class UnfusedStep:
         state.theta.copy_(theta.reshape(G * Np, d))
         state.weight.copy_(weight.reshape(G * Np))
         if state.history is not None:     # store_samples!, row it - 1
-            state.history[it - 1].copy_(state.theta)
+            c0 = (self.g0 or 0) * Np
+            state.history[it - 1, c0:c0 + G * Np].copy_(state.theta)
         if out is not None:
             out[0].copy_(state.theta)
             out[1].copy_(state.weight)
@@ -1046,10 +1068,11 @@ def fused_supported(model: DEModel, de: DE, device="cpu") -> bool:
     device; the launch's static limit of 1,024 chains on the CPU), as the
     JAX predicate falls back outside its kernel's shapes
     (``demcmc_tpu/ops/fused_step.py:200-204``).  Every other
-    configuration (float64 and any custom strategy slot among them) takes
-    the unfused step."""
+    configuration (float64, any custom strategy slot and data sharded over
+    a mesh's ``data`` axis among them) takes the unfused step."""
     dens = model.cuda_density
-    if dens is None or de.dtype is not np.float32 or de.custom_slots:
+    if (dens is None or de.dtype is not np.float32 or de.custom_slots
+            or isinstance(model.data, ShardedData)):
         return False
     if de.is_mh:
         if de.fun_fitness:
@@ -1107,6 +1130,28 @@ class ShardedStep:
     first shard's gate; for the unfused step, from the migration columns
     of a pool of every group), and each shard's rows are copied back.
 
+    DE-MCz reads the history of every chain: each distinct device of the
+    mesh holds a replica of the population's ``[H, C, d]`` history, seeded
+    from the state's; a shard runs K3 (or the unfused step) one iteration
+    at a time on its device's replica, writing its chains' columns of row
+    ``it − 1``, and after each iteration each shard's new rows are copied
+    (stream-ordered, no host sync) to the replicas on the other devices.
+    Shards on one device share its replica: an iteration reads only rows
+    below ``it − 1``, so no shard reads what another writes.
+
+    Under a ``chains × data`` mesh (``parallel.data_mesh``) each shard
+    takes the unfused step with its chain row of the model's sharded data
+    (``parallel.ShardedData.row``): the likelihood piece by piece on the
+    row's data devices.  The kernels' step is not taken under a data axis.
+
+    Over several processes (``owners``, the rank that owns each shard:
+    ``parallel.distributed.global_chain_mesh``) a rank steps only its own
+    shards, which are a contiguous run of the mesh; the gather before
+    migration is a collective all-gather, every rank runs the exchange on
+    the same gathered population and keeps its rows, DE-MCz's new history
+    rows are all-gathered every iteration, and :meth:`collect` all-gathers
+    a run's kept rows.
+
     Every word is keyed by the population's chain (or group), so a sharded
     run is the unsharded run bit for bit.  The JAX package coalesces a
     window's migration events to its start (``mig_replay``, TPU kernel
@@ -1116,55 +1161,127 @@ class ShardedStep:
     gate opens, and each event runs at its own iteration.
 
     :meth:`split` and :meth:`gather` convert a :class:`SamplerState` to a
-    :class:`ShardedState` and back; the other methods are :class:`Step`'s
-    on a :class:`ShardedState`, with a trajectory slot per shard.
-    DE-MCz (its history is read across shards) raises."""
+    :class:`ShardedState` (this rank's shards) and back; the other methods
+    are :class:`Step`'s on a :class:`ShardedState`, with a trajectory slot
+    per shard."""
 
     def __init__(self, model: DEModel, de: DE, spec: ParamSpec, devices,
-                 allow_fused: bool = True):
-        if de.uses_resample:
-            raise NotImplementedError(
-                "sample='resample' (DE-MCz) under a chain mesh is not ported "
-                "to demcmc_tpu_torch yet (ROADMAP.md A10 rest); run it on "
-                "one device, or use demcmc_tpu")
-        self.devices = [torch.device(d) for d in devices]
+                 allow_fused: bool = True, owners=None):
+        from dataclasses import replace
+        devices = [torch.device(d) for d in devices]
+        groups = fused_ops.shard_groups(de.n_groups, len(devices))
+        self.spans_all = [(g0 * de.Np, (g0 + n) * de.Np)   # each shard's
+                          for g0, n in groups]            # chains
+        self.owners = None if owners is None else [int(r) for r in owners]
+        self.local = list(range(len(devices)))   # this rank's shards
+        if self.owners is not None:
+            if len(self.owners) != len(devices) \
+                    or self.owners != sorted(self.owners):
+                raise ValueError(f"owners {self.owners}: one rank a shard, "
+                                 f"each rank's shards a contiguous run")
+            me = distributed.rank()
+            self.local = [i for i, r in enumerate(self.owners) if r == me]
+            if not self.local:
+                raise ValueError(f"rank {me} owns no shard of the mesh")
+            self.counts = [sum(b - a for (a, b), r in zip(
+                self.spans_all, self.owners) if r == k)
+                for k in range(distributed.world_size())]
+        self.devices = [devices[i] for i in self.local]
         self.device = self.devices[0]
-        self.groups = fused_ops.shard_groups(de.n_groups, len(self.devices))
+        self.groups = [groups[i] for i in self.local]
+        self.spans = [self.spans_all[i] for i in self.local]
+        models = [model] * len(self.local)
+        if isinstance(model.data, ShardedData):
+            if model.data.n_rows != len(devices):
+                raise ValueError(f"the model's data is sharded over "
+                                 f"{model.data.n_rows} chain rows; the "
+                                 f"mesh has {len(devices)}")
+            models = [replace(model, data=model.data.row(i))
+                      for i in self.local]
         self.fused = allow_fused and all(
-            fused_supported(model, de, d) for d in set(self.devices))
+            fused_supported(m, de, d) for m, d in zip(models, self.devices))
         make = Step if self.fused else UnfusedStep
-        self.steps = [make(model, de, spec, dev, groups=g)
-                      for dev, g in zip(self.devices, self.groups)]
+        self.steps = [make(m, de, spec, dev, groups=g)
+                      for m, dev, g in zip(models, self.devices,
+                                           self.groups)]
         self.G, self.Np, self.d = de.n_groups, de.Np, spec.dim
         self.alpha = float(de.alpha) if de.n_groups > 1 else 0.0
-        self.spans = [(g0 * de.Np, (g0 + n) * de.Np)    # each shard's chains
-                      for g0, n in self.groups]
+        self.resample = de.uses_resample
 
     # ---- the state across the mesh
 
     def split(self, state: SamplerState) -> ShardedState:
-        """The state's chains, shard by shard, copied to their devices."""
+        """This rank's shards of the state, each shard's chains copied to
+        its device; for DE-MCz one replica of the history a device."""
+        replicas = {}
+
+        def history(dev):
+            if state.history is None:
+                return None
+            if dev not in replicas:
+                replicas[dev] = state.history.to(dev, copy=True)
+            return replicas[dev]
         return ShardedState(tuple(state._replace(
             theta=state.theta[a:b].to(dev, copy=True).contiguous(),
             weight=state.weight[a:b].to(dev, copy=True).contiguous(),
-            fire=state.fire.to(dev, copy=True), history=None)
+            fire=state.fire.to(dev, copy=True), history=history(dev))
             for (a, b), dev in zip(self.spans, self.devices)))
 
     def gather(self, state: ShardedState) -> SamplerState:
-        """The whole population on the mesh's first device."""
+        """The whole population on this rank's first device (the mesh's
+        first device in one process), with the history of its replica."""
         theta, weight = self._gathered(state)
         s0 = state.shards[0]
         return s0._replace(theta=theta, weight=weight,
                            fire=s0.fire.to(self.device, copy=True))
 
     def _gathered(self, state: ShardedState):
-        return (torch.cat([s.theta.to(self.device) for s in state.shards]),
-                torch.cat([s.weight.to(self.device) for s in state.shards]))
+        theta = torch.cat([s.theta.to(self.device) for s in state.shards])
+        weight = torch.cat([s.weight.to(self.device) for s in state.shards])
+        if self.owners is not None:
+            theta = distributed.all_gather_chains(theta, self.counts)
+            weight = distributed.all_gather_chains(weight, self.counts)
+        return theta, weight
 
     def _scatter(self, state: ShardedState, theta, weight):
         for (a, b), s in zip(self.spans, state.shards):
             s.theta.copy_(theta[a:b])
             s.weight.copy_(weight[a:b])
+
+    def _share_rows(self, state: ShardedState, r0: int, r1: int):
+        """DE-MCz: history rows ``r0 .. r1-1``, each shard's columns
+        written on its device's replica, copied to every other replica
+        (and, over processes, all-gathered from every rank)."""
+        if not self.resample:
+            return
+        replicas = list({id(s.history): s.history
+                         for s in state.shards}.values())
+        if len(replicas) > 1:
+            for (a, b), s in zip(self.spans, state.shards):
+                for h in replicas:
+                    if h is not s.history:
+                        h[r0:r1, a:b].copy_(s.history[r0:r1, a:b],
+                                            non_blocking=True)
+        if self.owners is not None:
+            lo, hi = self.spans[0][0], self.spans[-1][1]
+            rows = distributed.all_gather_chains(
+                state.shards[0].history[r0:r1, lo:hi], self.counts, dim=1)
+            for h in replicas:
+                h[r0:r1].copy_(rows, non_blocking=True)
+
+    def collect(self, ys: "StepOutput") -> "StepOutput":
+        """A run's kept rows of this rank's chains as every rank's, the
+        population's in chain order (over processes an all-gather; in one
+        process they already are)."""
+        if self.owners is None or ys is None:
+            return ys
+        dev = distributed.layout().device
+        out = []
+        for x in (ys.theta, ys.accept, ys.lp):
+            t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+            out.append(distributed.all_gather_chains(
+                t, self.counts, dim=1).cpu().numpy())
+        return StepOutput(theta=out[0], accept=out[1], lp=out[2])
 
     def migrate(self, state: ShardedState, it: int):
         """Migration before iteration ``it`` on the whole population: K2
@@ -1205,23 +1322,29 @@ class ShardedStep:
     def __call__(self, state: ShardedState, out=None, check: bool = True,
                  phase: str = "all") -> ShardedState:
         """One iteration: migration (:meth:`migrate`), then each shard's
-        step; ``out`` a trajectory slot per shard, or None."""
-        self.migrate(state, state.iteration)
+        step (and DE-MCz's history row shared); ``out`` a trajectory slot
+        per shard, or None."""
+        it = state.iteration
+        self.migrate(state, it)
         outs = out if out is not None else [None] * len(self.steps)
         kw = {"phase": phase} if self.fused else {}
-        return ShardedState(tuple(
+        state = ShardedState(tuple(
             step(s, o, check=check, **kw)
             for step, s, o in zip(self.steps, state.shards, outs)))
+        self._share_rows(state, it - 1, it)
+        return state
 
     def window(self, state: ShardedState, w: Window, traj=None):
         """Window ``w`` (:meth:`Step.window`): migration on the whole
-        population where ``w.migrate``, then one K1 launch per shard;
-        ``traj`` a trajectory per shard, or None."""
+        population where ``w.migrate``, then one K1 (K3) launch per shard
+        (and DE-MCz's history rows shared); ``traj`` a trajectory per
+        shard, or None."""
         if w.migrate:
             self.migrate(state, w.it0)
         trajs = traj if traj is not None else [None] * len(self.steps)
         for step, s, t in zip(self.steps, state.shards, trajs):
             step.window(s, w, t)
+        self._share_rows(state, w.it0 - 1, w.it0 - 1 + w.K)
 
     @property
     def superstep_k(self) -> int:
@@ -1264,38 +1387,48 @@ def _kernels(step) -> bool:
 
 def _on_mesh(mesh, device):
     """``(devices, device)`` of a call with ``mesh=`` and ``device=``:
-    the mesh's devices, or None without a mesh or with a mesh of one
-    device (the plain path on it), and the device the state starts on.
-    Raises for a non-mesh and for a ``device=`` that differs from the
-    mesh's devices."""
+    the mesh's chain shards' devices, or None without a mesh or with a
+    mesh of one chain shard (the plain path on it), and the device the
+    state starts on (over processes, this rank's first shard's).  Raises
+    for a non-mesh and for a ``device=`` that differs from the mesh's
+    devices."""
     if mesh is None:
         return None, resolve_device(device)
     devices = mesh_devices(mesh)
+    first = 0
+    if mesh.owners is not None:
+        first = mesh.owners.index(distributed.rank())
     if device is not None:
         want = torch.device(device)
         if want.type == "cuda" and want.index is None:
             want = torch.device("cuda", torch.cuda.current_device()
                                 if torch.cuda.is_available() else 0)
-        if any(d != want for d in devices):
+        mine = (devices if mesh.owners is None else
+                [d for d, r in zip(devices, mesh.owners)
+                 if r == distributed.rank()])
+        if any(d != want for d in mine):
             raise ValueError(f"device={device} with a mesh of "
                              f"{[str(d) for d in devices]}: pass one or "
                              f"the other")
     devices = [resolve_device(d) for d in devices]
-    return (devices if len(devices) > 1 else None), devices[0]
+    return (devices if len(devices) > 1 else None), devices[first]
 
 
 def build_step(model: DEModel, de: DE, spec: ParamSpec, device=None,
                allow_fused: bool = True, mesh=None):
     """The one-iteration step for this configuration on ``device``: the
     kernels' :class:`Step` where :func:`fused_supported`, else (or with
-    ``allow_fused=False``) the :class:`UnfusedStep`; over a chain mesh of
-    more than one device, a :class:`ShardedStep` of them (a mesh of one
-    device is the plain path on it).  The choice depends on the model and
-    the configuration only; a kernel that fails to build or launch
-    raises."""
+    ``allow_fused=False``, or under a mesh's ``data`` axis) the
+    :class:`UnfusedStep`; over a mesh of more than one chain shard, a
+    :class:`ShardedStep` of them (a mesh of one chain shard is the plain
+    path on its device).  The choice depends on the model and the
+    configuration only; a kernel that fails to build or launch raises."""
     devices, device = _on_mesh(mesh, device)
+    if has_data_axis(mesh):
+        allow_fused = False
     if devices is not None:
-        return ShardedStep(model, de, spec, devices, allow_fused)
+        return ShardedStep(model, de, spec, devices, allow_fused,
+                           owners=mesh.owners)
     if allow_fused and fused_supported(model, de, device):
         return Step(model, de, spec, device)
     return UnfusedStep(model, de, spec, device)
@@ -1329,7 +1462,9 @@ def _trajectory_run(step, state, n_iter: int, thin: int, body,
     theta, lp, acc = (
         np.concatenate(x, 1) if sharded else x[0]
         for x in ([t[i].cpu().numpy() for t in trajs] for i in range(3)))
-    return state, StepOutput(theta=theta, accept=acc, lp=lp)
+    ys = StepOutput(theta=theta, accept=acc, lp=lp)
+    return state, (step.collect(ys) if isinstance(step, ShardedStep)
+                   else ys)
 
 
 def _row(traj, t: int):
@@ -1644,7 +1779,9 @@ def run_scan(step, state, n_iter: int, thin: int = 1, phase2: int = None,
         ckpt_future.result()             # join the last write
     if store is None:
         return state, None
-    return state, store.result()
+    ys = store.result()
+    return state, (step.collect(ys) if isinstance(step, ShardedStep)
+                   else ys)
 
 
 def run_loop(step, state: SamplerState, n_iter: int, thin: int = 1,
@@ -1679,10 +1816,16 @@ def sample(model: DEModel, de: DE, *args, key: int = 0,
     ``state`` resumes from a returned or loaded state (it is not
     modified), ``return_state`` also returns the final state,
     ``allow_fused=False`` takes the unfused step (:func:`build_step`).
-    ``mesh`` (a :func:`~demcmc_tpu_torch.parallel.chain_mesh`) splits the
-    groups over its devices (:class:`ShardedStep`; the state starts on,
-    and a returned state is gathered to, its first device; bitwise the
-    unsharded run); ``device=`` with a mesh must name the mesh's devices.
+    ``mesh`` (a :func:`~demcmc_tpu_torch.parallel.chain_mesh`, a
+    ``data_mesh`` with the model's data from ``shard_data``, or
+    ``distributed.global_chain_mesh()`` over several processes) splits
+    the groups over its devices (:class:`ShardedStep`; the state starts
+    on, and a returned state is gathered to, its first device, over
+    processes this rank's; bitwise the unsharded run, DE-MCz included;
+    over processes every rank returns the same ``Chains``); ``device=``
+    with a mesh must name the mesh's devices.  Over several processes
+    ``checkpoint_every``, ``monitor`` and ``stop_rhat`` raise
+    ``NotImplementedError`` (ROADMAP.md A10 rest 6).
 
     As in the JAX package (``demcmc_tpu/sampler.py:1451-1575``):
     ``progress`` prints a progress line (rate, ETA and, when monitoring,
@@ -1705,6 +1848,8 @@ def sample(model: DEModel, de: DE, *args, key: int = 0,
         raise ValueError(f"burnin ({de.burnin}) must be divisible by "
                          f"thin ({thin})")
     devices, device = _on_mesh(mesh, device)
+    _refuse_across_processes(mesh, checkpoint_every=checkpoint_every,
+                             monitor=monitor or stop_rhat is not None)
     spec = make_spec(model, de)
     if state is None:
         state = init_state(model, de, spec, key, device=device)
@@ -1747,6 +1892,24 @@ def sample(model: DEModel, de: DE, *args, key: int = 0,
     if return_state:
         return chains, state
     return chains
+
+
+def _refuse_across_processes(mesh, checkpoint_every=0, monitor=False,
+                             what=None):
+    """Raise ``NotImplementedError`` (ROADMAP.md A10 rest 6) for what a run
+    over several processes (a mesh with ``owners``) does not carry yet:
+    checkpoints, the monitor and ``stop_rhat``, or ``what``."""
+    if getattr(mesh, "owners", None) is None:
+        return
+    if checkpoint_every and checkpoint_every > 0:
+        what = "checkpoints (checkpoint_every)"
+    elif monitor:
+        what = "the streaming monitor (monitor, stop_rhat)"
+    if what is not None:
+        raise NotImplementedError(
+            f"{what} under a process group (a mesh over several ranks) "
+            f"is not ported to demcmc_tpu_torch yet (ROADMAP.md A10 rest "
+            f"6); run it in one process")
 
 
 def _phase2(step, de: DE, state, n_iter: int):
@@ -2035,12 +2198,18 @@ def _check_thin(de: DE, n_iter: int, thin: int):
 def rep_supported(models, de: DE, device) -> bool:
     """Static predicate: do these replications run as one replicated K1
     batch (:class:`RepStep`)?  Where every replication's configuration
-    takes the kernels' step with K1 (:func:`fused_supported`, not DE-MCz)
-    and a group fits one block of the replicated kernel.  Their densities
-    must then stack into one table (``DensityTable.stack`` raises
-    otherwise)."""
-    if de.uses_resample or not all(fused_supported(m, de, device)
-                                   for m in models):
+    takes the kernels' step with K1 (:func:`fused_supported`, not DE-MCz),
+    a group fits one block of the replicated kernel and, where the
+    replications migrate (α > 0, G > 1), one replication fits the
+    segmented K2's one CTA (``ops/migration.py::ONE_CTA_MAX_CHAINS``;
+    wider ones run in turn, until ROADMAP.md A8 rest 3 lifts the limit).
+    Their densities must then stack into one table
+    (``DensityTable.stack`` raises otherwise).  It depends on the
+    configuration alone, so the CPU evaluates it."""
+    migrates_wide = (de.alpha > 0.0 and de.n_groups > 1 and de.n_groups
+                     * de.Np > migration_ops.ONE_CTA_MAX_CHAINS)
+    if (de.uses_resample or migrates_wide
+            or not all(fused_supported(m, de, device) for m in models)):
         return False
     dens = models[0].cuda_density
     greedy = {} if de.is_mh else {"mode": fused_ops.accept_mode(de)}
@@ -2068,6 +2237,7 @@ def _rep_devices(mesh, device, R: int):
     """Each replication's device: ``(devices, by_rep)`` — the mesh's
     devices (None without a mesh, or with a mesh of one device) and the
     device of each of the R replications."""
+    _refuse_across_processes(mesh, what="a replicated run")
     devices, device = _on_mesh(mesh, device)
     if devices is None:
         return None, [device] * R
@@ -2135,7 +2305,9 @@ def sample_replicated(make_model, de: DE, n_iter: int, datasets, key=0,
     where a replication's gate opens); their densities must name one
     header with data of one shape, else ``ValueError``.  Every other
     configuration (DE-MCz, float64, custom slots, stochastic models,
-    models without a CUDA density, or ``allow_fused=False``) runs its
+    models without a CUDA density, a migrating replication of more than
+    ``ops/migration.py::ONE_CTA_MAX_CHAINS`` chains, or
+    ``allow_fused=False``) runs its
     replications in turn, each its solo run, in this one call.  A kernel
     that fails to build or launch raises.
 
@@ -2176,8 +2348,9 @@ def sample_replicated_packed(make_model, de: DE, n_iter: int, datasets,
       statistically equivalent, not bitwise.
 
     A configuration that does not take the replicated K1 (DE-MCz,
-    float64, a model without a CUDA density, ...) raises ``ValueError``:
-    use :func:`sample_replicated`.  Returns a list of R :class:`Chains`."""
+    float64, a model without a CUDA density, a migrating replication wider
+    than K2's one CTA, :func:`rep_supported`) raises ``ValueError`` before
+    any kernel is built: use :func:`sample_replicated`.  Returns a list of R :class:`Chains`."""
     _check_thin(de, n_iter, thin)
     models, seeds, spec = _replicated_setup(make_model, de, datasets, key,
                                             None)
@@ -2186,7 +2359,9 @@ def sample_replicated_packed(make_model, de: DE, n_iter: int, datasets,
         raise ValueError(
             f"configuration is not fused-supported when packed "
             f"(n_groups={de.n_groups * len(models)}): the replicated K1 runs "
-            f"float32 K1 densities, not DE-MCz; use sample_replicated")
+            f"float32 K1 densities, not DE-MCz, and a migrating "
+            f"replication of at most {migration_ops.ONE_CTA_MAX_CHAINS} "
+            f"chains; use sample_replicated")
     _, ys = _run_replicated(models, de, spec, seeds, n_iter, thin, None,
                             device, packed_key=int(key))
     return _bundle_reps(models, de, spec, ys, n_iter, thin)

@@ -64,14 +64,15 @@ def test_optimization_modules_import_neither_jax_nor_the_jax_package(rel):
         assert "numpy" in roots and "torch" not in roots
 
 
-@pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/mesh.py"])
+@pytest.mark.parametrize("rel", ["parallel/__init__.py", "parallel/mesh.py",
+                                 "parallel/distributed.py"])
 def test_mesh_modules_import_neither_jax_nor_the_jax_package(rel):
-    """The chain-mesh modules, one by one: each exists and imports no JAX
-    and nothing of the JAX package (its ``parallel`` included); the mesh
-    module imports torch."""
+    """The mesh modules, one by one: each exists and imports no JAX and
+    nothing of the JAX package (its ``parallel`` included); the mesh and
+    process modules import torch."""
     roots = set(_imported_roots(PKG / rel))
     assert not roots & {"jax", "jaxlib", "demcmc_tpu"}
-    if rel == "parallel/mesh.py":
+    if rel != "parallel/__init__.py":
         assert "torch" in roots
 
 
@@ -90,8 +91,9 @@ def test_state_and_api_modules_import_neither_jax_nor_the_jax_package(rel):
 
 def test_exports_of_the_jax_package():
     """The JAX package's exports the port carries: the proposal slots,
-    the checkpoint pair, ``as_union``, the module alias ``DEMCMC`` and
-    the replicated runs (ROADMAP.md A8)."""
+    the checkpoint pair, ``as_union``, the module alias ``DEMCMC``, the
+    replicated runs (ROADMAP.md A8) and ``parallel``'s ``distributed``,
+    ``data_mesh`` and ``shard_data`` (A10 rest 2-3)."""
     from demcmc_tpu_torch.ops import proposals
     from demcmc_tpu_torch.utils import checkpoint, pytree
     for name, obj in (("snooker", proposals.snooker),
@@ -105,6 +107,12 @@ def test_exports_of_the_jax_package():
     assert {"sample_replicated", "sample_replicated_packed",
             "optimize_replicated"} <= set(tdm.__all__)
     assert tdm.sample_replicated is tdm.sampler.sample_replicated
+    assert {"distributed", "data_mesh", "shard_data",
+            "chain_mesh"} <= set(tdm.parallel.__all__)
+    from demcmc_tpu_torch.parallel import distributed
+    assert tdm.parallel.distributed is distributed
+    for name in ("initialize", "global_chain_mesh", "is_coordinator"):
+        assert callable(getattr(distributed, name))
     assert tdm.sample_replicated_packed is \
         tdm.sampler.sample_replicated_packed
     assert tdm.as_union((1, [2, 3])) == [1, [2, 3]]
@@ -138,7 +146,8 @@ def test_to_inference_data_dict_and_missing_arviz():
                                   "tools/rhat_ab.py", "tools/k2_phases.py",
                                   "tools/window_ab.py",
                                   "tools/run_scan_ab.py",
-                                  "tools/unfused_graph_ab.py"])
+                                  "tools/unfused_graph_ab.py",
+                                  "tools/dist_cards.py"])
 def test_chip_scripts_import_neither_jax_nor_the_jax_package(name):
     roots = set(_imported_roots(PKG.parent / name))
     assert roots and not roots & {"jax", "jaxlib", "demcmc_tpu"}

@@ -334,17 +334,28 @@ def test_sharded_gaussian_agrees_with_jax_mesh_run(eight_devices):
 # ------------------------------------------------------------------ (e)
 
 
-def test_mesh_refusals():
+def test_mesh_refusals(tmp_path):
+    """What a mesh still refuses: ``shard_data`` on a mesh with no ``data``
+    axis and on a size that does not divide over it (the JAX messages),
+    a data axis under a process group (a one-process gloo group here;
+    ROADMAP.md A10 rest 6), too many shards, a non-mesh, and a
+    ``device=`` other than the mesh's."""
     model, de = _gauss()
-    mcz = de.replace(sample="resample", n_initial=8)
-    with pytest.raises(NotImplementedError, match="DE-MCz.*ROADMAP.md A10 "
-                       "rest"):
-        tdm.sample(model, mcz, 10, device="cpu", mesh=_mesh(2))
-    with pytest.raises(NotImplementedError, match="data_mesh.*ROADMAP.md "
-                       "A10 rest"):
-        tpar.data_mesh(4, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A10 rest"):
+    with pytest.raises(ValueError, match="mesh has no axis 'data'"):
         tpar.shard_data(DATA, _mesh(2))
+    with pytest.raises(ValueError, match="not divisible by the 4-way 'data' "
+                       "mesh axis"):
+        tpar.shard_data(DATA[:50], tpar.data_mesh(1, 4,
+                                                  devices=["cpu"] * 4))
+    torch.distributed.init_process_group(
+        "gloo", init_method="file://" + str(tmp_path / "rdv"),
+        world_size=1, rank=0)
+    try:
+        with pytest.raises(NotImplementedError, match="process group.*"
+                           "ROADMAP.md A10 rest 6"):
+            tpar.shard_data(DATA, tpar.data_mesh(1, 2, devices=["cpu"] * 2))
+    finally:
+        torch.distributed.destroy_process_group()
     with pytest.raises(ValueError, match="every shard needs a group"):
         tdm.sample(model, de, 10, device="cpu", mesh=_mesh(G + 1))
     with pytest.raises(TypeError, match="chain mesh"):

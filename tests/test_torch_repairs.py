@@ -171,3 +171,59 @@ def test_rank_diagnostics_bitwise_jax_on_float32_draws(fn):
         got, want = getattr(tdiag, fn)(v, tables), getattr(jdiag, fn)(v)
         assert np.float64(got).view(np.int64) == np.float64(want).view(
             np.int64)
+
+
+# ------------------------------------------------- F7: replicated width
+
+
+@pytest.mark.parametrize("G, alpha, one_batch", [(256, 0.1, False),
+                                                 (64, 0.1, True),
+                                                 (256, 0.0, True)])
+def test_replicated_batch_predicate_holds_k2s_width(G, alpha, one_batch):
+    """Fault F7: a replication of more than ``ONE_CTA_MAX_CHAINS`` = 1,024
+    chains that migrates (G·Np = 4,096, α = 0.1) takes no replicated K1
+    batch, whose segmented K2 runs one CTA a replication; 1,024 chains,
+    or no migration, still do.  The predicate is static, so the CPU
+    evaluates it."""
+    model, de = tgauss.make(Np=16, n_groups=G, alpha=alpha)
+    assert tdm.sampler.rep_supported([model, model], de, "cpu") is one_batch
+
+
+def _wide_reps():
+    datasets = np.random.default_rng(2).normal(0.0, 1.0, (2, 50))
+    _, de = tgauss.make(Np=16, n_groups=256, alpha=0.1, burnin=1,
+                        discard_burnin=False)
+    return datasets.astype(np.float32), de
+
+
+def test_packed_run_wider_than_k2s_cta_raises_before_it_starts(
+        monkeypatch):
+    """Fault F7: the packed run of two bench-width replications raises its
+    "use sample_replicated" ``ValueError`` before any state or step is
+    made."""
+    datasets, de = _wide_reps()
+
+    def started(*a, **k):
+        raise AssertionError("the packed run started")
+    monkeypatch.setattr(tdm.sampler, "_run_replicated", started)
+    with pytest.raises(ValueError, match="use sample_replicated"):
+        tdm.sample_replicated_packed(tgauss.make_model, de, 2, datasets,
+                                     device="cpu")
+
+
+def test_replicated_wider_than_k2s_cta_run_in_turn(monkeypatch):
+    """Fault F7: ``sample_replicated`` runs two bench-width replications
+    (G = 256, Np = 16, α = 0.1) in turn, each bit for bit its solo
+    ``sample()``, and builds no replicated step."""
+    datasets, de = _wide_reps()
+
+    def batched(*a, **k):
+        raise AssertionError("a replicated batch was built")
+    monkeypatch.setattr(tdm.sampler, "RepStep", batched)
+    reps = tdm.sample_replicated(tgauss.make_model, de, 3, datasets,
+                                 keys=[11, 12], device="cpu")
+    for r, chains in enumerate(reps):
+        solo = tdm.sample(tgauss.make_model(datasets[r]), de, 3, key=11 + r,
+                          device="cpu")
+        np.testing.assert_array_equal(chains.data, solo.data)
+        np.testing.assert_array_equal(chains.lp, solo.lp)

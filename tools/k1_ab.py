@@ -594,7 +594,10 @@ def sass_functions(sass):
     out = {}
     for part in re.split(r"\n\s*Function : ", sass)[1:]:
         name, body = part.split("\n", 1)
-        out[name.strip()] = [re.sub(r"0x[0-9a-f]+", "X", m.group(1)) for m in
+        # K3's whole-population source, HistoryPartners<D, false>, under
+        # the name it had before its shard form (HistoryPartners<D>)
+        name = re.sub(r"(HistoryPartnersILi\d+E)Lb0EE", r"\1E", name.strip())
+        out[name] = [re.sub(r"0x[0-9a-f]+", "X", m.group(1)) for m in
                              re.finditer(r"/\*[0-9a-f]{4,}\*/\s*(.*?);",
                                          body)]
     return out
